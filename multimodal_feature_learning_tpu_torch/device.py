@@ -1,0 +1,34 @@
+"""Device resolution shared by every entry point of the port."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device = "cuda") -> torch.device:
+    """Return ``device`` as a ``torch.device``.
+
+    The port runs on the GPU unless the caller names the CPU. A CUDA device
+    on a host without one raises instead of quietly running on the CPU.
+    """
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "a CUDA device was requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' to run on the CPU"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def set_f32_numerics(dev: torch.device) -> None:
+    """Full-f32 matmuls and convolutions on the GPU.
+
+    cuDNN's default is TF32 for f32 convolutions, which keeps about three
+    decimal digits; the f32 path of the port is held against an f32
+    reference, so TF32 is switched off for matmuls and convolutions alike.
+    """
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False

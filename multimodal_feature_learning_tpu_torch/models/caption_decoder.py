@@ -1,0 +1,100 @@
+"""Per-event caption decoder and its KV-cached greedy decode; counterpart of
+the JAX ``models/caption_decoder.py`` on the serving path (``decode_impl``
+"xla": plain ops, one ``decode_pair`` per token)."""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .embeddings import VocabularyEmbedder, caption_positional_encoding
+from .layers import UnimodalCaptionDecoderLayer
+
+
+class UnimodalCaptionDecoder(nn.Module):
+    def __init__(self, vocab_size: int, d_model: int = 512, depth: int = 6,
+                 num_heads: int = 8, mlp_ratio: float = 4.0, qkv_bias: bool = True):
+        super().__init__()
+        self.depth = depth
+        self.target_embedding = VocabularyEmbedder(vocab_size, d_model)
+        self.register_buffer("pos_table", caption_positional_encoding(d_model),
+                             persistent=False)
+        self.decoder = nn.ModuleList(
+            UnimodalCaptionDecoderLayer(d_model, num_heads, mlp_ratio, qkv_bias)
+            for _ in range(depth))
+        self.head = nn.Linear(d_model, vocab_size)
+
+    def embed_at(self, tokens: torch.Tensor, pos: int) -> torch.Tensor:
+        """(N,) tokens at position ``pos`` -> (N, 1, D) with the sine table."""
+        return self.target_embedding(tokens[:, None]) + self.pos_table[:, pos:pos + 1]
+
+    def precompute_memory_kv(self, memory: torch.Tensor):
+        """Per-layer cross-attention (k, v) of the memory."""
+        return [layer.project_memory_kv(memory) for layer in self.decoder]
+
+    def decode_pair(self, prev_tokens, pad_tokens, step: int, k_caches, v_caches,
+                    mem_kv, memory_padding_mask, groups: int = 1, zeroed_mask=None):
+        """Commit ``prev_tokens`` at ``step`` and predict position step+1 in
+        one pass through every layer. Returns f32 logits at step+1; the caches
+        (depth, N, Tc, D) are updated in place."""
+        x = torch.cat([self.embed_at(prev_tokens, step),
+                       self.embed_at(pad_tokens, step + 1)], dim=1)  # (N, 2, D)
+        for li, layer in enumerate(self.decoder):
+            mk, mv = mem_kv[li]
+            x, _, _ = layer.incremental_pair(
+                x, step, k_caches[li], v_caches[li], step + 1, mk, mv,
+                memory_padding_mask, groups=groups, zeroed_mask=zeroed_mask)
+        return self.head(x[:, 1, :]).float()
+
+
+def greedy_decode(
+    module: UnimodalCaptionDecoder,
+    memory: torch.Tensor,          # (B, S, D) shared by `groups` rows each
+    memory_padding_mask,           # (N, S) True=masked
+    seq_len: int,
+    bos_idx: int,
+    eos_idx: int,
+    pad_idx: int,
+    faster_eval: bool = False,
+    groups: int = 1,
+    zeroed_mask=None,
+) -> torch.Tensor:
+    """KV-cached greedy decode. Argmax per step; without ``faster_eval``
+    captions freeze after <eos> (later slots take <pad>), the loop ends once
+    every caption is done, and a trailing <pad> (or <eos> if none was
+    emitted) is appended; with ``faster_eval`` every slot takes the raw
+    argmax and an <eos> column is appended.
+
+    Returns (N, seq_len + 1) int64 token ids including <bos>.
+    """
+    N = memory.shape[0] * groups
+    D = memory.shape[2]
+    dev = memory.device
+    mem_kv = module.precompute_memory_kv(memory)
+
+    captions = torch.full((N, seq_len), pad_idx, dtype=torch.long, device=dev)
+    captions[:, 0] = bos_idx
+    done = torch.zeros((N,), dtype=torch.bool, device=dev)
+    k_caches = memory.new_zeros((module.depth, N, seq_len, D))
+    v_caches = memory.new_zeros((module.depth, N, seq_len, D))
+    pad_tok = torch.full((N,), pad_idx, dtype=torch.long, device=dev)
+
+    for t in range(1, seq_len):
+        # early exit once every caption has emitted <eos> (one host sync a step)
+        if not faster_eval and bool(done.all()):
+            break
+        logits = module.decode_pair(
+            captions[:, t - 1], pad_tok, t - 1, k_caches, v_caches, mem_kv,
+            memory_padding_mask, groups, zeroed_mask)
+        tok = logits.argmax(dim=-1)
+        if not faster_eval:
+            tok = torch.where(done, pad_tok, tok)
+        captions[:, t] = tok
+        done |= tok == eos_idx
+
+    if faster_eval:
+        last = torch.full((N,), eos_idx, dtype=torch.long, device=dev)
+    else:
+        has_eos = (captions == eos_idx).any(dim=1)
+        last = torch.where(has_eos, pad_idx, eos_idx).long()
+    return torch.cat([captions, last[:, None]], dim=1)

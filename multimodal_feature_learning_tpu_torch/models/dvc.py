@@ -1,0 +1,231 @@
+"""UnimodalDVC on the GT-free serving path; counterpart of the JAX
+``models/dvc.py`` (``ProposalNet``, ``forward_serve``, ``_serve_prepare``).
+
+Base encoder -> sparse deformable transformer -> segment and count heads ->
+top-G proposals ranked by stability, k* from the count head -> per-event crop
+mask (and the differentiable context mask when configured) -> KV-cached greedy
+caption decode over the shared per-video memory.
+
+The module tree mirrors the JAX params tree (``proposal``, ``caption``,
+``context_mask``), so ``utils.weights`` maps flax parameters onto the
+state_dict one to one.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+from torch import nn
+
+from ..device import resolve_device, set_f32_numerics
+from ..ops.segment_ops import denormalize_segments, inverse_sigmoid
+from .base_encoder import BaseEncoder, pyramid_shapes
+from .caption_decoder import UnimodalCaptionDecoder, greedy_decode
+from .layers import FFN, ContextMaskModel
+from .transformer import SparseDeformableTransformer, predict_event_num
+
+
+def level_windows(video_rescale_len: int, num_levels: int):
+    """Per-level [lower, upper) windows in the flattened token axis, with the
+    reference's formula quirks: the level-3 upper bound is
+    floor(vrl * 15 / 8), one short of the true level end."""
+    wins = []
+    for n in range(num_levels):
+        lower = math.floor(video_rescale_len * ((2 ** n - 1) / 2 ** (n - 1)))
+        upper = math.floor(video_rescale_len * ((2 ** (n + 1) - 1) / 2 ** n))
+        wins.append((lower, upper))
+    return wins
+
+
+def crop_segment_mask(denorm_segments, durations, video_rescale_len: int,
+                      num_levels: int, num_tokens: int = 0) -> torch.Tensor:
+    """Per-event crop mask: True outside the event's token window at every
+    pyramid level. denorm_segments (B, G, 2) seconds, durations (B,) ->
+    (B, G, S)."""
+    B, G = denorm_segments.shape[:2]
+    dur = durations[:, None]
+    windows = level_windows(video_rescale_len, num_levels)
+    S = num_tokens or windows[-1][1]
+    toks = torch.arange(S, device=denorm_segments.device)[None, None]
+    inside = torch.zeros((B, G, S), dtype=torch.bool, device=denorm_segments.device)
+    for lower, upper in windows:
+        diff = upper - lower
+        start = torch.round(lower + diff * denorm_segments[..., 0] / dur) \
+            .clamp(lower, upper - 1).to(torch.int32)
+        end = torch.round(lower + diff * denorm_segments[..., 1] / dur) \
+            .clamp(lower, upper - 1).to(torch.int32)
+        inside |= (toks >= start[..., None]) & (toks < end[..., None])
+    return ~inside
+
+
+class ProposalNet(nn.Module):
+    """Base encoder + sparse deformable transformer + segment/count heads."""
+
+    def __init__(self, d_model=512, feature_dim=512, num_queries=20,
+                 num_feature_levels=4, num_heads=8, enc_layers=6, dec_layers=6,
+                 ff_dim=2048, enc_n_points=4, dec_n_points=4, rho=0.5,
+                 use_enc_aux_loss=True, max_eseq_length=10):
+        super().__init__()
+        self.base_encoder = BaseEncoder(num_feature_levels, d_model, feature_dim)
+        self.transformer = SparseDeformableTransformer(
+            d_model=d_model, num_heads=num_heads, num_encoder_layers=enc_layers,
+            num_decoder_layers=dec_layers, dim_feedforward=ff_dim,
+            num_feature_levels=num_feature_levels, dec_n_points=dec_n_points,
+            enc_n_points=enc_n_points, rho=rho)
+        self.query_embedding = nn.Parameter(torch.randn(num_queries, 2 * d_model))
+        self.segment_embedding_decoder = FFN(d_model, d_model, 2, 3, final_zero_init=True)
+        self.count_head_decoder = nn.Linear(d_model, max_eseq_length + 1)
+        if use_enc_aux_loss:
+            # heads of the encoder's auxiliary loss: trained, carried with the
+            # weights, and not read on the serving path
+            self.segment_embedding_encoder = FFN(d_model, d_model, 2, 3,
+                                                 final_zero_init=True)
+            self.count_head_encoder = nn.Linear(d_model, max_eseq_length + 1)
+
+    def forward(self, video, video_mask, durations) -> Dict[str, torch.Tensor]:
+        B = video.shape[0]
+        tr = self.transformer
+        srcs, masks, poses = self.base_encoder(video, video_mask, durations)
+        enc = tr.prepare_encoder_inputs(srcs, masks, poses)
+        memory = tr.forward_encoder(enc)
+        init_ref, tgt, query_pos = tr.prepare_decoder_input_query(B, self.query_embedding)
+        query_features, inter_refs = tr.forward_decoder(
+            tgt, init_ref, memory, enc["temporal_shapes"], enc["valid_ratios"],
+            query_pos, enc["mask_flatten"])
+        outputs_segment = self.segment_embedding_decoder(query_features).float()
+        outputs_count = predict_event_num(self.count_head_decoder, query_features).float()
+        # reference-point offsetting: ref[0] = init, ref[i] = inter[i-1]
+        reference = torch.cat([init_ref[None], inter_refs[:-1]], dim=0).float()
+        outputs_segment = torch.sigmoid(outputs_segment + inverse_sigmoid(reference))
+        return {
+            "pred_segments": outputs_segment[-1],
+            "pred_count": outputs_count[-1],
+            "outputs_segment_all": outputs_segment,  # (layers, B, Q, 2)
+            "memory": memory,
+            "query_features": query_features,
+            "mask_flatten": enc["mask_flatten"],
+        }
+
+
+class UnimodalDVC(nn.Module):
+    """Serving model: ``forward_serve`` maps features to events and captions."""
+
+    def __init__(self, cfg, vocab_size: int, pad_idx: int = 1, bos_idx: int = 2,
+                 eos_idx: int = 3):
+        super().__init__()
+        dvc, det = cfg.dvc, cfg.dvc.detr
+        anet = cfg.dataset.activity_net
+        if cfg.compute_dtype != "float32":
+            raise NotImplementedError("the port serves in float32 only")
+        if cfg.decode_impl != "xla":
+            raise NotImplementedError("the port decodes with the plain-op loop only")
+        if not dvc.use_sparse_detr:
+            raise NotImplementedError("the port serves the sparse family only")
+        self.pad_idx, self.bos_idx, self.eos_idx = pad_idx, bos_idx, eos_idx
+        self.max_gt = anet.max_gt_target_segments
+        self.seq_len = anet.max_caption_len_all
+        self.video_rescale_len = det.video_rescale_len
+        self.num_feature_levels = det.num_feature_levels
+        self.use_differentiable_mask = cfg.use_differentiable_mask
+        self.num_tokens = sum(pyramid_shapes(det.video_rescale_len,
+                                             det.num_feature_levels))
+
+        self.proposal = ProposalNet(
+            d_model=dvc.d_model, feature_dim=det.feature_dim,
+            num_queries=dvc.num_queries, num_feature_levels=det.num_feature_levels,
+            num_heads=det.num_heads, enc_layers=det.enc_layers,
+            dec_layers=det.dec_layers, ff_dim=det.transformer_ff_dim,
+            enc_n_points=det.enc_n_points, dec_n_points=det.dec_n_points,
+            rho=det.rho, use_enc_aux_loss=det.use_enc_aux_loss,
+            max_eseq_length=dvc.max_eseq_length)
+        cap = dvc.caption
+        self.caption = UnimodalCaptionDecoder(
+            vocab_size, cap.d_model, cap.depth, cap.num_heads,
+            float(cap.mlp_ratio), cap.qkv_bias)
+        if self.use_differentiable_mask:
+            self.context_mask = ContextMaskModel(dvc.d_model + 2, self.num_tokens)
+
+    def _prepare_caption_inputs(self, out, durations, indices):
+        """Per-event crop mask and, when configured, the differentiable
+        context mask. Returns (memory (B,S,D), crop_mask (N,S),
+        caption_pad_mask (N,S))."""
+        B, G = indices.shape
+        rows = torch.arange(B, device=indices.device)[:, None]
+        denorm = denormalize_segments(out["pred_segments"][rows, indices],
+                                      durations[:, None])  # (B, G, 2)
+        memory = out["memory"]
+        crop_mask = crop_segment_mask(
+            denorm, durations, self.video_rescale_len, self.num_feature_levels,
+            num_tokens=memory.shape[1]).reshape(B * G, -1)
+        caption_pad_mask = crop_mask
+        if self.use_differentiable_mask:
+            qf_sel = out["query_features"][-1][rows, indices].reshape(B * G, -1)
+            logits = self.context_mask(torch.cat([denorm.reshape(B * G, 2), qf_sel], dim=1))
+            caption_pad_mask = torch.sigmoid(logits) > 0.5
+        return memory, crop_mask, caption_pad_mask
+
+    def _serve_prepare(self, video_tensor, video_mask, durations):
+        """Propose, rank by stability, select the top G, crop the memory."""
+        out = self.proposal(video_tensor.float(), video_mask, durations)
+        G = self.max_gt
+        seg_all = out["outputs_segment_all"]
+        if seg_all.shape[0] < 2:
+            # one decoder layer has no drift to rank by: uniform scores
+            scores = seg_all.new_zeros(seg_all.shape[1:3])
+        else:
+            scores = -(seg_all[1:] - seg_all[:-1]).abs().mean(dim=(0, 3))  # (B, Q)
+        # stable sort: ties keep the lower index first, as lax.top_k does
+        order = torch.sort(scores, dim=1, descending=True, stable=True)
+        top_scores, indices = order.values[:, :G], order.indices[:, :G]
+
+        k = out["pred_count"].argmax(dim=-1).clamp(1, G)
+        valid = torch.arange(G, device=k.device)[None, :] < k[:, None]
+        memory, crop_mask, caption_pad_mask = self._prepare_caption_inputs(
+            out, durations, indices)
+        rows = torch.arange(indices.shape[0], device=indices.device)[:, None]
+        segments = denormalize_segments(out["pred_segments"][rows, indices],
+                                        durations[:, None])
+        return {
+            "memory": memory,
+            "caption_pad_mask": caption_pad_mask,
+            "zeroed": crop_mask if self.use_differentiable_mask else None,
+            "segments": segments,
+            "k": k,
+            "scores": top_scores,
+            "valid": valid,
+        }
+
+    @torch.no_grad()
+    def forward_serve(self, video_tensor, video_mask, durations,
+                      faster_eval: bool = False) -> Dict[str, torch.Tensor]:
+        """GT-free serving forward. video_tensor (B, T, feature_dim),
+        video_mask (B, T) True=pad, durations (B,) seconds. Returns segments
+        (B, G, 2) seconds, captions (B, G, Lc+1) token ids including <bos>,
+        k (B,) predicted event counts, scores (B, G), valid (B, G)."""
+        prep = self._serve_prepare(video_tensor, video_mask, durations)
+        captions = greedy_decode(
+            self.caption, prep["memory"], prep["caption_pad_mask"],
+            self.seq_len, self.bos_idx, self.eos_idx, self.pad_idx,
+            faster_eval=faster_eval, groups=self.max_gt, zeroed_mask=prep["zeroed"])
+        B = durations.shape[0]
+        return {
+            "segments": prep["segments"],
+            "captions": captions.reshape(B, self.max_gt, -1),
+            "k": prep["k"],
+            "scores": prep["scores"],
+            "valid": prep["valid"],
+        }
+
+
+def build_model(cfg, vocab_size: int, pad_idx: int = 1, bos_idx: int = 2,
+                eos_idx: int = 3, device="cuda", seed: int = 0) -> UnimodalDVC:
+    """The serving model in eval mode on ``device``, its weights drawn from
+    ``seed`` (load trained weights with ``utils.weights``)."""
+    dev = resolve_device(device)
+    set_f32_numerics(dev)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = UnimodalDVC(cfg, vocab_size, pad_idx, bos_idx, eos_idx)
+    return model.to(dev).eval()

@@ -1,0 +1,239 @@
+"""Attention and MLP building blocks; counterpart of the JAX ``models/layers.py``.
+
+Serving runs in eval mode, so the dropouts of the JAX modules are absent.
+LayerNorm epsilons follow the JAX package: 1e-6 in the caption decoder layers
+and the MaskPredictor (flax's default), not torch's 1e-5.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+NEG_MASK = -1e20  # masked_fill value, applied before the scale
+
+
+class CrossAttention(nn.Module):
+    """Multi-head attention with the order logits = q @ k^T;
+    masked_fill(-1e20); * head_dim**-0.5; softmax. Projection and the attend
+    step are separate so the KV-cached decode can reuse projections. The JAX
+    module's causal ``attn_mask`` serves the teacher-forced training pass,
+    which the port does not have yet."""
+
+    def __init__(self, d_model: int, num_heads: int, qkv_bias: bool = True):
+        super().__init__()
+        self.d_model = d_model
+        self.num_heads = num_heads
+        self.q_linear = nn.Linear(d_model, d_model, bias=qkv_bias)
+        self.k_linear = nn.Linear(d_model, d_model, bias=qkv_bias)
+        self.v_linear = nn.Linear(d_model, d_model, bias=qkv_bias)
+        self.projection_layer = nn.Linear(d_model, d_model)
+
+    def project_q(self, q):
+        return self.q_linear(q)
+
+    def project_kv(self, k, v):
+        return self.k_linear(k), self.v_linear(v)
+
+    def attend(
+        self,
+        qp: torch.Tensor,  # (N, Tq, D) projected; N = B * groups
+        kp: torch.Tensor,  # (B, Tk, D) projected
+        vp: torch.Tensor,  # (B, Tk, D) projected
+        key_padding_mask: Optional[torch.Tensor] = None,  # (N, Tk) True=masked
+        groups: int = 1,
+        zeroed_mask: Optional[torch.Tensor] = None,  # (N, Tk), shared-KV only
+    ) -> torch.Tensor:
+        """``groups`` > 1: ``groups`` consecutive query rows share one k/v row
+        (shared-KV attention over the per-video memory).
+
+        ``zeroed_mask`` marks positions whose k/v inputs are zero in the
+        materialized-crop semantics but may still be attendable. They all
+        share k/v equal to the projection biases, so their columns collapse
+        into one bias column with logit q . k_bias * scale + log(m) and value
+        v_bias, under a shared max and denominator."""
+        N, Tq, _ = qp.shape
+        B, Tk = kp.shape[0], kp.shape[1]
+        H = self.num_heads
+        Dh = self.d_model // H
+        scale = Dh ** -0.5
+
+        qh = qp.reshape(B, groups * Tq, H, Dh).transpose(1, 2)
+        kh = kp.reshape(B, Tk, H, Dh).transpose(1, 2)
+        vh = vp.reshape(B, Tk, H, Dh).transpose(1, 2)
+        logits = torch.matmul(qh, kh.transpose(-1, -2)).float()  # (B,H,gTq,Tk)
+
+        if groups == 1 and zeroed_mask is None:
+            if key_padding_mask is not None:
+                logits = logits.masked_fill(key_padding_mask[:, None, None, :], NEG_MASK)
+            attn = torch.softmax(logits * scale, dim=-1)
+            out = torch.matmul(attn.to(vh.dtype), vh)
+            out = out.transpose(1, 2).reshape(N, Tq, self.d_model)
+            return self.projection_layer(out)
+
+        pad = key_padding_mask
+        if pad is None:
+            pad = torch.zeros((N, Tk), dtype=torch.bool, device=qp.device)
+        shared_block = pad | zeroed_mask if zeroed_mask is not None else pad
+        mask5 = shared_block.reshape(B, 1, groups, 1, Tk)
+        logits5 = logits.reshape(B, H, groups, Tq, Tk).masked_fill(mask5, NEG_MASK)
+        scaled = logits5.reshape(B, H, groups * Tq, Tk) * scale
+
+        if zeroed_mask is not None:
+            zeros_in = qp.new_zeros((1, 1, self.d_model))
+            kb = self.k_linear(zeros_in).reshape(H, Dh)
+            vb = self.v_linear(zeros_in).reshape(H, Dh)
+            l_bias = torch.einsum("bhqd,hd->bhq", qh, kb).float() * scale
+            m = (~pad & zeroed_mask).sum(dim=1).float()  # (N,)
+            log_m = torch.where(m > 0, torch.log(m.clamp(min=1.0)),
+                                torch.full_like(m, NEG_MASK))
+            log_m5 = log_m.reshape(B, 1, groups, 1).expand(B, H, groups, Tq)
+            bias_logit = l_bias + log_m5.reshape(B, H, groups * Tq)
+            m_max = torch.maximum(scaled.amax(dim=-1), bias_logit)
+            e_main = torch.exp(scaled - m_max[..., None])
+            e_bias = torch.exp(bias_logit - m_max)
+            denom = e_main.sum(dim=-1) + e_bias
+            attn = e_main / denom[..., None]
+            attn_bias = e_bias / denom
+            out = torch.matmul(attn.to(vh.dtype), vh) \
+                + attn_bias[..., None] * vb[None, :, None, :]
+        else:
+            attn = torch.softmax(scaled, dim=-1)
+            out = torch.matmul(attn.to(vh.dtype), vh)
+        out = out.to(qp.dtype).transpose(1, 2).reshape(N, Tq, self.d_model)
+        return self.projection_layer(out)
+
+    def forward(self, q, k, v, key_padding_mask=None):
+        qp = self.project_q(q)
+        kp, vp = self.project_kv(k, v)
+        return self.attend(qp, kp, vp, key_padding_mask)
+
+
+class MLP(nn.Module):
+    """Two-layer MLP with exact GELU."""
+
+    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int):
+        super().__init__()
+        self.fully_connected_1 = nn.Linear(in_dim, hidden_dim)
+        self.fully_connected_2 = nn.Linear(hidden_dim, out_dim)
+
+    def forward(self, x):
+        return self.fully_connected_2(F.gelu(self.fully_connected_1(x)))
+
+
+class FFN(nn.Module):
+    """n-layer ReLU feed-forward head. ``final_zero_init`` zeroes the last
+    layer's weight, as the segment heads of the JAX package are initialised."""
+
+    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int, num_layers: int,
+                 final_zero_init: bool = False):
+        super().__init__()
+        dims = [in_dim] + [hidden_dim] * (num_layers - 1) + [out_dim]
+        self.layers = nn.ModuleList(
+            nn.Linear(dims[i], dims[i + 1]) for i in range(num_layers)
+        )
+        if final_zero_init:
+            nn.init.zeros_(self.layers[-1].weight)
+
+    def forward(self, x):
+        for i, layer in enumerate(self.layers):
+            x = layer(x)
+            if i < len(self.layers) - 1:
+                x = F.relu(x)
+        return x
+
+
+class ContextMaskModel(nn.Module):
+    """Three-layer ReLU MLP predicting per-token memory mask logits."""
+
+    def __init__(self, in_dim: int, out_dim: int):
+        super().__init__()
+        self.layer_1 = nn.Linear(in_dim, in_dim // 2)
+        self.layer_2 = nn.Linear(in_dim // 2, in_dim // 2)
+        self.layer_3 = nn.Linear(in_dim // 2, out_dim)
+
+    def forward(self, x):
+        x = F.relu(self.layer_1(x))
+        x = F.relu(self.layer_2(x))
+        return self.layer_3(x)
+
+
+class MaskPredictor(nn.Module):
+    """Sparse-DETR saliency net: LN -> Dense -> GELU, split local/global
+    halves, global mean-pooled and broadcast back, then a three-Dense GELU
+    tower to one logit. (B, S, D) -> (B, S)."""
+
+    def __init__(self, in_dim: int, h_dim: int):
+        super().__init__()
+        self.norm = nn.LayerNorm(in_dim, eps=1e-6)
+        self.dense_in = nn.Linear(in_dim, h_dim)
+        self.dense_1 = nn.Linear(h_dim, h_dim // 2)
+        self.dense_2 = nn.Linear(h_dim // 2, h_dim // 4)
+        self.dense_out = nn.Linear(h_dim // 4, 1)
+
+    def forward(self, x):
+        z = F.gelu(self.dense_in(self.norm(x)))
+        z_local, z_global = z.chunk(2, dim=-1)
+        z_global = z_global.mean(dim=1, keepdim=True).expand_as(z_local)
+        z = torch.cat([z_local, z_global], dim=-1)
+        z = F.gelu(self.dense_1(z))
+        z = F.gelu(self.dense_2(z))
+        return self.dense_out(z)[..., 0]
+
+
+class UnimodalCaptionDecoderLayer(nn.Module):
+    """Post-norm caption decoder block: self-attention, cross-attention, MLP."""
+
+    def __init__(self, d_model: int, num_heads: int, mlp_ratio: float = 4.0,
+                 qkv_bias: bool = True):
+        super().__init__()
+        self.self_attention = CrossAttention(d_model, num_heads, qkv_bias)
+        self.cross_attention = CrossAttention(d_model, num_heads, qkv_bias)
+        self.layer_norm_1 = nn.LayerNorm(d_model, eps=1e-6)
+        self.layer_norm_2 = nn.LayerNorm(d_model, eps=1e-6)
+        self.layer_norm_3 = nn.LayerNorm(d_model, eps=1e-6)
+        self.mlp = MLP(d_model, int(d_model * mlp_ratio), d_model)
+
+    def project_memory_kv(self, memory):
+        """Cross-attention k/v of the memory, computed once per decode."""
+        return self.cross_attention.project_kv(memory, memory)
+
+    def incremental_pair(
+        self,
+        x: torch.Tensor,        # (N, 2, D): [commit at step, predict at step+1]
+        step: int,              # position being committed (row 0)
+        k_cache: torch.Tensor,  # (N, Tc, D), updated in place
+        v_cache: torch.Tensor,
+        valid_len: int,         # attendable prefix length after the commit
+        mem_k: torch.Tensor,
+        mem_v: torch.Tensor,
+        memory_padding_mask,
+        groups: int = 1,
+        zeroed_mask=None,
+    ):
+        """One layer pass for two positions: row 0 writes its projected k/v
+        into the cache at ``step`` and attends keys [0, valid_len), which
+        include itself; row 1 attends the same prefix. The caches are written
+        in place (the JAX version returns updated copies)."""
+        N = x.shape[0]
+        Tc = k_cache.shape[1]
+        kx, vx = self.self_attention.project_kv(x[:, :1], x[:, :1])
+        k_cache[:, step] = kx[:, 0]
+        v_cache[:, step] = vx[:, 0]
+        key_mask = (torch.arange(Tc, device=x.device) >= valid_len)[None].expand(N, Tc)
+        sa = self.self_attention.attend(
+            self.self_attention.project_q(x), k_cache, v_cache,
+            key_padding_mask=key_mask,
+        )
+        x = self.layer_norm_1(x + sa)
+        ca = self.cross_attention.attend(
+            self.cross_attention.project_q(x), mem_k, mem_v,
+            key_padding_mask=memory_padding_mask,
+            groups=groups, zeroed_mask=zeroed_mask,
+        )
+        x = self.layer_norm_2(x + ca)
+        x = self.layer_norm_3(x + self.mlp(x))
+        return x, k_cache, v_cache

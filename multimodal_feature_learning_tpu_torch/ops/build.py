@@ -1,0 +1,71 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+
+Each source under ``csrc/`` exposes a plain ``extern "C"`` launcher, so it
+compiles in seconds without PyTorch's headers. Libraries go to
+``build/kernels/`` at the root of the checkout (listed in ``.gitignore``),
+named by a hash of the source and the flags, so an unchanged source is built
+once. Nothing is built when a module is imported: a wrapper asks for its
+library on its first launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+KERNEL_SOURCES = ("msda_fwd.cu",)
+
+
+def find_nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin and PATH)")
+
+
+def library_path(source: str) -> Path:
+    src = (CSRC_DIR / source).read_bytes()
+    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
+
+
+def build(sources: Iterable[str] = KERNEL_SOURCES) -> Dict[str, float]:
+    """Compile every source that has no library yet. Returns {source:
+    seconds} of the builds it ran; raises with the compiler's output if one
+    fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    seconds = {}
+    for source in sources:
+        lib = library_path(source)
+        if lib.exists():
+            continue
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / source)]
+        t0 = time.monotonic()
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {source}:\n{proc.stdout}")
+        os.replace(tmp, lib)
+        seconds[source] = time.monotonic() - t0
+    return seconds
+
+
+def load_library(source: str) -> ctypes.CDLL:
+    """The compiled library of ``source``, built first if needed."""
+    build([source])
+    return ctypes.CDLL(str(library_path(source)))

@@ -1,0 +1,135 @@
+"""The port's GT-free serving path against the JAX package's.
+
+``UnimodalDVC.forward_serve`` of both, on the same weights and inputs at
+``_small_cfg`` dims, f32 on the CPU: scores within atol 1e-4, segments within
+atol 1e-5 of the video's duration (the model predicts normalized segments;
+in seconds an f32 rounding of 1e-6 becomes 1e-4 for a 100 s video), ``k``
+equal and captions token-exact. The differences come from f32 sums taken in
+another order through 2+2 transformer layers. Then the port's ``DVCServer``
+and its device rule."""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from test_torch_common import (
+    build_jax_model, build_port_model, jax_small_cfg, serve_inputs,
+)
+
+from multimodal_feature_learning_tpu_torch.data.vocab import Vocab
+from multimodal_feature_learning_tpu_torch.models.dvc import build_model
+from multimodal_feature_learning_tpu_torch.serve import DVCServer
+
+
+@pytest.fixture(scope="module", params=[True, False], ids=["ctxmask", "cropmask"])
+def pair(request):
+    """(jax cfg, jax model, flax params, port model): with the differentiable
+    context mask (the config default) and without it (as conv_e79 was
+    trained)."""
+    jcfg = jax_small_cfg(use_differentiable_mask=request.param)
+    jmodel, params = build_jax_model(jcfg)
+    return jcfg, jmodel, params, build_port_model(jcfg, params)
+
+
+@pytest.mark.parametrize("faster_eval", [False, True])
+def test_forward_serve_matches_jax(pair, faster_eval):
+    jcfg, jmodel, params, tmodel = pair
+    video, mask, durations = serve_inputs(jcfg)
+    ref = jmodel.forward_serve(params, video, mask, durations, faster_eval=faster_eval)
+    got = tmodel.forward_serve(torch.from_numpy(video), torch.from_numpy(mask),
+                               torch.from_numpy(durations), faster_eval=faster_eval)
+    dur = durations[:, None, None]
+    np.testing.assert_allclose(got["segments"].numpy() / dur,
+                               np.asarray(ref["segments"]) / dur, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got["scores"].numpy(), np.asarray(ref["scores"]),
+                               rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(got["k"].numpy(), np.asarray(ref["k"]))
+    np.testing.assert_array_equal(got["valid"].numpy(), np.asarray(ref["valid"]))
+    np.testing.assert_array_equal(got["captions"].numpy(), np.asarray(ref["captions"]))
+
+
+def test_outputs_are_not_degenerate(pair):
+    """The perturbed weights give captions that differ between events, so
+    token-exact agreement above is a real check."""
+    jcfg, _, _, tmodel = pair
+    video, mask, durations = serve_inputs(jcfg)
+    got = tmodel.forward_serve(torch.from_numpy(video), torch.from_numpy(mask),
+                               torch.from_numpy(durations))
+    caps = got["captions"].reshape(-1, got["captions"].shape[-1])
+    assert len({tuple(r) for r in caps.tolist()}) > 1
+    assert torch.isfinite(got["segments"]).all()
+
+
+def test_server_answers_like_forward_serve(pair):
+    jcfg, _, _, tmodel = pair
+    video, _, durations = serve_inputs(jcfg, B=3, seed=1)
+    rng = np.random.default_rng(2)
+    G = jcfg.dataset.activity_net.max_gt_target_segments
+    with DVCServer(tmodel, batch_size=4, max_wait_ms=50.0) as server:
+        # the requests' own lengths differ from the grid; the server rescales
+        lengths = [int(n) for n in rng.integers(10, 60, size=3)]
+        feats = [rng.normal(size=(n, video.shape[2])).astype(np.float32) for n in lengths]
+        futs = [server.submit(f, float(d)) for f, d in zip(feats, durations)]
+        results = [f.result(timeout=60) for f in futs]
+    assert server.stats["filled"] == 3
+    from multimodal_feature_learning_tpu_torch.data.anet import nearest_resize
+
+    T = jcfg.dataset.activity_net.video_rescale_len
+    batch = np.zeros((4, T, video.shape[2]), np.float32)
+    dur = np.ones((4,), np.float32)
+    for i, f in enumerate(feats):
+        batch[i] = nearest_resize(f[None], T, axis=1)[0]
+        dur[i] = durations[i]
+    ref = tmodel.forward_serve(torch.from_numpy(batch), torch.zeros((4, T), dtype=torch.bool),
+                               torch.from_numpy(dur))
+    for i, events in enumerate(results):
+        k = int(ref["k"][i])
+        assert 1 <= len(events) == k <= G
+        for j, ev in enumerate(events):
+            assert ev["caption"] == ref["captions"][i, j].tolist()
+            np.testing.assert_allclose(ev["segment"], ref["segments"][i, j].numpy(), atol=1e-6)
+
+
+def test_server_decodes_captions_with_a_vocab(pair):
+    jcfg, _, _, tmodel = pair
+    from test_torch_common import VOCAB_SIZE
+
+    vocab = Vocab(["<unk>", "<pad>", "<bos>", "<eos>"]
+                  + [f"w{i}" for i in range(VOCAB_SIZE - 4)])
+    assert vocab.decode([2, 7, 0, 9, 3, 1]) == "w3 w5"
+    feats = np.random.default_rng(3).normal(
+        size=(30, jcfg.dvc.detr.feature_dim)).astype(np.float32)
+    with DVCServer(tmodel, batch_size=2, max_wait_ms=1.0) as plain:
+        ids = plain.submit(feats, 42.0).result(timeout=60)
+    with DVCServer(tmodel, vocab=vocab, batch_size=2, max_wait_ms=1.0) as server:
+        words = server.submit(feats, 42.0).result(timeout=60)
+    assert [e["caption"] for e in words] == [vocab.decode(e["caption"]) for e in ids]
+
+
+def test_server_fails_futures_on_dispatch_error(pair):
+    jcfg, _, _, tmodel = pair
+    with DVCServer(tmodel, batch_size=2, max_wait_ms=1.0) as server:
+        with pytest.raises(ValueError):
+            server.submit(np.zeros((5, 3), np.float32), 10.0)  # wrong feature width
+
+        def broken(*_args, **_kw):
+            raise RuntimeError("boom")
+
+        server._step = broken
+        fut = server.submit(np.zeros((8, jcfg.dvc.detr.feature_dim), np.float32), 10.0)
+        with pytest.raises(RuntimeError, match="boom"):
+            fut.result(timeout=30)
+    assert server.stats["errors"] == 1
+
+
+def test_entry_point_without_device_raises_on_cpu_host(monkeypatch):
+    """With no GPU and no explicit CPU request the port raises rather than
+    running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    jcfg = jax_small_cfg()
+    from test_torch_common import VOCAB_SIZE, torch_cfg_like
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(torch_cfg_like(jcfg), VOCAB_SIZE)
