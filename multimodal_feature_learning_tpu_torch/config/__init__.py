@@ -1,3 +1,3 @@
-from .defaults import Config, load_config
+from .defaults import Config, load_config, recompute_losses
 
-__all__ = ["Config", "load_config"]
+__all__ = ["Config", "load_config", "recompute_losses"]

@@ -1,4 +1,4 @@
-"""Configuration of the port: the fields the GT-free serving path reads.
+"""Configuration of the port: the fields the serving and training paths read.
 
 Counterpart of ``multimodal_feature_learning_tpu/config/defaults.py``, as
 plain dataclasses. Attribute paths match the JAX config (``cfg.dvc.detr.rho``,
@@ -23,6 +23,7 @@ class DetrConfig:
     dec_layers: int = 6
     transformer_ff_dim: int = 2048
     video_rescale_len: int = 300
+    transformer_dropout_prob: float = 0.1
     rho: float = 0.5
     use_enc_aux_loss: bool = True
 
@@ -34,6 +35,17 @@ class CaptionConfig:
     num_heads: int = 8
     mlp_ratio: float = 4
     qkv_bias: bool = True
+    positional_embedding_dropout: float = 0.1
+    attention_dropout: float = 0.1
+    projection_dropout: float = 0.1
+    mlp_dropout_1: float = 0.1
+    mlp_dropout_2: float = 0.1
+
+
+@dataclass
+class MatcherConfig:
+    cost_segment: float = 5.0
+    cost_giou: float = 2.0
 
 
 @dataclass
@@ -41,7 +53,24 @@ class DVCConfig:
     d_model: int = 512
     num_queries: int = 20
     max_eseq_length: int = 10
+    aux_loss: bool = True
+    lloss_gau_mask: int = 1
+    lloss_beta: float = 1.0
     use_sparse_detr: bool = True
+    smoothing: float = 0.5  # caption label smoothing epsilon
+    cls_loss_coef: float = 1.0
+    counter_loss_coef: float = 2.0
+    bbox_loss_coef: float = 5.0
+    giou_loss_coef: float = 2.0
+    self_iou_loss_coef: float = 2.0
+    caption_loss_coef: float = 1.0
+    context_loss_coef: float = 3.0
+    mask_prediction_coef: float = 2.0
+    corr_coef: float = 2.0
+    # derived from the flags by recompute_losses, as the JAX config does
+    losses: list = field(default_factory=lambda: [
+        "labels", "segments", "captions", "contexts", "mask_prediction"])
+    matcher: MatcherConfig = field(default_factory=MatcherConfig)
     detr: DetrConfig = field(default_factory=DetrConfig)
     caption: CaptionConfig = field(default_factory=CaptionConfig)
 
@@ -60,11 +89,28 @@ class DatasetConfig:
 
 @dataclass
 class Config:
+    seed: int = 0
+    lr: float = 1e-4
+    lr_drop: int = 40  # StepLR: lr *= 0.1 every lr_drop epochs
+    weight_decay: float = 1e-4
+    clip_max_norm: float = 0.1
+    epochs: int = 200
     use_differentiable_mask: bool = True
     compute_dtype: str = "float32"
     decode_impl: str = "xla"
     dvc: DVCConfig = field(default_factory=DVCConfig)
     dataset: DatasetConfig = field(default_factory=DatasetConfig)
+
+
+def recompute_losses(cfg: Config) -> None:
+    """Re-derive ``cfg.dvc.losses`` from the mask and family flags; call it
+    after changing them, as the JAX package's ``recompute_losses``."""
+    losses = ["labels", "segments", "captions"]
+    if cfg.use_differentiable_mask:
+        losses.append("contexts")
+    if cfg.dvc.use_sparse_detr:
+        losses.append("mask_prediction")
+    cfg.dvc.losses = losses
 
 
 def load_config() -> Config:

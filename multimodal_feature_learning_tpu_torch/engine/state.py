@@ -1,0 +1,104 @@
+"""Train state, optimizer, LR schedule and checkpoints; counterpart of the
+JAX ``engine/state.py``.
+
+The optimizer is the JAX package's optax chain, clip_by_global_norm then
+adamw (beta 0.9 / 0.999, eps 1e-8, weight decay on every parameter), with
+the learning rate of a step-wise StepLR schedule. The clip follows optax's
+formula, g * min(1, max_norm / |g|), not ``torch.nn.utils.clip_grad_norm_``'s
+max_norm / (|g| + 1e-6). Checkpoints are
+``torch.save`` dicts of {model, optimizer, step, epoch}.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+from torch import nn
+
+
+def make_lr_schedule(base_lr: float, lr_drop_epochs: int, steps_per_epoch: int):
+    """StepLR per step: lr * 0.1 ** ((step // steps_per_epoch) // lr_drop);
+    lr_drop <= 0 keeps the rate constant."""
+    if lr_drop_epochs <= 0:
+        return lambda step: base_lr
+
+    def schedule(step: int) -> float:
+        epoch = step // max(steps_per_epoch, 1)
+        return base_lr * 0.1 ** (epoch // lr_drop_epochs)
+
+    return schedule
+
+
+class ClippedAdamW:
+    """Global-norm clip to optax's formula, then ``torch.optim.AdamW`` at the
+    schedule's rate for the step. Parameters that received no gradient get
+    a zero one, so weight decay reaches them as it does in optax."""
+
+    def __init__(self, params, lr_schedule, clip_max_norm: float, weight_decay: float):
+        self.params = [p for p in params if p.requires_grad]
+        self.lr_schedule = lr_schedule
+        self.clip_max_norm = float(clip_max_norm)
+        self.adamw = torch.optim.AdamW(self.params, lr=lr_schedule(0), betas=(0.9, 0.999),
+                                       eps=1e-8, weight_decay=weight_decay)
+
+    def zero_grad(self):
+        for p in self.params:
+            p.grad = None
+
+    @torch.no_grad()
+    def step(self, step: int):
+        """Clip the gradients in place and update. Returns (global norm of
+        the gradients before the clip, learning rate of the step)."""
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in self.params]
+        norm = torch.nn.utils.get_total_norm(grads)
+        torch._foreach_mul_(grads, (self.clip_max_norm / norm).clamp(max=1.0))
+        lr = self.lr_schedule(step)
+        for group in self.adamw.param_groups:
+            group["lr"] = lr
+        self.adamw.step()
+        return norm, lr
+
+    def state_dict(self):
+        return self.adamw.state_dict()
+
+    def load_state_dict(self, sd):
+        self.adamw.load_state_dict(sd)
+
+
+def make_optimizer(cfg, model: nn.Module, steps_per_epoch: int) -> ClippedAdamW:
+    return ClippedAdamW(model.parameters(),
+                        make_lr_schedule(cfg.lr, cfg.lr_drop, steps_per_epoch),
+                        cfg.clip_max_norm, cfg.weight_decay)
+
+
+@dataclass
+class TrainState:
+    step: int
+    model: nn.Module
+    optimizer: ClippedAdamW
+
+
+def create_train_state(cfg, model: nn.Module, steps_per_epoch: int) -> TrainState:
+    return TrainState(step=0, model=model,
+                      optimizer=make_optimizer(cfg, model, steps_per_epoch))
+
+
+def save_checkpoint(path: str, state: TrainState, epoch: int) -> str:
+    torch.save({"model": state.model.state_dict(),
+                "optimizer": state.optimizer.state_dict(),
+                "step": state.step, "epoch": epoch}, path)
+    return path
+
+
+def load_checkpoint(path: str, state: TrainState) -> int:
+    """Restore model, optimizer and step into ``state``; returns the epoch."""
+    ckpt = torch.load(path, map_location=next(state.model.parameters()).device,
+                      weights_only=True)
+    state.model.load_state_dict(ckpt["model"], strict=True)
+    state.optimizer.load_state_dict(ckpt["optimizer"])
+    state.step = int(ckpt["step"])
+    return int(ckpt["epoch"])

@@ -1,6 +1,7 @@
-"""Per-event caption decoder and its KV-cached greedy decode; counterpart of
-the JAX ``models/caption_decoder.py`` on the serving path (``decode_impl``
-"xla": plain ops, one ``decode_pair`` per token)."""
+"""Per-event caption decoder: the teacher-forced pass of training and the
+KV-cached greedy decode of serving; counterpart of the JAX
+``models/caption_decoder.py`` (``decode_impl`` "xla": plain ops, one
+``decode_pair`` per token)."""
 
 from __future__ import annotations
 
@@ -8,21 +9,47 @@ import torch
 from torch import nn
 
 from .embeddings import VocabularyEmbedder, caption_positional_encoding
-from .layers import UnimodalCaptionDecoderLayer
+from .layers import Dropout, UnimodalCaptionDecoderLayer
+
+
+def make_causal_mask(seq_len: int, device=None) -> torch.Tensor:
+    """(seq_len, seq_len) True above the diagonal (masked)."""
+    return ~torch.ones((seq_len, seq_len), dtype=torch.bool, device=device).tril()
 
 
 class UnimodalCaptionDecoder(nn.Module):
     def __init__(self, vocab_size: int, d_model: int = 512, depth: int = 6,
-                 num_heads: int = 8, mlp_ratio: float = 4.0, qkv_bias: bool = True):
+                 num_heads: int = 8, mlp_ratio: float = 4.0, qkv_bias: bool = True,
+                 positional_embedding_dropout: float = 0.0, attention_dropout: float = 0.0,
+                 projection_dropout: float = 0.0, mlp_dropout_1: float = 0.0,
+                 mlp_dropout_2: float = 0.0):
         super().__init__()
         self.depth = depth
         self.target_embedding = VocabularyEmbedder(vocab_size, d_model)
         self.register_buffer("pos_table", caption_positional_encoding(d_model),
                              persistent=False)
+        self.pos_dropout = Dropout(positional_embedding_dropout)
         self.decoder = nn.ModuleList(
-            UnimodalCaptionDecoderLayer(d_model, num_heads, mlp_ratio, qkv_bias)
+            UnimodalCaptionDecoderLayer(d_model, num_heads, mlp_ratio, qkv_bias,
+                                        attention_dropout, projection_dropout,
+                                        mlp_dropout_1, mlp_dropout_2)
             for _ in range(depth))
         self.head = nn.Linear(d_model, vocab_size)
+
+    def forward(self, tgt, memory, tgt_mask=None, tgt_padding_mask=None,
+                memory_padding_mask=None, groups: int = 1, zeroed_mask=None):
+        """Teacher-forced pass: tgt (N, Tc) token ids, memory (B, S, D) with
+        groups = N // B -> the (depth, N, Tc, V) stack of raw logits of every
+        layer (the criterion folds the log-softmax into its loss)."""
+        x = self.pos_dropout(self.target_embedding(tgt) + self.pos_table[:, :tgt.shape[1]])
+        if tgt_mask is not None and tgt_mask.dim() == 2:
+            tgt_mask = tgt_mask[None, None]
+        intermediate = []
+        for layer in self.decoder:
+            x = layer(x, memory, tgt_mask, tgt_padding_mask, memory_padding_mask,
+                      groups=groups, zeroed_mask=zeroed_mask)
+            intermediate.append(x)
+        return self.head(torch.stack(intermediate))
 
     def embed_at(self, tokens: torch.Tensor, pos: int) -> torch.Tensor:
         """(N,) tokens at position ``pos`` -> (N, 1, D) with the sine table."""

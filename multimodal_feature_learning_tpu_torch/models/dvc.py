@@ -1,10 +1,14 @@
-"""UnimodalDVC on the GT-free serving path; counterpart of the JAX
-``models/dvc.py`` (``ProposalNet``, ``forward_serve``, ``_serve_prepare``).
+"""UnimodalDVC: GT-free serving and training; counterpart of the JAX
+``models/dvc.py`` (``ProposalNet``, ``forward_serve``, ``_serve_prepare``,
+``_propose_and_match``, ``forward_train``).
 
-Base encoder -> sparse deformable transformer -> segment and count heads ->
-top-G proposals ranked by stability, k* from the count head -> per-event crop
-mask (and the differentiable context mask when configured) -> KV-cached greedy
-caption decode over the shared per-video memory.
+Base encoder -> sparse deformable transformer -> segment and count heads.
+Serving: top-G proposals ranked by stability, k* from the count head ->
+per-event crop mask (and the differentiable context mask when configured)
+-> KV-cached greedy caption decode over the shared per-video memory.
+Training: Hungarian matching of the final and auxiliary decoder layers to
+the ground truth (on the host) -> crop mask of the matched queries ->
+teacher-forced caption pass; ``models/criterion.py`` takes it from there.
 
 The module tree mirrors the JAX params tree (``proposal``, ``caption``,
 ``context_mask``), so ``utils.weights`` maps flax parameters onto the
@@ -14,16 +18,20 @@ state_dict one to one.
 from __future__ import annotations
 
 import math
+import time
 from typing import Dict
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..device import resolve_device, set_f32_numerics
+from ..ops.hungarian import batched_hungarian
 from ..ops.segment_ops import denormalize_segments, inverse_sigmoid
 from .base_encoder import BaseEncoder, pyramid_shapes
-from .caption_decoder import UnimodalCaptionDecoder, greedy_decode
+from .caption_decoder import UnimodalCaptionDecoder, greedy_decode, make_causal_mask
 from .layers import FFN, ContextMaskModel
+from .matcher import match_cost
 from .transformer import SparseDeformableTransformer, predict_event_num
 
 
@@ -65,13 +73,14 @@ class ProposalNet(nn.Module):
 
     def __init__(self, d_model=512, feature_dim=512, num_queries=20,
                  num_feature_levels=4, num_heads=8, enc_layers=6, dec_layers=6,
-                 ff_dim=2048, enc_n_points=4, dec_n_points=4, rho=0.5,
+                 ff_dim=2048, dropout=0.1, enc_n_points=4, dec_n_points=4, rho=0.5,
                  use_enc_aux_loss=True, max_eseq_length=10):
         super().__init__()
+        self.use_enc_aux_loss = use_enc_aux_loss
         self.base_encoder = BaseEncoder(num_feature_levels, d_model, feature_dim)
         self.transformer = SparseDeformableTransformer(
             d_model=d_model, num_heads=num_heads, num_encoder_layers=enc_layers,
-            num_decoder_layers=dec_layers, dim_feedforward=ff_dim,
+            num_decoder_layers=dec_layers, dim_feedforward=ff_dim, dropout=dropout,
             num_feature_levels=num_feature_levels, dec_n_points=dec_n_points,
             enc_n_points=enc_n_points, rho=rho)
         self.query_embedding = nn.Parameter(torch.randn(num_queries, 2 * d_model))
@@ -84,29 +93,56 @@ class ProposalNet(nn.Module):
                                                  final_zero_init=True)
             self.count_head_encoder = nn.Linear(d_model, max_eseq_length + 1)
 
-    def forward(self, video, video_mask, durations) -> Dict[str, torch.Tensor]:
+    def forward(self, video, video_mask, durations,
+                with_enc_aux: bool = False) -> Dict[str, torch.Tensor]:
+        """Every output the matcher, the crop, the caption decoder and the
+        criterion read. ``with_enc_aux`` adds the encoder's auxiliary
+        segment and count heads (``aux_outputs_enc``), which only the
+        training losses read."""
         B = video.shape[0]
         tr = self.transformer
         srcs, masks, poses = self.base_encoder(video, video_mask, durations)
         enc = tr.prepare_encoder_inputs(srcs, masks, poses)
-        memory = tr.forward_encoder(enc)
+        temporal_shapes = enc["temporal_shapes"]
+        memory, loc_enc, attn_enc, enc_inter, enc_bases = tr.forward_encoder(enc)
         init_ref, tgt, query_pos = tr.prepare_decoder_input_query(B, self.query_embedding)
-        query_features, inter_refs = tr.forward_decoder(
-            tgt, init_ref, memory, enc["temporal_shapes"], enc["valid_ratios"],
+        query_features, inter_refs, loc_dec, attn_dec = tr.forward_decoder(
+            tgt, init_ref, memory, temporal_shapes, enc["valid_ratios"],
             query_pos, enc["mask_flatten"])
         outputs_segment = self.segment_embedding_decoder(query_features).float()
         outputs_count = predict_event_num(self.count_head_decoder, query_features).float()
         # reference-point offsetting: ref[0] = init, ref[i] = inter[i-1]
         reference = torch.cat([init_ref[None], inter_refs[:-1]], dim=0).float()
         outputs_segment = torch.sigmoid(outputs_segment + inverse_sigmoid(reference))
-        return {
+        starts = [0]
+        for t in temporal_shapes[:-1]:
+            starts.append(starts[-1] + int(t))
+        out = {
             "pred_segments": outputs_segment[-1],
             "pred_count": outputs_count[-1],
-            "outputs_segment_all": outputs_segment,  # (layers, B, Q, 2)
+            "sampling_locations_enc": loc_enc,
+            "attn_weights_enc": attn_enc,
+            "sampling_locations_dec": loc_dec,
+            "attn_weights_dec": attn_dec,
+            "temporal_shapes": temporal_shapes,
+            "level_start_index": tuple(starts),
             "memory": memory,
             "query_features": query_features,
             "mask_flatten": enc["mask_flatten"],
+            "outputs_segment_all": outputs_segment,  # (layers, B, Q, 2)
+            "outputs_count_all": outputs_count,      # (layers, B, C)
+            "backbone_topk_proposals": enc["topk"],
+            "backbone_mask_prediction": enc["saliency"],
+            "sparse_token_nums": enc["sparse_token_nums"],
         }
+        if with_enc_aux and self.use_enc_aux_loss and enc_inter is not None:
+            counts = predict_event_num(self.count_head_encoder, enc_inter).float()
+            offsets = self.segment_embedding_encoder(enc_inter).float()
+            coords = torch.sigmoid(enc_bases[None] + offsets)  # (layers-1, B, K, 2)
+            out["aux_outputs_enc"] = [
+                {"pred_segments": coords[i], "pred_count": counts[i]}
+                for i in range(coords.shape[0])]
+        return out
 
 
 class UnimodalDVC(nn.Module):
@@ -124,6 +160,10 @@ class UnimodalDVC(nn.Module):
         if not dvc.use_sparse_detr:
             raise NotImplementedError("the port serves the sparse family only")
         self.pad_idx, self.bos_idx, self.eos_idx = pad_idx, bos_idx, eos_idx
+        self.num_queries = dvc.num_queries
+        self.aux_loss = dvc.aux_loss
+        self.cost_segment = float(dvc.matcher.cost_segment)
+        self.cost_giou = float(dvc.matcher.cost_giou)
         self.max_gt = anet.max_gt_target_segments
         self.seq_len = anet.max_caption_len_all
         self.video_rescale_len = det.video_rescale_len
@@ -137,20 +177,24 @@ class UnimodalDVC(nn.Module):
             num_queries=dvc.num_queries, num_feature_levels=det.num_feature_levels,
             num_heads=det.num_heads, enc_layers=det.enc_layers,
             dec_layers=det.dec_layers, ff_dim=det.transformer_ff_dim,
+            dropout=det.transformer_dropout_prob,
             enc_n_points=det.enc_n_points, dec_n_points=det.dec_n_points,
             rho=det.rho, use_enc_aux_loss=det.use_enc_aux_loss,
             max_eseq_length=dvc.max_eseq_length)
         cap = dvc.caption
         self.caption = UnimodalCaptionDecoder(
             vocab_size, cap.d_model, cap.depth, cap.num_heads,
-            float(cap.mlp_ratio), cap.qkv_bias)
+            float(cap.mlp_ratio), cap.qkv_bias, cap.positional_embedding_dropout,
+            cap.attention_dropout, cap.projection_dropout, cap.mlp_dropout_1,
+            cap.mlp_dropout_2)
+        self.matcher_ms = 0.0  # host milliseconds of the last training matching
         if self.use_differentiable_mask:
             self.context_mask = ContextMaskModel(dvc.d_model + 2, self.num_tokens)
 
     def _prepare_caption_inputs(self, out, durations, indices):
         """Per-event crop mask and, when configured, the differentiable
         context mask. Returns (memory (B,S,D), crop_mask (N,S),
-        caption_pad_mask (N,S))."""
+        caption_pad_mask (N,S), context-mask logits (N,S) or None)."""
         B, G = indices.shape
         rows = torch.arange(B, device=indices.device)[:, None]
         denorm = denormalize_segments(out["pred_segments"][rows, indices],
@@ -160,11 +204,59 @@ class UnimodalDVC(nn.Module):
             denorm, durations, self.video_rescale_len, self.num_feature_levels,
             num_tokens=memory.shape[1]).reshape(B * G, -1)
         caption_pad_mask = crop_mask
+        logits = None
         if self.use_differentiable_mask:
             qf_sel = out["query_features"][-1][rows, indices].reshape(B * G, -1)
             logits = self.context_mask(torch.cat([denorm.reshape(B * G, 2), qf_sel], dim=1))
             caption_pad_mask = torch.sigmoid(logits) > 0.5
-        return memory, crop_mask, caption_pad_mask
+        return memory, crop_mask, caption_pad_mask, logits
+
+    def _propose_and_match(self, batch):
+        """Proposal forward, then the Hungarian matching of the final
+        decoder layer and of every auxiliary layer to the ground truth.
+        Returns (out, indices (B,G), indices_aux (layers-1,B,G) or None).
+        The matching runs on the host; ``self.matcher_ms`` keeps its time
+        after the costs arrived there."""
+        out = self.proposal(batch["video_tensor"].float(), batch["video_mask"],
+                            batch["durations"], with_enc_aux=True)
+        seg_all = out["outputs_segment_all"].detach()
+        n_layers = seg_all.shape[0] if self.aux_loss else 1
+        gt, gt_mask = batch["gt_segments"], batch["gt_mask"]
+        flat = seg_all[-n_layers:].roll(1, dims=0)  # final layer first, then aux
+        cost = match_cost(flat.reshape(-1, self.num_queries, 2), gt.float().repeat(n_layers, 1, 1),
+                          self.cost_segment, self.cost_giou).cpu().numpy()
+        valid = gt_mask.repeat(n_layers, 1).cpu().numpy()
+        t0 = time.perf_counter()
+        idx = batched_hungarian(cost, valid)
+        self.matcher_ms = 1e3 * (time.perf_counter() - t0)
+        idx = torch.from_numpy(idx.astype(np.int64)).to(seg_all.device)
+        idx = idx.reshape(n_layers, -1, self.max_gt)
+        return out, idx[0], (idx[1:] if self.aux_loss else None)
+
+    def forward_train(self, batch):
+        """Training forward over a batch dict of tensors on the model's
+        device (``data.anet.collate_fixed``'s arrays). Dropout is active when
+        the model is in training mode. Returns (out, indices, indices_aux,
+        memory_mask_float (N,S)), as the JAX package's ``forward_train``."""
+        out, indices, indices_aux = self._propose_and_match(batch)
+        memory, crop_mask, caption_pad_mask, pred_memory_mask = \
+            self._prepare_caption_inputs(out, batch["durations"], indices)
+        if pred_memory_mask is not None:
+            out["pred_memory_mask"] = pred_memory_mask
+        tgt = batch["cap_tokens"].reshape(-1, self.seq_len)[:, :-1].long()
+        logits = self.caption(
+            tgt, memory, make_causal_mask(self.seq_len - 1, tgt.device),
+            tgt == self.pad_idx, caption_pad_mask, groups=self.max_gt,
+            zeroed_mask=crop_mask if self.use_differentiable_mask else None)
+        out["pred_captions"] = logits[-1]
+        out["caption_head"] = "logits"
+        if self.aux_loss:
+            out["aux_outputs"] = [
+                {"pred_segments": out["outputs_segment_all"][i],
+                 "pred_count": out["outputs_count_all"][i]}
+                for i in range(out["outputs_segment_all"].shape[0] - 1)]
+            out["pred_captions_all"] = logits
+        return out, indices, indices_aux, crop_mask.float()
 
     def _serve_prepare(self, video_tensor, video_mask, durations):
         """Propose, rank by stability, select the top G, crop the memory."""
@@ -182,7 +274,7 @@ class UnimodalDVC(nn.Module):
 
         k = out["pred_count"].argmax(dim=-1).clamp(1, G)
         valid = torch.arange(G, device=k.device)[None, :] < k[:, None]
-        memory, crop_mask, caption_pad_mask = self._prepare_caption_inputs(
+        memory, crop_mask, caption_pad_mask, _ = self._prepare_caption_inputs(
             out, durations, indices)
         rows = torch.arange(indices.shape[0], device=indices.device)[:, None]
         segments = denormalize_segments(out["pred_segments"][rows, indices],
@@ -221,8 +313,9 @@ class UnimodalDVC(nn.Module):
 
 def build_model(cfg, vocab_size: int, pad_idx: int = 1, bos_idx: int = 2,
                 eos_idx: int = 3, device="cuda", seed: int = 0) -> UnimodalDVC:
-    """The serving model in eval mode on ``device``, its weights drawn from
-    ``seed`` (load trained weights with ``utils.weights``)."""
+    """The model in eval mode on ``device``, its weights drawn from ``seed``
+    (load trained weights with ``utils.weights``); ``model.train()`` turns
+    dropout on for training."""
     dev = resolve_device(device)
     set_f32_numerics(dev)
     with torch.random.fork_rng(devices=[]):

@@ -1,12 +1,15 @@
 """Attention and MLP building blocks; counterpart of the JAX ``models/layers.py``.
 
-Serving runs in eval mode, so the dropouts of the JAX modules are absent.
-LayerNorm epsilons follow the JAX package: 1e-6 in the caption decoder layers
-and the MaskPredictor (flax's default), not torch's 1e-5.
+Dropout sits where the JAX modules put it and is active in training mode
+only (``module.train()``); serving runs in eval mode. LayerNorm epsilons
+follow the JAX package: 1e-6 in the caption decoder layers and the
+MaskPredictor (flax's default), not torch's 1e-5.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Optional
 
 import torch
@@ -15,15 +18,49 @@ from torch import nn
 
 NEG_MASK = -1e20  # masked_fill value, applied before the scale
 
+_DROPOUT_GENERATOR = contextvars.ContextVar("dropout_generator", default=None)
+
+
+@contextlib.contextmanager
+def dropout_generator(gen: Optional[torch.Generator]):
+    """Draw every ``Dropout`` mask inside the block from ``gen`` (the
+    trainer's generator, seeded per step) instead of torch's global one."""
+    token = _DROPOUT_GENERATOR.set(gen)
+    try:
+        yield gen
+    finally:
+        _DROPOUT_GENERATOR.reset(token)
+
+
+class Dropout(nn.Module):
+    """Inverted dropout, as flax's: in training mode each element is kept
+    with probability 1 - p and scaled by 1 / (1 - p); identity in eval mode
+    or at p = 0. Masks come from the generator of ``dropout_generator``."""
+
+    def __init__(self, p: float = 0.0):
+        super().__init__()
+        self.p = float(p)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=_DROPOUT_GENERATOR.get(),
+                          device=x.device) >= self.p
+        return torch.where(keep, x / (1.0 - self.p), torch.zeros((), dtype=x.dtype,
+                                                                 device=x.device))
+
+    def extra_repr(self) -> str:
+        return f"p={self.p}"
+
 
 class CrossAttention(nn.Module):
     """Multi-head attention with the order logits = q @ k^T;
-    masked_fill(-1e20); * head_dim**-0.5; softmax. Projection and the attend
-    step are separate so the KV-cached decode can reuse projections. The JAX
-    module's causal ``attn_mask`` serves the teacher-forced training pass,
-    which the port does not have yet."""
+    masked_fill(-1e20); * head_dim**-0.5; softmax; dropout. Projection and
+    the attend step are separate so the KV-cached decode can reuse
+    projections."""
 
-    def __init__(self, d_model: int, num_heads: int, qkv_bias: bool = True):
+    def __init__(self, d_model: int, num_heads: int, qkv_bias: bool = True,
+                 attention_dropout: float = 0.0):
         super().__init__()
         self.d_model = d_model
         self.num_heads = num_heads
@@ -31,6 +68,7 @@ class CrossAttention(nn.Module):
         self.k_linear = nn.Linear(d_model, d_model, bias=qkv_bias)
         self.v_linear = nn.Linear(d_model, d_model, bias=qkv_bias)
         self.projection_layer = nn.Linear(d_model, d_model)
+        self.attn_drop = Dropout(attention_dropout)
 
     def project_q(self, q):
         return self.q_linear(q)
@@ -46,6 +84,7 @@ class CrossAttention(nn.Module):
         key_padding_mask: Optional[torch.Tensor] = None,  # (N, Tk) True=masked
         groups: int = 1,
         zeroed_mask: Optional[torch.Tensor] = None,  # (N, Tk), shared-KV only
+        attn_mask: Optional[torch.Tensor] = None,  # (.., Tq, Tk) True=masked
     ) -> torch.Tensor:
         """``groups`` > 1: ``groups`` consecutive query rows share one k/v row
         (shared-KV attention over the per-video memory).
@@ -54,7 +93,11 @@ class CrossAttention(nn.Module):
         materialized-crop semantics but may still be attendable. They all
         share k/v equal to the projection biases, so their columns collapse
         into one bias column with logit q . k_bias * scale + log(m) and value
-        v_bias, under a shared max and denominator."""
+        v_bias, under a shared max and denominator. In training mode the
+        folded column takes one dropout draw, as in the JAX package.
+
+        ``attn_mask`` (the causal mask of the teacher-forced pass, broadcast
+        to (B, H, Tq, Tk)) is taken on the plain path only."""
         N, Tq, _ = qp.shape
         B, Tk = kp.shape[0], kp.shape[1]
         H = self.num_heads
@@ -65,11 +108,15 @@ class CrossAttention(nn.Module):
         kh = kp.reshape(B, Tk, H, Dh).transpose(1, 2)
         vh = vp.reshape(B, Tk, H, Dh).transpose(1, 2)
         logits = torch.matmul(qh, kh.transpose(-1, -2)).float()  # (B,H,gTq,Tk)
+        if attn_mask is not None:
+            if groups != 1 or zeroed_mask is not None:
+                raise ValueError("attn_mask is not taken on the shared-KV path")
+            logits = logits.masked_fill(attn_mask, NEG_MASK)
 
         if groups == 1 and zeroed_mask is None:
             if key_padding_mask is not None:
                 logits = logits.masked_fill(key_padding_mask[:, None, None, :], NEG_MASK)
-            attn = torch.softmax(logits * scale, dim=-1)
+            attn = self.attn_drop(torch.softmax(logits * scale, dim=-1))
             out = torch.matmul(attn.to(vh.dtype), vh)
             out = out.transpose(1, 2).reshape(N, Tq, self.d_model)
             return self.projection_layer(out)
@@ -92,36 +139,41 @@ class CrossAttention(nn.Module):
                                 torch.full_like(m, NEG_MASK))
             log_m5 = log_m.reshape(B, 1, groups, 1).expand(B, H, groups, Tq)
             bias_logit = l_bias + log_m5.reshape(B, H, groups * Tq)
-            m_max = torch.maximum(scaled.amax(dim=-1), bias_logit)
+            # the shift passes no gradient, as the JAX package's stop_gradient
+            m_max = torch.maximum(scaled.amax(dim=-1), bias_logit).detach()
             e_main = torch.exp(scaled - m_max[..., None])
             e_bias = torch.exp(bias_logit - m_max)
             denom = e_main.sum(dim=-1) + e_bias
-            attn = e_main / denom[..., None]
-            attn_bias = e_bias / denom
+            attn = self.attn_drop(e_main / denom[..., None])
+            attn_bias = self.attn_drop((e_bias / denom)[..., None])[..., 0]
             out = torch.matmul(attn.to(vh.dtype), vh) \
                 + attn_bias[..., None] * vb[None, :, None, :]
         else:
-            attn = torch.softmax(scaled, dim=-1)
+            attn = self.attn_drop(torch.softmax(scaled, dim=-1))
             out = torch.matmul(attn.to(vh.dtype), vh)
         out = out.to(qp.dtype).transpose(1, 2).reshape(N, Tq, self.d_model)
         return self.projection_layer(out)
 
-    def forward(self, q, k, v, key_padding_mask=None):
+    def forward(self, q, k, v, key_padding_mask=None, attn_mask=None):
         qp = self.project_q(q)
         kp, vp = self.project_kv(k, v)
-        return self.attend(qp, kp, vp, key_padding_mask)
+        return self.attend(qp, kp, vp, key_padding_mask, attn_mask=attn_mask)
 
 
 class MLP(nn.Module):
-    """Two-layer MLP with exact GELU."""
+    """Two-layer MLP with exact GELU and a dropout after each layer."""
 
-    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int):
+    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
+                 dropout_1: float = 0.0, dropout_2: float = 0.0):
         super().__init__()
         self.fully_connected_1 = nn.Linear(in_dim, hidden_dim)
         self.fully_connected_2 = nn.Linear(hidden_dim, out_dim)
+        self.drop_1 = Dropout(dropout_1)
+        self.drop_2 = Dropout(dropout_2)
 
     def forward(self, x):
-        return self.fully_connected_2(F.gelu(self.fully_connected_1(x)))
+        x = self.drop_1(F.gelu(self.fully_connected_1(x)))
+        return self.drop_2(self.fully_connected_2(x))
 
 
 class FFN(nn.Module):
@@ -188,14 +240,39 @@ class UnimodalCaptionDecoderLayer(nn.Module):
     """Post-norm caption decoder block: self-attention, cross-attention, MLP."""
 
     def __init__(self, d_model: int, num_heads: int, mlp_ratio: float = 4.0,
-                 qkv_bias: bool = True):
+                 qkv_bias: bool = True, attention_dropout: float = 0.0,
+                 projection_dropout: float = 0.0, mlp_dropout_1: float = 0.0,
+                 mlp_dropout_2: float = 0.0):
         super().__init__()
-        self.self_attention = CrossAttention(d_model, num_heads, qkv_bias)
-        self.cross_attention = CrossAttention(d_model, num_heads, qkv_bias)
+        self.self_attention = CrossAttention(d_model, num_heads, qkv_bias, attention_dropout)
+        self.cross_attention = CrossAttention(d_model, num_heads, qkv_bias, attention_dropout)
         self.layer_norm_1 = nn.LayerNorm(d_model, eps=1e-6)
         self.layer_norm_2 = nn.LayerNorm(d_model, eps=1e-6)
         self.layer_norm_3 = nn.LayerNorm(d_model, eps=1e-6)
-        self.mlp = MLP(d_model, int(d_model * mlp_ratio), d_model)
+        self.drop_1 = Dropout(projection_dropout)
+        self.drop_2 = Dropout(projection_dropout)
+        self.mlp = MLP(d_model, int(d_model * mlp_ratio), d_model,
+                       mlp_dropout_1, mlp_dropout_2)
+
+    def forward(
+        self,
+        target: torch.Tensor,  # (N, Tc, D)
+        memory: torch.Tensor,  # (N, S, D), or (B, S, D) with groups = N // B
+        tgt_mask=None,             # (.., Tc, Tc) True=masked (causal)
+        tgt_padding_mask=None,     # (N, Tc) True=pad
+        memory_padding_mask=None,  # (N, S) True=masked
+        groups: int = 1,
+        zeroed_mask=None,
+    ) -> torch.Tensor:
+        """Teacher-forced pass of the post-norm block over a whole caption."""
+        sa = self.self_attention(target, target, target,
+                                 key_padding_mask=tgt_padding_mask, attn_mask=tgt_mask)
+        x = self.layer_norm_1(target + self.drop_1(sa))
+        ca = self.cross_attention.attend(
+            self.cross_attention.project_q(x), *self.project_memory_kv(memory),
+            key_padding_mask=memory_padding_mask, groups=groups, zeroed_mask=zeroed_mask)
+        x = self.layer_norm_2(x + self.drop_2(ca))
+        return self.layer_norm_3(x + self.mlp(x))
 
     def project_memory_kv(self, memory):
         """Cross-attention k/v of the memory, computed once per decode."""

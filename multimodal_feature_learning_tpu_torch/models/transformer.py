@@ -1,5 +1,6 @@
 """Deformable proposal transformer with Sparse-DETR encoder sparsification;
-counterpart of the JAX ``models/transformer.py`` on the inference path.
+counterpart of the JAX ``models/transformer.py`` (sparse family), with the
+dropouts of its layers active in training mode.
 
 The sparse token budget is static, K = int(rho * S) + 1, as in the JAX
 package; per-sample counts gate the scatter-back. Top-K selection sorts the
@@ -13,7 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import CrossAttention, MaskPredictor
+from .layers import CrossAttention, Dropout, MaskPredictor
 from .msda_module import MSDeformAttn
 
 
@@ -74,63 +75,77 @@ def predict_event_num(counter: nn.Module, query_features: torch.Tensor) -> torch
 class DeformableTransformerEncoderLayer(nn.Module):
     """MSDA self-attention (sparse queries over the dense memory) + FFN."""
 
-    def __init__(self, d_model, d_ffn, n_levels, n_heads, n_points):
+    def __init__(self, d_model, d_ffn, n_levels, n_heads, n_points, dropout=0.0):
         super().__init__()
         self.self_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points)
+        self.dropout1 = Dropout(dropout)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.linear1 = nn.Linear(d_model, d_ffn)
+        self.dropout2 = Dropout(dropout)
         self.linear2 = nn.Linear(d_ffn, d_model)
+        self.dropout3 = Dropout(dropout)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
 
     def forward(self, src, pos, reference_points, temporal_shapes,
                 padding_mask=None, tgt=None):
+        """Returns (output, sampling_locations, attention_weights)."""
         q_in = src if tgt is None else tgt
         q = q_in + pos if pos is not None else q_in
-        out, _, _ = self.self_attn(q, reference_points, src, temporal_shapes,
-                                   padding_mask)
-        x = self.norm1(q_in + out)
-        return self.norm2(x + self.linear2(F.relu(self.linear1(x))))
+        out, loc, attn = self.self_attn(q, reference_points, src, temporal_shapes,
+                                        padding_mask)
+        x = self.norm1(q_in + self.dropout1(out))
+        h = self.linear2(self.dropout2(F.relu(self.linear1(x))))
+        return self.norm2(x + self.dropout3(h)), loc, attn
 
 
 class DeformableTransformerDecoderLayer(nn.Module):
     """Self-attention over queries + MSDA cross-attention + FFN."""
 
-    def __init__(self, d_model, d_ffn, n_levels, n_heads, n_points):
+    def __init__(self, d_model, d_ffn, n_levels, n_heads, n_points, dropout=0.0):
         super().__init__()
         self.cross_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points)
+        self.dropout1 = Dropout(dropout)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
-        self.self_attn = CrossAttention(d_model, n_heads, qkv_bias=True)
+        self.self_attn = CrossAttention(d_model, n_heads, qkv_bias=True,
+                                        attention_dropout=dropout)
+        self.dropout2 = Dropout(dropout)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
         self.linear1 = nn.Linear(d_model, d_ffn)
+        self.dropout3 = Dropout(dropout)
         self.linear2 = nn.Linear(d_ffn, d_model)
+        self.dropout4 = Dropout(dropout)
         self.norm3 = nn.LayerNorm(d_model, eps=1e-5)
 
     def forward(self, tgt, query_pos, reference_points, src, temporal_shapes,
                 src_padding_mask=None):
+        """Returns (output, sampling_locations, attention_weights)."""
         q = tgt + query_pos
-        tgt = self.norm2(tgt + self.self_attn(q, q, tgt))
-        ca, _, _ = self.cross_attn(tgt + query_pos, reference_points, src,
-                                   temporal_shapes, src_padding_mask)
-        tgt = self.norm1(tgt + ca)
-        return self.norm3(tgt + self.linear2(F.relu(self.linear1(tgt))))
+        tgt = self.norm2(tgt + self.dropout2(self.self_attn(q, q, tgt)))
+        ca, loc, attn = self.cross_attn(tgt + query_pos, reference_points, src,
+                                        temporal_shapes, src_padding_mask)
+        tgt = self.norm1(tgt + self.dropout1(ca))
+        h = self.linear2(self.dropout3(F.relu(self.linear1(tgt))))
+        return self.norm3(tgt + self.dropout4(h)), loc, attn
 
 
 class SparseDeformableTransformer(nn.Module):
     def __init__(self, d_model=512, num_heads=8, num_encoder_layers=6,
-                 num_decoder_layers=6, dim_feedforward=2048,
+                 num_decoder_layers=6, dim_feedforward=2048, dropout=0.1,
                  num_feature_levels=4, dec_n_points=4, enc_n_points=4, rho=0.5):
         super().__init__()
         if not rho:
-            raise NotImplementedError("the port serves the sparse family (rho > 0)")
+            raise NotImplementedError("the port has the sparse family (rho > 0) only")
         self.rho = rho
         self.level_embed = nn.Parameter(torch.randn(num_feature_levels, d_model))
         self.enc_layers = nn.ModuleList(
             DeformableTransformerEncoderLayer(
-                d_model, dim_feedforward, num_feature_levels, num_heads, enc_n_points)
+                d_model, dim_feedforward, num_feature_levels, num_heads, enc_n_points,
+                dropout)
             for _ in range(num_encoder_layers))
         self.dec_layers = nn.ModuleList(
             DeformableTransformerDecoderLayer(
-                d_model, dim_feedforward, num_feature_levels, num_heads, dec_n_points)
+                d_model, dim_feedforward, num_feature_levels, num_heads, dec_n_points,
+                dropout)
             for _ in range(num_decoder_layers))
         self.enc_mask_predictor = MaskPredictor(d_model, d_model)
         self.enc_output = nn.Linear(d_model, d_model)
@@ -141,7 +156,9 @@ class SparseDeformableTransformer(nn.Module):
         """Flatten levels, add level embeds, and select the top-K tokens by
         saliency. Returns a dict of src_flatten (B,S,D), mask_flatten (B,S),
         lvl_pos_flatten (B,S,D), valid_ratios (B,L), temporal_shapes,
-        topk (B,K) and sparse_token_nums (B,)."""
+        proposals (B,S,2) (the grid proposal bases, +inf where invalid),
+        saliency (B,S) (the mask prediction), topk (B,K) and
+        sparse_token_nums (B,)."""
         temporal_shapes = tuple(int(s.shape[1]) for s in srcs)
         src_flatten = torch.cat(srcs, dim=1)
         mask_flatten = torch.cat(masks, dim=1)
@@ -157,9 +174,17 @@ class SparseDeformableTransformer(nn.Module):
         sparse_token_nums = (valid_token_nums.float() * self.rho).to(torch.int32) + 1
         memory = src_flatten + lvl_pos_flatten
         proposal_valid = torch.isfinite(proposals_unact).all(dim=-1)
-        memory = memory.masked_fill((mask_flatten | ~proposal_valid)[..., None], 0.0)
+        zeroed = mask_flatten | ~proposal_valid
+        memory = memory.masked_fill(zeroed[..., None], 0.0)
         memory = self.enc_output_norm(self.enc_output(memory))
         saliency = self.enc_mask_predictor(memory)  # (B, S)
+        # the zeroed tokens of a video share one input row, so one saliency;
+        # take it from the first of them, so that their ties are exact on
+        # every device (a GEMM on the card may round equal rows apart) and
+        # the stable sort breaks them by index. The value and the gradient
+        # are those of the rows it replaces.
+        first = zeroed.int().argmax(dim=1, keepdim=True)
+        saliency = torch.where(zeroed, saliency.gather(1, first), saliency)
         # pad area takes the global minimum over the batch
         saliency = torch.where(mask_flatten, saliency.min(), saliency)
         topk = torch.sort(saliency, dim=1, descending=True, stable=True).indices[:, :K]
@@ -169,13 +194,18 @@ class SparseDeformableTransformer(nn.Module):
             "lvl_pos_flatten": lvl_pos_flatten,
             "valid_ratios": valid_ratios,
             "temporal_shapes": temporal_shapes,
+            "proposals": proposals_unact,
+            "saliency": saliency,
             "topk": topk,
             "sparse_token_nums": sparse_token_nums,
         }
 
     def forward_encoder(self, enc_inputs):
         """Sparse encoder stack: the top-K tokens attend the dense memory and
-        are scattered back into it after every layer. Returns memory (B,S,D)."""
+        are scattered back into it after every layer. Returns (memory
+        (B,S,D), sampling_locations and attention_weights (B,layers,K,H,L,P),
+        the sparse tokens after every layer but the last (layers-1,B,K,D),
+        and their proposal bases (B,K,2))."""
         output = enc_inputs["src_flatten"]
         mask_flatten = enc_inputs["mask_flatten"]
         temporal_shapes = enc_inputs["temporal_shapes"]
@@ -190,11 +220,18 @@ class SparseDeformableTransformer(nn.Module):
         pos_q = enc_inputs["lvl_pos_flatten"][rows, topk]
         keep = (torch.arange(K, device=topk.device)[None, :]
                 < enc_inputs["sparse_token_nums"][:, None])
+        locs, attns, inter = [], [], []
         for layer in self.enc_layers:
-            tgt = layer(output, pos_q, ref_q, temporal_shapes, mask_flatten, tgt=tgt)
+            tgt, loc, attn = layer(output, pos_q, ref_q, temporal_shapes, mask_flatten,
+                                   tgt=tgt)
             vals = torch.where(keep[..., None], tgt, output[rows, topk])
             output = output.index_put((rows, topk), vals)
-        return output
+            locs.append(loc)
+            attns.append(attn)
+            inter.append(tgt)
+        return (output, torch.stack(locs, dim=1), torch.stack(attns, dim=1),
+                torch.stack(inter[:-1]) if len(inter) > 1 else None,
+                enc_inputs["proposals"][rows, topk])
 
     def prepare_decoder_input_query(self, batch_size: int, query_embed: torch.Tensor):
         """Split the learned query embedding into (pos, tgt) and initialise
@@ -208,14 +245,18 @@ class SparseDeformableTransformer(nn.Module):
 
     def forward_decoder(self, tgt, reference_points, memory, temporal_shapes,
                         valid_ratios, query_pos, mask_flatten):
-        """Returns (intermediate (layers,B,Q,D), inter_references (layers,B,Q,1)).
-        Without segment refinement the reference points stay fixed."""
+        """Returns (intermediate (layers,B,Q,D), inter_references (layers,B,Q,1),
+        sampling_locations and attention_weights (B,layers,Q,H,L,P)). Without
+        segment refinement the reference points stay fixed."""
         output = tgt
-        intermediate, inter_refs = [], []
+        intermediate, inter_refs, locs, attns = [], [], [], []
         ref_input = reference_points[:, :, None, :] * valid_ratios[:, None, :, None]
         for layer in self.dec_layers:
-            output = layer(output, query_pos, ref_input, memory, temporal_shapes,
-                           mask_flatten)
+            output, loc, attn = layer(output, query_pos, ref_input, memory,
+                                      temporal_shapes, mask_flatten)
             intermediate.append(output)
             inter_refs.append(reference_points)
-        return torch.stack(intermediate), torch.stack(inter_refs)
+            locs.append(loc)
+            attns.append(attn)
+        return (torch.stack(intermediate), torch.stack(inter_refs),
+                torch.stack(locs, dim=1), torch.stack(attns, dim=1))

@@ -25,7 +25,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
-KERNEL_SOURCES = ("msda_fwd.cu",)
+KERNEL_SOURCES = ("msda_fwd.cu", "msda_bwd.cu")
 
 
 def find_nvcc() -> str:
@@ -45,23 +45,30 @@ def library_path(source: str) -> Path:
 
 
 def build(sources: Iterable[str] = KERNEL_SOURCES) -> Dict[str, float]:
-    """Compile every source that has no library yet. Returns {source:
-    seconds} of the builds it ran; raises with the compiler's output if one
-    fails."""
+    """Compile every source that has no library yet, one ``nvcc`` per source,
+    all started together. Returns {source: seconds} of the builds it ran;
+    raises with the compiler's output if one fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    seconds = {}
+    running = []
     for source in sources:
         lib = library_path(source)
         if lib.exists():
             continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
         cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / source)]
-        t0 = time.monotonic()
-        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {source}:\n{proc.stdout}")
-        os.replace(tmp, lib)
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+        running.append((source, lib, tmp, proc, time.monotonic()))
+    seconds, failed = {}, []
+    for source, lib, tmp, proc, t0 in running:
+        output, _ = proc.communicate()
         seconds[source] = time.monotonic() - t0
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {source}:\n{output}")
+        else:
+            os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return seconds
 
 

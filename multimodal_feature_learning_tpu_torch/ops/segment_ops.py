@@ -17,6 +17,29 @@ def segment_xy_to_cl(x: torch.Tensor) -> torch.Tensor:
     return torch.stack([(s + e) / 2, e - s], dim=-1)
 
 
+def box_iou(segment1: torch.Tensor, segment2: torch.Tensor):
+    """Pairwise IoU of 1-D segments in (start, end) format, batched over
+    leading dims: (..., N, 2) and (..., M, 2) -> iou, union each (..., N, M).
+    Epsilon 1e-5 in the denominator, as the JAX package has it."""
+    area1 = segment1[..., 1] - segment1[..., 0]
+    area2 = segment2[..., 1] - segment2[..., 0]
+    lt = torch.maximum(segment1[..., :, None, 0], segment2[..., None, :, 0])
+    rb = torch.minimum(segment1[..., :, None, 1], segment2[..., None, :, 1])
+    inter = (rb - lt).clamp(min=0)
+    union = area1[..., :, None] + area2[..., None, :] - inter
+    return inter / (union + 1e-5), union
+
+
+def generalized_box_iou(segment1: torch.Tensor, segment2: torch.Tensor) -> torch.Tensor:
+    """Pairwise generalized IoU of 1-D segments in (start, end) format,
+    batched over leading dims: (..., N, 2), (..., M, 2) -> (..., N, M)."""
+    iou, union = box_iou(segment1, segment2)
+    lt = torch.minimum(segment1[..., :, None, 0], segment2[..., None, :, 0])
+    rb = torch.maximum(segment1[..., :, None, 1], segment2[..., None, :, 1])
+    area = (rb - lt).clamp(min=0)
+    return iou - (area - union) / (area + 1e-5)
+
+
 def denormalize_segments(segments: torch.Tensor, durations: torch.Tensor) -> torch.Tensor:
     """(center, length) normalized -> (start, end) seconds, clamped to
     [0, duration] and order-fixed. ``durations`` broadcasts to segments[..., 0]."""

@@ -14,12 +14,16 @@ Leaves: a Dense ``kernel`` (in, out) becomes ``weight`` (out, in), a Conv
 ``kernel`` (k, in, out) becomes ``weight`` (out, in, k), a norm ``scale`` and
 an ``embedding`` become ``weight``. ``BF16||``-prefixed uint16 leaves hold the
 upper halves of bf16 values and are expanded to f32; ``__epoch__`` is skipped.
+
+``export_flax_params`` goes the other way, so that parameters, gradients or
+updated weights of the port can be compared with the JAX package's leaf by
+leaf under flax names.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Union
 
 import numpy as np
 import torch
@@ -28,6 +32,9 @@ from torch import nn
 SEP = "||"
 BF16_PREFIX = "BF16" + SEP
 _LIST_MEMBER = re.compile(r"^(enc_layers|dec_layers|decoder|layers|input_proj|gn)_(\d+)$")
+_LISTS = ("enc_layers", "dec_layers", "decoder", "layers", "input_proj", "gn")
+# the model's top-level trees, each a flax module tree of its own
+_TREES = ("proposal", "caption", "context_mask")
 
 
 def expand_bf16(u: np.ndarray) -> np.ndarray:
@@ -99,3 +106,49 @@ def load_npz(path: str) -> Dict[str, np.ndarray]:
     """All arrays of a ``tools/snapshot_ckpt.py`` snapshot."""
     with np.load(path) as z:
         return {k: z[k] for k in z.files}
+
+
+def flax_key(name: str, ndim: int) -> str:
+    """Inverse of ``torch_key``: a state_dict name and the rank of its
+    tensor -> the flax key (without the ``BF16||`` prefix). A ``weight`` of
+    ``embed`` is an ``embedding``, of rank 1 a norm ``scale``, otherwise a
+    ``kernel``."""
+    parts = name.split(".")
+    out = []
+    i = 0
+    while i < len(parts) - 1:
+        p = parts[i]
+        if p in _LISTS and i + 1 < len(parts) - 1 and parts[i + 1].isdigit():
+            out.append(f"{p}_{parts[i + 1]}")
+            i += 2
+            continue
+        out.append("Embed_0" if p == "embed" else p)
+        i += 1
+    leaf = parts[-1]
+    if leaf == "weight":
+        leaf = "embedding" if parts[-2] == "embed" else ("scale" if ndim == 1 else "kernel")
+    out.append(leaf)
+    out.insert(1 if out[0] in _TREES else 0, "params")
+    return SEP.join(out)
+
+
+def _to_flax_layout(arr: np.ndarray, key: str) -> np.ndarray:
+    if key.endswith(SEP + "kernel"):
+        return arr.T if arr.ndim == 2 else arr.transpose(2, 1, 0)
+    return arr
+
+
+def export_flax_params(source: Union[nn.Module, Mapping[str, torch.Tensor]]
+                       ) -> Dict[str, np.ndarray]:
+    """A module's state_dict, or any {state_dict name: tensor} mapping (a
+    state_dict, or gradients by parameter name), as flat flax params
+    {"a||b||c": f32 np.ndarray}: kernels transposed back to (in, out) or
+    (k, in, out). Inverse of ``flax_to_state_dict`` on plain f32 keys."""
+    tensors = source.state_dict() if isinstance(source, nn.Module) else source
+    out = {}
+    for name, t in tensors.items():
+        arr = t.detach().float().cpu().numpy()
+        key = flax_key(name, arr.ndim)
+        # a copy: the arrays must not follow the module's later updates
+        out[key] = np.array(_to_flax_layout(arr, key), order="C", copy=True)
+    return out

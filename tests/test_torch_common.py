@@ -19,24 +19,42 @@ PAD, BOS, EOS = 1, 2, 3
 def jax_small_cfg(use_differentiable_mask: bool = True):
     from __graft_entry__ import _small_cfg
 
+    from multimodal_feature_learning_tpu.config import recompute_losses
+
     cfg = _small_cfg(batch_size=4)
     cfg.use_differentiable_mask = use_differentiable_mask
+    recompute_losses(cfg)
     return cfg
 
 
 def torch_cfg_like(jcfg) -> Config:
     """The port's config with every field it reads copied from a JAX config."""
     cfg = Config()
-    cfg.use_differentiable_mask = bool(jcfg.use_differentiable_mask)
+    for name in ("seed", "lr", "lr_drop", "weight_decay", "clip_max_norm",
+                 "epochs", "use_differentiable_mask", "compute_dtype", "decode_impl"):
+        setattr(cfg, name, jcfg[name])
     for name in vars(cfg.dvc.detr):
         setattr(cfg.dvc.detr, name, jcfg.dvc.detr[name])
     for name in vars(cfg.dvc.caption):
         setattr(cfg.dvc.caption, name, jcfg.dvc.caption[name])
-    for name in ("d_model", "num_queries", "max_eseq_length", "use_sparse_detr"):
-        setattr(cfg.dvc, name, jcfg.dvc[name])
+    for name in vars(cfg.dvc.matcher):
+        setattr(cfg.dvc.matcher, name, jcfg.dvc.matcher[name])
+    for name in vars(cfg.dvc):
+        if name not in ("detr", "caption", "matcher"):
+            value = jcfg.dvc[name]
+            setattr(cfg.dvc, name, list(value) if name == "losses" else value)
     for name in vars(cfg.dataset.activity_net):
         setattr(cfg.dataset.activity_net, name, jcfg.dataset.activity_net[name])
     return cfg
+
+
+def no_dropout(jcfg):
+    """Every dropout rate of a JAX config set to 0, in place."""
+    jcfg.dvc.detr.transformer_dropout_prob = 0.0
+    for name in ("positional_embedding_dropout", "attention_dropout", "projection_dropout",
+                 "bridge_dropout", "mlp_dropout_1", "mlp_dropout_2"):
+        jcfg.dvc.caption[name] = 0.0
+    return jcfg
 
 
 def flatten_params(params) -> dict:

@@ -146,6 +146,75 @@ def test_caption_layer_incremental_pair_matches_jax(zeroed):
     close(tv, jv)
 
 
+@pytest.mark.parametrize("zeroed", [False, True], ids=["crop", "bias_column"])
+def test_caption_layer_teacher_forced_matches_jax(zeroed):
+    """The training pass of a caption layer over a whole caption: causal
+    and padding masks in self-attention, grouped shared-KV cross-attention
+    with and without the bias column; outputs and input gradients."""
+    rng = np.random.default_rng(9)
+    B, G, S, D, H, Tc = 2, 3, 13, 32, 2, 6
+    N = B * G
+    x = rng.normal(size=(N, Tc, D)).astype(np.float32)
+    memory = rng.normal(size=(B, S, D)).astype(np.float32)
+    causal = ~np.tril(np.ones((Tc, Tc), bool))
+    tgt_pad = np.zeros((N, Tc), bool)
+    tgt_pad[1, 4:] = True
+    crop = rng.uniform(size=(N, S)) < 0.5
+    crop[0] = True
+    if zeroed:
+        pad, zeroed_mask = rng.uniform(size=(N, S)) < 0.3, crop
+    else:
+        pad, zeroed_mask = crop, None
+    jm = jlayers.UnimodalCaptionDecoderLayer(D, H, 4.0)
+    params = perturb(jm.init(jax.random.PRNGKey(0), x, np.repeat(memory, G, 0)), 6)
+    jfn = lambda x_, m_: jm.apply(params, x_, m_, causal[None, None], tgt_pad, pad,
+                                  groups=G, zeroed_mask=zeroed_mask)
+    jout = jfn(x, memory)
+    jgx, jgm = jax.grad(lambda a, b: jfn(a, b).sum(), argnums=(0, 1))(x, memory)
+    tm = carry(tlayers.UnimodalCaptionDecoderLayer(D, H, 4.0), params).train()
+    tx, tmem = t(x).requires_grad_(), t(memory).requires_grad_()
+    tout = tm(tx, tmem, t(causal), t(tgt_pad), t(pad), groups=G,
+              zeroed_mask=None if zeroed_mask is None else t(zeroed_mask))
+    tout.sum().backward()
+    close(tout, jout)
+    close(tx.grad, jgx)
+    close(tmem.grad, jgm)
+
+
+def test_zeroed_tokens_tie_exactly_and_sort_by_index():
+    """Tokens whose encoder input is zeroed (padding, invalid proposals)
+    share one saliency exactly, so the top-K breaks their ties by index,
+    even when the saliency net rounds equal rows apart (as a GEMM on the
+    card may): its output gets noise of 1e-6 per row here."""
+    torch.manual_seed(0)
+    D, L = 32, len(SHAPES)
+    tr = ttr.SparseDeformableTransformer(d_model=D, num_heads=2, num_encoder_layers=1,
+                                         num_decoder_layers=1, dim_feedforward=64,
+                                         num_feature_levels=L, rho=0.5).eval()
+    rng = np.random.default_rng(10)
+    srcs = [t(rng.normal(size=(2, T, D)).astype(np.float32)) for T in SHAPES]
+    poses = [t(rng.normal(size=(2, T, D)).astype(np.float32)) for T in SHAPES]
+    masks = []
+    for T in SHAPES:
+        m = np.zeros((2, T), bool)
+        m[1, T // 2:] = True
+        masks.append(t(m))
+    predictor = tr.enc_mask_predictor.forward
+    tr.enc_mask_predictor.forward = lambda x: predictor(x) + 1e-6 * torch.randn(x.shape[:2])
+    with torch.no_grad():
+        enc = tr.prepare_encoder_inputs(srcs, masks, poses)
+    sal, mask = enc["saliency"], enc["mask_flatten"]
+    _, valid = ttr.gen_encoder_output_proposals(SHAPES, mask)
+    zeroed_real = ~valid & ~mask
+    assert int(zeroed_real[1].sum()) > 1  # the padded video has such tokens
+    for b in range(2):
+        vals = sal[b][zeroed_real[b]]
+        assert (vals == vals[:1]).all()
+        order = enc["topk"][b].tolist()
+        tied = [i for i in order if zeroed_real[b, i]]
+        assert tied == sorted(tied)
+
+
 def test_vocabulary_embedder_and_caption_table_match_jax():
     rng = np.random.default_rng(5)
     tokens = rng.integers(0, 30, size=(3, 5)).astype(np.int32)

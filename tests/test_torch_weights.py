@@ -82,3 +82,42 @@ def test_bf16_expansion_and_key_mapping():
     assert weights.torch_key("proposal||params||query_embedding") == "proposal.query_embedding"
     with pytest.raises(KeyError):
         weights.torch_key("proposal||batch_stats||x")
+
+
+@pytest.mark.parametrize("mask", [True, False], ids=["ctxmask", "cropmask"])
+def test_export_inverts_the_carry_at_small_dims(mask):
+    """export_flax_params(load_flax_params(flat)) gives back flat, leaf for
+    leaf, as copies that later updates of the model do not reach."""
+    from test_torch_common import build_jax_model, build_port_model, flatten_params, jax_small_cfg
+
+    jcfg = jax_small_cfg(use_differentiable_mask=mask)
+    _, params = build_jax_model(jcfg)
+    flat = flatten_params(params)
+    model = build_port_model(jcfg, params)
+    out = weights.export_flax_params(model)
+    assert set(out) == set(flat)
+    for k in flat:
+        np.testing.assert_array_equal(out[k], flat[k], err_msg=k)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(1.0)
+    for k in flat:
+        np.testing.assert_array_equal(out[k], flat[k], err_msg=k)
+
+
+def test_snapshot_key_set_round_trips_without_loading_the_tensors():
+    """Every key of conv_e79 maps to a state_dict name and back to itself
+    (the ranks come from the full-width model built on the meta device)."""
+    from multimodal_feature_learning_tpu_torch.models.dvc import UnimodalDVC
+
+    with np.load(str(SNAPSHOT)) as z:
+        keys = [k for k in z.files if k != "__epoch__"]
+    cfg = load_config()
+    cfg.use_differentiable_mask = False
+    with torch.device("meta"):
+        sd = UnimodalDVC(cfg, 6563).state_dict()
+    assert len(keys) == len(sd) == 463
+    for k in keys:
+        plain = k[len(weights.BF16_PREFIX):] if k.startswith(weights.BF16_PREFIX) else k
+        name = weights.torch_key(plain)
+        assert weights.flax_key(name, sd[name].dim()) == plain
