@@ -11,9 +11,11 @@ Phases, each printing one line with its wall seconds:
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the serving and training paths give it, with its time, the
    plain version's time and the least time the card could take (its
-   bound): the MSDA forward (K1) and the MSDA backward (K2), and the
-   autograd Function that joins them against autograd through the plain
-   core;
+   bound): the MSDA forward (K1) and the MSDA backward (K2), the autograd
+   Function that joins them against autograd through the plain core, and
+   the fused decode step (K3/K4) in both grids, dense and int8 memory K/V,
+   with and without the bias column, at decode steps 0, 9 and 18, and the
+   device time of each of its stages (a build that times its barriers);
 4. model: the flagship sparse DVC model at full width (d_model 512, 6+6
    transformer layers, 6 caption layers, vocab 6563) on the card, carrying
    the trained weights of snapshots/conv_e79.npz, loaded strictly;
@@ -21,16 +23,25 @@ Phases, each printing one line with its wall seconds:
    launch counts of every kernel read over exactly those requests;
 6. check: the served results are well formed and agree with the port's CPU
    path on a few of them;
-7. breakdown: where one dispatch's time goes (proposal half, greedy decode,
-   device busy share and the largest kernels, from torch.profiler);
-8. train: 1 + 5 training steps of the full-width model from conv_e79
+7. serve_fused: the same requests with the fused decode step
+   (decode_impl "fused"), once per kernel grid ("video", "batch"): the
+   kernel must launch once for every decode step of every dispatch;
+8. check_fused: on one batch of 16, the fused decode against the plain-op
+   decode on the card (k and segments equal, at least 90% of caption rows
+   identical), int8 memory K/V against dense, and the fused decode on the
+   card against the port's CPU path on a few videos;
+9. breakdown: for each decode_impl, where one dispatch's time goes (proposal
+   half, greedy decode, device busy share and the largest kernels, from
+   torch.profiler);
+10. train: 1 + 5 training steps of the full-width model from conv_e79
    through train_one_epoch (batch 16, dropout 0.1, synthetic batches from
    seed 0), with the launch counts of every kernel read over exactly those
    steps, the step time, the matcher's host time, peak memory, and the
    device busy share and largest kernels of one profiled step;
-9. train_check: one step of batch 2 with dropout off, from the same weights,
+11. train_check: one step of batch 2 with dropout off, from the same weights,
    on the card and on the port's CPU path: equal matchings, losses and
-   gradient norm within their tolerances.
+   gradient norm within their tolerances; and, for each encoder MSDA call of
+   that step, K2 against the plain backward on the CPU step's own inputs.
 
 Then one JSON line of kernel measurements and, as the last line, a JSON
 object naming the device. Any failure exits non-zero without that line, as
@@ -257,6 +268,188 @@ def check_msda(model_dims):
     return cases
 
 
+FUSED_STEPS = (0, 9, 18)  # decode steps at which the fused kernel is checked
+FUSED_TOL = 1e-4          # relative to max |ref| of x_out and of the committed rows
+
+
+def fused_decode_inputs(dims, bias_col: bool, kv_mode: str, seed: int):
+    """Inputs of one fused decode step at ``dims`` on the card, from a seed:
+    weights of the scale a trained layer has, memory K/V projected from a
+    random memory, caches full of random rows (the kernel may read only the
+    positions < valid_len). Event rows take windows of the S tokens, as the
+    crop mask makes them; with the bias column, a random context mask blocks
+    positions and the crop windows are the zeroed mask. Event 0 of video 0
+    has every position blocked."""
+    import torch
+
+    from multimodal_feature_learning_tpu_torch.ops import fused_decode as fd
+
+    B, G, D, H, depth, Tc, S, F = dims
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    w = {}
+    for name in fd.W_ORDER:
+        kind, _, which = name.partition("_")
+        width = F if name == "mlp_b1" or name == "mlp_w1" else D
+        if which.startswith("w"):
+            fan_in = F if name == "mlp_w2" else D
+            w[name] = randn(depth, fan_in, width, scale=fan_in ** -0.5)
+        elif kind.startswith("ln") and which == "s":
+            w[name] = 1.0 + randn(depth, 1, width, scale=0.1)
+        else:
+            w[name] = randn(depth, 1, width, scale=0.1)
+    Sp = fd.padded_len(S)
+    mem_k, mem_v = fd.stack_memory_kv(w, randn(B, S, D), Sp)
+    k_scales = v_scales = None
+    if kv_mode == "int8":
+        mem_k, k_scales = fd.quantize_kv_int8(mem_k)
+        mem_v, v_scales = fd.quantize_kv_int8(mem_v)
+    N = B * G
+    tok = torch.arange(S, device="cuda")
+    start = torch.randint(0, S - 8, (N, 1), generator=gen, device="cuda")
+    length = torch.randint(8, S // 2, (N, 1), generator=gen, device="cuda")
+    crop = ~((tok >= start) & (tok < start + length))
+    if bias_col:
+        pad = torch.rand((N, S), generator=gen, device="cuda") < 0.5
+        pad[0] = True
+        zeroed = crop
+    else:
+        pad, zeroed = crop, None
+        pad[0] = True
+    mask_i8, log_m = fd.decode_masks(pad, zeroed, B, G, Sp)
+    return {"x": randn(B, 2 * G, D), "k_caches": randn(depth, B, Tc * G, D),
+            "v_caches": randn(depth, B, Tc * G, D), "mem_k": mem_k, "mem_v": mem_v,
+            "k_scales": k_scales, "v_scales": v_scales, "mask_i8": mask_i8,
+            "log_m": log_m, "weights": w}
+
+
+def fused_decode_bound_ms(inp, dims, valid_len: int):
+    """Least time for one step on these inputs: every weight, the memory K/V
+    (and scales), mask, log_m and x read once, the cache rows of positions
+    < step read once, x_out and the committed rows written once; the f32
+    operations of the products (two per multiply-add): per layer the q, k, v
+    (commit rows), o, q', o' projections, the MLP, and both attentions over
+    the keys each row reads (valid_len own-event keys, Sp memory columns)."""
+    B, G, D, H, depth, Tc, S, F = dims
+    R, Sp = 2 * G, inp["mem_k"].shape[2]
+    M = B * R
+
+    def size(t):
+        return t.numel() * t.element_size() if t is not None else 0
+
+    nbytes = sum(size(t) for t in inp["weights"].values())
+    nbytes += sum(size(inp[k]) for k in ("mem_k", "mem_v", "k_scales", "v_scales",
+                                          "mask_i8", "log_m"))
+    nbytes += 2 * size(inp["x"])
+    row = D * 4
+    nbytes += 2 * depth * B * (valid_len - 1) * G * row  # cache rows read
+    nbytes += 2 * depth * B * G * row                    # committed rows written
+    macs = M * D * D * 4 + 2 * B * G * D * D + 2 * M * D * F \
+        + 2 * M * valid_len * D + 2 * M * Sp * D
+    flops = 2 * depth * macs
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
+    return (1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"),
+            nbytes, flops)
+
+
+def check_fused_decode(dims, steps_at=FUSED_STEPS):
+    """Phase 3: the fused decode kernel (K3/K4) against its plain version on
+    the card, at the serving path's shapes: grids "video" and "batch" x memory
+    K/V dense and int8 x bias column on and off, at steps 0, 9 and 18. The
+    kernel and the plain version start from the same caches; x_out and the
+    committed cache rows must agree within FUSED_TOL x max |ref|, and every
+    other cache row must be left exactly as it was."""
+    import torch
+
+    from multimodal_feature_learning_tpu_torch.ops import fused_decode as fd
+
+    B, G, D, H, depth, Tc, S, F = dims
+    lines = []
+    seed = 0
+    for grid in ("video", "batch"):
+        for kv_mode in ("dense", "int8"):
+            for bias_col in (False, True):
+                seed += 1
+                inp = fused_decode_inputs(dims, bias_col, kv_mode, seed)
+                steps = []
+                for step in steps_at:
+                    kw = dict(G=G, num_heads=H, has_bias_col=bias_col)
+                    args = lambda kc, vc: (inp["x"], kc, vc, step, step + 1, inp["mem_k"],  # noqa: E731
+                                           inp["mem_v"], inp["k_scales"], inp["v_scales"],
+                                           inp["mask_i8"], inp["log_m"], inp["weights"])
+                    kc0, vc0 = inp["k_caches"], inp["v_caches"]
+                    ref, rkc, rvc = fd.fused_decode_step_plain(*args(kc0.clone(), vc0.clone()), **kw)
+                    got, gkc, gvc = fd.FUSED_DECODE[grid](*args(kc0.clone(), vc0.clone()), **kw)
+                    torch.cuda.synchronize()
+                    rows = slice(step * G, (step + 1) * G)
+                    errs = {}
+                    for name, a, b in (("x_out", got, ref),
+                                       ("k_commit", gkc[:, :, rows], rkc[:, :, rows]),
+                                       ("v_commit", gvc[:, :, rows], rvc[:, :, rows])):
+                        err = (a - b).abs().max().item()
+                        scale = b.abs().max().item()
+                        if not (torch.isfinite(a).all() and err <= FUSED_TOL * scale):
+                            raise AssertionError(
+                                f"fused decode kernel disagrees with the plain version "
+                                f"({grid}, {kv_mode}, bias {bias_col}, step {step}, {name}): "
+                                f"max abs err {err} > {FUSED_TOL} x {scale}")
+                        errs[name] = {"max_abs_err": err, "max_abs_ref": scale}
+                    for name, a, b in (("k_caches", gkc, kc0), ("v_caches", gvc, vc0)):
+                        a, b = a.clone(), b.clone()
+                        a[:, :, rows] = b[:, :, rows] = 0
+                        if not torch.equal(a, b):
+                            raise AssertionError(f"the fused decode kernel wrote {name} rows "
+                                                 f"outside the commit rows of step {step}")
+                    kc, vc = kc0.clone(), vc0.clone()
+                    ms = time_cuda(lambda: fd.FUSED_DECODE[grid](*args(kc, vc), **kw))
+                    plain_ms = time_cuda(lambda: fd.fused_decode_step_plain(*args(kc, vc), **kw),
+                                         iters=10)
+                    bound_ms, bound_by, nbytes, flops = fused_decode_bound_ms(inp, dims, step + 1)
+                    steps.append({
+                        "step": step, "errors": errs,
+                        "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+                        "tolerance": FUSED_TOL * errs["x_out"]["max_abs_ref"],
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "bytes": nbytes, "flops": flops})
+                mid = steps[len(steps) // 2]
+                lines.append({
+                    "grid": grid, "kv": kv_mode, "bias_col": bias_col,
+                    "batch_tile": 1 if grid == "video" else fd.batch_tile_for(B),
+                    "max_abs_err": max(c["max_abs_err"] for c in steps),
+                    "ms": mid["ms"], "plain_ms": mid["plain_ms"], "bound_ms": mid["bound_ms"],
+                    "bound_by": mid["bound_by"],
+                    "library_ms": None,  # no single PyTorch call computes a decode step
+                    "steps": steps})
+                del inp
+    return lines
+
+
+def fused_stage_breakdown(dims):
+    """Phase 3: where one fused decode step's device time goes, from a build
+    of the kernel that records the device clock at each grid barrier
+    (``STAGE_TIMING_FLAGS``): per stage, the mean over the layers, for each
+    grid, at step 9 with dense K/V and no bias column."""
+    import torch
+
+    from multimodal_feature_learning_tpu_torch.ops import fused_decode as fd
+
+    B, G, D, H, depth, Tc, S, F = dims
+    inp = fused_decode_inputs(dims, False, "dense", seed=1)
+    out = {}
+    for grid in ("video", "batch"):
+        kernel = fd.FusedDecodeKernel(grid, "", flags=fd.STAGE_TIMING_FLAGS)
+        for _ in range(3):
+            kernel(inp["x"], inp["k_caches"], inp["v_caches"], 9, 10, inp["mem_k"],
+                   inp["mem_v"], None, None, inp["mask_i8"], inp["log_m"], inp["weights"],
+                   G=G, num_heads=H, has_bias_col=False)
+        torch.cuda.synchronize()
+        out[grid] = kernel.stage_us(depth)
+    return out
+
+
 def build_flagship(device):
     """Full-width flagship model on ``device`` with the trained weights of
     snapshots/conv_e79.npz, loaded strictly. conv_e79 was trained without
@@ -277,26 +470,65 @@ def build_flagship(device):
     return cfg, model, source, flat
 
 
-def serve(model, cfg):
-    """Phase 5: 48 requests of varying length through DVCServer. Returns the
-    requests, their results, latencies and the kernels' launch counts."""
+def make_requests(cfg):
+    """48 requests: random features of 120-900 tokens (numpy seed 0) and
+    durations of 10-180 s."""
     import numpy as np
-
-    from multimodal_feature_learning_tpu_torch.ops import msda
-    from multimodal_feature_learning_tpu_torch.serve import DVCServer
 
     rng = np.random.default_rng(0)
     feat_dim = cfg.dvc.detr.feature_dim
-    requests = [
+    return [
         (rng.normal(size=(int(rng.integers(120, 901)), feat_dim)).astype(np.float32),
          float(rng.uniform(10, 180)))
         for _ in range(N_REQUESTS)
     ]
+
+
+def kernel_counters():
+    """Every kernel wrapper of the port with its launch count, by name."""
+    from multimodal_feature_learning_tpu_torch.ops import fused_decode as fd
+    from multimodal_feature_learning_tpu_torch.ops import msda
+
+    return {"msda_fwd": msda.MSDA_FWD, "msda_bwd": msda.MSDA_BWD,
+            "fused_decode_video": fd.FUSED_DECODE["video"],
+            "fused_decode_batch": fd.FUSED_DECODE["batch"]}
+
+
+def decode_steps_run(captions, eos_idx: int, seq_len: int) -> int:
+    """Steps the greedy decode ran to produce ``captions`` (N, Lc+1): until
+    the last caption's first <eos>, at most seq_len - 1."""
+    import torch
+
+    is_eos = captions[:, 1:-1] == eos_idx
+    first_eos = torch.where(is_eos.any(1), is_eos.float().argmax(1) + 1,
+                            torch.full_like(is_eos[:, 0], seq_len - 1, dtype=torch.long))
+    return int(first_eos.max())
+
+
+def serve(model, requests):
+    """Phases 5 and 7: the requests through DVCServer. Every kernel's launch
+    count is set to 0 just before the first request and read just after the
+    last; the decode steps of every dispatch are read from its captions.
+    Returns the results, latencies, wall seconds, launches, the server's
+    stats and the decode steps per dispatch."""
+    from multimodal_feature_learning_tpu_torch.serve import DVCServer
+
     server = DVCServer(model, batch_size=BATCH, max_wait_ms=10.0)
+    steps = []
+    forward = model.forward_serve
+
+    def recording_forward(*args, **kwargs):
+        out = forward(*args, **kwargs)
+        captions = out["captions"].reshape(-1, out["captions"].shape[-1])
+        steps.append(decode_steps_run(captions, model.eos_idx, model.seq_len))
+        return out
+
+    model.forward_serve = recording_forward
+    counters = kernel_counters()
     try:
         done_at = [0.0] * N_REQUESTS
-        # count only the launches of these requests
-        msda.MSDA_FWD.launches = msda.MSDA_BWD.launches = 0
+        for k in counters.values():
+            k.launches = 0
         t0 = time.monotonic()
         futures = []
         for i, (feats, dur) in enumerate(requests):
@@ -312,17 +544,44 @@ def serve(model, cfg):
         if 0.0 in done_at:
             raise AssertionError("completion times were not recorded")
         wall = max(done_at) - t0
-        launches = {"msda_fwd": msda.MSDA_FWD.launches, "msda_bwd": msda.MSDA_BWD.launches}
+        launches = {name: k.launches for name, k in counters.items()}
         stats = dict(server.stats)
     finally:
         server.close()
+        del model.forward_serve
     latencies = [done_at[i] - t for i, (t, _) in enumerate(futures)]
-    return requests, results, latencies, wall, launches, stats
+    return results, latencies, wall, launches, stats, steps
 
 
-def check_results(cfg, model, requests, results):
-    """Served events are well formed, and match the port's CPU path (plain
-    MSDA core, CPU matmuls) on the first N_CHECK videos: k equal, segments
+def serve_fused(model, requests):
+    """Phase 7: the same requests with ``decode_impl="fused"``, once per
+    grid. The grid's kernel must have launched once for every decode step
+    of every dispatch, and the other grid's not at all."""
+    out = {}
+    for grid in ("video", "batch"):
+        model.decode_impl, model.decode_fused_grid = "fused", grid
+        try:
+            results, latencies, wall, launches, stats, steps = serve(model, requests)
+        finally:
+            model.decode_impl, model.decode_fused_grid = "xla", "video"
+        name, other = f"fused_decode_{grid}", f"fused_decode_{'batch' if grid == 'video' else 'video'}"
+        if launches[name] < sum(steps) or launches[other] or stats["dispatches"] != len(steps):
+            raise AssertionError(
+                f"{name} launched {launches[name]} times ({other} {launches[other]}) over "
+                f"{stats['dispatches']} dispatches of {steps} decode steps")
+        lat = sorted(latencies)
+        out[grid] = {"results": results, "launches": launches, "stats": {
+            "requests": N_REQUESTS, "answered": len(results), "dispatches": stats["dispatches"],
+            "videos_per_s": N_REQUESTS / wall, "p50_latency_s": lat[len(lat) // 2],
+            "max_latency_s": lat[-1], "step_s": stats["step_s"], "launches": launches,
+            "decode_steps_per_dispatch": steps,
+            "launches_per_dispatch": launches[name] / stats["dispatches"]}}
+    return out
+
+
+def check_results(cfg, model, requests, results, compare_cpu: bool = True):
+    """Served events are well formed and, with ``compare_cpu``, match the
+    port's CPU path (plain MSDA core, CPU matmuls) on the first N_CHECK videos: k equal, segments
     within 1e-3 of the duration, and at least 90% of caption rows identical
     (f32 sums in another order can flip a near-tie argmax, which changes the
     rest of that caption)."""
@@ -347,6 +606,8 @@ def check_results(cfg, model, requests, results):
             if len(ids) != Lc + 1 or ids[0] != model.bos_idx or not all(0 <= t < V for t in ids):
                 raise AssertionError(f"bad caption ids {ids}")
 
+    if not compare_cpu:
+        return None
     T = model.video_rescale_len
     video = np.stack([nearest_resize(f[None], T, axis=1)[0] for f, _ in requests[:N_CHECK]])
     durs = np.array([d for _, d in requests[:N_CHECK]], np.float32)
@@ -374,6 +635,98 @@ def check_results(cfg, model, requests, results):
             "caption_rows_equal": rows_equal, "caption_rows": rows}
 
 
+def check_fused(cfg, model, requests):
+    """Phase 8: the first BATCH requests as one batch through forward_serve
+    with the fused decode (both grids), with the plain-op decode, and with
+    int8 memory K/V, all on the card, and the fused decode on the port's CPU
+    path for the first N_CHECK videos. On the card k and segments are equal
+    (the proposal half is the same); the caption rows served (j < k) of the
+    fused decode are at least 90% identical to the plain-op decode's and to
+    the CPU path's (f32 sums in another order can flip a near-tie argmax,
+    which changes the rest of that caption). A row whose every memory
+    position is blocked is left out of the comparison with the plain-op
+    decode: there the fused step averages V over the Sp padded columns, as
+    the TPU kernel does, and the plain-op decode over the S columns, as
+    JAX's XLA path does (ROADMAP Queue 3); such rows are counted."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from multimodal_feature_learning_tpu_torch.data.anet import nearest_resize
+
+    T = model.video_rescale_len
+    video = np.stack([nearest_resize(f[None], T, axis=1)[0] for f, _ in requests[:BATCH]])
+    durs = np.array([d for _, d in requests[:BATCH]], np.float32)
+
+    def run(m, impl, grid="video", kv="dense", n=BATCH):
+        dev = next(m.parameters()).device
+        m.decode_impl, m.decode_fused_grid, m.decode_kv = impl, grid, kv
+        try:
+            out = m.forward_serve(torch.from_numpy(video[:n]).to(dev),
+                                  torch.zeros((n, T), dtype=torch.bool, device=dev),
+                                  torch.from_numpy(durs[:n]).to(dev))
+        finally:
+            m.decode_impl, m.decode_fused_grid, m.decode_kv = "xla", "video", "dense"
+        return {k: v.cpu() for k, v in out.items()}
+
+    def agreement(a, b, skip=()):
+        rows = [(i, j) for i in range(a["k"].shape[0]) for j in range(int(a["k"][i]))
+                if (i, j) not in skip]
+        same = sum(bool(torch.equal(a["captions"][i, j], b["captions"][i, j])) for i, j in rows)
+        tokens = np.mean([(a["captions"][i, j] == b["captions"][i, j]).float().mean().item()
+                          for i, j in rows])
+        return same, len(rows), float(tokens)
+
+    plain = run(model, "xla")
+    dev = next(model.parameters()).device
+    with torch.no_grad():
+        prep = model._serve_prepare(torch.from_numpy(video).to(dev),
+                                    torch.zeros(video.shape[:2], dtype=torch.bool,
+                                                device=dev),
+                                    torch.from_numpy(durs).to(dev))
+    blocked = prep["caption_pad_mask"].all(dim=1).reshape(BATCH, -1).cpu()
+    blocked_rows = {(i, j) for i in range(BATCH) for j in range(int(plain["k"][i]))
+                    if blocked[i, j]}
+    report = {"served_rows_fully_blocked": len(blocked_rows)}
+    for grid in ("video", "batch"):
+        fused = run(model, "fused", grid)
+        if not (torch.equal(fused["k"], plain["k"])
+                and torch.equal(fused["segments"], plain["segments"])):
+            raise AssertionError(f"fused ({grid}) and plain-op serving differ in k or segments")
+        same, rows, tokens = agreement(fused, plain, skip=blocked_rows)
+        if same < 0.9 * rows:
+            raise AssertionError(f"fused ({grid}) decode: {same}/{rows} caption rows equal "
+                                 f"to the plain-op decode's")
+        report[grid] = {"caption_rows_equal_to_plain": same, "caption_rows": rows,
+                        "token_agreement_with_plain": tokens,
+                        "all_served_rows_equal_to_plain": agreement(fused, plain)[0]}
+        if grid == "video":
+            video_fused = fused
+    same_vb, _, _ = agreement(video_fused, fused)
+    int8 = run(model, "fused", "video", "int8")
+    same8, rows8, tokens8 = agreement(int8, video_fused)
+
+    cpu_model = copy.deepcopy(model).cpu()
+    cpu = run(cpu_model, "fused", n=N_CHECK)
+    del cpu_model
+    card = {k: v[:N_CHECK] for k, v in video_fused.items()}
+    if not torch.equal(cpu["k"], card["k"]):
+        raise AssertionError(f"fused decode: card k {card['k']} != CPU k {cpu['k']}")
+    seg_err = float(((cpu["segments"] - card["segments"]).abs()
+                     / torch.from_numpy(durs[:N_CHECK])[:, None, None]).max())
+    same_cpu, rows_cpu, tokens_cpu = agreement(card, cpu)
+    if seg_err > 1e-3 or same_cpu < 0.9 * rows_cpu:
+        raise AssertionError(f"fused decode, card vs CPU: segment err {seg_err} of the "
+                             f"duration, {same_cpu}/{rows_cpu} caption rows equal")
+    return {"videos": BATCH, **report, "video_vs_batch_rows_equal": same_vb,
+            "int8_vs_dense": {"caption_rows_equal": same8, "caption_rows": rows8,
+                              "token_agreement": tokens8},
+            "cpu_videos": N_CHECK, "cpu_max_segment_err_of_duration": seg_err,
+            "cpu_caption_rows_equal": same_cpu, "cpu_caption_rows": rows_cpu,
+            "cpu_token_agreement": tokens_cpu}
+
+
 def device_kernels(prof):
     """(name, device microseconds, count) of every kernel a profile saw on
     the card; the ranges of record_function (user annotations, such as the
@@ -385,15 +738,33 @@ def device_kernels(prof):
             and not getattr(e, "is_user_annotation", False)]
 
 
-def breakdown(model, requests):
-    """Phase 7: where one dispatch's time goes, on the first BATCH requests.
-    Host-clock milliseconds of the proposal half (``_serve_prepare``) and of
-    the greedy decode, each ending in a synchronize (median of 5 runs); then
-    one forward_serve under torch.profiler: the device time of its kernels,
-    their share of the wall time, and the largest kernels by device time."""
-    import numpy as np
+def profile_call(fn):
+    """One call of ``fn`` under torch.profiler, ending in a synchronize:
+    (wall ms, device kernel ms, kernel launches, kernels)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = device_kernels(prof)
+    return (wall_ms, sum(us for _, us, _ in kernels) / 1e3, sum(c for _, _, c in kernels),
+            kernels)
+
+
+def breakdown(model, requests):
+    """Phase 9: where one dispatch's time goes, on the first BATCH requests,
+    for each decode_impl in turn. Host-clock milliseconds of the proposal
+    half (``_serve_prepare``) and of the greedy decode, each ending in a
+    synchronize (median of 5 runs); the decode alone under torch.profiler
+    (device ms, launches, busy share); then one forward_serve under
+    torch.profiler: the device time of its kernels, their share of the wall
+    time, and the largest kernels by device time."""
+    import numpy as np
+    import torch
 
     from multimodal_feature_learning_tpu_torch.data.anet import nearest_resize
     from multimodal_feature_learning_tpu_torch.models.caption_decoder import greedy_decode
@@ -404,49 +775,54 @@ def breakdown(model, requests):
         [nearest_resize(f[None], T, axis=1)[0] for f, _ in requests[:BATCH]])).to(dev)
     durs = torch.tensor([d for _, d in requests[:BATCH]], dtype=torch.float32, device=dev)
     mask = torch.zeros(video.shape[:2], dtype=torch.bool, device=dev)
-    prep_ms, dec_ms = [], []
-    with torch.no_grad():
-        for _ in range(5):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            prep = model._serve_prepare(video, mask, durs)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            caps = greedy_decode(model.caption, prep["memory"], prep["caption_pad_mask"],
+    out = {"batch": BATCH}
+    for impl in ("xla", "fused"):
+        model.decode_impl = impl
+
+        def decode(prep):
+            return greedy_decode(model.caption, prep["memory"], prep["caption_pad_mask"],
                                  model.seq_len, model.bos_idx, model.eos_idx,
                                  model.pad_idx, groups=model.max_gt,
-                                 zeroed_mask=prep["zeroed"])
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            prep_ms.append(1e3 * (t1 - t0))
-            dec_ms.append(1e3 * (t2 - t1))
-    # decode steps run: until the last caption's <eos>, at most seq_len - 1
-    is_eos = (caps[:, 1:-1] == model.eos_idx)
-    first_eos = torch.where(is_eos.any(1), is_eos.float().argmax(1) + 1,
-                            torch.full_like(is_eos[:, 0], model.seq_len - 1, dtype=torch.long))
-    steps = int(first_eos.max())
+                                 zeroed_mask=prep["zeroed"], decode_impl=impl)
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        model.forward_serve(video, mask, durs)
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    kernels = device_kernels(prof)
-    device_ms = sum(us for _, us, _ in kernels) / 1e3
-    top = sorted(kernels, key=lambda k: -k[1])[:6]
-    return {
-        "batch": BATCH,
-        "prepare_ms_median": sorted(prep_ms)[2],
-        "decode_ms_median": sorted(dec_ms)[2],
-        "decode_steps": steps,
-        "profiled_wall_ms": wall_ms,
-        "device_kernel_ms": device_ms,
-        "device_busy_share": device_ms / wall_ms,
-        "kernel_launches": sum(c for _, _, c in kernels),
-        "msda_device_ms": sum(us for k, us, _ in kernels if "msda_fwd" in k) / 1e3,
-        "top_kernels": [{"name": k[:90], "ms": us / 1e3, "count": c} for k, us, c in top],
-    }
+        prep_ms, dec_ms = [], []
+        try:
+            with torch.no_grad():
+                for _ in range(5):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    prep = model._serve_prepare(video, mask, durs)
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    caps = decode(prep)
+                    torch.cuda.synchronize()
+                    t2 = time.perf_counter()
+                    prep_ms.append(1e3 * (t1 - t0))
+                    dec_ms.append(1e3 * (t2 - t1))
+                dec_wall, dec_dev, dec_launches, _ = profile_call(lambda: decode(prep))
+                wall_ms, device_ms, launches, kernels = profile_call(
+                    lambda: model.forward_serve(video, mask, durs))
+        finally:
+            model.decode_impl = "xla"
+        top = sorted(kernels, key=lambda k: -k[1])[:6]
+        out[impl] = {
+            "prepare_ms_median": sorted(prep_ms)[2],
+            "decode_ms_median": sorted(dec_ms)[2],
+            "decode_steps": decode_steps_run(caps, model.eos_idx, model.seq_len),
+            "profiled_decode_wall_ms": dec_wall,
+            "profiled_decode_device_ms": dec_dev,
+            "profiled_decode_launches": dec_launches,
+            "decode_device_busy_share": dec_dev / dec_wall,
+            "profiled_wall_ms": wall_ms,
+            "device_kernel_ms": device_ms,
+            "device_busy_share": device_ms / wall_ms,
+            "kernel_launches": launches,
+            "msda_device_ms": sum(us for k, us, _ in kernels if "msda_fwd" in k) / 1e3,
+            "fused_decode_device_ms": sum(us for k, us, _ in kernels
+                                          if "fused_decode" in k) / 1e3,
+            "top_kernels": [{"name": k[:90], "ms": us / 1e3, "count": c} for k, us, c in top],
+        }
+    return out
 
 
 TRAIN_STEPS = 5  # measured steps, after one warm-up step
@@ -468,11 +844,9 @@ def param_grad_report(model):
 
 
 def train(cfg, flat, vocab_size):
-    """Phase 8: 1 + TRAIN_STEPS steps through train_one_epoch at full width,
+    """Phase 10: 1 + TRAIN_STEPS steps through train_one_epoch at full width,
     from conv_e79, with dropout. Kernel launch counts are set to 0 just
     before and read just after; then one more step under torch.profiler."""
-    import copy
-
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -570,8 +944,74 @@ def taps_near_whole_tokens(loc, shapes, tol=1e-4):
     return float(near.sum()) / max(float(inside.sum()), 1.0)
 
 
+class recording_msda_calls:
+    """Within the block, every MSDA call of the model (``models/msda_module``)
+    records its (value, loc, aw) and, once the backward has run, the
+    gradient of its output: a list of dicts, in call order."""
+
+    def __enter__(self):
+        from multimodal_feature_learning_tpu_torch.models import msda_module
+
+        self.module, self.orig, records = msda_module, msda_module.ms_deform_attn, []
+
+        def recording(value, shapes, loc, aw):
+            out = self.orig(value, shapes, loc, aw)
+            rec = {"value": value.detach(), "shapes": tuple(shapes), "loc": loc.detach(),
+                   "aw": aw.detach()}
+            if out.requires_grad:
+                out.register_hook(lambda g: rec.__setitem__("g", g.detach().contiguous()))
+            records.append(rec)
+            return out
+
+        msda_module.ms_deform_attn = recording
+        return records
+
+    def __exit__(self, *exc):
+        self.module.ms_deform_attn = self.orig
+
+
+def encoder_dloc_gaps(calls, enc_layers: int):
+    """For each encoder MSDA call of the CPU step: K2 on the card and the
+    plain backward on the CPU, both on that step's own (value, loc, aw, g);
+    the largest dloc gap over all taps and over the taps whose coordinate
+    x = loc * T - 0.5 lies more than 1e-4 from a whole token. Then the same
+    plain backward on the card step's own inputs: how many taps have another
+    floor(x) there than on the CPU, and the dloc gap of the two steps on
+    those taps and on the rest."""
+    from multimodal_feature_learning_tpu_torch.ops.ms_deform_attn import (
+        ms_deform_attn_core_backward,
+    )
+    from multimodal_feature_learning_tpu_torch.ops.msda import MSDA_BWD
+
+    layers = []
+    for i in range(enc_layers):
+        cpu, card = calls["cpu"][i], calls["cuda"][i]
+        v, shapes, loc, aw, g = (cpu[k] for k in ("value", "shapes", "loc", "aw", "g"))
+        ref = ms_deform_attn_core_backward(v, shapes, loc, aw, g)[1]
+        got = MSDA_BWD(v.cuda(), shapes, loc.cuda(), aw.cuda(), g.cuda())[1].cpu()
+        T = loc.new_tensor([float(t) for t in shapes])[:, None]
+        x = loc * T - 0.5
+        near = (x - x.round()).abs() < 1e-4
+        gap = (got - ref).abs()
+        card_loc = card["loc"].cpu()
+        other_floor = (card_loc * T - 0.5).floor() != x.floor()
+        card_ref = ms_deform_attn_core_backward(card["value"].cpu(), shapes, card_loc,
+                                                card["aw"].cpu(), card["g"].cpu())[1]
+        step_gap = (card_ref - ref).abs()
+        layers.append({
+            "Q": loc.shape[1], "taps": loc.numel(), "near_whole_token_taps": int(near.sum()),
+            "max_abs_dloc": ref.abs().max().item(),
+            "k2_vs_plain_all_taps": gap.max().item(),
+            "k2_vs_plain_off_whole_tokens": gap.masked_fill(near, 0).max().item(),
+            "taps_with_other_floor_card_vs_cpu": int(other_floor.sum()),
+            "card_vs_cpu_step_gap_other_floor": step_gap.masked_fill(~other_floor, 0).max().item(),
+            "card_vs_cpu_step_gap_same_floor": step_gap.masked_fill(other_floor, 0).max().item(),
+        })
+    return layers
+
+
 def train_check(cfg, flat, vocab_size):
-    """Phase 9: one step of batch 2 with dropout off, from conv_e79, on the
+    """Phase 11: one step of batch 2 with dropout off, from conv_e79, on the
     card and on the port's CPU path (plain MSDA core and backward, CPU
     matmuls). Matchings equal; total loss within rel 1e-4; every loss term
     within rel 1e-3 (atol 1e-5); gradient norm within rel 1e-3. The card
@@ -597,7 +1037,7 @@ def train_check(cfg, flat, vocab_size):
         cfg.dvc.caption, positional_embedding_dropout=0.0, attention_dropout=0.0,
         projection_dropout=0.0, mlp_dropout_1=0.0, mlp_dropout_2=0.0))
     batch = next(synthetic_batches(cfg, 2, vocab_size, seed=0))
-    result, clipped = {}, {}
+    result, clipped, calls = {}, {}, {}
     for device in ("cuda", "cpu"):
         model = build_model(cfg, vocab_size, device=device)
         load_flax_params(model, flat)
@@ -609,11 +1049,13 @@ def train_check(cfg, flat, vocab_size):
             near = {k: taps_near_whole_tokens(out[f"sampling_locations_{k}"],
                                               out["temporal_shapes"]) for k in ("enc", "dec")}
         state = create_train_state(cfg, model, steps_per_epoch=1000)
-        metrics = make_train_step(criterion, weight_dict, seed=cfg.seed)(state, tb)
+        with recording_msda_calls() as calls[device]:
+            metrics = make_train_step(criterion, weight_dict, seed=cfg.seed)(state, tb)
         result[device] = (idx.cpu(), idx_aux.cpu(), {k: float(v) for k, v in metrics.items()
                                                      if k not in ("lr", "matcher_ms")})
         # the gradients after the clip, which scales both sides to norm 0.1
         clipped[device] = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    enc_dloc = encoder_dloc_gaps(calls, cfg.dvc.detr.enc_layers)
     (gi, ga, gm), (ci, ca, cm) = result["cuda"], result["cpu"]
     gaps = sorted(((float((clipped["cuda"][n] - clipped["cpu"][n]).norm()), n)
                    for n in clipped["cpu"]), reverse=True)
@@ -633,6 +1075,7 @@ def train_check(cfg, flat, vocab_size):
             "worst_term_rel": max(rel[k] for k in terms),
             "clipped_grad_gap_norm": math.sqrt(sum(g * g for g, _ in gaps)),
             "inside_taps_within_1e-4_of_a_whole_token": near,
+            "encoder_dloc": enc_dloc,
             "largest_grad_gaps": [{"param": n, "gap_norm": g} for g, n in gaps[:5]]}
 
 
@@ -652,8 +1095,9 @@ def main() -> int:
         return 1
     from multimodal_feature_learning_tpu_torch.config import load_config
     from multimodal_feature_learning_tpu_torch.models.base_encoder import pyramid_shapes
-    from multimodal_feature_learning_tpu_torch.ops import build, msda
+    from multimodal_feature_learning_tpu_torch.ops import build
     from multimodal_feature_learning_tpu_torch.ops.build import CSRC_DIR
+    from multimodal_feature_learning_tpu_torch.ops.fused_decode import STAGE_TIMING_FLAGS
 
     t_all = time.monotonic()
     torch.cuda.set_device(0)
@@ -669,7 +1113,7 @@ def main() -> int:
         cuda=torch.version.cuda)
 
     t = time.monotonic()
-    built = build.build()
+    built = build.build(variants=[("fused_decode.cu", STAGE_TIMING_FLAGS)])
     log("build", time.monotonic() - t, nvcc_seconds=built,
         sources=sorted(p.name for p in CSRC_DIR.glob("*.cu")))
 
@@ -686,6 +1130,15 @@ def main() -> int:
     bwd_cases, function_err = check_msda_bwd(dims)
     for c in bwd_cases:
         log("kernel", 0.0, name="msda_bwd", **c)
+    caption = cfg0.dvc.caption
+    anet = cfg0.dataset.activity_net
+    fused_dims = (BATCH, anet.max_gt_target_segments, caption.d_model, caption.num_heads,
+                  caption.depth, anet.max_caption_len_all, sum(shapes),
+                  int(caption.d_model * caption.mlp_ratio))
+    fused_lines = check_fused_decode(fused_dims)
+    for line in fused_lines:
+        log("kernel", 0.0, name=f"fused_decode_{line['grid']}", **line)
+    log("fused_stages", 0.0, **fused_stage_breakdown(fused_dims))
     log("kernels", time.monotonic() - t, function_vs_plain_autograd_rel_err=function_err)
 
     t = time.monotonic()
@@ -695,7 +1148,8 @@ def main() -> int:
         d_model=cfg.dvc.d_model, temporal_shapes=list(shapes))
 
     t = time.monotonic()
-    requests, results, latencies, wall, launches, stats = serve(model, cfg)
+    requests = make_requests(cfg)
+    results, latencies, wall, launches, stats, _ = serve(model, requests)
     dispatches = stats["dispatches"]
     if len(results) != N_REQUESTS:
         raise AssertionError(f"{len(results)} of {N_REQUESTS} requests answered")
@@ -718,6 +1172,16 @@ def main() -> int:
     log("check", time.monotonic() - t, **agreement)
 
     t = time.monotonic()
+    fused_served = serve_fused(model, requests)
+    for grid, served in fused_served.items():
+        check_results(cfg, model, requests, served["results"], compare_cpu=False)
+    log("serve_fused", time.monotonic() - t,
+        **{grid: served["stats"] for grid, served in fused_served.items()})
+
+    t = time.monotonic()
+    log("check_fused", time.monotonic() - t, **check_fused(cfg, model, requests))
+
+    t = time.monotonic()
     where_time_goes = breakdown(model, requests)
     log("breakdown", time.monotonic() - t, **where_time_goes)
     vocab_size = model.caption.head.out_features
@@ -734,25 +1198,43 @@ def main() -> int:
 
     enc = next(c for c in cases if c["call"] == "encoder" and c["dtype"] == "float32")
     enc_bwd = next(c for c in bwd_cases if c["call"] == "encoder")
+    counters = kernel_counters()
     kernels = []
-    for name, kernel, case, all_cases, line in (
-            ("msda_fwd", msda.MSDA_FWD, enc, cases, 37),
-            ("msda_bwd", msda.MSDA_BWD, enc_bwd, bwd_cases, 117)):
+    for name, case, all_cases, replaces, shape in (
+            ("msda_fwd", enc, cases, "multimodal_feature_learning_tpu/ops/pallas_msda.py:37",
+             f"encoder call, B={BATCH} Q={enc['Q']} f32"),
+            ("msda_bwd", enc_bwd, bwd_cases,
+             "multimodal_feature_learning_tpu/ops/pallas_msda.py:117",
+             f"encoder call, B={BATCH} Q={enc_bwd['Q']} f32")):
         kernels.append({
-            "name": name,
-            "route": "cuda",
-            "source": os.path.relpath(str(CSRC_DIR / kernel.source), ROOT),
-            "replaces": f"multimodal_feature_learning_tpu/ops/pallas_msda.py:{line}",
+            "name": name, "route": "cuda",
+            "source": os.path.relpath(str(CSRC_DIR / counters[name].source), ROOT),
+            "replaces": replaces,
             "launches": trained["launches"][name],
-            "launches_by_path": {"serve": launches[name], "train": trained["launches"][name]},
-            "max_abs_err": case["max_abs_err"],
-            "ms": case["ms"],
-            "plain_ms": case["plain_ms"],
-            "bound_ms": case["bound_ms"],
-            "bound_by": case["bound_by"],
+            "launches_by_path": {"serve": launches[name],
+                                 "serve_fused": fused_served["video"]["launches"][name],
+                                 "train": trained["launches"][name]},
+            "max_abs_err": case["max_abs_err"], "ms": case["ms"], "plain_ms": case["plain_ms"],
+            "bound_ms": case["bound_ms"], "bound_by": case["bound_by"], "library_ms": None,
+            "shape": shape, "cases": all_cases,
+        })
+    for grid in ("video", "batch"):
+        name = f"fused_decode_{grid}"
+        lines = [line for line in fused_lines if line["grid"] == grid]
+        main_case = next(line for line in lines if line["kv"] == "dense" and not line["bias_col"])
+        n = fused_served[grid]["launches"][name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": os.path.relpath(str(CSRC_DIR / counters[name].source), ROOT),
+            "replaces": counters[name].replaces,
+            "launches": n, "launches_by_path": {"serve_fused": n},
+            "max_abs_err": max(line["max_abs_err"] for line in lines),
+            "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+            "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
             "library_ms": None,
-            "shape": f"encoder call, B={BATCH} Q={case['Q']} f32",
-            "cases": all_cases,
+            "shape": f"one decode step, B={BATCH} G={fused_dims[1]} D={fused_dims[2]} "
+                     f"depth {fused_dims[4]} Sp=640 f32, dense K/V, no bias column, step 9",
+            "cases": [{k: v for k, v in line.items() if k != "steps"} for line in lines],
         })
     log("total", time.monotonic() - t_all)
     print(json.dumps({"kernels": kernels}), flush=True)

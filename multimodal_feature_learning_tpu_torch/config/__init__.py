@@ -1,3 +1,3 @@
-from .defaults import Config, load_config, recompute_losses
+from .defaults import Config, check_decode_options, load_config, recompute_losses
 
-__all__ = ["Config", "load_config", "recompute_losses"]
+__all__ = ["Config", "check_decode_options", "load_config", "recompute_losses"]

@@ -97,9 +97,25 @@ class Config:
     epochs: int = 200
     use_differentiable_mask: bool = True
     compute_dtype: str = "float32"
-    decode_impl: str = "xla"
+    decode_impl: str = "xla"      # "xla" (plain-op loop) | "fused" (one kernel a step)
+    decode_kv: str = "dense"       # fused path's memory K/V: "dense" | "int8"
+    decode_fused_grid: str = "video"  # fused kernel's schedule: "video" | "batch"
     dvc: DVCConfig = field(default_factory=DVCConfig)
     dataset: DatasetConfig = field(default_factory=DatasetConfig)
+
+
+DECODE_CHOICES = {
+    "decode_impl": ("xla", "fused"),
+    "decode_kv": ("dense", "int8"),
+    "decode_fused_grid": ("video", "batch"),
+}
+
+
+def check_decode_options(**options) -> None:
+    """Raise ``ValueError`` on an unknown value of a decode knob."""
+    for name, value in options.items():
+        if value not in DECODE_CHOICES[name]:
+            raise ValueError(f"{name} must be one of {DECODE_CHOICES[name]}, got {value!r}")
 
 
 def recompute_losses(cfg: Config) -> None:

@@ -1,11 +1,10 @@
 """Minimal vocabulary for turning caption ids into words; the port's copy of
-what serving needs from the JAX ``data/vocab.py::Vocab``."""
+what serving needs from the JAX ``data/vocab.py::Vocab`` (strings are made
+by ``utils.postprocess.captions_to_string``)."""
 
 from __future__ import annotations
 
-from typing import Iterable, List
-
-SPECIALS = ["<unk>", "<pad>", "<bos>", "<eos>"]
+from typing import List
 
 
 class Vocab:
@@ -27,8 +26,3 @@ class Vocab:
     @property
     def eos_idx(self):
         return self.stoi["<eos>"]
-
-    def decode(self, ids: Iterable[int]) -> str:
-        """Token ids -> words joined by spaces, special tokens dropped."""
-        specials = {self.stoi[s] for s in SPECIALS if s in self.stoi}
-        return " ".join(self.itos[int(i)] for i in ids if int(i) not in specials)

@@ -1,13 +1,17 @@
 """Per-event caption decoder: the teacher-forced pass of training and the
 KV-cached greedy decode of serving; counterpart of the JAX
-``models/caption_decoder.py`` (``decode_impl`` "xla": plain ops, one
-``decode_pair`` per token)."""
+``models/caption_decoder.py``. The greedy decode runs as plain ops, one
+``decode_pair`` per token (``decode_impl`` "xla"), or through the fused
+decode step, one kernel launch per token (``decode_impl`` "fused",
+``ops/fused_decode.py``)."""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from ..config import check_decode_options
+from ..ops import fused_decode as fd
 from .embeddings import VocabularyEmbedder, caption_positional_encoding
 from .layers import Dropout, UnimodalCaptionDecoderLayer
 
@@ -25,6 +29,7 @@ class UnimodalCaptionDecoder(nn.Module):
                  mlp_dropout_2: float = 0.0):
         super().__init__()
         self.depth = depth
+        self.num_heads = num_heads
         self.target_embedding = VocabularyEmbedder(vocab_size, d_model)
         self.register_buffer("pos_table", caption_positional_encoding(d_model),
                              persistent=False)
@@ -85,6 +90,9 @@ def greedy_decode(
     faster_eval: bool = False,
     groups: int = 1,
     zeroed_mask=None,
+    decode_impl: str = "xla",
+    kv_mode: str = "dense",
+    fused_grid: str = "video",
 ) -> torch.Tensor:
     """KV-cached greedy decode. Argmax per step; without ``faster_eval``
     captions freeze after <eos> (later slots take <pad>), the loop ends once
@@ -92,28 +100,43 @@ def greedy_decode(
     emitted) is appended; with ``faster_eval`` every slot takes the raw
     argmax and an <eos> column is appended.
 
+    ``decode_impl`` "xla" runs each step as plain ops (``decode_pair``);
+    "fused" runs it through ``ops.fused_decode.fused_decode_step`` with the
+    memory K/V kept ``kv_mode`` ("dense" or "int8") and the kernel's
+    ``fused_grid`` schedule ("video" or "batch"); it needs ``groups`` > 1.
+
     Returns (N, seq_len + 1) int64 token ids including <bos>.
     """
+    check_decode_options(decode_impl=decode_impl, decode_kv=kv_mode,
+                         decode_fused_grid=fused_grid)
     N = memory.shape[0] * groups
     D = memory.shape[2]
     dev = memory.device
-    mem_kv = module.precompute_memory_kv(memory)
-
     captions = torch.full((N, seq_len), pad_idx, dtype=torch.long, device=dev)
     captions[:, 0] = bos_idx
     done = torch.zeros((N,), dtype=torch.bool, device=dev)
-    k_caches = memory.new_zeros((module.depth, N, seq_len, D))
-    v_caches = memory.new_zeros((module.depth, N, seq_len, D))
     pad_tok = torch.full((N,), pad_idx, dtype=torch.long, device=dev)
+
+    if decode_impl == "fused":
+        if groups <= 1:
+            raise ValueError("the fused decode needs the grouped shared-KV path (groups > 1)")
+        step_logits = _fused_step_fn(module, memory, memory_padding_mask, seq_len, groups,
+                                     zeroed_mask, kv_mode, fused_grid, captions, pad_tok)
+    else:
+        mem_kv = module.precompute_memory_kv(memory)
+        k_caches = memory.new_zeros((module.depth, N, seq_len, D))
+        v_caches = memory.new_zeros((module.depth, N, seq_len, D))
+
+        def step_logits(t):
+            return module.decode_pair(
+                captions[:, t - 1], pad_tok, t - 1, k_caches, v_caches, mem_kv,
+                memory_padding_mask, groups, zeroed_mask)
 
     for t in range(1, seq_len):
         # early exit once every caption has emitted <eos> (one host sync a step)
         if not faster_eval and bool(done.all()):
             break
-        logits = module.decode_pair(
-            captions[:, t - 1], pad_tok, t - 1, k_caches, v_caches, mem_kv,
-            memory_padding_mask, groups, zeroed_mask)
-        tok = logits.argmax(dim=-1)
+        tok = step_logits(t).argmax(dim=-1)
         if not faster_eval:
             tok = torch.where(done, pad_tok, tok)
         captions[:, t] = tok
@@ -125,3 +148,35 @@ def greedy_decode(
         has_eos = (captions == eos_idx).any(dim=1)
         last = torch.where(has_eos, pad_idx, eos_idx).long()
     return torch.cat([captions, last[:, None]], dim=1)
+
+
+def _fused_step_fn(module, memory, memory_padding_mask, seq_len, groups, zeroed_mask,
+                   kv_mode, fused_grid, captions, pad_tok):
+    """The fused path's inputs (JAX ``_greedy_decode_fused``) and a function
+    of t that commits token t-1 of ``captions`` and returns the f32 logits
+    at t. Embeddings and the vocabulary head stay plain ops, as in JAX; the
+    layers run in one ``fused_decode_step``."""
+    B, S, D = memory.shape
+    G = groups
+    Sp = fd.padded_len(S)
+    weights = fd.extract_decoder_weights(module)
+    mem_k, mem_v = fd.stack_memory_kv(weights, memory, Sp)
+    k_scales = v_scales = None
+    if kv_mode == "int8":
+        mem_k, k_scales = fd.quantize_kv_int8(mem_k)
+        mem_v, v_scales = fd.quantize_kv_int8(mem_v)
+    mask_i8, log_m = fd.decode_masks(memory_padding_mask, zeroed_mask, B, G, Sp)
+    k_caches = memory.new_zeros((module.depth, B, seq_len * G, D))
+    v_caches = memory.new_zeros((module.depth, B, seq_len * G, D))
+
+    def step_logits(t):
+        x_prev = module.embed_at(captions[:, t - 1], t - 1)[:, 0].reshape(B, G, D)
+        x_next = module.embed_at(pad_tok, t)[:, 0].reshape(B, G, D)
+        x = torch.cat([x_prev, x_next], dim=1).contiguous()  # (B, 2G, D), t-major rows
+        x_out, _, _ = fd.fused_decode_step(
+            x, k_caches, v_caches, t - 1, t, mem_k, mem_v, k_scales, v_scales,
+            mask_i8, log_m, weights, G=G, num_heads=module.num_heads,
+            has_bias_col=zeroed_mask is not None, grid_mode=fused_grid)
+        return module.head(x_out[:, G:].reshape(B * G, D)).float()
+
+    return step_logits

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..config import check_decode_options
 from ..device import resolve_device, set_f32_numerics
 from ..ops.hungarian import batched_hungarian
 from ..ops.segment_ops import denormalize_segments, inverse_sigmoid
@@ -155,10 +156,13 @@ class UnimodalDVC(nn.Module):
         anet = cfg.dataset.activity_net
         if cfg.compute_dtype != "float32":
             raise NotImplementedError("the port serves in float32 only")
-        if cfg.decode_impl != "xla":
-            raise NotImplementedError("the port decodes with the plain-op loop only")
         if not dvc.use_sparse_detr:
             raise NotImplementedError("the port serves the sparse family only")
+        check_decode_options(decode_impl=cfg.decode_impl, decode_kv=cfg.decode_kv,
+                             decode_fused_grid=cfg.decode_fused_grid)
+        self.decode_impl = cfg.decode_impl
+        self.decode_kv = cfg.decode_kv
+        self.decode_fused_grid = cfg.decode_fused_grid
         self.pad_idx, self.bos_idx, self.eos_idx = pad_idx, bos_idx, eos_idx
         self.num_queries = dvc.num_queries
         self.aux_loss = dvc.aux_loss
@@ -295,12 +299,16 @@ class UnimodalDVC(nn.Module):
         """GT-free serving forward. video_tensor (B, T, feature_dim),
         video_mask (B, T) True=pad, durations (B,) seconds. Returns segments
         (B, G, 2) seconds, captions (B, G, Lc+1) token ids including <bos>,
-        k (B,) predicted event counts, scores (B, G), valid (B, G)."""
+        k (B,) predicted event counts, scores (B, G), valid (B, G). The decode
+        runs as ``decode_impl``, ``decode_kv`` and ``decode_fused_grid`` of
+        the config say (attributes of the model, which a caller may change)."""
         prep = self._serve_prepare(video_tensor, video_mask, durations)
         captions = greedy_decode(
             self.caption, prep["memory"], prep["caption_pad_mask"],
             self.seq_len, self.bos_idx, self.eos_idx, self.pad_idx,
-            faster_eval=faster_eval, groups=self.max_gt, zeroed_mask=prep["zeroed"])
+            faster_eval=faster_eval, groups=self.max_gt, zeroed_mask=prep["zeroed"],
+            decode_impl=self.decode_impl, kv_mode=self.decode_kv,
+            fused_grid=self.decode_fused_grid)
         B = durations.shape[0]
         return {
             "segments": prep["segments"],

@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -25,7 +25,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
-KERNEL_SOURCES = ("msda_fwd.cu", "msda_bwd.cu")
+KERNEL_SOURCES = ("msda_fwd.cu", "msda_bwd.cu", "fused_decode.cu")
 
 
 def find_nvcc() -> str:
@@ -38,27 +38,29 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin and PATH)")
 
 
-def library_path(source: str) -> Path:
+def library_path(source: str, flags: Tuple[str, ...] = ()) -> Path:
     src = (CSRC_DIR / source).read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS + tuple(flags)).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
 
 
-def build(sources: Iterable[str] = KERNEL_SOURCES) -> Dict[str, float]:
-    """Compile every source that has no library yet, one ``nvcc`` per source,
-    all started together. Returns {source: seconds} of the builds it ran;
-    raises with the compiler's output if one fails."""
+def build(sources: Iterable[str] = KERNEL_SOURCES,
+          variants: Iterable[Tuple[str, Tuple[str, ...]]] = ()) -> Dict[str, float]:
+    """Compile every source, and every (source, extra nvcc flags) variant,
+    that has no library yet: one ``nvcc`` each, all started together.
+    Returns {name: seconds} of the builds it ran; raises with the
+    compiler's output if one fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     running = []
-    for source in sources:
-        lib = library_path(source)
+    for source, flags in [(s, ()) for s in sources] + list(variants):
+        lib = library_path(source, flags)
         if lib.exists():
             continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / source)]
+        cmd = [find_nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp), str(CSRC_DIR / source)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                 text=True)
-        running.append((source, lib, tmp, proc, time.monotonic()))
+        running.append((" ".join((source,) + tuple(flags)), lib, tmp, proc, time.monotonic()))
     seconds, failed = {}, []
     for source, lib, tmp, proc, t0 in running:
         output, _ = proc.communicate()
@@ -72,7 +74,8 @@ def build(sources: Iterable[str] = KERNEL_SOURCES) -> Dict[str, float]:
     return seconds
 
 
-def load_library(source: str) -> ctypes.CDLL:
-    """The compiled library of ``source``, built first if needed."""
-    build([source])
-    return ctypes.CDLL(str(library_path(source)))
+def load_library(source: str, flags: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The compiled library of ``source`` (with the extra nvcc ``flags``),
+    built first if needed."""
+    build([], [(source, tuple(flags))])
+    return ctypes.CDLL(str(library_path(source, flags)))

@@ -1,0 +1,392 @@
+"""One greedy decode step through every caption layer: the plain PyTorch
+version and the wrapper of the hand-written CUDA kernel.
+
+Counterpart of the JAX ``ops/fused_decode.py``, whose ``fused_decode_step``
+runs the Pallas kernels ``_decode_step_kernel`` (grid "video", one program
+per (layer, video)) and ``_decode_step_kernel_batch`` (grid "batch", Bt
+videos a program). Here ``csrc/fused_decode.cu`` stands for both: one
+launch a step, the layer loop inside the kernel. The two grids compute the
+same numbers and differ only in how many videos one attention work unit of
+the kernel takes.
+
+Row layout per video, as in JAX: R = 2G rows, rows [0, G) are the commit
+positions (the token at ``step``, one per event) and rows [G, 2G) the
+predict positions (``step + 1``). The self-attention caches are
+position-major, (depth, B, Tc*G, D): row p*G + e holds event e's key at
+position p. The memory K/V are padded from S to Sp = round_up(S, 128) with
+blocked, zero-valued rows; a row whose every position is blocked therefore
+averages V over all Sp columns, as the TPU kernel computes it.
+
+A tensor on the CPU takes ``fused_decode_step_plain``; a CUDA tensor goes
+to the kernel or raises. There is no fallback from the kernel to the plain
+version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .build import load_library
+from .msda import _KernelBinding
+
+NEG_MASK = -1e20  # masked logit, applied before the scale
+LN_EPS = 1e-6
+KV_PAD = 128      # S is padded to a multiple of this
+SPLIT_K_MAX = 4   # the kernel's largest split of a reduction (csrc/fused_decode.cu)
+
+_ATT_KEYS = ("q_linear", "k_linear", "v_linear", "projection_layer")
+
+W_ORDER = (
+    "sa_wq", "sa_bq", "sa_wk", "sa_bk", "sa_wv", "sa_bv", "sa_wo", "sa_bo",
+    "ca_wq", "ca_bq", "ca_wk", "ca_bk", "ca_wv", "ca_bv", "ca_wo", "ca_bo",
+    "mlp_w1", "mlp_b1", "mlp_w2", "mlp_b2",
+    "ln1_s", "ln1_b", "ln2_s", "ln2_b", "ln3_s", "ln3_b",
+)
+
+
+def padded_len(S: int) -> int:
+    return -(-S // KV_PAD) * KV_PAD
+
+
+def extract_decoder_weights(caption_module) -> Dict[str, torch.Tensor]:
+    """The caption decoder's per-layer weights stacked into the 26 arrays of
+    JAX ``_W_ORDER``: kernels (depth, in, out), biases and LayerNorm
+    parameters (depth, 1, width), contiguous."""
+    layers = list(caption_module.decoder)
+
+    def stack(get):
+        return torch.stack([get(layer).detach() for layer in layers]).contiguous()
+
+    def bias(linear):
+        if linear.bias is not None:
+            return linear.bias
+        return linear.weight.new_zeros(linear.out_features)
+
+    w = {}
+    for prefix, attn in (("sa", "self_attention"), ("ca", "cross_attention")):
+        for short, name in zip("qkvo", _ATT_KEYS):
+            w[f"{prefix}_w{short}"] = stack(lambda l: getattr(getattr(l, attn), name).weight.T)
+            w[f"{prefix}_b{short}"] = stack(lambda l: bias(getattr(getattr(l, attn), name))[None])
+    for i in (1, 2):
+        w[f"mlp_w{i}"] = stack(lambda l: getattr(l.mlp, f"fully_connected_{i}").weight.T)
+        w[f"mlp_b{i}"] = stack(lambda l: getattr(l.mlp, f"fully_connected_{i}").bias[None])
+    for i in (1, 2, 3):
+        w[f"ln{i}_s"] = stack(lambda l: getattr(l, f"layer_norm_{i}").weight[None])
+        w[f"ln{i}_b"] = stack(lambda l: getattr(l, f"layer_norm_{i}").bias[None])
+    return w
+
+
+def stack_memory_kv(weights: Dict[str, torch.Tensor], memory: torch.Tensor,
+                    s_pad: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-layer cross-attention K/V of the shared memory (B, S, D), stacked
+    (depth, B, s_pad, D); the rows past S are zero."""
+    S = memory.shape[1]
+    pad = (0, 0, 0, s_pad - S)
+    mem_k = torch.einsum("bsd,lde->lbse", memory, weights["ca_wk"]) + weights["ca_bk"][:, None]
+    mem_v = torch.einsum("bsd,lde->lbse", memory, weights["ca_wv"]) + weights["ca_bv"][:, None]
+    return (torch.nn.functional.pad(mem_k, pad).contiguous(),
+            torch.nn.functional.pad(mem_v, pad).contiguous())
+
+
+def quantize_kv_int8(mem: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 per (layer, video, token): values (L, B, Sp, D) int8,
+    rounded half to even, and scales (L, B, 1, Sp) f32 (1 where a row is 0)."""
+    memf = mem.float()
+    amax = memf.abs().amax(dim=-1)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    q = torch.round(memf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q.contiguous(), scale[:, :, None, :].contiguous()
+
+
+def decode_masks(memory_padding_mask: torch.Tensor, zeroed_mask: Optional[torch.Tensor],
+                 B: int, G: int, s_pad: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's mask inputs: ``mask_i8`` (B, 2G, s_pad) int8, 1 = blocked
+    (pad | zeroed, and every column past S), and ``log_m`` (B, 2G, 1) f32,
+    the log of the number of attendable zeroed positions (-1e20 where there
+    are none; 0 without a bias column). Rows are t-major: row r is event
+    r % G."""
+    S = memory_padding_mask.shape[1]
+    pad = memory_padding_mask.reshape(B, G, S)
+    if zeroed_mask is not None:
+        zer = zeroed_mask.reshape(B, G, S)
+        blocked = pad | zer
+        m = (~pad & zer).sum(dim=2).float()
+        log_m = torch.where(m > 0, torch.log(m.clamp(min=1.0)), torch.full_like(m, NEG_MASK))
+    else:
+        blocked = pad
+        log_m = torch.zeros((B, G), dtype=torch.float32, device=pad.device)
+    mask_i8 = torch.nn.functional.pad(blocked, (0, s_pad - S), value=True).to(torch.int8)
+    return mask_i8.repeat(1, 2, 1).contiguous(), log_m.repeat(1, 2)[..., None].contiguous()
+
+
+# --------------------------------------------------------------------------
+# the plain version
+# --------------------------------------------------------------------------
+
+SQRT_HALF = float(np.float32(np.sqrt(0.5)))
+
+
+def erfc_f32(z: torch.Tensor) -> torch.Tensor:
+    """erfc by Abramowitz & Stegun 7.1.26, the polynomial of the JAX kernel's
+    ``_erfc_f32``."""
+    a = z.abs()
+    t = 1.0 / (1.0 + 0.3275911 * a)
+    poly = t * (0.254829592 + t * (-0.284496736 + t * (
+        1.421413741 + t * (-1.453152027 + t * 1.061405429))))
+    erfc_a = poly * torch.exp(-a * a)
+    return torch.where(z >= 0, erfc_a, 2.0 - erfc_a)
+
+
+def gelu_exact(x: torch.Tensor) -> torch.Tensor:
+    """0.5 x erfc(-x sqrt(1/2)) with the polynomial erfc, as ``_gelu_exact``."""
+    return (0.5 * x) * erfc_f32((-x) * SQRT_HALF)
+
+
+def layer_norm_one_pass(x, scale, bias):
+    """LayerNorm with var = max(E[x^2] - mean^2, 0), eps 1e-6."""
+    mean = x.mean(dim=-1, keepdim=True)
+    var = ((x * x).mean(dim=-1, keepdim=True) - mean * mean).clamp(min=0.0)
+    return (x - mean) * (torch.rsqrt(var + LN_EPS) * scale) + bias
+
+
+def _softmax_rows(logits):
+    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+def fused_decode_step_plain(x, k_caches, v_caches, step: int, valid_len: int,
+                            mem_k, mem_v, k_scales, v_scales, mask_i8, log_m,
+                            weights, *, G: int, num_heads: int, has_bias_col: bool):
+    """The math of ``_decode_step_kernel`` in plain PyTorch, all videos at
+    once: every video attends only its own event's keys and its own Sp
+    columns, so the result is that of any batch tile. Writes the commit rows
+    into the caches in place; returns (x_out, k_caches, v_caches)."""
+    depth, B, C, D = k_caches.shape
+    R = x.shape[1]
+    Sp = mem_k.shape[2]
+    H = num_heads
+    Dh = D // H
+    scale = Dh ** -0.5
+    kv_int8 = mem_k.dtype == torch.int8
+    dev = x.device
+
+    rows = torch.arange(R, device=dev)[:, None]
+    cols = torch.arange(C, device=dev)[None, :]
+    sa_blocked = (cols % G != rows % G) | (cols // G >= valid_len)  # (R, C)
+    blocked = (mask_i8 != 0)[:, None]  # (B, 1, R, Sp)
+
+    def heads(t):  # (B, T, D) -> (B, H, T, Dh)
+        return t.reshape(t.shape[0], t.shape[1], H, Dh).transpose(1, 2)
+
+    def merge(t):  # (B, H, R, Dh) -> (B, R, D)
+        return t.transpose(1, 2).reshape(B, R, D)
+
+    for li in range(depth):
+        w = {name: weights[name][li] for name in W_ORDER}
+
+        def dense(v, prefix, which):
+            return v @ w[f"{prefix}_w{which}"] + w[f"{prefix}_b{which}"]
+
+        # self-attention: commit the G rows' k/v at `step`, then attend
+        k_caches[li, :, step * G:(step + 1) * G] = dense(x[:, :G], "sa", "k")
+        v_caches[li, :, step * G:(step + 1) * G] = dense(x[:, :G], "sa", "v")
+        lg = heads(dense(x, "sa", "q")) @ heads(k_caches[li]).transpose(-1, -2)
+        attn = _softmax_rows(lg.masked_fill(sa_blocked, NEG_MASK) * scale)
+        x = layer_norm_one_pass(x + dense(merge(attn @ heads(v_caches[li])), "sa", "o"),
+                                w["ln1_s"], w["ln1_b"])
+
+        # cross-attention over the shared memory K/V, with the bias column
+        qc = dense(x, "ca", "q")
+        kh, vh = heads(mem_k[li].float()), heads(mem_v[li].float())
+        lg = heads(qc) @ kh.transpose(-1, -2)  # (B, H, R, Sp)
+        if kv_int8:
+            lg = lg * k_scales[li][:, None]
+        scaled = lg.masked_fill(blocked, NEG_MASK) * scale
+        if has_bias_col:
+            kb = w["ca_bk"][0].reshape(H, 1, Dh)
+            vb = w["ca_bv"][0].reshape(H, 1, Dh)
+            l_bias = (heads(qc) * kb).sum(dim=-1, keepdim=True) * scale  # (B, H, R, 1)
+            bias_logit = l_bias + log_m[:, None]
+            m_max = torch.maximum(scaled.amax(dim=-1, keepdim=True), bias_logit)
+            e_main = torch.exp(scaled - m_max)
+            e_bias = torch.exp(bias_logit - m_max)
+            denom = e_main.sum(dim=-1, keepdim=True) + e_bias
+            attn = e_main / denom
+            if kv_int8:
+                attn = attn * v_scales[li][:, None]
+            out = attn @ vh + (e_bias / denom) * vb
+        else:
+            attn = _softmax_rows(scaled)
+            if kv_int8:
+                attn = attn * v_scales[li][:, None]
+            out = attn @ vh
+        x = layer_norm_one_pass(x + dense(merge(out), "ca", "o"), w["ln2_s"], w["ln2_b"])
+
+        # MLP
+        y = dense(gelu_exact(dense(x, "mlp", "1")), "mlp", "2")
+        x = layer_norm_one_pass(x + y, w["ln3_s"], w["ln3_b"])
+    return x, k_caches, v_caches
+
+
+# --------------------------------------------------------------------------
+# the kernel
+# --------------------------------------------------------------------------
+
+
+def batch_tile_for(B: int, batch_tile: int = 0) -> int:
+    """Videos per work unit of the "batch" grid: ``batch_tile``, or the
+    largest of 8, 4, 2, 1 that divides B."""
+    bt = batch_tile or next(t for t in (8, 4, 2, 1) if B % t == 0)
+    if B % bt:
+        raise ValueError(f"batch_tile {bt} must divide B={B}")
+    return bt
+
+
+class FusedDecodeKernel(_KernelBinding):
+    """``fused_decode_launch`` of ``csrc/fused_decode.cu`` under one grid
+    mode; each mode keeps its own launch count."""
+
+    source, symbol = "fused_decode.cu", "fused_decode_launch"
+    # fused_decode_launch(x, x_out, k_cache, v_cache, mem_k, mem_v, k_scales,
+    #   v_scales, mask, log_m, weights[26], q_buf, attn_buf, part_buf, h_buf,
+    #   B, G, D, H, depth, C, Sp, F, step, valid_len, has_bias, kv_int8,
+    #   videos_per_unit, stream)
+    argtypes = [ctypes.c_void_p] * 10 + [ctypes.POINTER(ctypes.c_void_p)] \
+        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+
+    def __init__(self, grid_mode: str, replaces: str, flags: Tuple[str, ...] = ()):
+        super().__init__()
+        self.grid_mode = grid_mode
+        self.replaces = replaces
+        self.flags = tuple(flags)
+
+    def __call__(self, x, k_caches, v_caches, step: int, valid_len: int, mem_k, mem_v,
+                 k_scales, v_scales, mask_i8, log_m, weights, *, G: int, num_heads: int,
+                 has_bias_col: bool, batch_tile: int = 0):
+        depth, B, C, D = k_caches.shape
+        R, Sp = x.shape[1], mem_k.shape[2]
+        F = weights["mlp_w1"].shape[2]
+        dev = x.device
+        kv_int8 = mem_k.dtype == torch.int8
+        if dev.type != "cuda":
+            raise ValueError(f"the fused decode kernel takes CUDA tensors, got {dev}")
+        if R != 2 * G or x.shape != (B, R, D) or C % G or v_caches.shape != k_caches.shape:
+            raise ValueError(f"x {tuple(x.shape)} and caches {tuple(k_caches.shape)} do not "
+                             f"match G={G}")
+        Dh = D // num_heads if D % num_heads == 0 else 0
+        if not Dh or Dh % 32 or Dh > 128 or D % 64 or D > 1024 or F % 64 or Sp % 64 \
+                or R > min(32, 8 * (256 // Dh)):
+            raise ValueError(f"unsupported widths D={D}, H={num_heads}, F={F}, R={R}, Sp={Sp}")
+        if not 0 <= step < C // G or not step < valid_len <= C // G:
+            raise ValueError(f"step {step} / valid_len {valid_len} outside Tc={C // G}")
+        f32 = [("x", x), ("k_caches", k_caches), ("v_caches", v_caches), ("log_m", log_m)]
+        f32 += [(n, weights[n]) for n in W_ORDER]
+        if kv_int8:
+            f32 += [("k_scales", k_scales), ("v_scales", v_scales)]
+            if k_scales.shape != (depth, B, 1, Sp) or v_scales.shape != k_scales.shape:
+                raise ValueError(f"scales must be ({depth}, {B}, 1, {Sp})")
+        else:
+            f32 += [("mem_k", mem_k), ("mem_v", mem_v)]
+        for name, t in f32:
+            if t.dtype != torch.float32:
+                raise TypeError(f"{name} must be float32, got {t.dtype}")
+        tensors = f32 + [("mem_k", mem_k), ("mem_v", mem_v), ("mask_i8", mask_i8)]
+        for name, t in tensors:
+            if t.device != dev or not t.is_contiguous():
+                raise ValueError(f"{name} must be a contiguous tensor on {dev}")
+        if mem_k.shape != (depth, B, Sp, D) or mem_v.shape != mem_k.shape \
+                or mem_v.dtype != mem_k.dtype or mask_i8.shape != (B, R, Sp) \
+                or mask_i8.dtype != torch.int8 or log_m.shape != (B, R, 1):
+            raise ValueError("memory K/V, mask_i8 or log_m have the wrong shape or type")
+        vt = 1 if self.grid_mode == "video" else batch_tile_for(B, batch_tile)
+
+        M = B * R
+        x_out = torch.empty_like(x)
+        q_buf = torch.empty((M, D), dtype=torch.float32, device=dev)
+        attn_buf = torch.empty((M, D), dtype=torch.float32, device=dev)
+        part_buf = torch.empty((SPLIT_K_MAX, M, D), dtype=torch.float32, device=dev)
+        h_buf = torch.empty((M, F), dtype=torch.float32, device=dev)
+        w_ptrs = (ctypes.c_void_p * len(W_ORDER))(*[weights[n].data_ptr() for n in W_ORDER])
+        ks = k_scales.data_ptr() if kv_int8 else 0
+        vs = v_scales.data_ptr() if kv_int8 else 0
+        fn = self._launcher()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = fn(x.data_ptr(), x_out.data_ptr(), k_caches.data_ptr(), v_caches.data_ptr(),
+                    mem_k.data_ptr(), mem_v.data_ptr(), ks, vs, mask_i8.data_ptr(),
+                    log_m.data_ptr(), w_ptrs, q_buf.data_ptr(), attn_buf.data_ptr(),
+                    part_buf.data_ptr(), h_buf.data_ptr(),
+                    B, G, D, num_heads, depth, C, Sp, F, int(step), int(valid_len),
+                    int(has_bias_col), int(kv_int8), vt, stream)
+        if rc != 0:
+            raise RuntimeError(f"fused_decode_launch failed with CUDA error {rc}")
+        self.launches += 1
+        return x_out, k_caches, v_caches
+
+
+    def stage_us(self, depth: int) -> Dict[str, object]:
+        """Device microseconds of each stage of the last launch, averaged over
+        the layers, of the phases of block 0's first cross-attention unit,
+        and of one grid barrier with no work around it (the timing build
+        ends with four); only for a binding built with
+        ``STAGE_TIMING_FLAGS``."""
+        if "-DFD_STAGE_TIMING" not in self.flags:
+            raise RuntimeError("stage times need a build with STAGE_TIMING_FLAGS")
+        lib = load_library(self.source, self.flags)
+        n = 2 + len(STAGES) * 16
+        marks = (ctypes.c_ulonglong * n)()
+        sub = (ctypes.c_ulonglong * 8)()
+        bar = (ctypes.c_ulonglong * 5)()
+        for rc in (lib.fused_decode_stage_ns(marks, n), lib.fused_decode_sub_ns(sub),
+                   lib.fused_decode_barrier_ns(bar)):
+            if rc != 0:
+                raise RuntimeError(f"reading the stage times failed with CUDA error {rc}")
+        k = len(STAGES)
+        ends = [marks[0]] + [marks[1 + li * k + i] for li in range(depth) for i in range(k)]
+        per = {name: sum(ends[li * k + i + 1] - ends[li * k + i] for li in range(depth))
+               / depth / 1e3 for i, name in enumerate(STAGES)}
+        return {"total_us": (ends[-1] - marks[n - 1]) / 1e3,
+                "empty_grid_barrier_us": (bar[4] - bar[0]) / 4 / 1e3,
+                "copy_us": (marks[0] - marks[n - 1]) / 1e3,
+                "per_layer_us": per,
+                "cross_attention_unit0_us": {
+                    name: (sub[i + 1] - sub[i]) / 1e3
+                    for i, name in enumerate(("q", "logits", "softmax", "weighted_sum"))}}
+
+
+# the stages of one layer, in the order of the kernel's grid barriers
+STAGES = ("q_kv", "self_attention", "o_proj", "ln1", "cq_proj", "cross_attention",
+          "co_proj", "ln2", "mlp1", "mlp2", "ln3")
+STAGE_TIMING_FLAGS = ("-DFD_STAGE_TIMING",)  # a build that records each barrier's time
+
+FUSED_DECODE = {
+    "video": FusedDecodeKernel("video", "multimodal_feature_learning_tpu/ops/fused_decode.py:202"),
+    "batch": FusedDecodeKernel("batch", "multimodal_feature_learning_tpu/ops/fused_decode.py:376"),
+}
+
+
+def fused_decode_step(x, k_caches, v_caches, step: int, valid_len: int, mem_k, mem_v,
+                      k_scales, v_scales, mask_i8, log_m, weights, *, G: int,
+                      num_heads: int, has_bias_col: bool, grid_mode: str = "video",
+                      batch_tile: int = 0):
+    """One decode step through all layers; the contract of JAX
+    ``fused_decode_step``. x (B, 2G, D) embedded pair, caches (depth, B,
+    Tc*G, D) written in place at rows step*G + e, memory K/V (depth, B, Sp,
+    D) f32 or int8 with scales (depth, B, 1, Sp), ``mask_i8`` and ``log_m``
+    from ``decode_masks``. Returns (x_out, k_caches, v_caches)."""
+    if grid_mode not in FUSED_DECODE:
+        raise ValueError(f"grid_mode must be 'video' or 'batch', got {grid_mode!r}")
+    if x.device.type == "cpu":
+        if grid_mode == "batch":
+            batch_tile_for(x.shape[0], batch_tile)
+        return fused_decode_step_plain(
+            x, k_caches, v_caches, step, valid_len, mem_k, mem_v, k_scales, v_scales,
+            mask_i8, log_m, weights, G=G, num_heads=num_heads, has_bias_col=has_bias_col)
+    return FUSED_DECODE[grid_mode](
+        x, k_caches, v_caches, step, valid_len, mem_k, mem_v, k_scales, v_scales,
+        mask_i8, log_m, weights, G=G, num_heads=num_heads, has_bias_col=has_bias_col,
+        batch_tile=batch_tile)

@@ -53,6 +53,7 @@ class _KernelBinding:
 
     source = symbol = ""
     argtypes: list = []
+    flags: tuple = ()  # extra nvcc flags of the library
 
     def __init__(self):
         self.launches = 0
@@ -60,7 +61,7 @@ class _KernelBinding:
 
     def _launcher(self):
         if self._fn is None:
-            fn = getattr(load_library(self.source), self.symbol)
+            fn = getattr(load_library(self.source, self.flags), self.symbol)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             self._fn = fn

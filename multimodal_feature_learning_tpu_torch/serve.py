@@ -23,14 +23,16 @@ import torch
 
 from .data.anet import nearest_resize
 from .data.vocab import Vocab
+from .utils.postprocess import captions_to_string
 
 
 class DVCServer:
     """Micro-batching server over ``model.forward_serve``.
 
     ``model`` is a ``models.dvc.UnimodalDVC`` on its serving device (see
-    ``models.dvc.build_model``). Captions come back as token-id lists, or as
-    strings when a ``vocab`` is given."""
+    ``models.dvc.build_model``). Captions come back as token-id lists, or,
+    when a ``vocab`` is given, as the strings of
+    ``utils.postprocess.captions_to_string``, as the JAX server gives them."""
 
     def __init__(self, model, vocab: Optional[Vocab] = None, batch_size: int = 16,
                  max_wait_ms: float = 10.0):
@@ -145,13 +147,12 @@ class DVCServer:
         self.stats["step_s"] += time.monotonic() - t0
         for i, (_, _, fut) in enumerate(batch):
             k = int(host["k"][i])
-            events = []
-            for j in range(k):
-                ids = host["captions"][i, j].tolist()
-                events.append({
-                    "segment": (float(host["segments"][i, j, 0]),
-                                float(host["segments"][i, j, 1])),
-                    "caption": self.vocab.decode(ids) if self.vocab else ids,
-                    "score": float(host["scores"][i, j]),
-                })
+            ids = host["captions"][i, :k].tolist()
+            captions = captions_to_string(ids, self.vocab) if self.vocab else ids
+            events = [{
+                "segment": (float(host["segments"][i, j, 0]),
+                            float(host["segments"][i, j, 1])),
+                "caption": captions[j],
+                "score": float(host["scores"][i, j]),
+            } for j in range(k)]
             fut.set_result(events)

@@ -31,7 +31,8 @@ def torch_cfg_like(jcfg) -> Config:
     """The port's config with every field it reads copied from a JAX config."""
     cfg = Config()
     for name in ("seed", "lr", "lr_drop", "weight_decay", "clip_max_norm",
-                 "epochs", "use_differentiable_mask", "compute_dtype", "decode_impl"):
+                 "epochs", "use_differentiable_mask", "compute_dtype", "decode_impl",
+                 "decode_kv", "decode_fused_grid"):
         setattr(cfg, name, jcfg[name])
     for name in vars(cfg.dvc.detr):
         setattr(cfg.dvc.detr, name, jcfg.dvc.detr[name])

@@ -1,0 +1,317 @@
+"""The port's fused decode step (``ops/fused_decode.py``) and the greedy
+decode through it, against the JAX package's.
+
+At the dims of ``tests/test_fused_decode.py`` (B=2, G=4, S=40, D=64, depth
+2, H=2, vocab 50, LC=8), f32 on the CPU. The flax caption decoder's params,
+perturbed from a numpy seed, are carried into the port's module; inputs come
+from numpy. The JAX side runs ``fused_decode_step`` in Pallas interpret mode.
+On the CPU the port's wrapper takes its plain version, which the card's
+kernel is held to by ``chip_smoke.py``. Tolerances: stacked weights and
+masks exact, memory K/V 1e-6 of their largest value (einsums summed in
+another order), one step 1e-5 (f32 products summed in another order
+through two layers), greedy tokens exact in f32."""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from test_torch_common import flatten_params, perturb
+
+from multimodal_feature_learning_tpu.models import caption_decoder as jcd
+from multimodal_feature_learning_tpu.ops import fused_decode as jfd
+from multimodal_feature_learning_tpu_torch.config import Config, check_decode_options
+from multimodal_feature_learning_tpu_torch.models import caption_decoder as tcd
+from multimodal_feature_learning_tpu_torch.ops import fused_decode as tfd
+from multimodal_feature_learning_tpu_torch.utils.weights import load_flax_params
+
+PAD, BOS, EOS = 1, 2, 3
+B, G, S, D, DEPTH, H, VOCAB, LC = 2, 4, 40, 64, 2, 2, 50, 8
+R, SP = 2 * G, 128
+
+
+@pytest.fixture(scope="module")
+def setup():
+    """(flax module, params, port module, memory, pad, zeroed) as numpy."""
+    jmod = jcd.UnimodalCaptionDecoder(vocab_size=VOCAB, seq_len=LC, d_model=D,
+                                      depth=DEPTH, num_heads=H)
+    params = jmod.init(jax.random.PRNGKey(0), jnp.zeros((B * G, LC), jnp.int32),
+                       jnp.zeros((B * G, S, D)))
+    params = jax.tree_util.tree_map(jnp.asarray, perturb(params, seed=1, scale=0.05))
+    tmod = tcd.UnimodalCaptionDecoder(VOCAB, D, DEPTH, H)
+    load_flax_params(tmod, flatten_params(params))
+    rng = np.random.default_rng(0)
+    memory = rng.normal(size=(B, S, D)).astype(np.float32)
+    pad = rng.random((B * G, S)) < 0.3
+    zeroed = rng.random((B * G, S)) < 0.4
+    return jmod, params, tmod.eval(), memory, pad, zeroed
+
+
+def t(a):
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(a)))
+
+
+def jax_masks(pad, zeroed):
+    """The mask inputs as JAX ``_greedy_decode_fused`` builds them
+    (``models/caption_decoder.py:440-456``)."""
+    p = jnp.asarray(pad).reshape(B, G, S)
+    if zeroed is not None:
+        z = jnp.asarray(zeroed).reshape(B, G, S)
+        block = p | z
+        m = jnp.sum(~p & z, axis=2).astype(jnp.float32)
+        log_m = jnp.where(m > 0, jnp.log(jnp.maximum(m, 1.0)), -1e20)
+    else:
+        block = p
+        log_m = jnp.zeros((B, G), jnp.float32)
+    mask_i8 = jnp.pad(block, ((0, 0), (0, 0), (0, SP - S)), constant_values=True)
+    mask_i8 = jnp.tile(mask_i8.astype(jnp.int8), (1, 2, 1))
+    return mask_i8, jnp.tile(log_m, (1, 2))[..., None]
+
+
+def step_inputs(setup, step, kv_mode, bias_col, seed=0, pad=None):
+    """Numpy inputs of one step, the memory K/V from JAX's stacking."""
+    _, params, _, memory, pad0, zeroed = setup
+    rng = np.random.default_rng(seed)
+    w = jfd.extract_decoder_weights(params)
+    mem_k, mem_v = jfd.stack_memory_kv(w, jnp.asarray(memory), SP)
+    ks = vs = None
+    if kv_mode == "int8":
+        mem_k, ks = jfd.quantize_kv_int8(mem_k)
+        mem_v, vs = jfd.quantize_kv_int8(mem_v)
+    mask_i8, log_m = jax_masks(pad0 if pad is None else pad, zeroed if bias_col else None)
+    kc = np.zeros((DEPTH, B, LC * G, D), np.float32)
+    vc = np.zeros_like(kc)
+    kc[:, :, :step * G] = rng.normal(size=(DEPTH, B, step * G, D))
+    vc[:, :, :step * G] = rng.normal(size=(DEPTH, B, step * G, D))
+    x = rng.normal(size=(B, R, D)).astype(np.float32)
+    return [np.asarray(a) if a is not None else None
+            for a in (x, kc, vc, mem_k, mem_v, ks, vs, mask_i8, log_m)], w
+
+
+def run_both(setup, step, kv_mode, bias_col, grid, pad=None):
+    (x, kc, vc, mk, mv, ks, vs, mask, log_m), w = step_inputs(setup, step, kv_mode,
+                                                              bias_col, pad=pad)
+    ref = jfd.fused_decode_step(
+        jnp.asarray(x), jnp.asarray(kc), jnp.asarray(vc), jnp.int32(step),
+        jnp.int32(step + 1), jnp.asarray(mk), jnp.asarray(mv),
+        None if ks is None else jnp.asarray(ks), None if vs is None else jnp.asarray(vs),
+        jnp.asarray(mask), jnp.asarray(log_m), w, G=G, num_heads=H,
+        has_bias_col=bias_col, grid_mode=grid, interpret=True)
+    tw = tfd.extract_decoder_weights(setup[2])
+    got = tfd.fused_decode_step(
+        t(x), t(kc), t(vc), step, step + 1, t(mk), t(mv),
+        None if ks is None else t(ks), None if vs is None else t(vs), t(mask), t(log_m),
+        tw, G=G, num_heads=H, has_bias_col=bias_col, grid_mode=grid)
+    return [np.asarray(a) for a in ref], [a.numpy() for a in got]
+
+
+def test_extract_decoder_weights_matches_jax(setup):
+    _, params, tmod, *_ = setup
+    ref = jfd.extract_decoder_weights(params)
+    got = tfd.extract_decoder_weights(tmod)
+    assert tuple(got) == tfd.W_ORDER and set(ref) == set(tfd.W_ORDER)
+    for name in tfd.W_ORDER:
+        np.testing.assert_array_equal(got[name].numpy(), np.asarray(ref[name]), err_msg=name)
+
+
+def test_stack_memory_kv_matches_jax(setup):
+    _, params, tmod, memory, *_ = setup
+    ref = jfd.stack_memory_kv(jfd.extract_decoder_weights(params), jnp.asarray(memory), SP)
+    got = tfd.stack_memory_kv(tfd.extract_decoder_weights(tmod), t(memory), tfd.padded_len(S))
+    for a, b in zip(got, ref):
+        assert a.shape == (DEPTH, B, SP, D)
+        ref = np.asarray(b)
+        assert np.abs(a.numpy() - ref).max() <= 1e-6 * np.abs(ref).max()
+        assert not a[:, :, S:].any()
+
+
+def test_quantize_kv_int8_matches_jax(setup):
+    _, params, _, memory, *_ = setup
+    mem_k, _ = jfd.stack_memory_kv(jfd.extract_decoder_weights(params), jnp.asarray(memory), SP)
+    ref_q, ref_s = jfd.quantize_kv_int8(mem_k)
+    got_q, got_s = tfd.quantize_kv_int8(t(mem_k))
+    assert got_q.dtype == torch.int8 and got_s.shape == (DEPTH, B, 1, SP)
+    np.testing.assert_array_equal(got_q.numpy(), np.asarray(ref_q))
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(ref_s), rtol=0, atol=1e-7)
+    # a value on a half step rounds to even, as jnp.round does
+    half = torch.tensor([[[[127.0, 2.5, -0.5, 1.5]]]])
+    np.testing.assert_array_equal(tfd.quantize_kv_int8(half)[0].numpy(),
+                                  np.asarray(jfd.quantize_kv_int8(jnp.asarray(half.numpy()))[0]))
+
+
+@pytest.mark.parametrize("bias_col", [False, True])
+def test_decode_masks_match_jax(setup, bias_col):
+    *_, pad, zeroed = setup
+    ref_mask, ref_logm = jax_masks(pad, zeroed if bias_col else None)
+    mask, log_m = tfd.decode_masks(t(pad), t(zeroed) if bias_col else None, B, G, SP)
+    assert mask.dtype == torch.int8 and log_m.dtype == torch.float32
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(ref_mask))
+    np.testing.assert_array_equal(log_m.numpy(), np.asarray(ref_logm))
+
+
+@pytest.mark.parametrize("step", [0, 4])
+@pytest.mark.parametrize("kv_mode", ["dense", "int8"])
+@pytest.mark.parametrize("bias_col", [False, True])
+@pytest.mark.parametrize("grid", ["video", "batch"])
+def test_fused_step_matches_jax(setup, grid, bias_col, kv_mode, step):
+    (rx, rkc, rvc), (gx, gkc, gvc) = run_both(setup, step, kv_mode, bias_col, grid)
+    np.testing.assert_allclose(gx, rx, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(gkc, rkc, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(gvc, rvc, rtol=0, atol=1e-5)
+    rows = slice(step * G, (step + 1) * G)
+    assert np.abs(gkc[:, :, rows]).min() > 0  # the commit rows were written
+
+
+def _decode_both(setup, zeroed_on, faster_eval, grid, kv_mode="dense"):
+    jmod, params, tmod, memory, pad, zeroed = setup
+    z = zeroed if zeroed_on else None
+    ref = jcd.greedy_decode(
+        jmod, params, jnp.asarray(memory), jnp.asarray(pad), LC, BOS, EOS, PAD,
+        faster_eval=faster_eval, groups=G, zeroed_mask=None if z is None else jnp.asarray(z),
+        decode_impl="fused", kv_mode=kv_mode, fused_grid=grid, fused_interpret=True)
+    with torch.no_grad():
+        got = tcd.greedy_decode(
+            tmod, t(memory), t(pad), LC, BOS, EOS, PAD, faster_eval=faster_eval,
+            groups=G, zeroed_mask=None if z is None else t(z), decode_impl="fused",
+            kv_mode=kv_mode, fused_grid=grid)
+    return np.asarray(ref), got.numpy()
+
+
+@pytest.mark.parametrize("grid", ["video", "batch"])
+@pytest.mark.parametrize("zeroed_on", [False, True])
+@pytest.mark.parametrize("faster_eval", [False, True])
+def test_greedy_decode_fused_matches_jax(setup, faster_eval, zeroed_on, grid):
+    ref, got = _decode_both(setup, zeroed_on, faster_eval, grid)
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("grid", ["video", "batch"])
+@pytest.mark.parametrize("zeroed_on", [False, True])
+@pytest.mark.parametrize("faster_eval", [False, True])
+def test_fused_decode_matches_plain_op_decode(setup, faster_eval, zeroed_on, grid):
+    """The port's two decode paths agree token for token in f32, as JAX pins
+    for its own two (``tests/test_fused_decode.py``)."""
+    _, _, tmod, memory, pad, zeroed = setup
+    z = t(zeroed) if zeroed_on else None
+    with torch.no_grad():
+        plain = tcd.greedy_decode(tmod, t(memory), t(pad), LC, BOS, EOS, PAD,
+                                  faster_eval=faster_eval, groups=G, zeroed_mask=z)
+        fused = tcd.greedy_decode(tmod, t(memory), t(pad), LC, BOS, EOS, PAD,
+                                  faster_eval=faster_eval, groups=G, zeroed_mask=z,
+                                  decode_impl="fused", fused_grid=grid)
+    assert len({tuple(r) for r in plain.tolist()}) > 1  # not a degenerate decode
+    assert torch.equal(fused, plain)
+
+
+@pytest.mark.parametrize("grid", ["video", "batch"])
+def test_int8_kv_mostly_agrees_with_plain_op_decode(setup, grid):
+    _, _, tmod, memory, pad, zeroed = setup
+    with torch.no_grad():
+        plain = tcd.greedy_decode(tmod, t(memory), t(pad), LC, BOS, EOS, PAD, groups=G,
+                                  zeroed_mask=t(zeroed))
+        int8 = tcd.greedy_decode(tmod, t(memory), t(pad), LC, BOS, EOS, PAD, groups=G,
+                                 zeroed_mask=t(zeroed), decode_impl="fused", kv_mode="int8",
+                                 fused_grid=grid)
+    assert int8.shape == plain.shape and bool(((int8 >= 0) & (int8 < VOCAB)).all())
+    agree = (int8 == plain).float().mean().item()
+    assert agree >= 0.9, f"int8 token agreement {agree:.3f}"
+
+
+@pytest.mark.parametrize("bias_col", [False, True])
+def test_fully_blocked_row_follows_the_fused_kernel(setup, bias_col):
+    """A row whose every memory position is blocked averages V over the Sp
+    padded columns in the TPU kernel of grid "video", over the S columns in
+    JAX's XLA path, and over the Bt·Sp columns of its batch tile in the
+    kernel of grid "batch". The port follows the "video" kernel in both
+    grids."""
+    jmod, params, tmod, memory, pad, zeroed = setup
+    pad = pad.copy()
+    pad[3] = True  # event 3 of video 0: rows 3 (commit) and 3 + G (predict)
+    (rx, _, _), (gx, _, _) = run_both(setup, 0, "dense", bias_col, "video", pad=pad)
+    np.testing.assert_allclose(gx, rx, rtol=0, atol=1e-5)
+    (bx, _, _), (gbx, _, _) = run_both(setup, 0, "dense", bias_col, "batch", pad=pad)
+    np.testing.assert_allclose(gbx, rx, rtol=0, atol=1e-5)
+    batch_gap = np.abs(bx - rx).max(axis=-1)  # JAX's two kernels
+    assert batch_gap[0, 3] > 1e-2 and batch_gap[0, 3 + G] > 1e-2, batch_gap
+    batch_gap[0, [3, 3 + G]] = 0
+    assert batch_gap.max() < 1e-5, batch_gap
+
+    # the gap to JAX's XLA path: logits of the predict rows after one step
+    z = jnp.asarray(zeroed) if bias_col else None
+    prev = jnp.full((B * G,), BOS, jnp.int32)
+    pad_tok = jnp.full((B * G,), PAD, jnp.int32)
+    mem_kv = jmod.apply(params, jnp.asarray(memory),
+                        method=jcd.UnimodalCaptionDecoder.precompute_memory_kv)
+    caches = jnp.zeros((DEPTH, B * G, LC, D))
+    xla_logits, _, _ = jmod.apply(params, prev, pad_tok, 0, caches, caches, mem_kv,
+                                  jnp.asarray(pad), G, z,
+                                  method=jcd.UnimodalCaptionDecoder.decode_pair)
+    with torch.no_grad():
+        pad_t = t(pad)
+        mem_k, mem_v = tfd.stack_memory_kv(tfd.extract_decoder_weights(tmod), t(memory), SP)
+        mask, log_m = tfd.decode_masks(pad_t, t(zeroed) if bias_col else None, B, G, SP)
+        x = torch.cat([tmod.embed_at(t(np.asarray(prev)).long(), 0)[:, 0].reshape(B, G, D),
+                       tmod.embed_at(t(np.asarray(pad_tok)).long(), 1)[:, 0].reshape(B, G, D)],
+                      dim=1)
+        kc = torch.zeros((DEPTH, B, LC * G, D))
+        x_out, _, _ = tfd.fused_decode_step(
+            x, kc, kc.clone(), 0, 1, mem_k, mem_v, None, None, mask, log_m,
+            tfd.extract_decoder_weights(tmod), G=G, num_heads=H, has_bias_col=bias_col)
+        fused_logits = tmod.head(x_out[:, G:].reshape(B * G, D)).numpy()
+    gap = np.abs(fused_logits - np.asarray(xla_logits)).max(axis=1)
+    assert gap[3] > 1e-2, gap  # the blocked row: the two JAX paths differ
+    assert np.delete(gap, 3).max() < 1e-4, gap  # every other row: they agree
+
+
+def test_cpu_tensors_take_the_plain_version(setup):
+    _, _, tmod, memory, pad, zeroed = setup
+    for kernel in tfd.FUSED_DECODE.values():
+        kernel.launches = 0
+    with torch.no_grad():
+        for grid in ("video", "batch"):
+            tcd.greedy_decode(tmod, t(memory), t(pad), LC, BOS, EOS, PAD, groups=G,
+                              zeroed_mask=t(zeroed), decode_impl="fused", fused_grid=grid)
+    assert [k.launches for k in tfd.FUSED_DECODE.values()] == [0, 0]
+    # the kernel's own wrapper takes CUDA tensors only: it raises, it does not fall back
+    (x, kc, vc, mk, mv, ks, vs, mask, log_m), _ = step_inputs(setup, 0, "dense", False)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfd.FUSED_DECODE["video"](t(x), t(kc), t(vc), 0, 1, t(mk), t(mv), None, None,
+                                  t(mask), t(log_m), tfd.extract_decoder_weights(tmod),
+                                  G=G, num_heads=H, has_bias_col=False)
+
+
+def test_fused_decode_needs_groups(setup):
+    _, _, tmod, memory, pad, _ = setup
+    with pytest.raises(ValueError, match="groups"):
+        tcd.greedy_decode(tmod, t(memory[:1]), t(pad[:1]), LC, BOS, EOS, PAD, groups=1,
+                          decode_impl="fused")
+
+
+@pytest.mark.parametrize("knob, value", [("decode_impl", "pallas"), ("decode_kv", "bf16"),
+                                         ("decode_fused_grid", "tile")])
+def test_unknown_decode_options_raise(setup, knob, value):
+    _, _, tmod, memory, pad, _ = setup
+    with pytest.raises(ValueError, match=knob):
+        check_decode_options(**{knob: value})
+    kw = {"decode_impl": "fused", "kv_mode": "dense", "fused_grid": "video"}
+    kw[{"decode_impl": "decode_impl", "decode_kv": "kv_mode",
+        "decode_fused_grid": "fused_grid"}[knob]] = value
+    with pytest.raises(ValueError, match=knob):
+        tcd.greedy_decode(tmod, t(memory), t(pad), LC, BOS, EOS, PAD, groups=G, **kw)
+    from multimodal_feature_learning_tpu_torch.models.dvc import UnimodalDVC
+
+    cfg = Config()
+    setattr(cfg, knob, value)
+    with pytest.raises(ValueError, match=knob):
+        UnimodalDVC(cfg, VOCAB)
+
+
+def test_config_defaults_are_jax_defaults():
+    from multimodal_feature_learning_tpu.config import load_config
+
+    jcfg, cfg = load_config(), Config()
+    for knob in ("decode_impl", "decode_kv", "decode_fused_grid"):
+        assert getattr(cfg, knob) == jcfg[knob]

@@ -93,19 +93,81 @@ def test_server_answers_like_forward_serve(pair):
 
 
 def test_server_decodes_captions_with_a_vocab(pair):
+    """With a vocab the server answers the strings of JAX's
+    ``captions_to_string`` on the ids it would answer without one."""
     jcfg, _, _, tmodel = pair
     from test_torch_common import VOCAB_SIZE
 
-    vocab = Vocab(["<unk>", "<pad>", "<bos>", "<eos>"]
-                  + [f"w{i}" for i in range(VOCAB_SIZE - 4)])
-    assert vocab.decode([2, 7, 0, 9, 3, 1]) == "w3 w5"
+    from multimodal_feature_learning_tpu.data.vocab import Vocab as JaxVocab
+    from multimodal_feature_learning_tpu.utils.postprocess import captions_to_string
+
+    words = ["<unk>", "<pad>", "<bos>", "<eos>"] + [f"w{i}" for i in range(VOCAB_SIZE - 4)]
+    vocab = Vocab(words)
     feats = np.random.default_rng(3).normal(
         size=(30, jcfg.dvc.detr.feature_dim)).astype(np.float32)
     with DVCServer(tmodel, batch_size=2, max_wait_ms=1.0) as plain:
         ids = plain.submit(feats, 42.0).result(timeout=60)
     with DVCServer(tmodel, vocab=vocab, batch_size=2, max_wait_ms=1.0) as server:
-        words = server.submit(feats, 42.0).result(timeout=60)
-    assert [e["caption"] for e in words] == [vocab.decode(e["caption"]) for e in ids]
+        strings = server.submit(feats, 42.0).result(timeout=60)
+    assert [e["caption"] for e in strings] == captions_to_string(
+        [e["caption"] for e in ids], JaxVocab(words))
+
+
+def test_caption_strings_match_jax_postprocess():
+    """The reference's post-processing: specials dropped, then the first and
+    last word, then repeated words and stray punctuation."""
+    from multimodal_feature_learning_tpu.data.vocab import Vocab as JaxVocab
+    from multimodal_feature_learning_tpu.utils.postprocess import (
+        captions_to_string as jax_captions_to_string,
+    )
+    from multimodal_feature_learning_tpu_torch.utils.postprocess import captions_to_string
+
+    words = "<unk> <pad> <bos> <eos> a man man . is riding bike".split()
+    rows = [[2, 4, 5, 5, 7, 8, 9, 4, 10, 7, 3, 1, 1], [2, 3, 1, 1], [2, 4, 3], [2, 0, 6, 6, 4, 5, 3],
+            [2, 4, 7, 7, 5, 3]]
+    ref = jax_captions_to_string(rows, JaxVocab(words))
+    assert ref[0] == "man is riding a bike"
+    assert captions_to_string(rows, Vocab(words)) == ref
+
+
+@pytest.fixture(scope="module")
+def fused_pair(pair):
+    """The same weights as ``pair``, with ``decode_impl="fused"`` on both
+    sides."""
+    jcfg, _, params, _ = pair
+    jcfg = jax_small_cfg(use_differentiable_mask=jcfg.use_differentiable_mask)
+    jcfg.decode_impl = "fused"
+    from multimodal_feature_learning_tpu.models.dvc import build_model as jax_build_model
+    from test_torch_common import BOS, EOS, PAD, VOCAB_SIZE
+
+    jmodel = jax_build_model(jcfg, VOCAB_SIZE, PAD, BOS, EOS)
+    return jcfg, jmodel, params, build_port_model(jcfg, params)
+
+
+@pytest.mark.parametrize("grid", ["video", "batch"])
+def test_forward_serve_fused_matches_jax(fused_pair, monkeypatch, grid):
+    """``forward_serve`` with the fused decode step against JAX's, whose
+    Pallas kernel runs in interpret mode on the CPU; the tolerances of
+    ``test_forward_serve_matches_jax``, captions token-exact."""
+    import multimodal_feature_learning_tpu.ops.fused_decode as jfd
+
+    jcfg, jmodel, params, tmodel = fused_pair
+    assert jmodel.decode_impl == tmodel.decode_impl == "fused"
+    jmodel.decode_fused_grid = tmodel.decode_fused_grid = grid
+    orig = jfd.fused_decode_step
+    monkeypatch.setattr(jfd, "fused_decode_step",
+                        lambda *a, **kw: orig(*a, **{**kw, "interpret": True}))
+    video, mask, durations = serve_inputs(jcfg)
+    ref = jmodel.forward_serve(params, video, mask, durations)
+    got = tmodel.forward_serve(torch.from_numpy(video), torch.from_numpy(mask),
+                               torch.from_numpy(durations))
+    dur = durations[:, None, None]
+    np.testing.assert_allclose(got["segments"].numpy() / dur,
+                               np.asarray(ref["segments"]) / dur, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got["scores"].numpy(), np.asarray(ref["scores"]),
+                               rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(got["k"].numpy(), np.asarray(ref["k"]))
+    np.testing.assert_array_equal(got["captions"].numpy(), np.asarray(ref["captions"]))
 
 
 def test_server_fails_futures_on_dispatch_error(pair):
