@@ -15,7 +15,9 @@ Phases, each printing one line with its wall seconds:
    Function that joins them against autograd through the plain core, and
    the fused decode step (K3/K4) in both grids, dense and int8 memory K/V,
    with and without the bias column, at decode steps 0, 9 and 18, and the
-   device time of each of its stages (a build that times its barriers);
+   device time of each of its stages (a build that times its barriers); and
+   the probe's kernel (K5, x + 1) in f32 and bf16, bitwise, eager and
+   replayed from a CUDA graph, beside torch.add;
 4. model: the flagship sparse DVC model at full width (d_model 512, 6+6
    transformer layers, 6 caption layers, vocab 6563) on the card, carrying
    the trained weights of snapshots/conv_e79.npz, loaded strictly;
@@ -41,7 +43,19 @@ Phases, each printing one line with its wall seconds:
 11. train_check: one step of batch 2 with dropout off, from the same weights,
    on the card and on the port's CPU path: equal matchings, losses and
    gradient norm within their tolerances; and, for each encoder MSDA call of
-   that step, K2 against the plain backward on the CPU step's own inputs.
+   that step, K2 against the plain backward on the CPU step's own inputs;
+12. eval (run after breakdown, on the served model): make_eval_step on one
+   synthetic batch of 16 in every val_mode (one_by_one with the plain-op
+   and the fused decode, teacher_forcing, beam 4, serve, one_by_one with
+   faster_eval) and beam 1: finite losses, K1 once per MSDA call, the fused
+   kernel once per decode step, beam 1 equal to greedy;
+13. eval_check: forward_eval on a batch of 2 with dropout off, on the card
+   and on the port's CPU path: matchings, teacher-forced log-probabilities,
+   losses and caption rows (greedy and beam);
+14. probe: the per-op overhead probe (tools/probe_op_overhead.py), eager and
+   from CUDA graphs, with K5's launches;
+15. tools: profile_msda, profile_decode, bench_fused_decode and
+   onchip_decode_parity, once each at reduced iteration counts.
 
 Then one JSON line of kernel measurements and, as the last line, a JSON
 object naming the device. Any failure exits non-zero without that line, as
@@ -450,6 +464,57 @@ def fused_stage_breakdown(dims):
     return out
 
 
+PROBE_SHAPES = ((160, 64), (1_000_003,))  # the probe's shape and one ragged size
+
+
+def graph_us_per_launch(op, x, n: int = 50) -> float:
+    """Microseconds per op replayed from a CUDA graph holding a chain of
+    ``n`` ops on ``x`` (the probe's ``graph_ms``: best of 3 reps of 20
+    replays)."""
+    from multimodal_feature_learning_tpu_torch.tools.probe_op_overhead import graph_ms
+
+    return 1e3 * graph_ms(op, x, n, reps=3, iters=20)[0] / n
+
+
+def check_probe_add():
+    """Phase 3: K5 against its plain version on the card, f32 and bf16, at
+    the probe's (160, 64) and at 1,000,003 elements: bitwise equal. Its time
+    eager (CUDA events over 50 launches) and replayed from a CUDA graph (a
+    chain of 50), the plain version's, and torch.add(x, 1)'s both ways.
+    Bound: x read once and the output written once, one f32 add an
+    element."""
+    import torch
+
+    from multimodal_feature_learning_tpu_torch.ops.probe_add import PROBE_ADD, probe_add_plain
+
+    cases = []
+    for shape in PROBE_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator(device="cuda").manual_seed(len(shape))
+            x = (torch.randn(shape, generator=g, device="cuda")
+                 * torch.rand(shape, generator=g, device="cuda") * 1e3).to(dtype)
+            got, ref = PROBE_ADD(x), probe_add_plain(x)
+            torch.cuda.synchronize()
+            as_int = torch.int16 if dtype == torch.bfloat16 else torch.int32
+            if got.shape != x.shape or got.dtype != x.dtype \
+                    or not torch.equal(got.view(as_int), ref.view(as_int)):
+                raise AssertionError(f"probe_add kernel is not bitwise equal to x + 1 "
+                                     f"({tuple(shape)}, {dtype})")
+            nbytes = 2 * x.numel() * x.element_size()
+            t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, x.numel() / PEAK_F32_FLOPS
+            cases.append({
+                "shape": list(shape), "dtype": str(dtype).replace("torch.", ""),
+                "max_abs_err": (got.float() - ref.float()).abs().max().item(), "bitwise": True,
+                "ms": time_cuda(lambda: PROBE_ADD(x)),
+                "graph_us_per_launch": graph_us_per_launch(PROBE_ADD, x),
+                "plain_ms": time_cuda(lambda: probe_add_plain(x)),
+                "library_ms": time_cuda(lambda: torch.add(x, 1)),
+                "library_graph_us_per_launch": graph_us_per_launch(lambda c: torch.add(c, 1), x),
+                "bound_ms": 1e3 * max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations", "bytes": nbytes})
+    return cases
+
+
 def build_flagship(device):
     """Full-width flagship model on ``device`` with the trained weights of
     snapshots/conv_e79.npz, loaded strictly. conv_e79 was trained without
@@ -488,21 +553,11 @@ def kernel_counters():
     """Every kernel wrapper of the port with its launch count, by name."""
     from multimodal_feature_learning_tpu_torch.ops import fused_decode as fd
     from multimodal_feature_learning_tpu_torch.ops import msda
+    from multimodal_feature_learning_tpu_torch.ops.probe_add import PROBE_ADD
 
     return {"msda_fwd": msda.MSDA_FWD, "msda_bwd": msda.MSDA_BWD,
             "fused_decode_video": fd.FUSED_DECODE["video"],
-            "fused_decode_batch": fd.FUSED_DECODE["batch"]}
-
-
-def decode_steps_run(captions, eos_idx: int, seq_len: int) -> int:
-    """Steps the greedy decode ran to produce ``captions`` (N, Lc+1): until
-    the last caption's first <eos>, at most seq_len - 1."""
-    import torch
-
-    is_eos = captions[:, 1:-1] == eos_idx
-    first_eos = torch.where(is_eos.any(1), is_eos.float().argmax(1) + 1,
-                            torch.full_like(is_eos[:, 0], seq_len - 1, dtype=torch.long))
-    return int(first_eos.max())
+            "fused_decode_batch": fd.FUSED_DECODE["batch"], "probe_add": PROBE_ADD}
 
 
 def serve(model, requests):
@@ -512,6 +567,7 @@ def serve(model, requests):
     Returns the results, latencies, wall seconds, launches, the server's
     stats and the decode steps per dispatch."""
     from multimodal_feature_learning_tpu_torch.serve import DVCServer
+    from multimodal_feature_learning_tpu_torch.tools.profile_decode import decode_steps_run
 
     server = DVCServer(model, batch_size=BATCH, max_wait_ms=10.0)
     steps = []
@@ -768,6 +824,7 @@ def breakdown(model, requests):
 
     from multimodal_feature_learning_tpu_torch.data.anet import nearest_resize
     from multimodal_feature_learning_tpu_torch.models.caption_decoder import greedy_decode
+    from multimodal_feature_learning_tpu_torch.tools.profile_decode import decode_steps_run
 
     T = model.video_rescale_len
     dev = next(model.parameters()).device
@@ -822,6 +879,215 @@ def breakdown(model, requests):
                                           if "fused_decode" in k) / 1e3,
             "top_kernels": [{"name": k[:90], "ms": us / 1e3, "count": c} for k, us, c in top],
         }
+    return out
+
+
+EVAL_ARMS = (  # (name, val_mode, keyword arguments, decode_impl)
+    ("one_by_one", "one_by_one", {}, "xla"),
+    ("one_by_one_fused", "one_by_one", {}, "fused"),
+    ("teacher_forcing", "teacher_forcing", {}, "xla"),
+    ("beam4", "beam", {"beam_size": 4}, "xla"),
+    ("serve", "serve", {}, "xla"),
+    ("one_by_one_faster", "one_by_one", {"faster_eval": True}, "xla"),
+)
+
+
+def evaluate_arms(cfg, model, batch):
+    """Phase 12: make_eval_step on one batch (on the model's device) in every
+    arm of EVAL_ARMS, and beam 1. Every kernel's launch count is set to 0
+    just before each arm and read just after it. Checks: every loss finite;
+    K1 launched once per MSDA call of the forward; the fused arm's kernel
+    once per decode step; beam 1 equal to greedy, row for row."""
+    import torch
+
+    from multimodal_feature_learning_tpu_torch.engine.evaluate import make_eval_step
+    from multimodal_feature_learning_tpu_torch.models.criterion import build_criterion
+    from multimodal_feature_learning_tpu_torch.tools.profile_decode import decode_steps_run
+
+    criterion, weight_dict = build_criterion(cfg, model.pad_idx)
+    counters = kernel_counters()
+    per_forward = cfg.dvc.detr.enc_layers + cfg.dvc.detr.dec_layers
+    arms, captions = {}, {}
+    for name, val_mode, kw, impl in EVAL_ARMS + (("beam1", "beam", {"beam_size": 1}, "xla"),):
+        model.decode_impl = impl
+        try:
+            step = make_eval_step(model, criterion, weight_dict, val_mode, **kw)
+            for k in counters.values():
+                k.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            caps, denorm, losses = step(batch)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+        finally:
+            model.decode_impl = "xla"
+        launches = {k: c.launches for k, c in counters.items()}
+        values = {k: float(v) for k, v in losses.items()}
+        if not all(math.isfinite(v) for v in values.values()):
+            raise AssertionError(f"eval {name}: non-finite losses {values}")
+        steps = decode_steps_run(caps, model.eos_idx, model.seq_len) \
+            if val_mode in ("one_by_one", "serve") and not kw.get("faster_eval") else None
+        if launches["msda_fwd"] != per_forward:
+            raise AssertionError(f"eval {name}: msda_fwd launched {launches['msda_fwd']} "
+                                 f"times, the forward has {per_forward} MSDA calls")
+        if impl == "fused" and launches["fused_decode_video"] != steps:
+            raise AssertionError(f"eval {name}: fused_decode_video launched "
+                                 f"{launches['fused_decode_video']} times over {steps} "
+                                 f"decode steps")
+        captions[name] = caps.cpu()
+        arms[name] = {"val_mode": val_mode, **kw, "decode_impl": impl, "ms": ms,
+                      "captions_shape": list(caps.shape), "decode_steps": steps,
+                      "loss": values["loss"], "loss_terms": len(values) - 1,
+                      "caption_loss_terms": sum(k.startswith("loss_caption") for k in values),
+                      "launches": launches,
+                      "segments_max_s": float(denorm.abs().max())}
+    if not torch.equal(captions["beam1"], captions["one_by_one"]):
+        rows = int((captions["beam1"] != captions["one_by_one"]).any(dim=1).sum())
+        raise AssertionError(f"beam 1 differs from greedy on {rows} caption rows")
+    fused_rows = int((captions["one_by_one_fused"] == captions["one_by_one"]).all(dim=1).sum())
+    return {"batch": int(batch["video_tensor"].shape[0]), "arms": arms,
+            "beam1_equals_greedy": True,
+            "fused_rows_equal_to_plain": fused_rows, "rows": int(captions["one_by_one"].shape[0])}
+
+
+EVAL_CHECK_LOGP_TOL = 1e-3  # x max |ref| of the teacher-forced log-probabilities
+
+
+def eval_check(cfg, flat, vocab_size):
+    """Phase 13: one batch of 2 with dropout off, from conv_e79, through
+    forward_eval on the card and on the port's CPU path: matched indices
+    (final and auxiliary) equal; the teacher-forced log-probabilities of
+    every caption layer within EVAL_CHECK_LOGP_TOL x max |ref|; the loss
+    within rel 1e-4 and every term within rel 1e-3 (atol 1e-5), as
+    train_check holds them; at least 90% of caption rows equal in one_by_one
+    and in beam (beam 4), where f32 sums in another order can flip a
+    near-tie."""
+    import dataclasses
+
+    import torch
+
+    from multimodal_feature_learning_tpu_torch.data.anet import synthetic_batches
+    from multimodal_feature_learning_tpu_torch.engine.train import batch_to_device
+    from multimodal_feature_learning_tpu_torch.models.criterion import build_criterion
+    from multimodal_feature_learning_tpu_torch.models.dvc import build_model
+    from multimodal_feature_learning_tpu_torch.utils.weights import load_flax_params
+
+    cfg = dataclasses.replace(cfg)
+    cfg.dvc = dataclasses.replace(cfg.dvc, detr=dataclasses.replace(
+        cfg.dvc.detr, transformer_dropout_prob=0.0), caption=dataclasses.replace(
+        cfg.dvc.caption, positional_embedding_dropout=0.0, attention_dropout=0.0,
+        projection_dropout=0.0, mlp_dropout_1=0.0, mlp_dropout_2=0.0))
+    batch = next(synthetic_batches(cfg, 2, vocab_size, seed=0))
+    res = {}
+    for device in ("cuda", "cpu"):
+        model = build_model(cfg, vocab_size, device=device)
+        load_flax_params(model, flat)
+        criterion, weight_dict = build_criterion(cfg, model.pad_idx)
+        tb = batch_to_device(batch, device)
+        out, caps, idx, idx_aux, mask = model.forward_eval(tb, "one_by_one")
+        losses = criterion(out, tb, idx, idx_aux, mask)
+        losses["loss"] = sum(losses[k] * weight_dict[k] for k in losses if k in weight_dict)
+        logp = torch.stack([a["pred_captions"] for a in out["aux_outputs_caption"]]
+                           + [out["pred_captions"]])
+        beam = model.forward_eval(tb, "beam", beam_size=4)[1]
+        res[device] = {"idx": idx.cpu(), "idx_aux": idx_aux.cpu(), "logp": logp.cpu(),
+                       "caps": caps.cpu(), "beam": beam.cpu(),
+                       "losses": {k: float(v) for k, v in losses.items()}}
+        del model
+    g, c = res["cuda"], res["cpu"]
+    if not (torch.equal(g["idx"], c["idx"]) and torch.equal(g["idx_aux"], c["idx_aux"])):
+        raise AssertionError("eval: matchings differ between the card and the CPU")
+    logp_err = (g["logp"] - c["logp"]).abs().max().item()
+    logp_scale = c["logp"].abs().max().item()
+    if not logp_err <= EVAL_CHECK_LOGP_TOL * logp_scale:
+        raise AssertionError(f"eval: teacher-forced log-probs differ by {logp_err} "
+                             f"> {EVAL_CHECK_LOGP_TOL} x {logp_scale}")
+    gm, cm = g["losses"], c["losses"]
+    rel = {k: abs(gm[k] - cm[k]) / max(abs(cm[k]), 1e-12) for k in cm}
+    bad = [k for k in cm if k != "loss" and abs(gm[k] - cm[k]) > max(1e-3 * abs(cm[k]), 1e-5)]
+    if rel["loss"] > 1e-4 or bad:
+        raise AssertionError(f"eval: card and CPU losses disagree: loss rel {rel['loss']}, "
+                             f"terms {bad}")
+    rows = {}
+    for key in ("caps", "beam"):
+        same = int((g[key] == c[key]).all(dim=1).sum())
+        if same < 0.9 * g[key].shape[0]:
+            raise AssertionError(f"eval: {same}/{g[key].shape[0]} {key} rows equal on the "
+                                 f"card and the CPU")
+        rows[key] = same
+    return {"batch": 2, "indices_equal": True, "logp_max_abs_err": logp_err,
+            "logp_max_abs_ref": logp_scale, "loss_card": gm["loss"], "loss_cpu": cm["loss"],
+            "loss_rel": rel["loss"], "terms": len(cm) - 1,
+            "worst_term": max((k for k in cm if k != "loss"), key=lambda k: rel[k]),
+            "worst_term_rel": max(rel[k] for k in cm if k != "loss"),
+            "one_by_one_rows_equal": rows["caps"], "beam_rows_equal": rows["beam"],
+            "rows": int(g["caps"].shape[0])}
+
+
+def probe():
+    """Phase 14: the per-op overhead probe in both modes. K5's launch count
+    is set to 0 just before and read just after; the tool reports the
+    launches its graph replays ran, which the wrapper counts once at
+    capture."""
+    import torch
+
+    from multimodal_feature_learning_tpu_torch.ops.probe_add import PROBE_ADD
+    from multimodal_feature_learning_tpu_torch.tools import probe_op_overhead
+
+    PROBE_ADD.launches = 0
+    result = probe_op_overhead.run("cuda")
+    counted = PROBE_ADD.launches
+    ran = sum(result["probe_add_launches"].values())
+    if not (counted > 0 and result["probe_add_launches"]["eager"] > 0
+            and result["probe_add_launches"]["graph"] > 0):
+        raise AssertionError(f"probe_add launched {result['probe_add_launches']} "
+                             f"(counted {counted}) over the probe")
+    # where an xattn sequence's time goes: its kernels' device time, eager
+    body, x = probe_op_overhead.make_rows(torch.device("cuda"))["xattn_563keys_us_per_seq"]
+    body(x)
+    n = 20
+    wall_ms, device_ms, launches, kernels = profile_call(lambda: [body(x) for _ in range(n)])
+    xattn = {"sequences": n, "device_us_per_seq": 1e3 * device_ms / n,
+             "wall_us_per_seq": 1e3 * wall_ms / n, "launches_per_seq": launches / n,
+             "kernels": [{"name": k[:90], "us_per_seq": us / n, "count": c}
+                         for k, us, c in sorted(kernels, key=lambda k: -k[1])]}
+    return {**result, "probe_add_launches_counted": counted, "probe_add_launches_ran": ran,
+            "xattn_profile": xattn}
+
+
+def run_tools():
+    """Phase 15: the four other tools once each, at reduced iteration counts
+    (their defaults are for manual runs). onchip_decode_parity's fused arms
+    may not move a segment, and its "video" arm must give at least 90% of
+    the plain-op decode's caption rows exactly."""
+    import torch
+
+    from multimodal_feature_learning_tpu_torch.tools import (
+        bench_fused_decode, onchip_decode_parity, profile_decode, profile_msda,
+    )
+
+    out = {"profile_msda": profile_msda.run("cuda", iters=10)}
+    # the kernel backend's forward + backward at Q=282, kernel by kernel
+    value, loc, aw = profile_msda.inputs(16, 282, 8, 64, profile_msda.SHAPES, 4,
+                                         torch.device("cuda"))
+    _, fwd_bwd = profile_msda.backend_fns("kernel", value, profile_msda.SHAPES, loc, aw)
+    fwd_bwd()
+    wall_ms, device_ms, launches, kernels = profile_call(fwd_bwd)
+    out["profile_msda"]["kernel_fwd_bwd_Q282_profile"] = {
+        "wall_ms": wall_ms, "device_ms": device_ms, "launches": launches,
+        "kernels": [{"name": k[:90], "us": us, "count": c}
+                    for k, us, c in sorted(kernels, key=lambda k: -k[1])]}
+    out["profile_decode"] = profile_decode.run("cuda", n=3, reps=1)
+    out["bench_fused_decode"] = bench_fused_decode.run("cuda", iters=3)
+    parity = onchip_decode_parity.run("cuda")
+    out["onchip_decode_parity"] = parity
+    for arm in onchip_decode_parity.ARMS:
+        if parity[f"{arm}_seg_max_delta"] != 0.0:
+            raise AssertionError(f"onchip_decode_parity: the {arm} arm moved a segment by "
+                                 f"{parity[f'{arm}_seg_max_delta']}")
+    if parity["fused_event_exact_pct"] < 90.0:
+        raise AssertionError(f"onchip_decode_parity: only {parity['fused_event_exact_pct']}% "
+                             f"of the fused arm's rows are exact")
     return out
 
 
@@ -1139,6 +1405,9 @@ def main() -> int:
     for line in fused_lines:
         log("kernel", 0.0, name=f"fused_decode_{line['grid']}", **line)
     log("fused_stages", 0.0, **fused_stage_breakdown(fused_dims))
+    probe_cases = check_probe_add()
+    for c in probe_cases:
+        log("kernel", 0.0, name="probe_add", **c)
     log("kernels", time.monotonic() - t, function_vs_plain_autograd_rel_err=function_err)
 
     t = time.monotonic()
@@ -1179,11 +1448,21 @@ def main() -> int:
         **{grid: served["stats"] for grid, served in fused_served.items()})
 
     t = time.monotonic()
-    log("check_fused", time.monotonic() - t, **check_fused(cfg, model, requests))
+    fused_checked = check_fused(cfg, model, requests)
+    log("check_fused", time.monotonic() - t, **fused_checked)
 
     t = time.monotonic()
     where_time_goes = breakdown(model, requests)
     log("breakdown", time.monotonic() - t, **where_time_goes)
+
+    t = time.monotonic()
+    from multimodal_feature_learning_tpu_torch.data.anet import synthetic_batches
+    from multimodal_feature_learning_tpu_torch.engine.train import batch_to_device
+
+    eval_batch = batch_to_device(next(synthetic_batches(
+        cfg, BATCH, model.caption.head.out_features, seed=0)), "cuda")
+    evaluated = evaluate_arms(cfg, model, eval_batch)
+    log("eval", time.monotonic() - t, **evaluated)
     vocab_size = model.caption.head.out_features
     del model
     torch.cuda.empty_cache()
@@ -1195,6 +1474,18 @@ def main() -> int:
     t = time.monotonic()
     checked = train_check(cfg, flat, vocab_size)
     log("train_check", time.monotonic() - t, **checked)
+
+    t = time.monotonic()
+    eval_checked = eval_check(cfg, flat, vocab_size)
+    log("eval_check", time.monotonic() - t, **eval_checked)
+
+    t = time.monotonic()
+    probed = probe()
+    log("probe", time.monotonic() - t, **probed)
+
+    t = time.monotonic()
+    tools = run_tools()
+    log("tools", time.monotonic() - t, **tools)
 
     enc = next(c for c in cases if c["call"] == "encoder" and c["dtype"] == "float32")
     enc_bwd = next(c for c in bwd_cases if c["call"] == "encoder")
@@ -1213,7 +1504,9 @@ def main() -> int:
             "launches": trained["launches"][name],
             "launches_by_path": {"serve": launches[name],
                                  "serve_fused": fused_served["video"]["launches"][name],
-                                 "train": trained["launches"][name]},
+                                 "train": trained["launches"][name],
+                                 "eval": sum(a["launches"][name]
+                                             for a in evaluated["arms"].values())},
             "max_abs_err": case["max_abs_err"], "ms": case["ms"], "plain_ms": case["plain_ms"],
             "bound_ms": case["bound_ms"], "bound_by": case["bound_by"], "library_ms": None,
             "shape": shape, "cases": all_cases,
@@ -1227,7 +1520,9 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": os.path.relpath(str(CSRC_DIR / counters[name].source), ROOT),
             "replaces": counters[name].replaces,
-            "launches": n, "launches_by_path": {"serve_fused": n},
+            "launches": n, "launches_by_path": {
+                "serve_fused": n,
+                "eval": sum(a["launches"][name] for a in evaluated["arms"].values())},
             "max_abs_err": max(line["max_abs_err"] for line in lines),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
@@ -1236,6 +1531,19 @@ def main() -> int:
                      f"depth {fused_dims[4]} Sp=640 f32, dense K/V, no bias column, step 9",
             "cases": [{k: v for k, v in line.items() if k != "steps"} for line in lines],
         })
+    probe_case = next(c for c in probe_cases
+                      if c["shape"] == list(PROBE_SHAPES[0]) and c["dtype"] == "bfloat16")
+    n = probed["probe_add_launches_ran"]
+    kernels.append({
+        "name": "probe_add", "route": "cuda",
+        "source": os.path.relpath(str(CSRC_DIR / counters["probe_add"].source), ROOT),
+        "replaces": counters["probe_add"].replaces,
+        "launches": n, "launches_by_path": {"probe": n},
+        "max_abs_err": max(c["max_abs_err"] for c in probe_cases),
+        **{k: probe_case[k] for k in ("ms", "graph_us_per_launch", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms", "library_graph_us_per_launch")},
+        "shape": "x (160, 64) bf16, the probe's carry", "cases": probe_cases,
+    })
     log("total", time.monotonic() - t_all)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

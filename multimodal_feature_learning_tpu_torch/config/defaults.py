@@ -1,4 +1,5 @@
-"""Configuration of the port: the fields the serving and training paths read.
+"""Configuration of the port: the fields the serving, training and evaluation
+paths read.
 
 Counterpart of ``multimodal_feature_learning_tpu/config/defaults.py``, as
 plain dataclasses. Attribute paths match the JAX config (``cfg.dvc.detr.rho``,
@@ -88,6 +89,16 @@ class DatasetConfig:
 
 
 @dataclass
+class EvalConfig:
+    val_mode: str = "one_by_one"  # one_by_one | teacher_forcing | beam | serve
+    # semantic, not a speed-up: the raw argmax fills every caption slot, so
+    # the decode runs all seq_len steps and has no all-done early exit
+    faster_eval: bool = False
+    beam_size: int = 4
+    length_penalty: float = 0.0
+
+
+@dataclass
 class Config:
     seed: int = 0
     lr: float = 1e-4
@@ -102,17 +113,20 @@ class Config:
     decode_fused_grid: str = "video"  # fused kernel's schedule: "video" | "batch"
     dvc: DVCConfig = field(default_factory=DVCConfig)
     dataset: DatasetConfig = field(default_factory=DatasetConfig)
+    eval: EvalConfig = field(default_factory=EvalConfig)
 
 
 DECODE_CHOICES = {
     "decode_impl": ("xla", "fused"),
     "decode_kv": ("dense", "int8"),
     "decode_fused_grid": ("video", "batch"),
+    "val_mode": ("one_by_one", "teacher_forcing", "beam", "serve"),
 }
 
 
 def check_decode_options(**options) -> None:
-    """Raise ``ValueError`` on an unknown value of a decode knob."""
+    """Raise ``ValueError`` on an unknown value of a decode knob or of
+    ``val_mode``."""
     for name, value in options.items():
         if value not in DECODE_CHOICES[name]:
             raise ValueError(f"{name} must be one of {DECODE_CHOICES[name]}, got {value!r}")

@@ -1,9 +1,9 @@
-"""Per-event caption decoder: the teacher-forced pass of training and the
-KV-cached greedy decode of serving; counterpart of the JAX
-``models/caption_decoder.py``. The greedy decode runs as plain ops, one
-``decode_pair`` per token (``decode_impl`` "xla"), or through the fused
-decode step, one kernel launch per token (``decode_impl`` "fused",
-``ops/fused_decode.py``)."""
+"""Per-event caption decoder: the teacher-forced pass of training and
+evaluation, the KV-cached greedy decode of serving and the beam search of
+evaluation; counterpart of the JAX ``models/caption_decoder.py``. The greedy
+decode runs as plain ops, one ``decode_pair`` per token (``decode_impl``
+"xla"), or through the fused decode step, one kernel launch per token
+(``decode_impl`` "fused", ``ops/fused_decode.py``)."""
 
 from __future__ import annotations
 
@@ -42,10 +42,13 @@ class UnimodalCaptionDecoder(nn.Module):
         self.head = nn.Linear(d_model, vocab_size)
 
     def forward(self, tgt, memory, tgt_mask=None, tgt_padding_mask=None,
-                memory_padding_mask=None, groups: int = 1, zeroed_mask=None):
+                memory_padding_mask=None, groups: int = 1, zeroed_mask=None,
+                log_probs: bool = False):
         """Teacher-forced pass: tgt (N, Tc) token ids, memory (B, S, D) with
-        groups = N // B -> the (depth, N, Tc, V) stack of raw logits of every
-        layer (the criterion folds the log-softmax into its loss)."""
+        groups = N // B -> the (depth, N, Tc, V) stack of every layer: raw
+        logits (training: the criterion folds the log-softmax into its
+        loss), or with ``log_probs`` f32 log-probabilities (evaluation), as
+        the JAX ``__call__`` returns them unless ``return_logits``."""
         x = self.pos_dropout(self.target_embedding(tgt) + self.pos_table[:, :tgt.shape[1]])
         if tgt_mask is not None and tgt_mask.dim() == 2:
             tgt_mask = tgt_mask[None, None]
@@ -54,7 +57,8 @@ class UnimodalCaptionDecoder(nn.Module):
             x = layer(x, memory, tgt_mask, tgt_padding_mask, memory_padding_mask,
                       groups=groups, zeroed_mask=zeroed_mask)
             intermediate.append(x)
-        return self.head(torch.stack(intermediate))
+        logits = self.head(torch.stack(intermediate))
+        return torch.log_softmax(logits.float(), dim=-1) if log_probs else logits
 
     def embed_at(self, tokens: torch.Tensor, pos: int) -> torch.Tensor:
         """(N,) tokens at position ``pos`` -> (N, 1, D) with the sine table."""
@@ -147,6 +151,94 @@ def greedy_decode(
     else:
         has_eos = (captions == eos_idx).any(dim=1)
         last = torch.where(has_eos, pad_idx, eos_idx).long()
+    return torch.cat([captions, last[:, None]], dim=1)
+
+
+def beam_search_decode(
+    module: UnimodalCaptionDecoder,
+    memory: torch.Tensor,          # (N, S, D); or (B, S, D) with groups = N // B
+    memory_padding_mask,           # (N, S) True=masked
+    seq_len: int,
+    bos_idx: int,
+    eos_idx: int,
+    pad_idx: int,
+    beam_size: int = 4,
+    length_penalty: float = 0.0,
+    groups: int = 1,
+    zeroed_mask=None,
+) -> torch.Tensor:
+    """Batched beam search with per-layer KV caches, plain ops; the JAX
+    ``beam_search_decode``. The K beams of row n are rows n*K + k, so grouped
+    memory stays per video with group size groups*K and ungrouped memory is
+    repeated K times. Each step commits the previous token and predicts the
+    next in one ``decode_pair``, then reorders the caches by parent beam (JAX
+    commits, predicts and then reorders, in two passes). Candidates are the
+    top K of the (K * V) scores by a stable descending sort, so ties go to
+    the lower index as ``lax.top_k`` breaks them; finished beams extend only
+    with <pad> at cost 0. The loop ends once every beam is finished (one host
+    sync a step), which changes no result. With ``length_penalty`` the final
+    scores are divided by ((5 + length) / 6) ** length_penalty, the length
+    counting the tokens that are not <pad>, <bos> included.
+
+    Returns (N, seq_len + 1) int64 captions of the best beam, with the tail
+    rule of ``greedy_decode`` (a trailing <pad>, or <eos> if none was
+    emitted)."""
+    N = memory.shape[0] * groups
+    D = memory.shape[2]
+    K = beam_size
+    dev = memory.device
+    NEG = -1e9
+
+    mem_mask = memory_padding_mask.repeat_interleave(K, dim=0)  # (N*K, S)
+    mem = memory if groups > 1 else memory.repeat_interleave(K, dim=0)
+    groups_eff = groups * K if groups > 1 else 1
+    zeroed_eff = zeroed_mask.repeat_interleave(K, dim=0) if zeroed_mask is not None else None
+    mem_kv = module.precompute_memory_kv(mem)
+
+    tokens = torch.full((N, K, seq_len), pad_idx, dtype=torch.long, device=dev)
+    tokens[:, :, 0] = bos_idx
+    # only beam 0 is live at the start, so the first expansion diversifies
+    scores = torch.full((N, K), NEG, dtype=torch.float32, device=dev)
+    scores[:, 0] = 0.0
+    done = torch.zeros((N, K), dtype=torch.bool, device=dev)
+    k_caches = mem.new_zeros((module.depth, N * K, seq_len, D))
+    v_caches = mem.new_zeros((module.depth, N * K, seq_len, D))
+    pad_tok = torch.full((N * K,), pad_idx, dtype=torch.long, device=dev)
+    rows = torch.arange(N, device=dev)[:, None]
+
+    for t in range(1, seq_len):
+        if bool(done.all()):
+            break
+        logits = module.decode_pair(
+            tokens[:, :, t - 1].reshape(N * K), pad_tok, t - 1, k_caches, v_caches,
+            mem_kv, mem_mask, groups_eff, zeroed_eff)
+        logp = torch.log_softmax(logits, dim=-1).reshape(N, K, -1)  # (N, K, V)
+        V = logp.shape[-1]
+        pad_only = torch.full((V,), NEG, dtype=logp.dtype, device=dev)
+        pad_only[pad_idx] = 0.0
+        logp = torch.where(done[..., None], pad_only, logp)
+        cand = (scores[..., None] + logp).reshape(N, K * V)
+        order = torch.sort(cand, dim=1, descending=True, stable=True)
+        scores, idx = order.values[:, :K], order.indices[:, :K]
+        parent = idx // V
+        new_tok = idx % V
+        tokens = tokens[rows, parent]
+        done = done[rows, parent]
+        flat_parent = (rows * K + parent).reshape(-1)
+        k_caches = k_caches[:, flat_parent]
+        v_caches = v_caches[:, flat_parent]
+        new_tok = torch.where(done, pad_idx, new_tok)
+        tokens[:, :, t] = new_tok
+        done = done | (new_tok == eos_idx)
+
+    ranked = scores
+    if length_penalty:
+        lengths = (tokens != pad_idx).sum(dim=-1).float()
+        ranked = scores / ((5.0 + lengths) / 6.0) ** length_penalty
+    best = ranked.argmax(dim=1)
+    captions = tokens[rows[:, 0], best]
+    has_eos = (captions == eos_idx).any(dim=1)
+    last = torch.where(has_eos, pad_idx, eos_idx).long()
     return torch.cat([captions, last[:, None]], dim=1)
 
 

@@ -3,14 +3,15 @@ of the JAX ``models/criterion.py`` (``SetCriterion``, ``build_weight_dict``).
 
 Losses: ``labels`` (event-count cross-entropy with a Gaussian neighbourhood
 mask), ``segments`` (L1 + gIoU of the matched pairs over ``num_segments``),
-``captions`` (label-smoothed KL straight from the logits: the log-softmax is
-folded into closed-form reductions, so no V-sized log-probability tensor is
-kept for the backward pass), ``contexts`` (masked BCE of the context-mask
-logits) and ``mask_prediction`` (multilabel soft margin of the saliency
+``captions`` (label-smoothed KL; in training straight from the logits: the
+log-softmax is folded into closed-form reductions, so no V-sized
+log-probability tensor is kept for the backward pass; in evaluation from the
+log-probabilities of the teacher-forced pass), ``contexts`` (masked BCE of
+the context-mask logits) and ``mask_prediction`` (multilabel soft margin of the saliency
 against the top-K tokens of the decoder attention map). The auxiliary
 decoder layers and the encoder's auxiliary heads repeat ``labels`` and
 ``segments``; the encoder's reuse the decoder's auxiliary matchings, as the
-reference does.
+reference does. Each caption layer but the last adds ``loss_caption_{i}``.
 """
 
 from __future__ import annotations
@@ -67,6 +68,28 @@ def cross_entropy_with_gaussian_mask(inputs, targets, weight, lloss_gau_mask: in
     return _masked_row_mean((loss * coef).mean(dim=1), row_valid)
 
 
+def _smoothing_entropy(V: int, smoothing: float) -> torch.Tensor:
+    """sum_v dist_v * log(dist_v) of the smoothed target distribution: V - 2
+    cells of sm / (V - 2) and the target cell of 1 - sm, in f32."""
+    u = smoothing / (V - 2)
+    return (V - 2) * u * torch.log(torch.tensor(u, dtype=torch.float32)) \
+        + (1.0 - smoothing) * torch.log(torch.tensor(1.0 - smoothing, dtype=torch.float32))
+
+
+def label_smoothing_kl(log_pred, target, pad_idx: int, smoothing: float):
+    """The caption loss from (N, S, V) log-probabilities: the sum over the
+    positions whose target is not <pad> of KL(dist || pred), dist as in
+    ``label_smoothing_kl_logits_stack``, in closed form."""
+    V = log_pred.shape[-1]
+    u = smoothing / (V - 2)
+    target = target.long()
+    lp_tgt = log_pred.gather(-1, target[..., None])[..., 0]
+    cross = u * (log_pred.sum(-1) - log_pred[..., pad_idx] - lp_tgt) \
+        + (1.0 - smoothing) * lp_tgt
+    per = _smoothing_entropy(V, smoothing).to(log_pred.device) - cross
+    return torch.where(target != pad_idx, per, torch.zeros_like(per)).sum()
+
+
 def label_smoothing_kl_logits_stack(stack, target, pad_idx: int, smoothing: float):
     """Per-depth caption losses over the (D, N, S, V) stack of raw logits ->
     (D,). Sum over the positions whose target is not <pad> of KL(dist ||
@@ -83,8 +106,7 @@ def label_smoothing_kl_logits_stack(stack, target, pad_idx: int, smoothing: floa
     x_tgt = x.gather(-1, tgt[..., None])[..., 0]
     wsum = u * x.sum(-1) + ((1.0 - sm) - u) * x_tgt - u * x[..., pad_idx]
     cross = wsum - (u * (V - 2) + (1.0 - sm)) * lse
-    ent = (V - 2) * u * torch.log(torch.tensor(u, dtype=torch.float32)) \
-        + (1.0 - sm) * torch.log(torch.tensor(1.0 - sm, dtype=torch.float32))
+    ent = _smoothing_entropy(V, sm)
     per = torch.where(tgt != pad_idx, ent.to(x.device) - cross, torch.zeros_like(cross))
     return per.sum(dim=(1, 2))
 
@@ -133,10 +155,15 @@ class SetCriterion:
         return {"loss_bbox": loss_bbox, "loss_giou": loss_giou}
 
     def loss_captions(self, outputs, targets, indices, num_segments, num_tokens):
-        pred = outputs["pred_captions"]  # (N, Lc-1, V) raw logits
+        # raw logits where ``caption_head`` says so (training), else f32
+        # log-probabilities (evaluation)
+        pred = outputs["pred_captions"]  # (N, Lc-1, V)
         cap = targets["cap_tokens"].reshape(pred.shape[0], -1)
-        loss = label_smoothing_kl_logits_stack(pred[None], cap[:, 1:], self.pad_idx,
-                                               self.smoothing)[0]
+        if outputs.get("caption_head") == "logits":
+            loss = label_smoothing_kl_logits_stack(pred[None], cap[:, 1:], self.pad_idx,
+                                                   self.smoothing)[0]
+        else:
+            loss = label_smoothing_kl(pred, cap[:, 1:], self.pad_idx, self.smoothing)
         return {"loss_caption": loss / num_tokens}
 
     def loss_contexts(self, outputs, targets, indices, num_segments, num_tokens,
@@ -218,6 +245,10 @@ class SetCriterion:
                     l_dict = self.get_loss(loss, aux, targets, indices_aux[i],
                                            num_segments, num_tokens)
                     losses.update({f"{k}_{i}": v for k, v in l_dict.items()})
+        if "captions" in self.losses:
+            for i, aux in enumerate(outputs.get("aux_outputs_caption", [])):
+                l_dict = self.loss_captions(aux, targets, None, num_segments, num_tokens)
+                losses.update({f"{k}_{i}": v for k, v in l_dict.items()})
         # the encoder's auxiliary outputs reuse the decoder's aux matchings
         for i, aux in enumerate(outputs.get("aux_outputs_enc", [])):
             for loss in self.losses:

@@ -1,6 +1,6 @@
-"""UnimodalDVC: GT-free serving and training; counterpart of the JAX
-``models/dvc.py`` (``ProposalNet``, ``forward_serve``, ``_serve_prepare``,
-``_propose_and_match``, ``forward_train``).
+"""UnimodalDVC: GT-free serving, training and evaluation; counterpart of the
+JAX ``models/dvc.py`` (``ProposalNet``, ``forward_serve``, ``_serve_prepare``,
+``_propose_and_match``, ``forward_train``, ``forward_eval``).
 
 Base encoder -> sparse deformable transformer -> segment and count heads.
 Serving: top-G proposals ranked by stability, k* from the count head ->
@@ -9,6 +9,9 @@ per-event crop mask (and the differentiable context mask when configured)
 Training: Hungarian matching of the final and auxiliary decoder layers to
 the ground truth (on the host) -> crop mask of the matched queries ->
 teacher-forced caption pass; ``models/criterion.py`` takes it from there.
+Evaluation: the same matching, then the greedy decode, the beam search or
+the teacher-forced pass's argmax as the captions, and the teacher-forced
+log-probabilities for the losses.
 
 The module tree mirrors the JAX params tree (``proposal``, ``caption``,
 ``context_mask``), so ``utils.weights`` maps flax parameters onto the
@@ -30,7 +33,9 @@ from ..device import resolve_device, set_f32_numerics
 from ..ops.hungarian import batched_hungarian
 from ..ops.segment_ops import denormalize_segments, inverse_sigmoid
 from .base_encoder import BaseEncoder, pyramid_shapes
-from .caption_decoder import UnimodalCaptionDecoder, greedy_decode, make_causal_mask
+from .caption_decoder import (
+    UnimodalCaptionDecoder, beam_search_decode, greedy_decode, make_causal_mask,
+)
 from .layers import FFN, ContextMaskModel
 from .matcher import match_cost
 from .transformer import SparseDeformableTransformer, predict_event_num
@@ -215,16 +220,19 @@ class UnimodalDVC(nn.Module):
             caption_pad_mask = torch.sigmoid(logits) > 0.5
         return memory, crop_mask, caption_pad_mask, logits
 
-    def _propose_and_match(self, batch):
+    def _propose_and_match(self, batch, with_aux: bool = True):
         """Proposal forward, then the Hungarian matching of the final
-        decoder layer and of every auxiliary layer to the ground truth.
-        Returns (out, indices (B,G), indices_aux (layers-1,B,G) or None).
-        The matching runs on the host; ``self.matcher_ms`` keeps its time
-        after the costs arrived there."""
+        decoder layer and, with ``with_aux``, of every auxiliary layer to the
+        ground truth. Returns (out, indices (B,G), indices_aux (layers-1,B,G)
+        or None). Without ``with_aux`` the encoder's auxiliary heads are not
+        run either, since their losses reuse the auxiliary matchings. The
+        matching runs on the host; ``self.matcher_ms`` keeps its time after
+        the costs arrived there."""
         out = self.proposal(batch["video_tensor"].float(), batch["video_mask"],
-                            batch["durations"], with_enc_aux=True)
+                            batch["durations"], with_enc_aux=with_aux)
         seg_all = out["outputs_segment_all"].detach()
-        n_layers = seg_all.shape[0] if self.aux_loss else 1
+        with_aux = with_aux and self.aux_loss
+        n_layers = seg_all.shape[0] if with_aux else 1
         gt, gt_mask = batch["gt_segments"], batch["gt_mask"]
         flat = seg_all[-n_layers:].roll(1, dims=0)  # final layer first, then aux
         cost = match_cost(flat.reshape(-1, self.num_queries, 2), gt.float().repeat(n_layers, 1, 1),
@@ -235,7 +243,7 @@ class UnimodalDVC(nn.Module):
         self.matcher_ms = 1e3 * (time.perf_counter() - t0)
         idx = torch.from_numpy(idx.astype(np.int64)).to(seg_all.device)
         idx = idx.reshape(n_layers, -1, self.max_gt)
-        return out, idx[0], (idx[1:] if self.aux_loss else None)
+        return out, idx[0], (idx[1:] if with_aux else None)
 
     def forward_train(self, batch):
         """Training forward over a batch dict of tensors on the model's
@@ -255,12 +263,68 @@ class UnimodalDVC(nn.Module):
         out["pred_captions"] = logits[-1]
         out["caption_head"] = "logits"
         if self.aux_loss:
-            out["aux_outputs"] = [
-                {"pred_segments": out["outputs_segment_all"][i],
-                 "pred_count": out["outputs_count_all"][i]}
-                for i in range(out["outputs_segment_all"].shape[0] - 1)]
+            out["aux_outputs"] = self._aux_outputs(out)
             out["pred_captions_all"] = logits
         return out, indices, indices_aux, crop_mask.float()
+
+    def _aux_outputs(self, out):
+        return [{"pred_segments": out["outputs_segment_all"][i],
+                 "pred_count": out["outputs_count_all"][i]}
+                for i in range(out["outputs_segment_all"].shape[0] - 1)]
+
+    @torch.no_grad()
+    def forward_eval(self, batch, val_mode: str = "one_by_one", faster_eval: bool = False,
+                     beam_size: int = 0, length_penalty: float = 0.0):
+        """Evaluation forward over a batch dict of tensors on the model's
+        device, with the ground truth (matching needs it). Returns (out,
+        captions, indices (B,G), indices_aux or None, memory_mask_float
+        (N,S)), as the JAX package's ``forward_eval``.
+
+        ``val_mode`` "one_by_one" and "serve" take the greedy decode (as
+        ``decode_impl``, ``decode_kv`` and ``decode_fused_grid`` say, with
+        ``faster_eval``), "beam" the beam search (``beam_size``, 4 when 0,
+        and ``length_penalty``): captions (N, Lc+1). "teacher_forcing" takes
+        the argmax of the last layer's teacher-forced log-probabilities:
+        captions (N, Lc-1). Outside "serve" the teacher-forced pass adds
+        ``pred_captions`` (f32 log-probs, N, Lc-1, V) and, with the
+        auxiliary loss, ``aux_outputs`` and ``aux_outputs_caption``; "serve"
+        matches the final decoder layer only and runs no teacher-forced
+        pass."""
+        check_decode_options(val_mode=val_mode)
+        serving = val_mode == "serve"
+        out, indices, indices_aux = self._propose_and_match(batch, with_aux=not serving)
+        memory, crop_mask, caption_pad_mask, pred_memory_mask = \
+            self._prepare_caption_inputs(out, batch["durations"], indices)
+        if pred_memory_mask is not None:
+            out["pred_memory_mask"] = pred_memory_mask
+        zeroed = crop_mask if self.use_differentiable_mask else None
+        decode_args = (memory, caption_pad_mask, self.seq_len, self.bos_idx, self.eos_idx,
+                       self.pad_idx)
+        if val_mode == "beam":
+            captions = beam_search_decode(
+                self.caption, *decode_args, beam_size=beam_size or 4,
+                length_penalty=length_penalty, groups=self.max_gt, zeroed_mask=zeroed)
+        elif val_mode != "teacher_forcing":
+            captions = greedy_decode(
+                self.caption, *decode_args, faster_eval=faster_eval, groups=self.max_gt,
+                zeroed_mask=zeroed, decode_impl=self.decode_impl, kv_mode=self.decode_kv,
+                fused_grid=self.decode_fused_grid)
+        if serving:
+            return out, captions, indices, indices_aux, crop_mask.float()
+
+        tgt = batch["cap_tokens"].reshape(-1, self.seq_len)[:, :-1].long()
+        log_probs = self.caption(
+            tgt, memory, make_causal_mask(self.seq_len - 1, tgt.device),
+            tgt == self.pad_idx, caption_pad_mask, groups=self.max_gt,
+            zeroed_mask=zeroed, log_probs=True)
+        if val_mode == "teacher_forcing":
+            captions = log_probs[-1].argmax(dim=-1)
+        out["pred_captions"] = log_probs[-1]
+        if self.aux_loss:
+            out["aux_outputs"] = self._aux_outputs(out)
+            out["aux_outputs_caption"] = [{"pred_captions": log_probs[i]}
+                                          for i in range(log_probs.shape[0] - 1)]
+        return out, captions, indices, indices_aux, crop_mask.float()
 
     def _serve_prepare(self, video_tensor, video_mask, durations):
         """Propose, rank by stability, select the top G, crop the memory."""

@@ -25,7 +25,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
-KERNEL_SOURCES = ("msda_fwd.cu", "msda_bwd.cu", "fused_decode.cu")
+KERNEL_SOURCES = ("msda_fwd.cu", "msda_bwd.cu", "fused_decode.cu", "probe_add.cu")
 
 
 def find_nvcc() -> str:
@@ -79,3 +79,25 @@ def load_library(source: str, flags: Tuple[str, ...] = ()) -> ctypes.CDLL:
     built first if needed."""
     build([], [(source, tuple(flags))])
     return ctypes.CDLL(str(library_path(source, flags)))
+
+
+class KernelBinding:
+    """A ctypes binding of one ``extern "C"`` launcher of ``csrc/``, loaded
+    (and built) at its first launch. ``launches`` counts the kernel launches
+    it made; nothing else changes it but a caller resetting it."""
+
+    source = symbol = ""
+    argtypes: list = []
+    flags: tuple = ()  # extra nvcc flags of the library
+
+    def __init__(self):
+        self.launches = 0
+        self._fn = None
+
+    def _launcher(self):
+        if self._fn is None:
+            fn = getattr(load_library(self.source, self.flags), self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn

@@ -30,8 +30,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from .build import load_library
-from .msda import _KernelBinding
+from .build import KernelBinding, load_library
 
 NEG_MASK = -1e20  # masked logit, applied before the scale
 LN_EPS = 1e-6
@@ -246,7 +245,7 @@ def batch_tile_for(B: int, batch_tile: int = 0) -> int:
     return bt
 
 
-class FusedDecodeKernel(_KernelBinding):
+class FusedDecodeKernel(KernelBinding):
     """``fused_decode_launch`` of ``csrc/fused_decode.cu`` under one grid
     mode; each mode keeps its own launch count."""
 

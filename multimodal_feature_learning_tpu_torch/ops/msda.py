@@ -16,7 +16,7 @@ from typing import Sequence
 
 import torch
 
-from .build import load_library
+from .build import KernelBinding
 from .ms_deform_attn import ms_deform_attn_core, ms_deform_attn_core_backward
 
 
@@ -46,29 +46,7 @@ def _check_msda_args(value, shapes, loc, aw):
     return B, S, H, Dh, Q, L, P
 
 
-class _KernelBinding:
-    """A ctypes binding of one ``extern "C"`` launcher of ``csrc/``, loaded
-    (and built) at its first launch. ``launches`` counts the kernel launches
-    it made; nothing else changes it but a caller resetting it."""
-
-    source = symbol = ""
-    argtypes: list = []
-    flags: tuple = ()  # extra nvcc flags of the library
-
-    def __init__(self):
-        self.launches = 0
-        self._fn = None
-
-    def _launcher(self):
-        if self._fn is None:
-            fn = getattr(load_library(self.source, self.flags), self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
-
-
-class MsdaForwardKernel(_KernelBinding):
+class MsdaForwardKernel(KernelBinding):
     """``msda_fwd_launch`` (K1)."""
 
     source, symbol = "msda_fwd.cu", "msda_fwd_launch"
@@ -112,7 +90,7 @@ class MsdaForwardKernel(_KernelBinding):
 MSDA_FWD = MsdaForwardKernel()
 
 
-class MsdaBackwardKernel(_KernelBinding):
+class MsdaBackwardKernel(KernelBinding):
     """``msda_bwd_launch`` (K2); f32 value only."""
 
     source, symbol = "msda_bwd.cu", "msda_bwd_launch"
