@@ -7,17 +7,22 @@ Phases, each printing one line with its wall seconds:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compile every CUDA kernel of the port with nvcc (sm_90a), one
-   nvcc per source, all started together;
+   nvcc per source, all started together, and print what -Xptxas -v says
+   of the fused decode kernel (registers, shared memory, spills);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the serving and training paths give it, with its time, the
    plain version's time and the least time the card could take (its
    bound): the MSDA forward (K1) and the MSDA backward (K2), the autograd
    Function that joins them against autograd through the plain core, and
    the fused decode step (K3/K4) in both grids, dense and int8 memory K/V,
-   with and without the bias column, at decode steps 0, 9 and 18, and the
-   device time of each of its stages (a build that times its barriers); and
-   the probe's kernel (K5, x + 1) in f32 and bf16, bitwise, eager and
-   replayed from a CUDA graph, beside torch.add;
+   with and without the bias column, at decode steps 0, 9 and 18, against
+   the bound of its route (3xTF32 tensor cores against the bytes), and the
+   device time of each of its stages (a build that times its barriers, the
+   phases of one cross-attention unit and of four GEMM tiles); and the
+   probe's kernel (K5, x + 1) in f32 and bf16, bitwise at the probe's shape,
+   at 1,000,003 elements, on a misaligned view and at 2^26 elements, eager
+   and replayed from a CUDA graph beside torch.add (in turns), and at 2^26
+   elements against the HBM bound;
 4. model: the flagship sparse DVC model at full width (d_model 512, 6+6
    transformer layers, 6 caption layers, vocab 6563) on the card, carrying
    the trained weights of snapshots/conv_e79.npz, loaded strictly;
@@ -74,9 +79,11 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SNAPSHOT = os.path.join(ROOT, "snapshots", "conv_e79.npz")
 
-# f32 peak outside the tensor cores and memory rate of an H100 SXM at 700 W
-# (NVIDIA's data sheet); the bounds below are stated against these
+# f32 peak outside the tensor cores, dense TF32 tensor-core peak and memory
+# rate of an H100 SXM at 700 W (NVIDIA's data sheet); the bounds below are
+# stated against these
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 
 N_REQUESTS = 48
@@ -341,12 +348,16 @@ def fused_decode_inputs(dims, bias_col: bool, kv_mode: str, seed: int):
 
 
 def fused_decode_bound_ms(inp, dims, valid_len: int):
-    """Least time for one step on these inputs: every weight, the memory K/V
-    (and scales), mask, log_m and x read once, the cache rows of positions
-    < step read once, x_out and the committed rows written once; the f32
-    operations of the products (two per multiply-add): per layer the q, k, v
-    (commit rows), o, q', o' projections, the MLP, and both attentions over
-    the keys each row reads (valid_len own-event keys, Sp memory columns)."""
+    """Least time for one step on these inputs, on the kernel's route: every
+    weight, the memory K/V (and scales), mask, log_m and x read once, the
+    cache rows of positions < step read once, x_out and the committed rows
+    written once, at 3.35 TB/s; against the operations of the products (two
+    per multiply-add: per layer the q, k, v (commit rows), o, q', o'
+    projections, the MLP, and both attentions over the keys each row reads,
+    valid_len own-event keys and Sp memory columns) done three times over,
+    as 3xTF32 does, at the TF32 tensor-core peak. Returns (bound ms, what
+    bounds it, bytes, flops, and for the record the bound of the same
+    operations once in f32 on the CUDA cores)."""
     B, G, D, H, depth, Tc, S, F = dims
     R, Sp = 2 * G, inp["mem_k"].shape[2]
     M = B * R
@@ -364,9 +375,10 @@ def fused_decode_bound_ms(inp, dims, valid_len: int):
     macs = M * D * D * 4 + 2 * B * G * D * D + 2 * M * D * F \
         + 2 * M * valid_len * D + 2 * M * Sp * D
     flops = 2 * depth * macs
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, 3 * flops / PEAK_TF32_FLOPS
+    f32_simt_ms = 1e3 * max(t_bytes, flops / PEAK_F32_FLOPS)
     return (1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"),
-            nbytes, flops)
+            nbytes, flops, f32_simt_ms)
 
 
 def check_fused_decode(dims, steps_at=FUSED_STEPS):
@@ -421,20 +433,22 @@ def check_fused_decode(dims, steps_at=FUSED_STEPS):
                     ms = time_cuda(lambda: fd.FUSED_DECODE[grid](*args(kc, vc), **kw))
                     plain_ms = time_cuda(lambda: fd.fused_decode_step_plain(*args(kc, vc), **kw),
                                          iters=10)
-                    bound_ms, bound_by, nbytes, flops = fused_decode_bound_ms(inp, dims, step + 1)
+                    bound_ms, bound_by, nbytes, flops, simt_ms = fused_decode_bound_ms(
+                        inp, dims, step + 1)
                     steps.append({
                         "step": step, "errors": errs,
                         "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
                         "tolerance": FUSED_TOL * errs["x_out"]["max_abs_ref"],
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "bytes": nbytes, "flops": flops})
+                        "bound_by": bound_by, "bound_f32_simt_ms": simt_ms,
+                        "bytes": nbytes, "flops": flops})
                 mid = steps[len(steps) // 2]
                 lines.append({
                     "grid": grid, "kv": kv_mode, "bias_col": bias_col,
                     "batch_tile": 1 if grid == "video" else fd.batch_tile_for(B),
                     "max_abs_err": max(c["max_abs_err"] for c in steps),
                     "ms": mid["ms"], "plain_ms": mid["plain_ms"], "bound_ms": mid["bound_ms"],
-                    "bound_by": mid["bound_by"],
+                    "bound_by": mid["bound_by"], "bound_f32_simt_ms": mid["bound_f32_simt_ms"],
                     "library_ms": None,  # no single PyTorch call computes a decode step
                     "steps": steps})
                 del inp
@@ -444,8 +458,12 @@ def check_fused_decode(dims, steps_at=FUSED_STEPS):
 def fused_stage_breakdown(dims):
     """Phase 3: where one fused decode step's device time goes, from a build
     of the kernel that records the device clock at each grid barrier
-    (``STAGE_TIMING_FLAGS``): per stage, the mean over the layers, for each
-    grid, at step 9 with dense K/V and no bias column."""
+    (``STAGE_TIMING_FLAGS``): per stage (``fd.STAGES``: the eight of a
+    layer, with the LayerNorms folded into q_kv, cq_proj and mlp1, and the
+    cross-attention as its chunk stage and the combine inside co_proj), the
+    mean over the layers, the closing LayerNorm, and the phases of one
+    chunk unit, for each grid, at step 9 with dense K/V and no bias
+    column."""
     import torch
 
     from multimodal_feature_learning_tpu_torch.ops import fused_decode as fd
@@ -464,7 +482,10 @@ def fused_stage_breakdown(dims):
     return out
 
 
-PROBE_SHAPES = ((160, 64), (1_000_003,))  # the probe's shape and one ragged size
+# the probe's shape; a ragged size that stays in the 50 MB L2 when chained;
+# a misaligned view (x[1:] of 1,000,004 elements); and a size beyond L2
+PROBE_SHAPES = ((160, 64), (1_000_003,), "misaligned", (1 << 26,))
+PROBE_CHAIN_TURNS = 5  # graph timings of K5 and torch.add, in turns (min of each)
 
 
 def graph_us_per_launch(op, x, n: int = 50) -> float:
@@ -477,12 +498,17 @@ def graph_us_per_launch(op, x, n: int = 50) -> float:
 
 
 def check_probe_add():
-    """Phase 3: K5 against its plain version on the card, f32 and bf16, at
-    the probe's (160, 64) and at 1,000,003 elements: bitwise equal. Its time
-    eager (CUDA events over 50 launches) and replayed from a CUDA graph (a
-    chain of 50), the plain version's, and torch.add(x, 1)'s both ways.
-    Bound: x read once and the output written once, one f32 add an
-    element."""
+    """Phase 3: K5 against its plain version on the card, f32 and bf16,
+    bitwise, at every ``PROBE_SHAPES`` entry. Times with CUDA events:
+    - (160, 64), the probe's: eager (50 launches) and replayed from a CUDA
+      graph (a chain of 50), the plain version's and torch.add(x, 1)'s both
+      ways; bound: x read once and the output written once;
+    - 1,000,003 elements: a chain of 50 replayed from a graph stays in the
+      L2 (8 MB in f32), so it is held against torch.add alone, the two
+      timed in turns, and carries no HBM bound;
+    - the misaligned view: bitwise only (the kernel's scalar loop);
+    - 2^26 elements (512 MB moved in f32): eager launches that each find
+      the array cold, K5 and torch.add in turns, against the HBM bound."""
     import torch
 
     from multimodal_feature_learning_tpu_torch.ops.probe_add import PROBE_ADD, probe_add_plain
@@ -490,28 +516,57 @@ def check_probe_add():
     cases = []
     for shape in PROBE_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
-            g = torch.Generator(device="cuda").manual_seed(len(shape))
-            x = (torch.randn(shape, generator=g, device="cuda")
-                 * torch.rand(shape, generator=g, device="cuda") * 1e3).to(dtype)
+            n = 1_000_004 if shape == "misaligned" else math.prod(shape)
+            g = torch.Generator(device="cuda").manual_seed(len(str(shape)))
+            x = (torch.randn(n, generator=g, device="cuda")
+                 * torch.rand(n, generator=g, device="cuda") * 1e3).to(dtype)
+            x = x[1:] if shape == "misaligned" else x.reshape(shape)
             got, ref = PROBE_ADD(x), probe_add_plain(x)
             torch.cuda.synchronize()
             as_int = torch.int16 if dtype == torch.bfloat16 else torch.int32
             if got.shape != x.shape or got.dtype != x.dtype \
                     or not torch.equal(got.view(as_int), ref.view(as_int)):
                 raise AssertionError(f"probe_add kernel is not bitwise equal to x + 1 "
-                                     f"({tuple(shape)}, {dtype})")
+                                     f"({shape}, {dtype})")
             nbytes = 2 * x.numel() * x.element_size()
             t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, x.numel() / PEAK_F32_FLOPS
-            cases.append({
-                "shape": list(shape), "dtype": str(dtype).replace("torch.", ""),
-                "max_abs_err": (got.float() - ref.float()).abs().max().item(), "bitwise": True,
-                "ms": time_cuda(lambda: PROBE_ADD(x)),
-                "graph_us_per_launch": graph_us_per_launch(PROBE_ADD, x),
-                "plain_ms": time_cuda(lambda: probe_add_plain(x)),
-                "library_ms": time_cuda(lambda: torch.add(x, 1)),
-                "library_graph_us_per_launch": graph_us_per_launch(lambda c: torch.add(c, 1), x),
-                "bound_ms": 1e3 * max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations", "bytes": nbytes})
+            case = {"shape": shape if shape == "misaligned" else list(shape),
+                    "numel": x.numel(), "dtype": str(dtype).replace("torch.", ""),
+                    "max_abs_err": (got.float() - ref.float()).abs().max().item(),
+                    "bitwise": True, "bytes": nbytes}
+            del got, ref
+            if shape == PROBE_SHAPES[0]:
+                case.update({
+                    "ms": time_cuda(lambda: PROBE_ADD(x)),
+                    "graph_us_per_launch": graph_us_per_launch(PROBE_ADD, x),
+                    "plain_ms": time_cuda(lambda: probe_add_plain(x)),
+                    "library_ms": time_cuda(lambda: torch.add(x, 1)),
+                    "library_graph_us_per_launch": graph_us_per_launch(
+                        lambda c: torch.add(c, 1), x),
+                    "bound_ms": 1e3 * max(t_bytes, t_ops),
+                    "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+            elif shape == PROBE_SHAPES[1]:
+                turns = [(graph_us_per_launch(PROBE_ADD, x),
+                          graph_us_per_launch(lambda c: torch.add(c, 1), x))
+                         for _ in range(PROBE_CHAIN_TURNS)]
+                case.update({
+                    "ms": time_cuda(lambda: PROBE_ADD(x)),
+                    "plain_ms": time_cuda(lambda: probe_add_plain(x)),
+                    "library_ms": time_cuda(lambda: torch.add(x, 1)),
+                    "graph_us_per_launch": min(k for k, _ in turns),
+                    "library_graph_us_per_launch": min(a for _, a in turns),
+                    "graph_turns_us": turns, "l2_warm": True, "bound_ms": None})
+            elif shape == PROBE_SHAPES[3]:
+                ms = [(time_cuda(lambda: PROBE_ADD(x), iters=10),
+                       time_cuda(lambda: torch.add(x, 1), iters=10)) for _ in range(2)]
+                bound = 1e3 * max(t_bytes, t_ops)
+                kernel_ms = min(k for k, _ in ms)
+                case.update({
+                    "ms": kernel_ms, "library_ms": min(a for _, a in ms), "turns_ms": ms,
+                    "bound_ms": bound, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                    "share_of_bound": bound / kernel_ms})
+            cases.append(case)
+            del x
     return cases
 
 
@@ -1382,6 +1437,9 @@ def main() -> int:
     built = build.build(variants=[("fused_decode.cu", STAGE_TIMING_FLAGS)])
     log("build", time.monotonic() - t, nvcc_seconds=built,
         sources=sorted(p.name for p in CSRC_DIR.glob("*.cu")))
+    # registers, shared memory and spills of the fused decode kernel
+    print("ptxas fused_decode.cu: " + " | ".join(build.ptxas_report("fused_decode.cu")),
+          flush=True)
 
     t = time.monotonic()
     cfg0 = load_config()
@@ -1526,7 +1584,7 @@ def main() -> int:
             "max_abs_err": max(line["max_abs_err"] for line in lines),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
-            "library_ms": None,
+            "bound_f32_simt_ms": main_case["bound_f32_simt_ms"], "library_ms": None,
             "shape": f"one decode step, B={BATCH} G={fused_dims[1]} D={fused_dims[2]} "
                      f"depth {fused_dims[4]} Sp=640 f32, dense K/V, no bias column, step 9",
             "cases": [{k: v for k, v in line.items() if k != "steps"} for line in lines],

@@ -11,51 +11,71 @@
 // scale. The hidden state carries across layers.
 //
 // What bounds it on an H100: at the flagship's shapes (B=16, G=10, D=512,
-// depth 6, Sp=640, MLP 2048) a step is 15.6 GFLOP of f32 products on the
-// CUDA cores (tensor cores are off: the port's f32 contract keeps TF32 off)
-// against 0.39 GB of weights, memory K/V and caches, so it is bound by
-// operations: 0.233 ms at 67 TFLOP/s.
+// depth 6, Sp=640, MLP 2048) a step is 15.6 GFLOP and 0.39 GB of weights,
+// memory K/V and caches (0.21 GB with int8 K/V). The products run on the
+// tensor cores in 3xTF32 (three TF32 passes, 0.0945 ms at 495 TFLOP/s), so
+// the step is bound by bytes: 0.116 ms at 3.35 TB/s dense, 0.063 ms int8.
+// The 88 MB of weights come from HBM on every step; the memory K/V (42 MB a
+// layer dense) are the largest single read.
 //
-// Design. On the TPU the depth axis of the grid runs in order on one core
-// and the hidden state waits in VMEM. Here one persistent cooperative
-// launch covers every SM, and the layer loop runs inside it: each layer is
-// eleven stages separated by grid-wide barriers (cooperative groups):
-//   1  q = x Wq + bq (all 2G rows); k, v of the G commit rows, written
-//      straight into the caches at position `step`
-//   2  self-attention, one block per (videos of a unit, head): the q rows
-//      and the cache rows of positions < valid_len in shared memory; each
-//      row reads its own event's keys only
-//   3  attn Wo, the reduction split in two (partial sums in scratch)
-//   4  x = LN1(x + (sum of partials + bo)), one warp per row
-//   5  qc = x Wq' + bq'
-//   6  cross-attention, one block per (videos of a unit, head): all Sp
-//      logits of the video in shared memory, one-pass max / exp / sum, then
-//      the weighted sum of V
-//   7, 8  as 3, 4 with the cross-attention's Wo' and LN2
-//   9  h = gelu(x W1 + b1)
-//   10 h W2, the reduction split in four
-//   11 x = LN3(x + (sum + b2))
-// The dense products are 32x64 tiles of a plain SIMT f32 GEMM, two tiles a
-// block (one per half, 4x4 outputs a thread), with A and W streamed through
-// a two-stage cp.async ring in shared memory; the cross-attention streams
-// K and V through a three-stage ring. Every work item's sums run in a fixed
-// order, so the result does not depend on the grid size. The two TPU grids
-// map onto the attention stages' work unit: "video" takes one video per unit
-// (videos_per_unit 1), "batch" takes Bt videos per unit; the numbers are
-// the same. The self-attention never forms the logits of other events' or
-// future keys: they would contribute exp(-1e20*scale - m) = 0 exactly. The
-// cross-attention forms all Sp, so a row whose every memory position is
-// blocked averages V over all Sp columns, as the TPU kernel does.
+// Design. One persistent cooperative launch, one block of 512 threads on
+// each SM (16 warps; at most 128 registers a thread), runs the layer loop;
+// each layer is eight stages separated by grid-wide barriers:
+//   1  q = LN3(x + sum of W2 partials + b2) Wq + bq (all 2G rows; layer 0
+//      takes x as it is); k, v of the G commit rows, written straight into
+//      the caches at position `step`
+//   2  self-attention, one block per (video, head): the q rows and the keys
+//      and values of positions < valid_len land in shared memory together;
+//      each row reads its own event's keys only
+//   3  y = x + (attn Wo + bo)
+//   4  x = LN1(y); qc = x Wq' + bq'
+//   5  cross-attention, one block per (video, head, chunk of 128 memory
+//      columns), flash-decoding style: each unit keeps its chunk's max, sum
+//      and unnormalised weighted sum of V
+//   6  y = x + (combine(chunks) Wo' + bo')
+//   7  x = LN2(y); h = gelu(x W1 + b1)
+//   8  h W2, the reduction split in four (partial sums)
+// and after the last layer x_out = LN3(x + sum + b2), one warp a row.
 //
-// The LayerNorms stay stages of their own: run by the last work item of a
-// row block (an atomic count) instead, they serialised 32 rows on 4 warps,
-// and the three projections with their LayerNorms took 233 us a layer on an
-// H100 against 124 us as separate stages.
+// What each choice does about the bound:
+// - Every product is on the tensor cores (mma.sync m16n8k8 TF32, f32
+//   accumulators) in 3xTF32: each operand is split into hi = rna_tf32(a) and
+//   lo = rna_tf32(a - hi) as it is read, and each output sums lo*hi + hi*lo
+//   + hi*hi, which keeps about f32 accuracy (the port's decode contract is
+//   f32; one TF32 pass keeps 3 digits). A GEMM tile is 32 rows x 64 columns
+//   over K = D = 512 at once: the whole weight slab is in flight by cp.async
+//   while the tile's A rows are prepared, so a tile waits for memory once,
+//   not once a K chunk. Each of the 16 warps sums one k slice; the slices
+//   are added in a fixed order through shared memory.
+// - A LayerNorm is no stage of its own: the tile that consumes it reads its
+//   rows' whole width anyway (K = D), so it normalises them into its A
+//   operand (from y, or from x and the W2 partials), and the tiles of column
+//   block 0 write the new x. LN1 and LN2 rewrite x in place (nothing else
+//   reads it in their stages); LN3, whose tiles read x as its residual,
+//   writes the other half of a ping-pong buffer. The q/k/v tiles take two
+//   column blocks each, so LN3 runs once a row block and the stage is one
+//   round of tiles. The cross-attention's combine folds into the A operand
+//   of Wo' the same way.
+// - The cross-attention is split over Sp: B*H*Sp/128 = 640 units for 132
+//   SMs instead of 128. Everything a unit reads (its K and V chunks, q rows,
+//   mask columns, scales) lands by cp.async in one of two buffers while the
+//   block's previous unit is summed; the logits and the weighted sum are
+//   tensor-core products too (int8 K/V are exact in TF32: two passes). The
+//   combine weighs the chunks in order c = 0, 1, ... by exp(m_c - max) and
+//   adds the bias column once, so the result does not depend on the grid
+//   size. A row whose every column is blocked has every logit at -1e20 *
+//   scale, so after the combine its weights are uniform: it averages V over
+//   all Sp columns, as the TPU "video" kernel does.
+// - D is a template parameter (512), so no reduction loop runs under a
+//   runtime bound; int8 K/V are widened exactly when read, the k-scale goes
+//   on the logit and the v-scale on the weight.
+// The two TPU grids are one decomposition here: grouping videos into a work
+// unit only cut the card's parallelism, so "batch" runs the "video" schedule.
 //
 // Built with nvcc -gencode arch=compute_90a,code=sm_90a into a shared
 // library with a plain C interface (ops/build.py); bound with ctypes
 // (ops/fused_decode.py). The launcher allocates nothing: the wrapper passes
-// every output and scratch buffer.
+// every output and scratch buffer, the chunk partials included.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -65,15 +85,45 @@
 
 namespace cg = cooperative_groups;
 
+namespace {
+
+constexpr int THREADS = 512;
+constexpr int NWARPS = THREADS / 32;
+constexpr int LAYER_STAGES = 8;   // grid barriers a layer
+constexpr int MAX_DEPTH = 16;
+constexpr int BM = 32, BN = 64;   // GEMM tile
+constexpr int RS = BN + 8;        // row stride of the warps' partial tiles
+constexpr int MAX_R = 32;         // rows per video (2G)
+constexpr int CHUNK = 128;        // memory columns per cross-attention unit
+constexpr int MAX_NC = 5;         // chunks per video (Sp <= 640)
+constexpr int MAX_H = 8;          // heads
+constexpr int PS = CHUNK + 4;     // row stride of a unit's logits
+constexpr float NEG_MASK = -1e20f;
+constexpr float LN_EPS = 1e-6f;
+
+static_assert(BM * BN / 4 == THREADS, "the epilogue takes one float4 a thread");
+
+}  // namespace
+
 #ifdef FD_STAGE_TIMING
 // Build with -DFD_STAGE_TIMING to record the device clock after every grid
 // barrier (block 0); fused_decode_stage_ns copies the record to the host.
-__device__ unsigned long long g_stage_ns[2 + 11 * 16];  // [1 + 11 * 16]: the start
+__device__ unsigned long long g_stage_ns[2 + LAYER_STAGES * MAX_DEPTH];
 __device__ unsigned long long g_barrier_ns[5];  // four grid barriers with no work between
-__device__ unsigned long long g_sub_ns[8];  // phases of block 0's first cross-attention
+__device__ unsigned long long g_sub_ns[8];  // phases of block 0's first cross-attention unit
+// phases of block 0's first tile of four GEMM stages of a layer (GemmJob::tag)
+__device__ unsigned long long g_gemm_ns[4][5];
+#define GEMM_MARK(i)                                                    \
+  do {                                                                  \
+    if (timed && threadIdx.x == 0) {                                    \
+      unsigned long long ns;                                            \
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));            \
+      g_gemm_ns[j.tag - 1][(i)] = ns;                                   \
+    }                                                                   \
+  } while (0)
 #define SUB_MARK(i)                                                     \
   do {                                                                  \
-    if (blockIdx.x == 0 && threadIdx.x == 0 && li == 0 && b == 0 && h == 0) { \
+    if (blockIdx.x == 0 && threadIdx.x == 0 && li == 0 && it == 0) {    \
       unsigned long long ns;                                            \
       asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));            \
       g_sub_ns[(i)] = ns;                                               \
@@ -81,7 +131,7 @@ __device__ unsigned long long g_sub_ns[8];  // phases of block 0's first cross-a
   } while (0)
 #define STAGE_MARK(i)                                                   \
   do {                                                                  \
-    if (blockIdx.x == 0 && threadIdx.x == 0 && (i) < 2 + 11 * 16) {     \
+    if (blockIdx.x == 0 && threadIdx.x == 0 && (i) < 2 + LAYER_STAGES * MAX_DEPTH) { \
       unsigned long long ns;                                            \
       asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));            \
       g_stage_ns[(i)] = ns;                                             \
@@ -90,26 +140,10 @@ __device__ unsigned long long g_sub_ns[8];  // phases of block 0's first cross-a
 #else
 #define STAGE_MARK(i) do {} while (0)
 #define SUB_MARK(i) do {} while (0)
+#define GEMM_MARK(i) do {} while (0)
 #endif
 
 namespace {
-
-constexpr int THREADS = 256;
-constexpr int NWARPS = THREADS / 32;
-constexpr int HALF = THREADS / 2;         // a GEMM tile takes half a block
-constexpr int BM = 32, BN = 64, BK = 32;  // GEMM tile
-constexpr int AS_STRIDE = BK + 4;         // A tile row in shared memory
-constexpr int GEMM_STAGE = BM * AS_STRIDE + BK * BN;  // floats of one ring stage
-constexpr int A4 = BM * BK / 4 / HALF;    // float4 of the A tile per thread
-constexpr int W4 = BK * BN / 4 / HALF;    // float4 of the W tile per thread
-constexpr int KV_CHUNK = 64;              // memory rows per shared-memory chunk
-constexpr int KV_STAGES = 3;              // chunks in the cross-attention's cp.async ring
-constexpr int SPLIT_K_MAX = 4;
-constexpr int MAX_R = 32;                 // rows per video (2G)
-constexpr int AV_ROWS = 8;                // rows per thread in the weighted sum of V
-constexpr int LN_PER = 32;                // row elements per lane in a LayerNorm (D <= 1024)
-constexpr float NEG_MASK = -1e20f;
-constexpr float LN_EPS = 1e-6f;
 
 enum {
   SA_WQ, SA_BQ, SA_WK, SA_BK, SA_WV, SA_BV, SA_WO, SA_BO,
@@ -121,7 +155,10 @@ enum {
 
 struct Params {
   const float* x_in;
-  float* x;  // hidden state, also the output
+  float* x_out;
+  float* xs;    // 2 x M x D: the hidden state after layer 0's first LayerNorm
+  float* ybuf;  // M x D: x + (Wo or Wo' projection + bias), the input of LN1 and LN2
+  float* part;  // SPLIT_2 x M x D: the split sums of the W2 projection
   float* kc;
   float* vc;
   const void* mem_k;
@@ -133,24 +170,41 @@ struct Params {
   const float* w[N_WEIGHTS];
   float* q_buf;
   float* attn_buf;
-  float* part;
   float* h_buf;
-  int B, G, R, D, H, Dh, depth, C, Sp, F;
-  int step, valid_len, has_bias, kv_int8, vt;
-  int split_o, split_2;
+  float* ca_o;   // (B, H, NC, R, Dh): each chunk's unnormalised weighted sum of V
+  float* ca_ml;  // (B, H, NC, R, 2): each chunk's max logit and sum of exponentials
+  float* ca_bl;  // (B, H, R): the bias column's logit of each row and head
+  int B, G, R, C, Sp, F, NC, depth;
+  int step, valid_len, has_bias, kv_int8;
   float scale;
 };
 
+// How a GEMM tile prepares its A operand (BM rows x D columns).
+enum AMode {
+  A_PLAIN,    // rows of A (lda floats), columns [ks D, (ks + 1) D)
+  A_LN,       // LN(rows of p.ybuf)
+  A_LN4,      // LN(rows of A + (p.part[0] + ... + p.part[3] + ln_bias)), A the residual x
+  A_COMBINE,  // the cross-attention's chunks combined, head h in columns [h Dh, (h + 1) Dh)
+};
+
 struct GemmJob {
-  const float* A;     // rows of lda floats
-  const float* W;     // K x N, row-major
-  const float* bias;  // N, or null when split
-  float* out;
-  int M, N, K, lda;
-  int splits;    // > 1: out[ks] holds the partial sum over the ks-th K slice
+  const float* A;
+  const float* W;      // K x N, row-major
+  const float* bias;   // N
+  const float* resid;  // M x N, or null: out = resid + (A W + bias)
+  float* out;          // (or, with splits > 1, p.part[ks] gets the raw sums)
+  int M, N, lda, amode;
+  int splits;    // K = splits D
+  int nsub;      // column blocks of BN a tile takes in turn, its A prepared once
   int a_commit;  // A row m is x row (m / G) * R + m % G
   int o_cache;   // out row m is cache row (m / G) * C + step * G + m % G
   int gelu;
+  const float* ln_bias;
+  const float* ln_s;
+  const float* ln_b;
+  float* x_next;  // the new x, written by the tiles of column block 0; or null
+  int li;
+  int tag;  // > 0: the timing build records block 0's first tile (g_gemm_ns[tag - 1])
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -181,14 +235,23 @@ __device__ __forceinline__ float gelu_exact(float x) {
   return __fmul_rn(__fmul_rn(0.5f, x), e);
 }
 
-// Activations are written inside the launch, so they are read with plain
-// loads; only the weights and the memory K/V go through the read-only path.
+// Activations are written inside the launch by other blocks, so they are
+// read through L2 (ld.global.cg), never from a stale L1 line; the weights
+// and the memory K/V go through the read-only path.
 __device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+  return __ldcg(reinterpret_cast<const float4*>(p));
 }
 
 __device__ __forceinline__ float4 ldg4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void sts4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
@@ -204,521 +267,805 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Barrier of the 128 threads of one half of the block (named barrier 1 or 2).
-__device__ __forceinline__ void half_sync(int half) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + half), "r"(HALF));
+// a rounded to TF32: 10 mantissa bits, to nearest, ties away from zero.
+// For a finite a this is the bit pattern cvt.rna.tf32.f32 gives, in two
+// integer operations instead of a conversion (ops/fused_decode.py's
+// split_tf32 is its plain counterpart).
+__device__ __forceinline__ uint32_t rna_tf32(float a) {
+  return (__float_as_uint(a) + 0x1000u) & 0xFFFFE000u;
 }
 
-// One BM x BN output tile (or its ks-th K slice) by the 128 threads of one
-// half of the block, 4 x 4 outputs a thread. A and W stream through a
-// two-stage cp.async ring in this half's shared memory, so the next chunk
-// is in flight while this one is summed; each output sums over k in order.
-__device__ void gemm_item(const GemmJob& j, const Params& p, int tm, int tn, int ks,
-                          float* smem, int half) {
-  const int t = threadIdx.x % HALF;
-  const int tx = t % 16, ty = t / 16;  // outputs: rows 4ty..4ty+3, cols 4tx..4tx+3
-  const int m0 = tm * BM, n0 = tn * BN;
-  const int kc = j.K / j.splits, kb = ks * kc, chunks = kc / BK;
-  const float* arow[A4];
-  int abytes[A4];
-#pragma unroll
-  for (int i = 0; i < A4; ++i) {
-    const int m = m0 + (t + i * HALF) / (BK / 4);
-    const int src = m < j.M ? (j.a_commit ? (m / p.G) * p.R + m % p.G : m) : 0;
-    arow[i] = j.A + (size_t)src * j.lda + ((t + i * HALF) % (BK / 4)) * 4;
-    abytes[i] = m < j.M ? 16 : 0;  // rows past M are zero-filled
-  }
-  auto issue = [&](int stage, int k0) {
-    float* As = smem + stage * GEMM_STAGE;
-    float* Ws = As + BM * AS_STRIDE;
-#pragma unroll
-    for (int i = 0; i < A4; ++i) {
-      const int idx = t + i * HALF;
-      cp_async16(As + (idx / (BK / 4)) * AS_STRIDE + (idx % (BK / 4)) * 4, arow[i] + k0,
-                 abytes[i]);
-    }
-#pragma unroll
-    for (int i = 0; i < W4; ++i) {
-      const int idx = t + i * HALF;
-      cp_async16(Ws + (idx / (BN / 4)) * BN + (idx % (BN / 4)) * 4,
-                 j.W + (size_t)(k0 + idx / (BN / 4)) * j.N + n0 + (idx % (BN / 4)) * 4, 16);
-    }
-  };
-  float acc[4][4] = {};
-  issue(0, kb);
-  cp_async_commit();
-  for (int c = 0; c < chunks; ++c) {
-    if (c + 1 < chunks) issue((c + 1) & 1, kb + (c + 1) * BK);
-    cp_async_commit();
-    cp_async_wait<1>();  // every group but the newest has landed: chunk c is here
-    half_sync(half);
-    const float* As = smem + (c & 1) * GEMM_STAGE;
-    const float* Ws = As + BM * AS_STRIDE;
-#pragma unroll
-    for (int k = 0; k < BK; k += 4) {
-      float4 a[4], w[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = *reinterpret_cast<const float4*>(As + (4 * ty + i) * AS_STRIDE + k);
-        w[i] = *reinterpret_cast<const float4*>(Ws + (k + i) * BN + 4 * tx);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float ak[4] = {a[i].x, a[i].y, a[i].z, a[i].w};
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          acc[i][0] = fmaf(ak[q], w[q].x, acc[i][0]);
-          acc[i][1] = fmaf(ak[q], w[q].y, acc[i][1]);
-          acc[i][2] = fmaf(ak[q], w[q].z, acc[i][2]);
-          acc[i][3] = fmaf(ak[q], w[q].w, acc[i][3]);
-        }
-      }
-    }
-    half_sync(half);  // the next issue overwrites this stage
-  }
-  const int n = n0 + 4 * tx;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + 4 * ty + i;
-    if (m >= j.M) continue;
-    float4 v = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    float* dst;
-    if (j.splits > 1) {
-      dst = j.out + ((size_t)ks * j.M + m) * j.N + n;
-    } else {
-      const float4 b = ldg4(j.bias + n);
-      v.x += b.x; v.y += b.y; v.z += b.z; v.w += b.w;
-      if (j.gelu) {
-        v.x = gelu_exact(v.x); v.y = gelu_exact(v.y);
-        v.z = gelu_exact(v.z); v.w = gelu_exact(v.w);
-      }
-      const int row = j.o_cache ? (m / p.G) * p.C + p.step * p.G + m % p.G : m;
-      dst = j.out + (size_t)row * j.N + n;
-    }
-    *reinterpret_cast<float4*>(dst) = v;
-  }
+// a = hi + lo, each rounded to TF32; the rest after hi is exact in f32.
+__device__ __forceinline__ void split_tf32(float a, uint32_t& hi, uint32_t& lo) {
+  hi = rna_tf32(a);
+  lo = rna_tf32(a - __uint_as_float(hi));
 }
 
-__device__ int gemm_items(const GemmJob& j) {
-  return ((j.M + BM - 1) / BM) * (j.N / BN) * j.splits;
+// c += a b for a 16x8 (rows) by 8x8 (columns) TF32 fragment pair.
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// The work items of every job, spread over the blocks first, then over the
-// second half of each block.
-__device__ void gemm_stage(const GemmJob* jobs, int njobs, const Params& p, float* smem) {
-  const int half = threadIdx.x / HALF;
-  float* hsmem = smem + half * 2 * GEMM_STAGE;
-  int total = 0;
-  for (int i = 0; i < njobs; ++i) total += gemm_items(jobs[i]);
-  for (int item = half * gridDim.x + blockIdx.x; item < total; item += gridDim.x * 2) {
-    int local = item, ji = 0;
-    while (local >= gemm_items(jobs[ji])) local -= gemm_items(jobs[ji++]);
-    const GemmJob& j = jobs[ji];
-    const int ks = local % j.splits;
-    const int tile = local / j.splits;
-    gemm_item(j, p, tile / (j.N / BN), tile % (j.N / BN), ks, hsmem, half);
-  }
+__device__ __forceinline__ int a_row(const GemmJob& j, const Params& p, int m) {
+  return j.a_commit ? (m / p.G) * p.R + m % p.G : m;
 }
 
-// x = LN(x + (sum of `splits` partials + bias)), one warp per row; every
-// load of the row is issued before the first sum.
-__device__ void ln_stage(const Params& p, const float* bias, int splits, const float* s,
-                         const float* b) {
+// A row's mean and 1 / sqrt(var + eps) from its lanes' partial sums, with
+// the one-pass variance max(E[y^2] - mean^2, 0).
+template <int D>
+__device__ __forceinline__ void ln_stats(float sum, float sq, float& mean, float& inv) {
+  sum = warp_sum(sum);
+  sq = warp_sum(sq);
+  mean = sum / D;
+  const float var = fmaxf(sq / D - mean * mean, 0.0f);
+  inv = 1.0f / sqrtf(var + LN_EPS);
+}
+
+// y -> (y - mean) (inv s) + b, the LayerNorm of four columns.
+__device__ __forceinline__ float4 ln_apply(float4 y, float mean, float inv, float4 s, float4 b) {
+  return make_float4((y.x - mean) * (inv * s.x) + b.x, (y.y - mean) * (inv * s.y) + b.y,
+                     (y.z - mean) * (inv * s.z) + b.z, (y.w - mean) * (inv * s.w) + b.w);
+}
+
+// One warp: out1 (and out2, if set) = LN(y) of row `row` of y.
+template <int D>
+__device__ __forceinline__ void ln_row(const float* y, int row, const float* s, const float* b,
+                                       float* out1, float* out2) {
+  constexpr int PER = D / 128;  // float4 per lane
   const int lane = threadIdx.x % 32;
-  const int M = p.B * p.R, D = p.D, per = p.D / 32;
-  const int nw = gridDim.x * NWARPS;
-  for (int row = blockIdx.x * NWARPS + threadIdx.x / 32; row < M; row += nw) {
-    float* xr = p.x + (size_t)row * D;
-    float y[LN_PER];
+  float4 v[PER];
 #pragma unroll
-    for (int i = 0; i < LN_PER; ++i)
-      if (i < per) y[i] = p.part[(size_t)row * D + lane + 32 * i];
-    for (int k = 1; k < splits; ++k) {
-      const float* part = p.part + ((size_t)k * M + row) * D + lane;
+  for (int i = 0; i < PER; ++i) v[i] = ld4(y + (size_t)row * D + lane * 4 + 128 * i);
+  float sum = 0.f, sq = 0.f;
 #pragma unroll
-      for (int i = 0; i < LN_PER; ++i)
-        if (i < per) y[i] += part[32 * i];
+  for (int i = 0; i < PER; ++i) {
+    sum += v[i].x + v[i].y + v[i].z + v[i].w;
+    sq += v[i].x * v[i].x + v[i].y * v[i].y + v[i].z * v[i].z + v[i].w * v[i].w;
+  }
+  float mean, inv;
+  ln_stats<D>(sum, sq, mean, inv);
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int c = lane * 4 + 128 * i;
+    const float4 o = ln_apply(v[i], mean, inv, ldg4(s + c), ldg4(b + c));
+    sts4(out1 + c, o);  // shared or global: a generic store
+    if (out2) *reinterpret_cast<float4*>(out2 + c) = o;
+  }
+}
+
+// One warp: out1 (and out2, if set) = LN(x + (p.part[0] + ... + p.part[3]
+// + bias)) of row `row`; every load of the row is issued before the first
+// sum.
+template <int D, int SPLITS>
+__device__ __forceinline__ void ln_row_parts(const Params& p, const float* x, int row,
+                                             const float* bias, const float* s, const float* b,
+                                             float* out1, float* out2) {
+  constexpr int PER = D / 128;
+  const int lane = threadIdx.x % 32;
+  const size_t M = (size_t)p.B * p.R;
+  float4 y[PER], xv[PER];
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int c = lane * 4 + 128 * i;
+    xv[i] = ld4(x + (size_t)row * D + c);
+    y[i] = ld4(p.part + (size_t)row * D + c);
+  }
+#pragma unroll
+  for (int k = 1; k < SPLITS; ++k) {
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const float4 v = ld4(p.part + ((size_t)k * M + row) * D + lane * 4 + 128 * i);
+      y[i].x += v.x; y[i].y += v.y; y[i].z += v.z; y[i].w += v.w;
     }
-    float sum = 0.f, sq = 0.f;
+  }
+  float sum = 0.f, sq = 0.f;
 #pragma unroll
-    for (int i = 0; i < LN_PER; ++i) {
-      if (i < per) {
-        const int d = lane + 32 * i;
-        y[i] = xr[d] + (y[i] + __ldg(bias + d));
-        sum += y[i];
-        sq += y[i] * y[i];
+  for (int i = 0; i < PER; ++i) {
+    const float4 bv = ldg4(bias + lane * 4 + 128 * i);
+    y[i].x = xv[i].x + (y[i].x + bv.x);
+    y[i].y = xv[i].y + (y[i].y + bv.y);
+    y[i].z = xv[i].z + (y[i].z + bv.z);
+    y[i].w = xv[i].w + (y[i].w + bv.w);
+    sum += y[i].x + y[i].y + y[i].z + y[i].w;
+    sq += y[i].x * y[i].x + y[i].y * y[i].y + y[i].z * y[i].z + y[i].w * y[i].w;
+  }
+  float mean, inv;
+  ln_stats<D>(sum, sq, mean, inv);
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int c = lane * 4 + 128 * i;
+    const float4 o = ln_apply(y[i], mean, inv, ldg4(s + c), ldg4(b + c));
+    sts4(out1 + c, o);  // shared or global: a generic store
+    if (out2) *reinterpret_cast<float4*>(out2 + c) = o;
+  }
+}
+
+constexpr int AS = 516;              // A row stride (floats) in shared memory, D + 4
+constexpr int WS = BN + 8;           // W row stride: conflict-free fragments
+constexpr int SPLIT_2 = 4;           // splits of the W2 reduction (F = 4 D)
+
+// A GEMM tile's A operand into shared memory: one warp a row for the
+// LayerNorms, the combine in two passes (chunk weights of every (row,
+// head), then the weighted sums with every chunk's load in flight).
+template <int D, int DH>
+__device__ void gemm_a(const GemmJob& j, const Params& p, int m0, int tn, int kb, float* As,
+                       float* coef) {
+  constexpr int H = D / DH, N4 = D / 4, CS = MAX_NC + 1;
+  const int t = threadIdx.x, lane = t % 32;
+  static_assert(AS == D + 4, "A rows are D + 4 floats apart");
+  if (j.amode == A_PLAIN) {
+    for (int idx = t; idx < BM * N4; idx += THREADS) {
+      const int r = idx / N4, c = (idx % N4) * 4, m = m0 + r;
+      const int src = m < j.M ? a_row(j, p, m) : 0;
+      cp_async16(As + r * AS + c, j.A + (size_t)src * j.lda + kb + c, m < j.M ? 16 : 0);
+    }
+  } else if (j.amode == A_LN || j.amode == A_LN4) {
+    const bool write_x = tn == 0 && j.x_next;
+    for (int r = t / 32; r < BM; r += NWARPS) {
+      const int m = m0 + r;
+      if (m >= j.M) {  // rows past M are zero
+        for (int c = lane * 4; c < D; c += 128) sts4(As + r * AS + c, make_float4(0, 0, 0, 0));
+        continue;
+      }
+      const int row = a_row(j, p, m);
+      float* x_out = write_x ? j.x_next + (size_t)row * D : nullptr;
+      if (j.amode == A_LN)
+        ln_row<D>(p.ybuf, row, j.ln_s, j.ln_b, As + r * AS, x_out);
+      else
+        ln_row_parts<D, SPLIT_2>(p, j.A, row, j.ln_bias, j.ln_s, j.ln_b, As + r * AS, x_out);
+    }
+  } else {
+    const int NC = p.NC, R = p.R;
+    for (int idx = t; idx < BM * H; idx += THREADS) {
+      const int r = idx / H, h = idx % H, m = m0 + r;
+      if (m >= j.M) continue;
+      const int b = m / R, rr = m % R;
+      const float2* ml =
+          reinterpret_cast<const float2*>(p.ca_ml) + (size_t)(b * H + h) * NC * R + rr;
+      float2 st[MAX_NC];
+#pragma unroll
+      for (int c = 0; c < MAX_NC; ++c)
+        st[c] = c < NC ? __ldcg(ml + c * R) : make_float2(-INFINITY, 0.f);
+      const float bias_logit = p.has_bias ? __ldcg(p.ca_bl + (b * H + h) * R + rr) : -INFINITY;
+      float mx = bias_logit;
+#pragma unroll
+      for (int c = 0; c < MAX_NC; ++c) mx = fmaxf(mx, st[c].x);
+      float w[MAX_NC];
+      float denom = 0.f;
+#pragma unroll
+      for (int c = 0; c < MAX_NC; ++c) {
+        w[c] = c < NC ? expf(st[c].x - mx) : 0.f;
+        if (c < NC) denom += w[c] * st[c].y;
+      }
+      const float e_bias = p.has_bias ? expf(bias_logit - mx) : 0.f;
+      denom += e_bias;
+      float* cf = coef + idx * CS;
+#pragma unroll
+      for (int c = 0; c < MAX_NC; ++c) cf[c] = w[c] / denom;
+      cf[MAX_NC] = e_bias / denom;
+    }
+    __syncthreads();
+    constexpr int PAIR = BM * N4 / (2 * THREADS);  // passes, two float4 a thread each
+    static_assert(BM * N4 % (2 * THREADS) == 0, "whole passes");
+#pragma unroll 1
+    for (int pass = 0; pass < PAIR; ++pass) {
+      float4 o[2][MAX_NC];  // every chunk's load of both in flight
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int idx = t + (2 * pass + u) * THREADS;
+        const int r = idx / N4, c = (idx % N4) * 4, m = m0 + r, h = c / DH;
+        if (m >= j.M) continue;
+        const float* src =
+            p.ca_o + ((size_t)((m / R) * H + h) * NC * R + m % R) * DH + c % DH;
+#pragma unroll
+        for (int cc = 0; cc < MAX_NC; ++cc)
+          if (cc < NC) o[u][cc] = ld4(src + (size_t)cc * R * DH);
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+      const int idx = t + (2 * pass + u) * THREADS;
+      const int r = idx / N4, c = (idx % N4) * 4, m = m0 + r, h = c / DH;
+      float4 v = make_float4(0, 0, 0, 0);
+      if (m < j.M) {
+        const float* cf = coef + (r * H + h) * CS;
+#pragma unroll
+        for (int cc = 0; cc < MAX_NC; ++cc) {
+          if (cc < NC) {
+            v.x = fmaf(cf[cc], o[u][cc].x, v.x);
+            v.y = fmaf(cf[cc], o[u][cc].y, v.y);
+            v.z = fmaf(cf[cc], o[u][cc].z, v.z);
+            v.w = fmaf(cf[cc], o[u][cc].w, v.w);
+          }
+        }
+        if (p.has_bias) {
+          const float4 vb = ldg4(p.w[CA_BV] + (size_t)j.li * D + c);
+          const float wb = cf[MAX_NC];
+          v.x = fmaf(wb, vb.x, v.x);
+          v.y = fmaf(wb, vb.y, v.y);
+          v.z = fmaf(wb, vb.z, v.z);
+          v.w = fmaf(wb, vb.w, v.w);
+        }
+      }
+      sts4(As + r * AS + c, v);
       }
     }
-    sum = warp_sum(sum);
-    sq = warp_sum(sq);
-    const float mean = sum / D;
-    const float var = fmaxf(sq / D - mean * mean, 0.0f);
-    const float inv = 1.0f / sqrtf(var + LN_EPS);
+  }
+}
+
+// One BM x (nsub BN) output tile over K columns [ks D, (ks + 1) D) of A,
+// by the whole block on the tensor cores in 3xTF32, one BN column block at
+// a time: the D x BN weight slab is in flight by cp.async while the A rows
+// are prepared (once for the nsub blocks), so a block waits for memory
+// once. Warp (nh, ksl) sums columns 32 nh .. + 32 of all BM rows over k
+// KW ksl .. + KW, splitting each operand into TF32 hi and lo as it reads
+// it; the k slices are added in order through shared memory.
+template <int D, int DH>
+__device__ __noinline__ void gemm_tile(const GemmJob& j, const Params& p, int tm, int tg, int ks,
+                                       float* smem, bool timed) {
+  constexpr int W4 = BN / 4, KW = D / (NWARPS / 2);
+  float* As = smem;            // BM x AS
+  float* Ws = As + BM * AS;    // D x WS, then the warps' partial tiles
+  float* coef = Ws + D * WS;   // the combine's chunk weights
+  const int t = threadIdx.x, m0 = tm * BM, kb = ks * D;
+  for (int sb = 0; sb < j.nsub; ++sb) {
+    const int n0 = (tg * j.nsub + sb) * BN;
+    GEMM_MARK(0);
+    for (int idx = t; idx < D * W4; idx += THREADS) {
+      const int k = idx / W4, n = (idx % W4) * 4;
+      cp_async16(Ws + k * WS + n, j.W + (size_t)(kb + k) * j.N + n0 + n, 16);
+    }
+    cp_async_commit();
+    if (sb == 0) gemm_a<D, DH>(j, p, m0, tg, kb, As, coef);
+    cp_async_commit();
+    GEMM_MARK(1);
+    cp_async_wait<0>();
+    __syncthreads();
+    GEMM_MARK(2);
+
+    const int warp = t / 32, lane = t % 32, gid = lane >> 2, tig = lane & 3;
+    const int nh = warp & 1, ksl = warp >> 1;
+    const float* Aw = As + KW * ksl;
+    const float* Ww = Ws + (KW * ksl) * WS + 32 * nh;
+    float acc[2][4][4];
 #pragma unroll
-    for (int i = 0; i < LN_PER; ++i) {
-      if (i < per) {
-        const int d = lane + 32 * i;
-        xr[d] = (y[i] - mean) * (inv * __ldg(s + d)) + __ldg(b + d);
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
+#pragma unroll 2
+    for (int k = 0; k < KW; k += 8) {
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const float* a = Aw + (16 * mt + gid) * AS + k + tig;
+        split_tf32(a[0], ah[mt][0], al[mt][0]);
+        split_tf32(a[8 * AS], ah[mt][1], al[mt][1]);
+        split_tf32(a[4], ah[mt][2], al[mt][2]);
+        split_tf32(a[8 * AS + 4], ah[mt][3], al[mt][3]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        uint32_t bh[2], bl[2];
+        split_tf32(Ww[(k + tig) * WS + nt * 8 + gid], bh[0], bl[0]);
+        split_tf32(Ww[(k + tig + 4) * WS + nt * 8 + gid], bh[1], bl[1]);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma_tf32(acc[mt][nt], al[mt], bh);
+          mma_tf32(acc[mt][nt], ah[mt], bl);
+          mma_tf32(acc[mt][nt], ah[mt], bh);
+        }
       }
     }
-  }
-}
-
-// Self-attention of one video and one head: the q rows and the cache rows of
-// positions < valid_len (every event's) in shared memory; row r attends its
-// own event's keys only, its own commit among them.
-__device__ void self_attention_video(const Params& p, int li, int b, int h, float* smem) {
-  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
-  const int R = p.R, G = p.G, Dh = p.Dh, qs = Dh + 4, Tc = p.C / G, vl = p.valid_len;
-  const int rows = vl * G;       // cache rows pos * G + e, pos < valid_len
-  float* q = smem;               // R x qs
-  float* kv = q + R * qs;        // rows x qs: keys, then values
-  float* lg = kv + p.C * qs;     // R x Tc: logits, then weights
-  const size_t cache = (size_t)(li * p.B + b) * p.C * p.D + h * Dh;
-  const int d4s = Dh / 4;
-  for (int idx = t; idx < R * d4s; idx += THREADS) {
-    const int r = idx / d4s, d = (idx % d4s) * 4;
-    *reinterpret_cast<float4*>(q + r * qs + d) =
-        ld4(p.q_buf + (size_t)(b * R + r) * p.D + h * Dh + d);
-  }
-  for (int idx = t; idx < rows * d4s; idx += THREADS) {
-    const int r = idx / d4s, d = (idx % d4s) * 4;
-    *reinterpret_cast<float4*>(kv + r * qs + d) = ld4(p.kc + cache + (size_t)r * p.D + d);
-  }
-  __syncthreads();
-  for (int idx = t; idx < R * vl; idx += THREADS) {
-    const int r = idx / vl, pos = idx % vl;
-    const float* qr = q + r * qs;
-    const float* kr = kv + (pos * G + r % G) * qs;
-    float acc = 0.f;
-    for (int d = 0; d < Dh; d += 4) {
-      const float4 a = *reinterpret_cast<const float4*>(qr + d);
-      const float4 k = *reinterpret_cast<const float4*>(kr + d);
-      acc = fmaf(a.x, k.x, acc);
-      acc = fmaf(a.y, k.y, acc);
-      acc = fmaf(a.z, k.z, acc);
-      acc = fmaf(a.w, k.w, acc);
+    __syncthreads();  // every warp is done with the W slab: its space takes the partial tiles
+    GEMM_MARK(3);
+    float* red = Ws;  // (NWARPS / 2) k slices x BM x RS
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        float* r0 = red + (ksl * BM + 16 * mt + gid) * RS + 32 * nh + nt * 8 + 2 * tig;
+        *reinterpret_cast<float2*>(r0) = make_float2(acc[mt][nt][0], acc[mt][nt][1]);
+        *reinterpret_cast<float2*>(r0 + 8 * RS) = make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+      }
     }
-    lg[r * Tc + pos] = acc * p.scale;
-  }
-  __syncthreads();
-  for (int r = warp; r < R; r += NWARPS) {
-    float* lr = lg + r * Tc;
-    float m = -INFINITY;
-    for (int pos = lane; pos < vl; pos += 32) m = fmaxf(m, lr[pos]);
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int pos = lane; pos < vl; pos += 32) {
-      const float e = expf(lr[pos] - m);
-      lr[pos] = e;
-      sum += e;
+    __syncthreads();
+    const int r = t / (BN / 4), c = (t % (BN / 4)) * 4, m = m0 + r, n = n0 + c;
+    if (m < j.M) {
+      float4 v = lds4(red + r * RS + c);
+#pragma unroll
+      for (int sl = 1; sl < NWARPS / 2; ++sl) {  // the k slices in order
+        const float4 u = lds4(red + (sl * BM + r) * RS + c);
+        v.x += u.x; v.y += u.y; v.z += u.z; v.w += u.w;
+      }
+      if (j.splits > 1) {
+        *reinterpret_cast<float4*>(p.part + ((size_t)ks * j.M + m) * j.N + n) = v;
+      } else {
+        const float4 bv = ldg4(j.bias + n);
+        v.x += bv.x; v.y += bv.y; v.z += bv.z; v.w += bv.w;
+        if (j.gelu) {
+          v.x = gelu_exact(v.x); v.y = gelu_exact(v.y);
+          v.z = gelu_exact(v.z); v.w = gelu_exact(v.w);
+        }
+        if (j.resid) {
+          const float4 x = ld4(j.resid + (size_t)m * j.N + n);
+          v.x = x.x + v.x; v.y = x.y + v.y; v.z = x.z + v.z; v.w = x.w + v.w;
+        }
+        const int row = j.o_cache ? (m / p.G) * p.C + p.step * p.G + m % p.G : m;
+        *reinterpret_cast<float4*>(j.out + (size_t)row * j.N + n) = v;
+      }
     }
-    sum = warp_sum(sum);
-    for (int pos = lane; pos < vl; pos += 32) lr[pos] = lr[pos] / sum;
-  }
-  for (int idx = t; idx < rows * d4s; idx += THREADS) {  // the values over the keys
-    const int r = idx / d4s, d = (idx % d4s) * 4;
-    *reinterpret_cast<float4*>(kv + r * qs + d) = ld4(p.vc + cache + (size_t)r * p.D + d);
-  }
-  __syncthreads();
-  for (int idx = t; idx < R * Dh; idx += THREADS) {
-    const int r = idx / Dh, d = idx % Dh;
-    const float* lr = lg + r * Tc;
-    float out = 0.f;
-    for (int pos = 0; pos < vl; ++pos) out = fmaf(lr[pos], kv[(pos * G + r % G) * qs + d], out);
-    p.attn_buf[(size_t)(b * R + r) * p.D + h * Dh + d] = out;
-  }
-  __syncthreads();  // the next video reuses the shared buffers
-}
-
-__device__ void self_attention_stage(const Params& p, int li, float* smem) {
-  const int units = (p.B / p.vt) * p.H;
-  for (int unit = blockIdx.x; unit < units; unit += gridDim.x) {
-    const int g = unit / p.H, h = unit % p.H;
-    for (int v = 0; v < p.vt; ++v) self_attention_video(p, li, g * p.vt + v, h, smem);
+    __syncthreads();  // the next column block, or tile, reuses the shared buffers
+    GEMM_MARK(4);
   }
 }
 
-// Cross-attention of one video and one head over its Sp memory columns. The
-// K (then V) rows of the head stream through a three-stage cp.async ring of
-// KV_CHUNK rows (f32, or the int8 bytes, widened exactly when read).
-template <bool INT8>
-__device__ void cross_attention_video(const Params& p, int li, int b, int h, float* smem) {
+__device__ __forceinline__ int gemm_tiles(const GemmJob& j) {
+  return ((j.M + BM - 1) / BM) * (j.N / (BN * j.nsub)) * j.splits;
+}
+
+// The tiles of every job, one block each, spread over the blocks.
+template <int D, int DH>
+__device__ void gemm_stage(const GemmJob* jobs, int njobs, const Params& p, float* smem) {
+  int total = 0;
+  for (int i = 0; i < njobs; ++i) total += gemm_tiles(jobs[i]);
+  for (int item = blockIdx.x; item < total; item += gridDim.x) {
+    int local = item, ji = 0;
+    while (local >= gemm_tiles(jobs[ji])) local -= gemm_tiles(jobs[ji++]);
+    const GemmJob& j = jobs[ji];
+    const int ks = local % j.splits, tile = local / j.splits;
+    const int tn_groups = j.N / (BN * j.nsub);
+    gemm_tile<D, DH>(j, p, tile / tn_groups, tile % tn_groups, ks, smem,
+                     j.tag && blockIdx.x == 0 && item == (int)blockIdx.x);
+  }
+}
+
+__device__ GemmJob plain_job(const float* A, int lda, const float* W, const float* bias,
+                             float* out, int M, int N) {
+  GemmJob j = {};
+  j.A = A; j.lda = lda; j.W = W; j.bias = bias; j.out = out;
+  j.M = M; j.N = N; j.splits = 1; j.nsub = 1; j.amode = A_PLAIN;
+  return j;
+}
+
+__device__ GemmJob ln_job(int amode, const float* s, const float* b, float* x_next,
+                          const float* W, const float* bias, float* out, int M, int N) {
+  GemmJob j = {};
+  j.ln_s = s; j.ln_b = b; j.x_next = x_next;
+  j.W = W; j.bias = bias; j.out = out; j.M = M; j.N = N; j.splits = 1; j.nsub = 1;
+  j.amode = amode;
+  return j;
+}
+
+// Self-attention of one video and one head a unit: the q rows and the cache
+// rows of positions < valid_len (every event's keys and values) land in
+// shared memory together; row r attends its own event's keys only, its own
+// commit among them.
+template <int D, int DH>
+__device__ __noinline__ void self_attention_stage(const Params& p, int li, float* smem) {
+  constexpr int H = D / DH, QS = DH + 4, D4 = DH / 4;
   const int t = threadIdx.x, warp = t / 32, lane = t % 32;
-  const int R = p.R, Sp = p.Sp, Dh = p.Dh, qs = Dh + 4, nch = Sp / KV_CHUNK;
-  float* q = smem;                 // R x qs
-  float* L = q + R * qs;           // R x Sp: logits, then attention weights
-  float* ab = L + R * Sp;          // R (+ pad to 4): bias-column weights
-  float* ring = ab + (R + 3) / 4 * 4;  // KV_STAGES x KV_CHUNK x qs
-  const size_t lb = (size_t)(li * p.B + b) * Sp;  // (layer, video) row of the scales
-  const size_t base = lb * p.D + h * Dh;          // element offset of row 0, head h
-  const int qb = Dh + 16;                         // int8 row stride in bytes
-  SUB_MARK(0);
+  const int R = p.R, G = p.G, Tc = p.C / G, vl = p.valid_len, rows = vl * G;
+  float* q = smem;               // MAX_R x QS
+  float* ks = q + MAX_R * QS;    // C x QS
+  float* vs = ks + p.C * QS;     // C x QS
+  float* lg = vs + p.C * QS;     // R x Tc: logits, then weights
+  for (int unit = blockIdx.x; unit < p.B * H; unit += gridDim.x) {
+    const int b = unit / H, h = unit % H;
+    const size_t cache = (size_t)(li * p.B + b) * p.C * D + h * DH;
+    for (int idx = t; idx < R * D4; idx += THREADS) {
+      const int r = idx / D4, d = (idx % D4) * 4;
+      cp_async16(q + r * QS + d, p.q_buf + (size_t)(b * R + r) * D + h * DH + d, 16);
+    }
+    for (int idx = t; idx < rows * D4; idx += THREADS) {
+      const int r = idx / D4, d = (idx % D4) * 4;
+      cp_async16(ks + r * QS + d, p.kc + cache + (size_t)r * D + d, 16);
+      cp_async16(vs + r * QS + d, p.vc + cache + (size_t)r * D + d, 16);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int idx = t; idx < R * vl; idx += THREADS) {
+      const int r = idx / vl, pos = idx % vl;
+      const float* qr = q + r * QS;
+      const float* kr = ks + (pos * G + r % G) * QS;
+      float acc = 0.f;
+#pragma unroll
+      for (int d = 0; d < DH; d += 4) {
+        const float4 a = lds4(qr + d), k = lds4(kr + d);
+        acc = fmaf(a.x, k.x, acc);
+        acc = fmaf(a.y, k.y, acc);
+        acc = fmaf(a.z, k.z, acc);
+        acc = fmaf(a.w, k.w, acc);
+      }
+      lg[r * Tc + pos] = acc * p.scale;
+    }
+    __syncthreads();
+    for (int r = warp; r < R; r += NWARPS) {
+      float* lr = lg + r * Tc;
+      float m = -INFINITY;
+      for (int pos = lane; pos < vl; pos += 32) m = fmaxf(m, lr[pos]);
+      m = warp_max(m);
+      float sum = 0.f;
+      for (int pos = lane; pos < vl; pos += 32) {
+        const float e = expf(lr[pos] - m);
+        lr[pos] = e;
+        sum += e;
+      }
+      sum = warp_sum(sum);
+      for (int pos = lane; pos < vl; pos += 32) lr[pos] = lr[pos] / sum;
+    }
+    __syncthreads();
+    for (int idx = t; idx < R * DH; idx += THREADS) {
+      const int r = idx / DH, d = idx % DH;
+      const float* lr = lg + r * Tc;
+      float out = 0.f;
+      for (int pos = 0; pos < vl; ++pos) out = fmaf(lr[pos], vs[(pos * G + r % G) * QS + d], out);
+      p.attn_buf[(size_t)(b * R + r) * D + h * DH + d] = out;
+    }
+    __syncthreads();  // the next unit reuses the shared buffers
+  }
+}
 
-  auto issue = [&](const void* mem, int c) {
-    float* dst = ring + (c % KV_STAGES) * KV_CHUNK * qs;
-    const size_t off = base + (size_t)c * KV_CHUNK * p.D;
+// Cross-attention, one unit per (video, head, chunk of CHUNK memory
+// columns): the chunk's logits, its max m_c, the sum l_c of exp(logit -
+// m_c) and the weighted sum of V by those exponentials (times the v-scale
+// for int8). Everything a unit reads (its K and V chunks, q rows, mask
+// columns and scales) lands by cp.async in one of two buffers, the next
+// unit's while this one is summed.
+template <int D, int DH, bool INT8>
+struct CrossBuffer {
+  static constexpr int QS = DH + 4;
+  // bytes of one K row and of one V row (f32 strides Dh + 4 and Dh + 8
+  // floats: conflict-free fragment loads)
+  static constexpr int KROW = INT8 ? DH + 16 : QS * 4;
+  static constexpr int VROW = INT8 ? DH + 16 : (DH + 8) * 4;
+  static constexpr int V_OFF = CHUNK * KROW;
+  static constexpr int Q_OFF = V_OFF + CHUNK * VROW;      // MAX_R x QS floats
+  static constexpr int MASK_OFF = Q_OFF + MAX_R * QS * 4;      // MAX_R x CHUNK bytes
+  static constexpr int SCALE_OFF = MASK_OFF + MAX_R * CHUNK;   // 2 x CHUNK floats (int8)
+  static constexpr int BYTES = SCALE_OFF + (INT8 ? 2 * CHUNK * 4 : 0);
+};
+
+template <int D, int DH, bool INT8>
+__device__ __noinline__ void cross_attention_stage(const Params& p, int li, float* smem) {
+  using Buf = CrossBuffer<D, DH, INT8>;
+  static_assert(CHUNK == 8 * NWARPS && DH == 8 * (NWARPS / 2) && MAX_R == 32,
+                "a warp's share of the logits and of the weighted sum");
+  constexpr int H = D / DH, QS = Buf::QS, D4 = DH / 4, KROW = Buf::KROW, VROW = Buf::VROW;
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
+  const int R = p.R, NC = p.NC, Sp = p.Sp;
+  // the logits, then the TF32 hi parts of the weights (in place); the lo
+  // parts; q split into TF32 hi and lo; then the two buffers
+  float* P = smem;                                    // MAX_R x PS
+  uint32_t* Plo = reinterpret_cast<uint32_t*>(P + MAX_R * PS);
+  uint32_t* Qhi = Plo + MAX_R * PS;                  // MAX_R x QS
+  uint32_t* Qlo = Qhi + MAX_R * QS;
+  char* ring = reinterpret_cast<char*>(Qlo + MAX_R * QS);
+  const int units = p.B * H * NC;
+
+  auto issue = [&](int unit, int buf) {
+    const int b = unit / (H * NC), h = (unit / NC) % H, c = unit % NC;
+    const size_t base = ((size_t)(li * p.B + b) * Sp + (size_t)c * CHUNK) * D + h * DH;
+    char* dst = ring + buf * Buf::BYTES;
     if (INT8) {
-      const int n16 = Dh / 16;
-      for (int idx = t; idx < KV_CHUNK * n16; idx += THREADS) {
-        const int row = idx / n16, d = (idx % n16) * 16;
-        cp_async16(reinterpret_cast<int8_t*>(dst) + row * qb + d,
-                   static_cast<const int8_t*>(mem) + off + (size_t)row * p.D + d, 16);
+      constexpr int N16 = DH / 16;
+      for (int idx = t; idx < CHUNK * N16; idx += THREADS) {
+        const int row = idx / N16, d = (idx % N16) * 16;
+        const size_t off = base + (size_t)row * D + d;
+        cp_async16(dst + row * KROW + d, static_cast<const int8_t*>(p.mem_k) + off, 16);
+        cp_async16(dst + Buf::V_OFF + row * VROW + d, static_cast<const int8_t*>(p.mem_v) + off,
+                   16);
+      }
+      const size_t sc = (size_t)(li * p.B + b) * Sp + c * CHUNK;
+      for (int idx = t; idx < 2 * CHUNK / 4; idx += THREADS) {
+        const float* src =
+            (idx < CHUNK / 4 ? p.k_scales : p.v_scales) + sc + (idx % (CHUNK / 4)) * 4;
+        cp_async16(dst + Buf::SCALE_OFF + idx * 16, src, 16);
       }
     } else {
-      const int n4 = Dh / 4;
-      for (int idx = t; idx < KV_CHUNK * n4; idx += THREADS) {
-        const int row = idx / n4, d = (idx % n4) * 4;
-        cp_async16(dst + row * qs + d,
-                   static_cast<const float*>(mem) + off + (size_t)row * p.D + d, 16);
+      for (int idx = t; idx < CHUNK * D4; idx += THREADS) {
+        const int row = idx / D4, d = (idx % D4) * 4;
+        const size_t off = base + (size_t)row * D + d;
+        cp_async16(dst + row * KROW + d * 4, static_cast<const float*>(p.mem_k) + off, 16);
+        cp_async16(dst + Buf::V_OFF + row * VROW + d * 4,
+                   static_cast<const float*>(p.mem_v) + off, 16);
       }
     }
-  };
-  auto start = [&](const void* mem) {  // the first KV_STAGES - 1 chunks in flight
-    for (int c = 0; c < KV_STAGES - 1; ++c) {
-      if (c < nch) issue(mem, c);
-      cp_async_commit();
+    for (int idx = t; idx < R * D4; idx += THREADS) {
+      const int r = idx / D4, d = (idx % D4) * 4;
+      cp_async16(dst + Buf::Q_OFF + (r * QS + d) * 4,
+                 p.q_buf + (size_t)(b * R + r) * D + h * DH + d, 16);
+    }
+    for (int idx = t; idx < R * (CHUNK / 16); idx += THREADS) {
+      const int r = idx / (CHUNK / 16), s = (idx % (CHUNK / 16)) * 16;
+      cp_async16(dst + Buf::MASK_OFF + r * CHUNK + s,
+                 p.mask + (size_t)(b * R + r) * Sp + c * CHUNK + s, 16);
     }
   };
-  auto arrive = [&](const void* mem, int c) {  // chunk c landed; chunk c + 2 in flight
-    if (c + KV_STAGES - 1 < nch) issue(mem, c + KV_STAGES - 1);
+
+  int unit = blockIdx.x;
+  if (unit < units) issue(unit, 0);
+  cp_async_commit();
+  for (int it = 0; unit < units; ++it, unit += gridDim.x) {
+    SUB_MARK(0);
+    if (unit + (int)gridDim.x < units) issue(unit + gridDim.x, (it + 1) & 1);
     cp_async_commit();
-    cp_async_wait<KV_STAGES - 1>();
+    const int b = unit / (H * NC), h = (unit / NC) % H;
+    const char* buf = ring + (it & 1) * Buf::BYTES;
+    const char* kbuf = buf;
+    const char* vbuf = buf + Buf::V_OFF;
+    const float* q = reinterpret_cast<const float*>(buf + Buf::Q_OFF);
+    const int8_t* blocked = reinterpret_cast<const int8_t*>(buf + Buf::MASK_OFF);
+    const float* ksc = reinterpret_cast<const float*>(buf + Buf::SCALE_OFF);
+    const float* vsc = ksc + CHUNK;
+    cp_async_wait<1>();  // every group but the newest has landed: this unit's
     __syncthreads();
-    return ring + (c % KV_STAGES) * KV_CHUNK * qs;
-  };
-  auto kv4 = [&](const float* buf, int row, int d) {
-    if (INT8) {
-      const char4 c = *reinterpret_cast<const char4*>(
-          reinterpret_cast<const int8_t*>(buf) + row * qb + d);
-      return make_float4((float)c.x, (float)c.y, (float)c.z, (float)c.w);
+    for (int idx = t; idx < MAX_R * DH; idx += THREADS) {  // q split once for every warp
+      const int r = idx / DH, d = idx % DH;
+      split_tf32(q[r * QS + d], Qhi[r * QS + d], Qlo[r * QS + d]);
     }
-    return *reinterpret_cast<const float4*>(buf + row * qs + d);
-  };
-  auto kv1 = [&](const float* buf, int row, int d) {
-    if (INT8) return (float)reinterpret_cast<const int8_t*>(buf)[row * qb + d];
-    return buf[row * qs + d];
-  };
+    __syncthreads();
+    SUB_MARK(1);
 
-  start(p.mem_k);
-  for (int idx = t; idx < R * Dh; idx += THREADS) {
-    const int r = idx / Dh, d = idx % Dh;
-    q[r * qs + d] = p.q_buf[(size_t)(b * R + r) * p.D + h * Dh + d];
-  }
-  SUB_MARK(1);
-
-  // logits: thread (column s_loc of the chunk, rows rg, rg + 4, ...)
-  {
-    const int s_loc = t % KV_CHUNK, rg = t / KV_CHUNK;
-    for (int c = 0; c < nch; ++c) {
-      const int s = c * KV_CHUNK + s_loc;
-      const float ksc = INT8 ? __ldg(p.k_scales + lb + s) : 1.0f;
-      int8_t blocked[MAX_R / 4];  // loaded now, read after the sums
+    // logits on the tensor cores in 3xTF32 (int8 K is exact in TF32: two
+    // passes): warp w takes columns 8 w .. + 8 of both 16-row tiles
+    {
+      const int gid = lane >> 2, tig = lane & 3, s0 = 8 * warp;
+      float acc[2][4] = {};
+#pragma unroll 2
+      for (int k = 0; k < DH; k += 8) {
+        uint32_t ah[2][4], al[2][4], bh[2], bl[2] = {0u, 0u};
 #pragma unroll
-      for (int i = 0; i < MAX_R / 4; ++i) {
-        const int r = rg + 4 * i;
-        blocked[i] = r < R ? __ldg(p.mask + (size_t)(b * R + r) * Sp + s) : 0;
+        for (int mt = 0; mt < 2; ++mt) {
+          const int o = (16 * mt + gid) * QS + k + tig;  // a0..a3: rows +8, k +4
+          ah[mt][0] = Qhi[o]; ah[mt][1] = Qhi[o + 8 * QS];
+          ah[mt][2] = Qhi[o + 4]; ah[mt][3] = Qhi[o + 8 * QS + 4];
+          al[mt][0] = Qlo[o]; al[mt][1] = Qlo[o + 8 * QS];
+          al[mt][2] = Qlo[o + 4]; al[mt][3] = Qlo[o + 8 * QS + 4];
+        }
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int d = k + tig + 4 * u;
+          if (INT8) {
+            bh[u] = __float_as_uint((float)reinterpret_cast<const int8_t*>(
+                kbuf)[(s0 + gid) * KROW + d]);
+          } else {
+            split_tf32(reinterpret_cast<const float*>(kbuf + (s0 + gid) * KROW)[d], bh[u],
+                       bl[u]);
+          }
+        }
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma_tf32(acc[mt], al[mt], bh);
+          if (!INT8) mma_tf32(acc[mt], ah[mt], bl);
+          mma_tf32(acc[mt], ah[mt], bh);
+        }
       }
-      const float* kv = arrive(p.mem_k, c);
-      float acc[MAX_R / 4] = {};
-      for (int d = 0; d < Dh; d += 4) {
-        const float4 k4 = kv4(kv, s_loc, d);
 #pragma unroll
-        for (int i = 0; i < MAX_R / 4; ++i) {
-          const int r = rg + 4 * i;
+      for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {  // c0, c1: row gid; c2, c3: row gid + 8
+          const int r = 16 * mt + gid + 8 * (e >> 1), sc = s0 + 2 * tig + (e & 1);
           if (r < R) {
-            const float4 q4 = *reinterpret_cast<const float4*>(q + r * qs + d);
-            acc[i] = fmaf(q4.x, k4.x, acc[i]);
-            acc[i] = fmaf(q4.y, k4.y, acc[i]);
-            acc[i] = fmaf(q4.z, k4.z, acc[i]);
-            acc[i] = fmaf(q4.w, k4.w, acc[i]);
+            float lg = acc[mt][e];
+            if (INT8) lg *= ksc[sc];
+            P[r * PS + sc] = (blocked[r * CHUNK + sc] ? NEG_MASK : lg) * p.scale;
           }
         }
       }
+    }
+    __syncthreads();
+    SUB_MARK(2);
+
+    // the chunk's max and sum of exponentials, one warp a row
+    for (int r = warp; r < R; r += NWARPS) {
+      float* Pr = P + r * PS;
+      float v[CHUNK / 32];
+      float m = -INFINITY;
 #pragma unroll
-      for (int i = 0; i < MAX_R / 4; ++i) {
-        const int r = rg + 4 * i;
-        if (r < R) {
-          float lg = acc[i];
-          if (INT8) lg *= ksc;
-          L[r * Sp + s] = (blocked[i] ? NEG_MASK : lg) * p.scale;
-        }
+      for (int i = 0; i < CHUNK / 32; ++i) {
+        v[i] = Pr[lane + 32 * i];
+        m = fmaxf(m, v[i]);
       }
-      __syncthreads();  // the ring stage is issued again two chunks on
-    }
-  }
-  start(p.mem_v);  // the first V chunks load during the softmax
-  SUB_MARK(2);
-
-  // softmax over the Sp columns and the bias column, one warp per row
-  const float* kb = p.w[CA_BK] + (size_t)li * p.D + h * Dh;
-  for (int r = warp; r < R; r += NWARPS) {
-    float* Lr = L + r * Sp;
-    float m = -INFINITY;
-    for (int s = lane; s < Sp; s += 32) m = fmaxf(m, Lr[s]);
-    m = warp_max(m);
-    float bias_logit = 0.f;
-    if (p.has_bias) {
-      float l_bias = 0.f;
-      for (int d = lane; d < Dh; d += 32) l_bias = fmaf(q[r * qs + d], __ldg(kb + d), l_bias);
-      bias_logit = warp_sum(l_bias) * p.scale + p.log_m[b * R + r];
-      m = fmaxf(m, bias_logit);
-    }
-    float sum = 0.f;
-    for (int s = lane; s < Sp; s += 32) {
-      const float ev = expf(Lr[s] - m);
-      Lr[s] = ev;
-      sum += ev;
-    }
-    sum = warp_sum(sum);
-    const float e_bias = p.has_bias ? expf(bias_logit - m) : 0.f;
-    const float denom = sum + e_bias;
-    for (int s = lane; s < Sp; s += 32) {
-      float a = Lr[s] / denom;
-      if (INT8) a *= __ldg(p.v_scales + lb + s);
-      Lr[s] = a;
-    }
-    if (lane == 0) ab[r] = e_bias / denom;
-  }
-  SUB_MARK(3);
-
-  // out = attn V (+ attn_bias v_bias): thread (channel dl, rows rg, rg + ng, ...)
-  {
-    const int dl = t % Dh, rg = t / Dh, ng = THREADS / Dh;
-    float acc[AV_ROWS] = {};
-    for (int c = 0; c < nch; ++c) {
-      const float* kv = arrive(p.mem_v, c);  // its barrier also orders the softmax
-      const int c0 = c * KV_CHUNK;
-      for (int s = 0; s < KV_CHUNK; s += 4) {
-        const float v0 = kv1(kv, s, dl), v1 = kv1(kv, s + 1, dl);
-        const float v2 = kv1(kv, s + 2, dl), v3 = kv1(kv, s + 3, dl);
+      m = warp_max(m);
+      float sum = 0.f;
 #pragma unroll
-        for (int i = 0; i < AV_ROWS; ++i) {
-          const int r = rg + ng * i;
-          if (r < R) {
-            const float4 a = *reinterpret_cast<const float4*>(L + r * Sp + c0 + s);
-            acc[i] = fmaf(a.x, v0, acc[i]);
-            acc[i] = fmaf(a.y, v1, acc[i]);
-            acc[i] = fmaf(a.z, v2, acc[i]);
-            acc[i] = fmaf(a.w, v3, acc[i]);
+      for (int i = 0; i < CHUNK / 32; ++i) {  // the weights, split for the weighted sum
+        const float e = expf(v[i] - m);
+        sum += e;
+        uint32_t hi, lo;
+        split_tf32(INT8 ? e * vsc[lane + 32 * i] : e, hi, lo);
+        reinterpret_cast<uint32_t*>(Pr)[lane + 32 * i] = hi;
+        Plo[r * PS + lane + 32 * i] = lo;
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        float* ml = p.ca_ml + ((size_t)unit * R + r) * 2;
+        ml[0] = m;
+        ml[1] = sum;
+      }
+      if (p.has_bias && unit % NC == 0) {  // the bias column's logit, once a row
+        const float* kb = p.w[CA_BK] + (size_t)li * D + h * DH;
+        float l = 0.f;
+        for (int d = lane; d < DH; d += 32) l = fmaf(q[r * QS + d], __ldg(kb + d), l);
+        l = warp_sum(l);
+        if (lane == 0) p.ca_bl[(b * H + h) * R + r] = l * p.scale + __ldg(p.log_m + b * R + r);
+      }
+    }
+    __syncthreads();
+    SUB_MARK(3);
+
+    // the weighted sum of V on the tensor cores in 3xTF32 (int8 V exact):
+    // warp w takes rows 16 (w % 2) .. + 16, channels 8 (w / 2) .. + 8
+    {
+      const int gid = lane >> 2, tig = lane & 3, mt = warp & 1, d0 = 8 * (warp >> 1);
+      float acc[4] = {};
+#pragma unroll 4
+      for (int k = 0; k < CHUNK; k += 8) {
+        uint32_t ah[4], al[4], bh[2], bl[2] = {0u, 0u};
+        const int o = (16 * mt + gid) * PS + k + tig;  // a0..a3: rows +8, k +4
+        const uint32_t* Phi = reinterpret_cast<const uint32_t*>(P);
+        ah[0] = Phi[o]; ah[1] = Phi[o + 8 * PS]; ah[2] = Phi[o + 4]; ah[3] = Phi[o + 8 * PS + 4];
+        al[0] = Plo[o]; al[1] = Plo[o + 8 * PS]; al[2] = Plo[o + 4]; al[3] = Plo[o + 8 * PS + 4];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int sv = k + tig + 4 * u;
+          if (INT8) {
+            bh[u] = __float_as_uint(
+                (float)reinterpret_cast<const int8_t*>(vbuf)[sv * VROW + d0 + gid]);
+          } else {
+            split_tf32(reinterpret_cast<const float*>(vbuf + sv * VROW)[d0 + gid], bh[u],
+                       bl[u]);
           }
         }
+        mma_tf32(acc, al, bh);
+        if (!INT8) mma_tf32(acc, ah, bl);
+        mma_tf32(acc, ah, bh);
       }
-      __syncthreads();
-    }
-    const float vb = p.has_bias ? __ldg(p.w[CA_BV] + (size_t)li * p.D + h * Dh + dl) : 0.f;
 #pragma unroll
-    for (int i = 0; i < AV_ROWS; ++i) {
-      const int r = rg + ng * i;
-      if (r < R) {
-        float out = acc[i];
-        if (p.has_bias) out = out + ab[r] * vb;
-        p.attn_buf[(size_t)(b * R + r) * p.D + h * Dh + dl] = out;
+      for (int e = 0; e < 4; ++e) {
+        const int r = 16 * mt + gid + 8 * (e >> 1), d = d0 + 2 * tig + (e & 1);
+        if (r < R) p.ca_o[((size_t)unit * R + r) * DH + d] = acc[e];
       }
     }
+    SUB_MARK(4);
+
+    __syncthreads();  // the next issue overwrites this unit's buffer
   }
-  SUB_MARK(4);
-  __syncthreads();  // the next video reuses the shared buffers
+  cp_async_wait<0>();
 }
 
-__device__ void cross_attention_stage(const Params& p, int li, float* smem) {
-  const int units = (p.B / p.vt) * p.H;
-  for (int unit = blockIdx.x; unit < units; unit += gridDim.x) {
-    const int g = unit / p.H, h = unit % p.H;
-    for (int v = 0; v < p.vt; ++v) {
-      if (p.kv_int8)
-        cross_attention_video<true>(p, li, g * p.vt + v, h, smem);
-      else
-        cross_attention_video<false>(p, li, g * p.vt + v, h, smem);
-    }
-  }
+// x_out = LN3(x + (the W2 partial sums + b2)) of the last layer, one warp a row.
+template <int D>
+__device__ void final_ln_stage(const Params& p, const float* x, int li) {
+  const int M = p.B * p.R;
+  for (int row = blockIdx.x * NWARPS + threadIdx.x / 32; row < M; row += gridDim.x * NWARPS)
+    ln_row_parts<D, SPLIT_2>(p, x, row, p.w[MLP_B2] + (size_t)li * D,
+                             p.w[LN3_S] + (size_t)li * D, p.w[LN3_B] + (size_t)li * D,
+                             p.x_out + (size_t)row * D, nullptr);
 }
 
-// One block per SM (255 registers a thread): with two, the 128 registers a
-// thread spilled and most stages ran slower on an H100.
+template <int D, int DH>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_decode_kernel(const __grid_constant__ Params p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   cg::grid_group grid = cg::this_grid();
-  const int M = p.B * p.R, D = p.D;
-  STAGE_MARK(1 + 11 * 16);
-
-  const size_t n = (size_t)M * D;
-  for (size_t i = (size_t)blockIdx.x * THREADS + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * THREADS)
-    p.x[i] = p.x_in[i];
-  grid.sync();
+  const int M = p.B * p.R, MC = p.B * p.G;
+  const float* const* w = p.w;
   STAGE_MARK(0);
 
+  // the residual stream x: x_in until layer 0's first LayerNorm, then one
+  // half of p.xs. LN1 and LN2 rewrite it in place (their stages read it
+  // nowhere else); LN3, whose tiles read x as its residual, writes the
+  // other half.
+  const float* x = p.x_in;
+  float* xw = p.xs;  // the half the LayerNorms write
   for (int li = 0; li < p.depth; ++li) {
     const size_t dd = (size_t)li * D * D, df = (size_t)li * D * p.F;
-    const float* const* w = p.w;
     const size_t cache = (size_t)li * p.B * p.C * D;
+    const int mark = 1 + li * LAYER_STAGES;
 
-    // 1: q for every row; k and v of the commit rows into the caches
+    // 1: q of every row; k and v of the commit rows into the caches. From
+    // layer 1 on, the A rows are LN3 of the previous layer.
     {
-      const GemmJob jobs[3] = {
-          {p.x, w[SA_WQ] + dd, w[SA_BQ] + li * D, p.q_buf, M, D, D, D, 1, 0, 0, 0},
-          {p.x, w[SA_WK] + dd, w[SA_BK] + li * D, p.kc + cache, p.B * p.G, D, D, D, 1, 1, 1, 0},
-          {p.x, w[SA_WV] + dd, w[SA_BV] + li * D, p.vc + cache, p.B * p.G, D, D, D, 1, 1, 1, 0},
-      };
-      gemm_stage(jobs, 3, p, smem);
+      GemmJob jobs[3];
+      const float* Wq = w[SA_WQ] + dd;
+      const float* Wk = w[SA_WK] + dd;
+      const float* Wv = w[SA_WV] + dd;
+      const float* bq = w[SA_BQ] + li * D;
+      const float* bk = w[SA_BK] + li * D;
+      const float* bv = w[SA_BV] + li * D;
+      if (li == 0) {
+        jobs[0] = plain_job(x, D, Wq, bq, p.q_buf, M, D);
+        jobs[1] = plain_job(x, D, Wk, bk, p.kc + cache, MC, D);
+        jobs[2] = plain_job(x, D, Wv, bv, p.vc + cache, MC, D);
+      } else {
+        xw = x == p.xs ? p.xs + (size_t)M * D : p.xs;
+        const size_t pl = (size_t)(li - 1) * D;
+        const float *s3 = w[LN3_S] + pl, *c3 = w[LN3_B] + pl;
+        jobs[0] = ln_job(A_LN4, s3, c3, xw, Wq, bq, p.q_buf, M, D);
+        jobs[1] = ln_job(A_LN4, s3, c3, nullptr, Wk, bk, p.kc + cache, MC, D);
+        jobs[2] = ln_job(A_LN4, s3, c3, nullptr, Wv, bv, p.vc + cache, MC, D);
+        for (int i = 0; i < 3; ++i) {
+          jobs[i].A = x;
+          jobs[i].ln_bias = w[MLP_B2] + pl;
+        }
+      }
+      for (int i = 0; i < 3; ++i) jobs[i].nsub = 2;  // one round of tiles, LN3 once a row block
+      for (int i = 1; i < 3; ++i) jobs[i].a_commit = jobs[i].o_cache = 1;
+      jobs[0].tag = li == 1 ? 2 : 0;
+      gemm_stage<D, DH>(jobs, 3, p, smem);
     }
     grid.sync();
-    STAGE_MARK(1 + li * 11 + 0);
-    self_attention_stage(p, li, smem);  // 2
+    if (li) x = xw;
+    STAGE_MARK(mark + 0);
+
+    self_attention_stage<D, DH>(p, li, smem);  // 2
     grid.sync();
-    STAGE_MARK(1 + li * 11 + 1);
+    STAGE_MARK(mark + 1);
+
     {
-      const GemmJob job = {p.attn_buf, w[SA_WO] + dd, nullptr, p.part, M, D, D, D,
-                           p.split_o, 0, 0, 0};
-      gemm_stage(&job, 1, p, smem);  // 3
+      GemmJob job = plain_job(p.attn_buf, D, w[SA_WO] + dd, w[SA_BO] + li * D, p.ybuf, M, D);
+      job.resid = x;  // 3: y = x + (attn Wo + bo)
+      job.tag = li == 0 ? 1 : 0;
+      gemm_stage<D, DH>(&job, 1, p, smem);
     }
     grid.sync();
-    STAGE_MARK(1 + li * 11 + 2);
-    ln_stage(p, w[SA_BO] + li * D, p.split_o, w[LN1_S] + li * D, w[LN1_B] + li * D);  // 4
-    grid.sync();
-    STAGE_MARK(1 + li * 11 + 3);
+    STAGE_MARK(mark + 2);
+
     {
-      const GemmJob job = {p.x, w[CA_WQ] + dd, w[CA_BQ] + li * D, p.q_buf, M, D, D, D,
-                           1, 0, 0, 0};
-      gemm_stage(&job, 1, p, smem);  // 5
+      const GemmJob job = ln_job(A_LN, w[LN1_S] + li * D, w[LN1_B] + li * D, xw,
+                                 w[CA_WQ] + dd, w[CA_BQ] + li * D, p.q_buf, M, D);
+      gemm_stage<D, DH>(&job, 1, p, smem);  // 4: x = LN1(y); qc = x Wq' + bq'
     }
     grid.sync();
-    STAGE_MARK(1 + li * 11 + 4);
-    cross_attention_stage(p, li, smem);  // 6
+    x = xw;
+    STAGE_MARK(mark + 3);
+
+    if (p.kv_int8)
+      cross_attention_stage<D, DH, true>(p, li, smem);  // 5
+    else
+      cross_attention_stage<D, DH, false>(p, li, smem);
     grid.sync();
-    STAGE_MARK(1 + li * 11 + 5);
+    STAGE_MARK(mark + 4);
+
     {
-      const GemmJob job = {p.attn_buf, w[CA_WO] + dd, nullptr, p.part, M, D, D, D,
-                           p.split_o, 0, 0, 0};
-      gemm_stage(&job, 1, p, smem);  // 7
+      GemmJob job = plain_job(nullptr, D, w[CA_WO] + dd, w[CA_BO] + li * D, p.ybuf, M, D);
+      job.amode = A_COMBINE;  // 6: y = x + (combine(chunks) Wo' + bo')
+      job.li = li;
+      job.resid = x;
+      job.tag = li == 0 ? 4 : 0;
+      gemm_stage<D, DH>(&job, 1, p, smem);
     }
     grid.sync();
-    STAGE_MARK(1 + li * 11 + 6);
-    ln_stage(p, w[CA_BO] + li * D, p.split_o, w[LN2_S] + li * D, w[LN2_B] + li * D);  // 8
-    grid.sync();
-    STAGE_MARK(1 + li * 11 + 7);
+    STAGE_MARK(mark + 5);
+
     {
-      const GemmJob job = {p.x, w[MLP_W1] + df, w[MLP_B1] + (size_t)li * p.F, p.h_buf, M,
-                           p.F, D, D, 1, 0, 0, 1};
-      gemm_stage(&job, 1, p, smem);  // 9
+      GemmJob job = ln_job(A_LN, w[LN2_S] + li * D, w[LN2_B] + li * D, xw, w[MLP_W1] + df,
+                           w[MLP_B1] + (size_t)li * p.F, p.h_buf, M, p.F);
+      job.gelu = 1;  // 7: x = LN2(y); h = gelu(x W1 + b1)
+      job.tag = li == 0 ? 3 : 0;
+      gemm_stage<D, DH>(&job, 1, p, smem);
     }
     grid.sync();
-    STAGE_MARK(1 + li * 11 + 8);
+    STAGE_MARK(mark + 6);
+
     {
-      const GemmJob job = {p.h_buf, w[MLP_W2] + df, nullptr, p.part, M, D, p.F, p.F,
-                           p.split_2, 0, 0, 0};
-      gemm_stage(&job, 1, p, smem);  // 10
+      GemmJob job = plain_job(p.h_buf, p.F, w[MLP_W2] + df, nullptr, nullptr, M, D);
+      job.splits = p.F / D;  // 8: h W2, the reduction split in F / D (partial sums)
+      gemm_stage<D, DH>(&job, 1, p, smem);
     }
     grid.sync();
-    STAGE_MARK(1 + li * 11 + 9);
-    ln_stage(p, w[MLP_B2] + li * D, p.split_2, w[LN3_S] + li * D, w[LN3_B] + li * D);  // 11
-    grid.sync();
-    STAGE_MARK(1 + li * 11 + 10);
+    STAGE_MARK(mark + 7);
   }
+  final_ln_stage<D>(p, x, p.depth - 1);
 #ifdef FD_STAGE_TIMING
+  grid.sync();
+  STAGE_MARK(1 + LAYER_STAGES * p.depth);
   for (int i = 0; i < 5; ++i) {
     if (i) grid.sync();
     if (blockIdx.x == 0 && threadIdx.x == 0) {
@@ -730,23 +1077,33 @@ fused_decode_kernel(const __grid_constant__ Params p) {
 #endif
 }
 
-int pick_split(int K, int most) {
-  for (int s = most; s > 1; s /= 2)
-    if (K % (s * BK) == 0) return s;
-  return 1;
+constexpr int FD_D = 512, FD_DH = 64;  // the widths the kernel is built for
+
+size_t smem_bytes(int R, int C, int G, int kv_int8) {
+  constexpr int QS = FD_DH + 4;
+  const size_t gemm = (size_t)(BM * AS + FD_D * WS + BM * MAX_H * (MAX_NC + 1)) * 4;
+  const size_t self_att = (size_t)(MAX_R * QS + 2 * C * QS + R * (C / G)) * 4;
+  const size_t cross = (size_t)(2 * MAX_R * PS + 2 * MAX_R * QS) * 4 + 2 * (kv_int8
+      ? CrossBuffer<FD_D, FD_DH, true>::BYTES : CrossBuffer<FD_D, FD_DH, false>::BYTES);
+  size_t s = gemm > self_att ? gemm : self_att;
+  return cross > s ? cross : s;
 }
 
 }  // namespace
 
 extern "C" int fused_decode_launch(
-    const float* x, float* x_out, float* k_cache, float* v_cache, const void* mem_k,
-    const void* mem_v, const float* k_scales, const float* v_scales, const int8_t* mask,
-    const float* log_m, void* const* weights, float* q_buf, float* attn_buf, float* part_buf,
-    float* h_buf, int B, int G, int D, int H, int depth, int C, int Sp, int F, int step,
-    int valid_len, int has_bias, int kv_int8, int videos_per_unit, cudaStream_t stream) {
+    const float* x, float* x_out, float* x_scratch, float* y_buf, float* k_cache,
+    float* v_cache, const void* mem_k, const void* mem_v, const float* k_scales,
+    const float* v_scales, const int8_t* mask, const float* log_m, void* const* weights,
+    float* q_buf, float* attn_buf, float* part_buf, float* h_buf, float* ca_o, float* ca_ml,
+    float* ca_bl, int B, int G, int D, int H, int depth, int C, int Sp, int F, int step,
+    int valid_len, int has_bias, int kv_int8, cudaStream_t stream) {
   Params p;
   p.x_in = x;
-  p.x = x_out;
+  p.x_out = x_out;
+  p.xs = x_scratch;
+  p.ybuf = y_buf;
+  p.part = part_buf;
   p.kc = k_cache;
   p.vc = v_cache;
   p.mem_k = mem_k;
@@ -758,34 +1115,27 @@ extern "C" int fused_decode_launch(
   for (int i = 0; i < N_WEIGHTS; ++i) p.w[i] = static_cast<const float*>(weights[i]);
   p.q_buf = q_buf;
   p.attn_buf = attn_buf;
-  p.part = part_buf;
   p.h_buf = h_buf;
-  p.B = B; p.G = G; p.R = 2 * G; p.D = D; p.H = H; p.Dh = D / H; p.depth = depth;
-  p.C = C; p.Sp = Sp; p.F = F; p.step = step; p.valid_len = valid_len;
-  p.has_bias = has_bias; p.kv_int8 = kv_int8; p.vt = videos_per_unit;
-  p.split_o = pick_split(D, 2);
-  p.split_2 = pick_split(F, SPLIT_K_MAX);
-  p.scale = (float)(1.0 / std::sqrt((double)p.Dh));
+  p.ca_o = ca_o;
+  p.ca_ml = ca_ml;
+  p.ca_bl = ca_bl;
+  p.B = B; p.G = G; p.R = 2 * G; p.C = C; p.Sp = Sp; p.F = F; p.NC = Sp / CHUNK;
+  p.depth = depth; p.step = step; p.valid_len = valid_len;
+  p.has_bias = has_bias; p.kv_int8 = kv_int8;
+  p.scale = (float)(1.0 / std::sqrt((double)(D / H)));
 
-  if (p.R > MAX_R || p.R > AV_ROWS * (THREADS / p.Dh) || p.Dh % 32 || p.Dh > 128 || D % BN
-      || D > 32 * LN_PER || F % BN || Sp % KV_CHUNK
-      || B % videos_per_unit || videos_per_unit < 1)
+  if (D != FD_D || H * FD_DH != D || F != SPLIT_2 * D || p.R > MAX_R || B < 1 || G < 1
+      || H > MAX_H || Sp % CHUNK || p.NC < 1 || p.NC > MAX_NC || C % G || depth < 1
+      || depth > MAX_DEPTH
+      || step < 0 || valid_len <= step || valid_len * G > C)
     return (int)cudaErrorInvalidValue;
 
-  const int qs = p.Dh + 4;
-  const size_t gemm_smem = (size_t)4 * GEMM_STAGE * sizeof(float);  // 2 halves x 2 stages
-  const size_t self_smem = (size_t)(p.R * qs + C * qs + p.R * (C / G)) * sizeof(float);
-  const size_t cross_smem =
-      (size_t)(p.R * qs + p.R * Sp + (p.R + 3) / 4 * 4 + KV_STAGES * KV_CHUNK * qs) *
-      sizeof(float);
-  size_t smem = gemm_smem > self_smem ? gemm_smem : self_smem;
-  if (cross_smem > smem) smem = cross_smem;
-
+  const size_t smem = smem_bytes(p.R, C, G, kv_int8);
+  auto kernel = fused_decode_kernel<FD_D, FD_DH>;
   static size_t smem_set = 0;
   cudaError_t err;
   if (smem > smem_set) {
-    err = cudaFuncSetAttribute(fused_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     smem_set = smem;
   }
@@ -796,20 +1146,24 @@ extern "C" int fused_decode_launch(
   void* args[] = {&p};
   // every block must be resident for the grid barriers; a launch that cannot
   // place one block on each SM is refused with an error, not run
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(fused_decode_kernel), dim3(sms),
-                                    dim3(THREADS), args, smem, stream);
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), dim3(sms), dim3(THREADS),
+                                    args, smem, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 #ifdef FD_STAGE_TIMING
 extern "C" int fused_decode_stage_ns(unsigned long long* out, int n) {
-  if (n != 2 + 11 * 16) return (int)cudaErrorInvalidValue;
+  if (n != 2 + LAYER_STAGES * MAX_DEPTH) return (int)cudaErrorInvalidValue;
   return (int)cudaMemcpyFromSymbol(out, g_stage_ns, n * sizeof(unsigned long long));
 }
 
 extern "C" int fused_decode_sub_ns(unsigned long long* out) {
   return (int)cudaMemcpyFromSymbol(out, g_sub_ns, sizeof(g_sub_ns));
+}
+
+extern "C" int fused_decode_gemm_ns(unsigned long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, g_gemm_ns, sizeof(g_gemm_ns));
 }
 
 extern "C" int fused_decode_barrier_ns(unsigned long long* out) {

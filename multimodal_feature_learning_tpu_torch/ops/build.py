@@ -4,8 +4,10 @@ Each source under ``csrc/`` exposes a plain ``extern "C"`` launcher, so it
 compiles in seconds without PyTorch's headers. Libraries go to
 ``build/kernels/`` at the root of the checkout (listed in ``.gitignore``),
 named by a hash of the source and the flags, so an unchanged source is built
-once. Nothing is built when a module is imported: a wrapper asks for its
-library on its first launch.
+once; beside each library, ``<name>.ptxas.txt`` keeps what ``-Xptxas -v``
+said of its kernels (registers, shared memory, spills). Nothing is built
+when a module is imported: a wrapper asks for its library on its first
+launch.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 KERNEL_SOURCES = ("msda_fwd.cu", "msda_bwd.cu", "fused_decode.cu", "probe_add.cu")
 
@@ -69,9 +71,21 @@ def build(sources: Iterable[str] = KERNEL_SOURCES,
             failed.append(f"nvcc failed on {source}:\n{output}")
         else:
             os.replace(tmp, lib)
+            lib.with_suffix(".ptxas.txt").write_text(output)
     if failed:
         raise RuntimeError("\n".join(failed))
     return seconds
+
+
+def ptxas_report(source: str, flags: Tuple[str, ...] = ()) -> list:
+    """The ``-Xptxas -v`` lines of a built library: for each kernel, its
+    registers, shared memory and spill stores and loads."""
+    log = library_path(source, flags).with_suffix(".ptxas.txt")
+    if not log.exists():
+        return []
+    keep = ("Compiling entry", "Function properties", "registers", "spill")
+    return [line.split("info    : ")[-1].strip() for line in log.read_text().splitlines()
+            if any(k in line for k in keep)]
 
 
 def load_library(source: str, flags: Tuple[str, ...] = ()) -> ctypes.CDLL:

@@ -5,9 +5,10 @@ Counterpart of the JAX ``ops/fused_decode.py``, whose ``fused_decode_step``
 runs the Pallas kernels ``_decode_step_kernel`` (grid "video", one program
 per (layer, video)) and ``_decode_step_kernel_batch`` (grid "batch", Bt
 videos a program). Here ``csrc/fused_decode.cu`` stands for both: one
-launch a step, the layer loop inside the kernel. The two grids compute the
-same numbers and differ only in how many videos one attention work unit of
-the kernel takes.
+launch a step, the layer loop inside the kernel, the products on the
+tensor cores in 3xTF32 (``split_tf32`` is the split's plain counterpart).
+The two grids run one schedule on the card and compute the same numbers;
+``batch_tile`` is still validated, so the config knobs behave as before.
 
 Row layout per video, as in JAX: R = 2G rows, rows [0, G) are the commit
 positions (the token at ``step``, one per event) and rows [G, 2G) the
@@ -35,7 +36,9 @@ from .build import KernelBinding, load_library
 NEG_MASK = -1e20  # masked logit, applied before the scale
 LN_EPS = 1e-6
 KV_PAD = 128      # S is padded to a multiple of this
-SPLIT_K_MAX = 4   # the kernel's largest split of a reduction (csrc/fused_decode.cu)
+SPLIT_2 = 4       # the kernel splits the W2 reduction in four (csrc/fused_decode.cu)
+CHUNK = 128       # memory columns per cross-attention unit of the kernel
+KERNEL_D, KERNEL_DH = 512, 64  # the widths the kernel is built for
 
 _ATT_KEYS = ("q_linear", "k_linear", "v_linear", "projection_layer")
 
@@ -157,6 +160,61 @@ def _softmax_rows(logits):
     return e / e.sum(dim=-1, keepdim=True)
 
 
+def split_tf32(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """f32 ``a`` as hi + lo, each rounded to TF32 (10 mantissa bits, to
+    nearest, ties away from zero; the bits ``cvt.rna.tf32.f32`` gives): the
+    plain counterpart of the kernel's ``split_tf32``. The rest ``a - hi``
+    is exact in f32, so hi + lo is ``a`` within 2^-22 of its magnitude, and
+    a product summed as lo*hi + hi*lo + hi*hi (each product of two TF32
+    values is exact in f32) keeps about f32 accuracy."""
+
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        mag = ((bits & 0x7FFFFFFF) + 0x1000) & ~0x1FFF
+        return (mag | (bits & ~0x7FFFFFFF)).view(torch.float32)
+
+    a = a.float()
+    hi = rna(a)
+    return hi, rna(a - hi)
+
+
+def cross_attention_plain(qc, mem_k, mem_v, k_scales, v_scales, blocked, log_m, kb, vb,
+                          *, num_heads: int, has_bias_col: bool):
+    """One layer's shared-KV cross-attention of the decode step: qc (B, R,
+    D), memory K/V (B, Sp, D) f32 or int8 with scales (B, 1, Sp), ``blocked``
+    (B, 1, R, Sp) bool, ``log_m`` (B, R, 1), the K/V projections' biases kb,
+    vb (D,) (the bias column). Returns the heads' outputs (B, H, R, Dh)."""
+    B, R, D = qc.shape
+    H = num_heads
+    Dh = D // H
+    scale = Dh ** -0.5
+
+    def heads(t):  # (B, T, D) -> (B, H, T, Dh)
+        return t.reshape(t.shape[0], t.shape[1], H, Dh).transpose(1, 2)
+
+    kv_int8 = mem_k.dtype == torch.int8
+    kh, vh = heads(mem_k.float()), heads(mem_v.float())
+    lg = heads(qc) @ kh.transpose(-1, -2)  # (B, H, R, Sp)
+    if kv_int8:
+        lg = lg * k_scales[:, None]
+    scaled = lg.masked_fill(blocked, NEG_MASK) * scale
+    if not has_bias_col:
+        attn = _softmax_rows(scaled)
+        if kv_int8:
+            attn = attn * v_scales[:, None]
+        return attn @ vh
+    l_bias = (heads(qc) * kb.reshape(H, 1, Dh)).sum(dim=-1, keepdim=True) * scale
+    bias_logit = l_bias + log_m[:, None]  # (B, H, R, 1)
+    m_max = torch.maximum(scaled.amax(dim=-1, keepdim=True), bias_logit)
+    e_main = torch.exp(scaled - m_max)
+    e_bias = torch.exp(bias_logit - m_max)
+    denom = e_main.sum(dim=-1, keepdim=True) + e_bias
+    attn = e_main / denom
+    if kv_int8:
+        attn = attn * v_scales[:, None]
+    return attn @ vh + (e_bias / denom) * vb.reshape(H, 1, Dh)
+
+
 def fused_decode_step_plain(x, k_caches, v_caches, step: int, valid_len: int,
                             mem_k, mem_v, k_scales, v_scales, mask_i8, log_m,
                             weights, *, G: int, num_heads: int, has_bias_col: bool):
@@ -166,7 +224,6 @@ def fused_decode_step_plain(x, k_caches, v_caches, step: int, valid_len: int,
     into the caches in place; returns (x_out, k_caches, v_caches)."""
     depth, B, C, D = k_caches.shape
     R = x.shape[1]
-    Sp = mem_k.shape[2]
     H = num_heads
     Dh = D // H
     scale = Dh ** -0.5
@@ -199,30 +256,10 @@ def fused_decode_step_plain(x, k_caches, v_caches, step: int, valid_len: int,
                                 w["ln1_s"], w["ln1_b"])
 
         # cross-attention over the shared memory K/V, with the bias column
-        qc = dense(x, "ca", "q")
-        kh, vh = heads(mem_k[li].float()), heads(mem_v[li].float())
-        lg = heads(qc) @ kh.transpose(-1, -2)  # (B, H, R, Sp)
-        if kv_int8:
-            lg = lg * k_scales[li][:, None]
-        scaled = lg.masked_fill(blocked, NEG_MASK) * scale
-        if has_bias_col:
-            kb = w["ca_bk"][0].reshape(H, 1, Dh)
-            vb = w["ca_bv"][0].reshape(H, 1, Dh)
-            l_bias = (heads(qc) * kb).sum(dim=-1, keepdim=True) * scale  # (B, H, R, 1)
-            bias_logit = l_bias + log_m[:, None]
-            m_max = torch.maximum(scaled.amax(dim=-1, keepdim=True), bias_logit)
-            e_main = torch.exp(scaled - m_max)
-            e_bias = torch.exp(bias_logit - m_max)
-            denom = e_main.sum(dim=-1, keepdim=True) + e_bias
-            attn = e_main / denom
-            if kv_int8:
-                attn = attn * v_scales[li][:, None]
-            out = attn @ vh + (e_bias / denom) * vb
-        else:
-            attn = _softmax_rows(scaled)
-            if kv_int8:
-                attn = attn * v_scales[li][:, None]
-            out = attn @ vh
+        out = cross_attention_plain(
+            dense(x, "ca", "q"), mem_k[li], mem_v[li],
+            k_scales[li] if kv_int8 else None, v_scales[li] if kv_int8 else None, blocked,
+            log_m, w["ca_bk"][0], w["ca_bv"][0], num_heads=H, has_bias_col=has_bias_col)
         x = layer_norm_one_pass(x + dense(merge(out), "ca", "o"), w["ln2_s"], w["ln2_b"])
 
         # MLP
@@ -250,12 +287,12 @@ class FusedDecodeKernel(KernelBinding):
     mode; each mode keeps its own launch count."""
 
     source, symbol = "fused_decode.cu", "fused_decode_launch"
-    # fused_decode_launch(x, x_out, k_cache, v_cache, mem_k, mem_v, k_scales,
-    #   v_scales, mask, log_m, weights[26], q_buf, attn_buf, part_buf, h_buf,
-    #   B, G, D, H, depth, C, Sp, F, step, valid_len, has_bias, kv_int8,
-    #   videos_per_unit, stream)
-    argtypes = [ctypes.c_void_p] * 10 + [ctypes.POINTER(ctypes.c_void_p)] \
-        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+    # fused_decode_launch(x, x_out, x_scratch, y_buf, k_cache, v_cache, mem_k,
+    #   mem_v, k_scales, v_scales, mask, log_m, weights[26], q_buf, attn_buf,
+    #   part_buf, h_buf, ca_o, ca_ml, ca_bl, B, G, D, H, depth, C, Sp, F, step,
+    #   valid_len, has_bias, kv_int8, stream)
+    argtypes = [ctypes.c_void_p] * 12 + [ctypes.POINTER(ctypes.c_void_p)] \
+        + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
 
     def __init__(self, grid_mode: str, replaces: str, flags: Tuple[str, ...] = ()):
         super().__init__()
@@ -276,10 +313,12 @@ class FusedDecodeKernel(KernelBinding):
         if R != 2 * G or x.shape != (B, R, D) or C % G or v_caches.shape != k_caches.shape:
             raise ValueError(f"x {tuple(x.shape)} and caches {tuple(k_caches.shape)} do not "
                              f"match G={G}")
-        Dh = D // num_heads if D % num_heads == 0 else 0
-        if not Dh or Dh % 32 or Dh > 128 or D % 64 or D > 1024 or F % 64 or Sp % 64 \
-                or R > min(32, 8 * (256 // Dh)):
-            raise ValueError(f"unsupported widths D={D}, H={num_heads}, F={F}, R={R}, Sp={Sp}")
+        if D != KERNEL_D or D != num_heads * KERNEL_DH or F != SPLIT_2 * D or Sp % CHUNK \
+                or Sp > 5 * CHUNK or R > 32 or depth > 16:
+            raise ValueError(f"unsupported widths D={D}, H={num_heads}, F={F}, R={R}, "
+                             f"Sp={Sp}, depth={depth}: the kernel takes D={KERNEL_D}, "
+                             f"Dh={KERNEL_DH}, F={SPLIT_2}D, Sp a multiple of {CHUNK} up "
+                             f"to {5 * CHUNK}, R <= 32, depth <= 16")
         if not 0 <= step < C // G or not step < valid_len <= C // G:
             raise ValueError(f"step {step} / valid_len {valid_len} outside Tc={C // G}")
         f32 = [("x", x), ("k_caches", k_caches), ("v_caches", v_caches), ("log_m", log_m)]
@@ -301,66 +340,88 @@ class FusedDecodeKernel(KernelBinding):
                 or mem_v.dtype != mem_k.dtype or mask_i8.shape != (B, R, Sp) \
                 or mask_i8.dtype != torch.int8 or log_m.shape != (B, R, 1):
             raise ValueError("memory K/V, mask_i8 or log_m have the wrong shape or type")
-        vt = 1 if self.grid_mode == "video" else batch_tile_for(B, batch_tile)
+        if self.grid_mode == "batch":
+            batch_tile_for(B, batch_tile)  # validated; the card runs one schedule
 
-        M = B * R
-        x_out = torch.empty_like(x)
-        q_buf = torch.empty((M, D), dtype=torch.float32, device=dev)
-        attn_buf = torch.empty((M, D), dtype=torch.float32, device=dev)
-        part_buf = torch.empty((SPLIT_K_MAX, M, D), dtype=torch.float32, device=dev)
-        h_buf = torch.empty((M, F), dtype=torch.float32, device=dev)
+        M, H, NC = B * R, num_heads, Sp // CHUNK
+
+        def scratch(*shape):
+            return torch.empty(shape, dtype=torch.float32, device=dev)
+
+        x_out, x_scratch, y_buf = torch.empty_like(x), scratch(2, M, D), scratch(M, D)
+        q_buf, attn_buf, h_buf = scratch(M, D), scratch(M, D), scratch(M, F)
+        part_buf = scratch(SPLIT_2, M, D)
+        ca_o, ca_ml = scratch(B, H, NC, R, D // H), scratch(B, H, NC, R, 2)
+        ca_bl = scratch(B, H, R)
         w_ptrs = (ctypes.c_void_p * len(W_ORDER))(*[weights[n].data_ptr() for n in W_ORDER])
         ks = k_scales.data_ptr() if kv_int8 else 0
         vs = v_scales.data_ptr() if kv_int8 else 0
         fn = self._launcher()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = fn(x.data_ptr(), x_out.data_ptr(), k_caches.data_ptr(), v_caches.data_ptr(),
-                    mem_k.data_ptr(), mem_v.data_ptr(), ks, vs, mask_i8.data_ptr(),
-                    log_m.data_ptr(), w_ptrs, q_buf.data_ptr(), attn_buf.data_ptr(),
-                    part_buf.data_ptr(), h_buf.data_ptr(),
+            rc = fn(x.data_ptr(), x_out.data_ptr(), x_scratch.data_ptr(), y_buf.data_ptr(),
+                    k_caches.data_ptr(), v_caches.data_ptr(), mem_k.data_ptr(),
+                    mem_v.data_ptr(), ks, vs, mask_i8.data_ptr(), log_m.data_ptr(), w_ptrs,
+                    q_buf.data_ptr(), attn_buf.data_ptr(), part_buf.data_ptr(),
+                    h_buf.data_ptr(), ca_o.data_ptr(), ca_ml.data_ptr(), ca_bl.data_ptr(),
                     B, G, D, num_heads, depth, C, Sp, F, int(step), int(valid_len),
-                    int(has_bias_col), int(kv_int8), vt, stream)
+                    int(has_bias_col), int(kv_int8), stream)
         if rc != 0:
             raise RuntimeError(f"fused_decode_launch failed with CUDA error {rc}")
         self.launches += 1
         return x_out, k_caches, v_caches
 
-
     def stage_us(self, depth: int) -> Dict[str, object]:
         """Device microseconds of each stage of the last launch, averaged over
-        the layers, of the phases of block 0's first cross-attention unit,
-        and of one grid barrier with no work around it (the timing build
-        ends with four); only for a binding built with
-        ``STAGE_TIMING_FLAGS``."""
+        the layers (``STAGES``), of the last layer's closing LayerNorm, of the
+        phases of block 0's first cross-attention unit and of its first tile
+        of four GEMM stages (``GEMM_TIMED``, ``GEMM_PHASES``), and of one
+        grid barrier with no work around it (the timing build ends with
+        four); only for a binding built with ``STAGE_TIMING_FLAGS``."""
         if "-DFD_STAGE_TIMING" not in self.flags:
             raise RuntimeError("stage times need a build with STAGE_TIMING_FLAGS")
         lib = load_library(self.source, self.flags)
-        n = 2 + len(STAGES) * 16
+        k = len(STAGES)
+        n = 2 + k * 16
         marks = (ctypes.c_ulonglong * n)()
         sub = (ctypes.c_ulonglong * 8)()
         bar = (ctypes.c_ulonglong * 5)()
+        gemm = (ctypes.c_ulonglong * 20)()
         for rc in (lib.fused_decode_stage_ns(marks, n), lib.fused_decode_sub_ns(sub),
-                   lib.fused_decode_barrier_ns(bar)):
+                   lib.fused_decode_barrier_ns(bar), lib.fused_decode_gemm_ns(gemm)):
             if rc != 0:
                 raise RuntimeError(f"reading the stage times failed with CUDA error {rc}")
-        k = len(STAGES)
-        ends = [marks[0]] + [marks[1 + li * k + i] for li in range(depth) for i in range(k)]
-        per = {name: sum(ends[li * k + i + 1] - ends[li * k + i] for li in range(depth))
+        ends = [marks[i] for i in range(1 + k * depth + 1)]  # start, every stage, closing LN
+        per = {name: sum(ends[1 + li * k + i] - ends[li * k + i] for li in range(depth))
                / depth / 1e3 for i, name in enumerate(STAGES)}
-        return {"total_us": (ends[-1] - marks[n - 1]) / 1e3,
+        return {"total_us": (ends[-1] - ends[0]) / 1e3,
+                "grid_barriers": k * depth + 1,
                 "empty_grid_barrier_us": (bar[4] - bar[0]) / 4 / 1e3,
-                "copy_us": (marks[0] - marks[n - 1]) / 1e3,
                 "per_layer_us": per,
+                "final_ln3_us": (ends[-1] - ends[-2]) / 1e3,
                 "cross_attention_unit0_us": {
                     name: (sub[i + 1] - sub[i]) / 1e3
-                    for i, name in enumerate(("q", "logits", "softmax", "weighted_sum"))}}
+                    for i, name in enumerate(("wait", "logits", "softmax", "weighted_sum"))},
+                "gemm_tile0_us": {
+                    tile: {name: (gemm[5 * g + i + 1] - gemm[5 * g + i]) / 1e3
+                           for i, name in enumerate(GEMM_PHASES)}
+                    for g, tile in enumerate(GEMM_TIMED)}}
 
 
-# the stages of one layer, in the order of the kernel's grid barriers
-STAGES = ("q_kv", "self_attention", "o_proj", "ln1", "cq_proj", "cross_attention",
-          "co_proj", "ln2", "mlp1", "mlp2", "ln3")
+# the stages of one layer, in the order of the kernel's grid barriers. The
+# LayerNorms run inside the A-operand loads of q_kv (LN3 of the layer
+# before), cq_proj (LN1) and mlp1 (LN2); the cross-attention's chunks are
+# combined inside the A-operand load of co_proj.
+STAGES = ("q_kv_ln3", "self_attention", "o_proj", "cq_proj_ln1", "cross_attention_chunks",
+          "co_proj_combine", "mlp1_ln2", "mlp2")
 STAGE_TIMING_FLAGS = ("-DFD_STAGE_TIMING",)  # a build that records each barrier's time
+# the GEMM tiles whose phases the timing build records (block 0's first
+# tile of each), and the phases: the A rows prepared (LayerNorm or combine;
+# the W slab in flight), the wait for the slab, the 3xTF32 products, the sum
+# of the warps' k slices and the write
+GEMM_TIMED = ("o_proj_layer0", "q_kv_ln3_layer1", "mlp1_ln2_layer0",
+              "co_proj_combine_layer0")
+GEMM_PHASES = ("a_prep", "wait", "mma", "epilogue")
 
 FUSED_DECODE = {
     "video": FusedDecodeKernel("video", "multimodal_feature_learning_tpu/ops/fused_decode.py:202"),

@@ -315,3 +315,138 @@ def test_config_defaults_are_jax_defaults():
     jcfg, cfg = load_config(), Config()
     for knob in ("decode_impl", "decode_kv", "decode_fused_grid"):
         assert getattr(cfg, knob) == jcfg[knob]
+
+
+# --------------------------------------------------------------------------
+# the kernel's arithmetic in plain form: the 3xTF32 split of its products and
+# the chunked combine of its cross-attention (csrc/fused_decode.cu)
+# --------------------------------------------------------------------------
+
+
+def tf32_operands(seed):
+    rng = np.random.default_rng(seed)
+    a = rng.normal(size=4096) * np.exp(rng.uniform(-20, 20, size=4096))
+    ties = np.array([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 3 * 2.0 ** -12 + 1, 0.0, -0.0])
+    return torch.from_numpy(np.concatenate([a, ties]).astype(np.float32))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_split_tf32_parts_have_ten_mantissa_bits(seed):
+    hi, lo = tfd.split_tf32(tf32_operands(seed))
+    for part in (hi, lo):
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    # round to nearest, ties away from zero, as cvt.rna.tf32.f32
+    np.testing.assert_array_equal(hi[-5:-2].numpy(), np.float32([1 + 2.0 ** -10,
+                                                                  -(1 + 2.0 ** -10),
+                                                                  1 + 2.0 ** -10]))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_split_tf32_reconstructs_f32(seed):
+    x = tf32_operands(seed)
+    hi, lo = tfd.split_tf32(x)
+    err = ((hi.double() + lo.double()) - x.double()).abs()
+    assert bool((err <= 2.0 ** -22 * x.double().abs()).all())
+
+
+@pytest.mark.parametrize("m, k, n", [(320, 512, 2048), (320, 2048, 512)],
+                         ids=["mlp1", "mlp2"])
+def test_three_pass_tf32_product_keeps_f32_accuracy(m, k, n):
+    """lo*hi + hi*lo + hi*hi, each product of two TF32 values exact in f32,
+    at the step's widest shapes: within 1e-6 of max |ref| of the f64
+    product, where one pass would not be."""
+    rng = np.random.default_rng(k)
+    a = rng.normal(size=(m, k)).astype(np.float32)
+    b = (rng.normal(size=(k, n)) * k ** -0.5).astype(np.float32)
+    ref = a.astype(np.float64) @ b.astype(np.float64)
+    (ah, al), (bh, bl) = tfd.split_tf32(torch.from_numpy(a)), tfd.split_tf32(torch.from_numpy(b))
+    three = ((al @ bh + ah @ bl) + ah @ bh).double().numpy()
+    one = (ah @ bh).double().numpy()
+    tol = 1e-6 * np.abs(ref).max()
+    assert np.abs(three - ref).max() <= tol
+    assert np.abs(one - ref).max() > 10 * tol
+
+
+def chunked_cross_attention(qc, mem_k, mem_v, k_scales, v_scales, blocked, log_m, kb, vb,
+                            *, num_heads, has_bias_col, chunk=tfd.CHUNK):
+    """The kernel's cross-attention: per chunk of `chunk` columns its max
+    m_c, its sum l_c of exp(logit - m_c) and its unnormalised weighted sum
+    of V; then the combine in chunk order, weighed by exp(m_c - max) over
+    sum_c exp(m_c - max) l_c + exp(bias - max), with the bias column once."""
+    B, R, D = qc.shape
+    H, Sp = num_heads, mem_k.shape[1]
+    Dh = D // H
+    scale = Dh ** -0.5
+    kv_int8 = mem_k.dtype == torch.int8
+
+    def heads(t):
+        return t.reshape(t.shape[0], t.shape[1], H, Dh).transpose(1, 2)
+
+    q, kh, vh = heads(qc), heads(mem_k.float()), heads(mem_v.float())
+    ms, ls, outs = [], [], []
+    for c0 in range(0, Sp, chunk):
+        cols = slice(c0, c0 + chunk)
+        lg = q @ kh[:, :, cols].transpose(-1, -2)
+        if kv_int8:
+            lg = lg * k_scales[:, None, :, cols]
+        lg = lg.masked_fill(blocked[..., cols], tfd.NEG_MASK) * scale
+        m = lg.amax(dim=-1, keepdim=True)
+        e = torch.exp(lg - m)
+        ls.append(e.sum(dim=-1, keepdim=True))
+        if kv_int8:
+            e = e * v_scales[:, None, :, cols]
+        outs.append(e @ vh[:, :, cols])
+        ms.append(m)
+    mx = torch.stack(ms).amax(dim=0)
+    bias_logit = None
+    if has_bias_col:
+        bias_logit = (q * kb.reshape(H, 1, Dh)).sum(dim=-1, keepdim=True) * scale \
+            + log_m[:, None]
+        mx = torch.maximum(mx, bias_logit)
+    ws = [torch.exp(m - mx) for m in ms]
+    denom = sum(w * l for w, l in zip(ws, ls))
+    e_bias = torch.exp(bias_logit - mx) if has_bias_col else torch.zeros_like(mx)
+    denom = denom + e_bias
+    out = sum(w * o for w, o in zip(ws, outs)) / denom
+    if has_bias_col:
+        out = out + (e_bias / denom) * vb.reshape(H, 1, Dh)
+    return out
+
+
+@pytest.mark.parametrize("kv_mode", ["dense", "int8"])
+@pytest.mark.parametrize("bias_col", [False, True])
+def test_chunked_combine_matches_plain_cross_attention(bias_col, kv_mode):
+    """Five chunks of 128 columns (S=563, Sp=640) at the flagship's head
+    width, with event 0 of video 0 blocked at every position: the combine
+    rule the kernel follows gives the plain cross-attention within 1e-6 of
+    its largest value, the fully blocked rows (the mean of V over all Sp
+    columns) included."""
+    Bc, Gc, Sc, Dc, Hc = 2, 10, 563, 512, 8
+    rng = np.random.default_rng(7)
+    Spc = tfd.padded_len(Sc)
+    assert Spc // tfd.CHUNK == 5
+    qc = torch.from_numpy(rng.normal(size=(Bc, 2 * Gc, Dc)).astype(np.float32))
+    mem_k = torch.from_numpy(rng.normal(size=(Bc, Spc, Dc)).astype(np.float32))
+    mem_v = torch.from_numpy(rng.normal(size=(Bc, Spc, Dc)).astype(np.float32))
+    mem_k[:, Sc:] = mem_v[:, Sc:] = 0
+    ks = vs = None
+    if kv_mode == "int8":
+        (mem_k, ks), (mem_v, vs) = (tfd.quantize_kv_int8(t[None]) for t in (mem_k, mem_v))
+        mem_k, mem_v, ks, vs = mem_k[0], mem_v[0], ks[0], vs[0]
+    pad = torch.from_numpy(rng.random((Bc * Gc, Sc)) < 0.5)
+    pad[0] = True
+    zeroed = torch.from_numpy(rng.random((Bc * Gc, Sc)) < 0.3) if bias_col else None
+    mask_i8, log_m = tfd.decode_masks(pad, zeroed, Bc, Gc, Spc)
+    blocked = (mask_i8 != 0)[:, None]
+    kb = torch.from_numpy(rng.normal(size=Dc).astype(np.float32))
+    vb = torch.from_numpy(rng.normal(size=Dc).astype(np.float32))
+    kw = dict(num_heads=Hc, has_bias_col=bias_col)
+    ref = tfd.cross_attention_plain(qc, mem_k, mem_v, ks, vs, blocked, log_m, kb, vb, **kw)
+    got = chunked_cross_attention(qc, mem_k, mem_v, ks, vs, blocked, log_m, kb, vb, **kw)
+    tol = 1e-6 * ref.abs().max().item()
+    assert (got - ref).abs().max().item() <= tol
+    if not bias_col:  # the blocked rows average V over all Sp columns
+        v = mem_v.float() * (vs[0, 0, :, None] if kv_mode == "int8" else 1.0)
+        mean_v = v[0].mean(dim=0).reshape(Hc, 1, Dc // Hc)
+        for r in (0, Gc):
+            assert (got[0, :, r:r + 1] - mean_v).abs().max().item() <= tol

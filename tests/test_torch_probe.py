@@ -108,3 +108,32 @@ def test_graph_mode_needs_the_card():
         probe_op_overhead.graph_ms(body, x, 2, 1, 1)
     with pytest.raises(ValueError, match="mode"):
         probe_op_overhead.run("cpu", modes=("jit",))
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "strided"])
+def test_wrapper_raises_off_the_card_and_on_a_strided_tensor(layout):
+    """The wrapper takes CUDA tensors only and contiguous ones only; a CPU
+    tensor, strided or not, is refused before any launch."""
+    x = torch.randn(64, 160).to(torch.bfloat16)
+    if layout == "strided":
+        x = x.t()
+        assert not x.is_contiguous()
+    PROBE_ADD.launches = 0
+    with pytest.raises(ValueError, match="CUDA"):
+        PROBE_ADD(x)
+    assert PROBE_ADD.launches == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_version_is_bitwise_on_a_misaligned_view(dtype):
+    """x[1:] of 1,000,004 elements starts 4 (f32) or 2 (bf16) bytes past a
+    16-byte boundary, as the kernel's scalar path sees it on the card."""
+    rng = np.random.default_rng(3)
+    full = torch.from_numpy(bf16_exact(rng.normal(size=1_000_004) * 1e3)).to(dtype)
+    x = full[1:]
+    assert x.is_contiguous() and x.storage_offset() == 1
+    got = probe_add_plain(x)
+    ref = probe_add_plain(x.clone())
+    view = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got.view(view), ref.view(view))
+    assert torch.equal(got.float(), (x.float() + 1).to(dtype).float())
