@@ -8,11 +8,15 @@ Phases, each printing one line with its wall seconds:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compile every CUDA kernel of the port with nvcc (sm_90a), one
    nvcc per source, all started together, and print what -Xptxas -v says
-   of the fused decode kernel (registers, shared memory, spills);
+   of the MSDA and fused decode kernels (registers, shared memory, spills);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the serving and training paths give it, with its time, the
    plain version's time and the least time the card could take (its
-   bound): the MSDA forward (K1) and the MSDA backward (K2), the autograd
+   bound): the MSDA forward (K1) and the MSDA backward (K2) at the
+   encoder's and the decoder's calls and on a long pyramid that takes
+   their chunked route, each with the schedule its plan chose and its
+   device time (from a CUDA graph, and in torch.profiler warm and with L2
+   flushed) beside the eager time, the autograd
    Function that joins them against autograd through the plain core, and
    the fused decode step (K3/K4) in both grids, dense and int8 memory K/V,
    with and without the bias column, at decode steps 0, 9 and 18, against
@@ -185,13 +189,41 @@ def msda_bwd_bound_ms(value, shapes, loc, aw, g):
             nbytes)
 
 
+def msda_device_times(fn, name: str) -> dict:
+    """The times of one MSDA wrapper call (``tools/msda_device_time.py``):
+    ``ms``, its device time replayed from a CUDA graph of 50 calls (the
+    host out of the way); ``kernel_ms`` and ``cold_kernel_ms``, the
+    kernel's own time in torch.profiler with the inputs warm in L2 and with
+    64 MB written before each call; ``eager_ms``, CUDA events around 50
+    eager calls (host-paced where a launch takes longer to issue than the
+    kernel to run)."""
+    import torch
+
+    from multimodal_feature_learning_tpu_torch.tools.msda_device_time import call_times
+
+    times = call_times(fn, name, torch.device("cuda"))
+    times["ms"] = times.pop("graph_ms")
+    return times
+
+
+def msda_calls(model_dims):
+    """(name, B, Q, level lengths) of the MSDA calls the kernel lines hold:
+    the encoder's and the decoder's at the main path's shapes, and the
+    sparse encoder of a longer video's pyramid at B=2, whose rows take the
+    kernels' chunked route."""
+    B, H, Dh, shapes, P, q_enc, q_dec, q_long, long_shapes = model_dims
+    return (("encoder", B, q_enc, shapes), ("decoder", B, q_dec, shapes),
+            ("long_pyramid", 2, q_long, long_shapes))
+
+
 def check_msda_bwd(model_dims):
     """Phase 3: the MSDA backward kernel (K2) against the plain backward at
-    the training path's shapes, f32: each of dvalue, dloc and daw within
-    1e-5 x its max |ref| (atomics add the dvalue terms in another order).
-    Then the autograd Function (K1 forward, K2 backward) against autograd
-    through the plain core at a small size whose coordinates keep 0.01 from
-    every whole token, where the two differentiate alike: rel 1e-5."""
+    the training path's shapes and on the long pyramid, f32: each of
+    dvalue, dloc and daw within 1e-5 x its max |ref| (a row's entries are
+    summed in an order that changes from run to run). Then the autograd
+    Function (K1 forward, K2 backward) against autograd through the plain
+    core at a small size whose coordinates keep 0.01 from every whole
+    token, where the two differentiate alike: rel 1e-5."""
     import torch
 
     from multimodal_feature_learning_tpu_torch.ops import msda
@@ -199,9 +231,9 @@ def check_msda_bwd(model_dims):
         ms_deform_attn_core, ms_deform_attn_core_backward,
     )
 
-    B, H, Dh, shapes, P, q_enc, q_dec = model_dims
+    _, H, Dh, _, P = model_dims[:5]
     cases = []
-    for Q, where in ((q_enc, "encoder"), (q_dec, "decoder")):
+    for where, B, Q, shapes in msda_calls(model_dims):
         value, loc, aw = msda_inputs(B, Q, H, Dh, shapes, P, torch.float32, seed=Q + 1)
         g = torch.randn((B, Q, H * Dh), generator=torch.Generator(device="cuda").manual_seed(Q),
                         device="cuda")
@@ -217,17 +249,20 @@ def check_msda_bwd(model_dims):
                     f"MSDA backward kernel disagrees with the plain backward ({where}, "
                     f"{name}): max abs err {err} > 1e-5 x {scale}")
             errs[name] = {"max_abs_err": err, "max_abs_ref": scale}
-        ms = time_cuda(lambda: msda.MSDA_BWD(value, shapes, loc, aw, g))
+        plan = msda.msda_bwd_plan(shapes, B, H, Dh, Q, P)
+        times = msda_device_times(lambda: msda.MSDA_BWD(value, shapes, loc, aw, g), "msda_bwd")
         plain_ms = time_cuda(lambda: ms_deform_attn_core_backward(value, shapes, loc, aw, g),
                              iters=10)
         bound_ms, bound_by, nbytes = msda_bwd_bound_ms(value, shapes, loc, aw, g)
         cases.append({
-            "call": where, "Q": Q, "dtype": "float32", "errors": errs,
+            "call": where, "B": B, "Q": Q, "shapes": list(shapes), "dtype": "float32",
+            "schedule": plan.schedule, "plan": vars(plan), "errors": errs,
             "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            **times, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "bytes": nbytes,
             "library_ms": None,  # no single PyTorch call computes the MSDA backward
         })
+        del value, loc, aw, g, got, ref
 
     # the Function against autograd through the plain core
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -253,17 +288,17 @@ def check_msda_bwd(model_dims):
 
 def check_msda(model_dims):
     """Phase 3: the MSDA kernel against the plain core at the serving path's
-    shapes: the encoder's Q = K sparse tokens and the decoder's Q = 20
-    queries, f32 and bf16 value."""
+    shapes (the encoder's Q = K sparse tokens and the decoder's Q = 20
+    queries) and on the long pyramid, f32 and bf16 value."""
     import torch
 
     from multimodal_feature_learning_tpu_torch.ops import msda
     from multimodal_feature_learning_tpu_torch.ops.ms_deform_attn import ms_deform_attn_core
 
-    B, H, Dh, shapes, P, q_enc, q_dec = model_dims
+    _, H, Dh, _, P = model_dims[:5]
     tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2}  # relative to max |out|
     cases = []
-    for Q, where in ((q_enc, "encoder"), (q_dec, "decoder")):
+    for where, B, Q, shapes in msda_calls(model_dims):
         for dtype in (torch.float32, torch.bfloat16):
             value, loc, aw = msda_inputs(B, Q, H, Dh, shapes, P, dtype, seed=Q)
             got = msda.MSDA_FWD(value, shapes, loc, aw)
@@ -275,17 +310,21 @@ def check_msda(model_dims):
                 raise AssertionError(
                     f"MSDA kernel disagrees with the plain core ({where}, {dtype}): "
                     f"max abs err {err} > {tol[dtype]} x {scale}")
-            ms = time_cuda(lambda: msda.MSDA_FWD(value, shapes, loc, aw))
+            plan = msda.msda_fwd_plan(shapes, B, H, Dh, Q, P, value.element_size())
+            times = msda_device_times(lambda: msda.MSDA_FWD(value, shapes, loc, aw), "msda_fwd")
             plain_ms = time_cuda(lambda: ms_deform_attn_core(value, shapes, loc, aw), iters=10)
             bound_ms, bound_by, value_bytes = msda_bound_ms(value, shapes, loc, aw, got)
             cases.append({
-                "call": where, "Q": Q, "dtype": str(dtype).replace("torch.", ""),
-                "max_abs_err": err, "max_abs_out": scale,
-                "tolerance": tol[dtype] * scale, "ms": ms, "plain_ms": plain_ms,
+                "call": where, "B": B, "Q": Q, "shapes": list(shapes),
+                "dtype": str(dtype).replace("torch.", ""), "schedule": plan.schedule,
+                "plan": vars(plan), "max_abs_err": err, "max_abs_out": scale,
+                "tolerance": tol[dtype] * scale, **times, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
-                "value_bytes_needed": value_bytes, "value_bytes": value.numel() * value.element_size(),
+                "value_bytes_needed": value_bytes,
+                "value_bytes": value.numel() * value.element_size(),
                 "library_ms": None,  # no single PyTorch call computes MSDA
             })
+            del value, loc, aw, got, ref
     return cases
 
 
@@ -1419,6 +1458,7 @@ def main() -> int:
     from multimodal_feature_learning_tpu_torch.ops import build
     from multimodal_feature_learning_tpu_torch.ops.build import CSRC_DIR
     from multimodal_feature_learning_tpu_torch.ops.fused_decode import STAGE_TIMING_FLAGS
+    from multimodal_feature_learning_tpu_torch.tools.msda_device_time import LONG_PYRAMID
 
     t_all = time.monotonic()
     torch.cuda.set_device(0)
@@ -1437,17 +1477,18 @@ def main() -> int:
     built = build.build(variants=[("fused_decode.cu", STAGE_TIMING_FLAGS)])
     log("build", time.monotonic() - t, nvcc_seconds=built,
         sources=sorted(p.name for p in CSRC_DIR.glob("*.cu")))
-    # registers, shared memory and spills of the fused decode kernel
-    print("ptxas fused_decode.cu: " + " | ".join(build.ptxas_report("fused_decode.cu")),
-          flush=True)
+    # registers, shared memory and spills of the MSDA and fused decode kernels
+    for source in ("msda_fwd.cu", "msda_bwd.cu", "fused_decode.cu"):
+        print(f"ptxas {source}: " + " | ".join(build.ptxas_report(source)), flush=True)
 
     t = time.monotonic()
     cfg0 = load_config()
     det = cfg0.dvc.detr
     shapes = pyramid_shapes(det.video_rescale_len, det.num_feature_levels)
     q_enc = min(int(sum(shapes) * det.rho) + 1, sum(shapes))
+    q_long = min(int(sum(LONG_PYRAMID) * det.rho) + 1, sum(LONG_PYRAMID))
     dims = (BATCH, det.num_heads, det.d_model // det.num_heads, shapes, det.enc_n_points,
-            q_enc, cfg0.dvc.num_queries)
+            q_enc, cfg0.dvc.num_queries, q_long, LONG_PYRAMID)
     cases = check_msda(dims)
     for c in cases:
         log("kernel", 0.0, name="msda_fwd", **c)
@@ -1565,9 +1606,14 @@ def main() -> int:
                                  "train": trained["launches"][name],
                                  "eval": sum(a["launches"][name]
                                              for a in evaluated["arms"].values())},
-            "max_abs_err": case["max_abs_err"], "ms": case["ms"], "plain_ms": case["plain_ms"],
+            "max_abs_err": max(c["max_abs_err"] for c in all_cases
+                               if c["dtype"] == "float32"),
+            "ms": case["ms"], "eager_ms": case["eager_ms"], "kernel_ms": case["kernel_ms"],
+            "cold_kernel_ms": case["cold_kernel_ms"], "plain_ms": case["plain_ms"],
             "bound_ms": case["bound_ms"], "bound_by": case["bound_by"], "library_ms": None,
-            "shape": shape, "cases": all_cases,
+            "schedule": case["schedule"], "shape": shape,
+            "schedules": {f"{c['call']} {c['dtype']}": c["schedule"] for c in all_cases},
+            "cases": all_cases,
         })
     for grid in ("video", "batch"):
         name = f"fused_decode_{grid}"
