@@ -58,12 +58,27 @@ Phases, each printing one line with its wall seconds:
    and the fused decode, teacher_forcing, beam 4, serve, one_by_one with
    faster_eval) and beam 1: finite losses, K1 once per MSDA call, the fused
    kernel once per decode step, beam 1 equal to greedy;
-13. eval_check: forward_eval on a batch of 2 with dropout off, on the card
+13. eval_loop (after eval, on the served model): the evaluation loop from
+   files to scores on a world written under build/eval_world (a vocab of
+   the snapshot's 6563 entries, 64 val videos of 120-900 feature tokens as
+   .npy files, 1-10 events each): vocab, dataset, prefetching loader,
+   evaluate() and the ActivityNet Captions scorers, batch 16, in three arms
+   (one_by_one with the plain-op decode, one_by_one with the fused decode,
+   teacher_forcing through inference.main), each with its videos/s, the
+   split of each batch's time (loader wait, eval step, host transfer and
+   strings), its scoring seconds and its launches: K1 12 times a batch, the
+   fused kernel once per decode step, every val key in the submission with
+   one row per ground-truth event, finite scores, and the two one_by_one
+   arms' timestamps equal and at least 90% of their sentences;
+14. eval_loop_check: the world's first 2 videos through evaluate() on the
+   card and on the port's CPU path: at least 90% of sentences equal,
+   timestamps within 1e-3 x duration, stats within 1e-3 relative;
+15. eval_check: forward_eval on a batch of 2 with dropout off, on the card
    and on the port's CPU path: matchings, teacher-forced log-probabilities,
    losses and caption rows (greedy and beam);
-14. probe: the per-op overhead probe (tools/probe_op_overhead.py), eager and
+16. probe: the per-op overhead probe (tools/probe_op_overhead.py), eager and
    from CUDA graphs, with K5's launches;
-15. tools: profile_msda, profile_decode, bench_fused_decode and
+17. tools: profile_msda, profile_decode, bench_fused_decode and
    onchip_decode_parity, once each at reduced iteration counts.
 
 Then one JSON line of kernel measurements and, as the last line, a JSON
@@ -1048,7 +1063,7 @@ EVAL_CHECK_LOGP_TOL = 1e-3  # x max |ref| of the teacher-forced log-probabilitie
 
 
 def eval_check(cfg, flat, vocab_size):
-    """Phase 13: one batch of 2 with dropout off, from conv_e79, through
+    """Phase 15: one batch of 2 with dropout off, from conv_e79, through
     forward_eval on the card and on the port's CPU path: matched indices
     (final and auxiliary) equal; the teacher-forced log-probabilities of
     every caption layer within EVAL_CHECK_LOGP_TOL x max |ref|; the loss
@@ -1118,8 +1133,277 @@ def eval_check(cfg, flat, vocab_size):
             "rows": int(g["caps"].shape[0])}
 
 
+EVAL_WORLD = os.path.join(ROOT, "build", "eval_world")
+EVAL_VIDEOS = 64
+EVAL_CHECK_VIDEOS = 2
+
+
+def write_eval_world(vocab_size: int, feature_dim: int) -> dict:
+    """The evaluation loop's world on disk, from numpy seed 0: a vocab of
+    ``vocab_size`` entries (the four specials, then synthetic words), and
+    EVAL_VIDEOS val videos of 120-900 feature tokens x ``feature_dim`` as
+    .npy files,
+    durations of 10-180 s and 1-10 events each, with sentences of 4-12 of
+    the vocab's words. Returns the config overrides that point at it."""
+    import numpy as np
+
+    from multimodal_feature_learning_tpu_torch.data.anet import SPLIT_FILES
+    from multimodal_feature_learning_tpu_torch.data.vocab import Vocab
+
+    feat_dir = os.path.join(EVAL_WORLD, "features")
+    os.makedirs(feat_dir, exist_ok=True)
+    words = [f"w{i:04d}" for i in range(vocab_size - 4)]
+    vocab = Vocab(["<unk>", "<pad>", "<bos>", "<eos>"] + words)
+    vocab.save(os.path.join(EVAL_WORLD, "vocab.pkl"))
+    rng = np.random.default_rng(0)
+    ann = {}
+    for i in range(EVAL_VIDEOS):
+        key = f"v_eval_{i:04d}"
+        dur = float(rng.uniform(10, 180))
+        k = int(rng.integers(1, 11))
+        centers, lengths = rng.uniform(0.2, 0.8, size=k), rng.uniform(0.05, 0.3, size=k)
+        ann[key] = {
+            "duration": dur,
+            "timestamps": [[max(0.0, (c - ln / 2) * dur), min(dur, (c + ln / 2) * dur)]
+                           for c, ln in zip(centers, lengths)],
+            "sentences": [" ".join(rng.choice(words, size=int(rng.integers(4, 13))))
+                          for _ in range(k)]}
+        np.save(os.path.join(feat_dir, key + ".npy"),
+                rng.normal(size=(int(rng.integers(120, 901)), feature_dim)).astype(np.float32))
+    with open(os.path.join(EVAL_WORLD, SPLIT_FILES["val"]), "w") as f:
+        json.dump(ann, f)
+    return {"dataset.activity_net.anet_path": EVAL_WORLD,
+            "dataset.activity_net.video_features_file": feat_dir,
+            "dataset.activity_net.vocab_file_path": os.path.join(EVAL_WORLD, "vocab.pkl"),
+            "submission_dir": os.path.join(EVAL_WORLD, "submission")}
+
+
+class TimedLoader:
+    """A loader that records, per batch, the seconds its caller waited for
+    the batch (``wait``) and the seconds the caller then spent on it before
+    asking for the next (``busy``)."""
+
+    def __init__(self, loader):
+        self.loader, self.wait, self.busy = loader, [], []
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        given = None
+        for_next = time.perf_counter()
+        for batch in self.loader:
+            given = time.perf_counter()
+            self.wait.append(given - for_next)
+            yield batch
+            for_next = time.perf_counter()
+            self.busy.append(for_next - given)
+
+
+def timed_evaluate(record: dict):
+    """engine.evaluate.evaluate with its loader, eval step and score_fn
+    timed into ``record``: loader wait, eval step (up to a synchronize),
+    and the rest of each batch (the host transfer, the strings, the
+    submission rows), the loop's seconds and the scoring's."""
+    import torch
+
+    from multimodal_feature_learning_tpu_torch.engine.evaluate import evaluate
+
+    def run(eval_step, loader, vocab, cfg, score_fn=None, **kw):
+        timed = TimedLoader(loader)
+        steps, captions = [], []
+
+        def step(batch):
+            t0 = time.perf_counter()
+            out = eval_step(batch)
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - t0)
+            captions.append(out[0])
+            return out
+
+        def score(sub):
+            t0 = time.perf_counter()
+            scores = score_fn(sub)
+            record["scoring_s"] = time.perf_counter() - t0
+            return scores
+
+        result = evaluate(step, timed, vocab, cfg, score_fn=score if score_fn else None, **kw)
+        loop_s = sum(timed.wait) + sum(timed.busy)
+        record.update({
+            "batches": len(steps), "loop_s": loop_s,
+            "videos_per_s": len(result[1]["results"]) / loop_s,
+            "loader_wait_ms": [1e3 * s for s in timed.wait],
+            "eval_step_ms": [1e3 * s for s in steps],
+            "transfer_strings_ms": [1e3 * (b - s) for b, s in zip(timed.busy, steps)],
+            "captions": captions})
+        return result
+
+    return run
+
+
+def score_summary(scores: dict) -> dict:
+    keys = ("Bleu_4", "METEOR", "ROUGE_L", "CIDEr", "Recall", "Precision", "F1_score")
+    return {k: scores[k] for k in keys}
+
+
+def eval_loop(cfg, model, overrides: dict):
+    """Phase eval_loop: the val split of the written world (EVAL_VIDEOS
+    videos, batch BATCH) from the files to the scores, in three arms:
+    one_by_one with the plain-op decode and with the fused decode (grid
+    "video") through evaluate() on the served model, and teacher_forcing
+    through inference.main, which builds its own model from conv_e79.
+    Every kernel's count is set to 0 just before each arm and read just
+    after it. Checks: every val key in the submission with one row per
+    (capped) ground-truth event; finite scores; K1 launched 12 times a
+    batch; the fused kernel once per decode step; the two one_by_one arms'
+    timestamps equal and at least 90% of their sentences."""
+    import copy
+    import random
+
+    from multimodal_feature_learning_tpu_torch import inference
+    from multimodal_feature_learning_tpu_torch.config import apply_overrides
+    from multimodal_feature_learning_tpu_torch.data.anet import SPLIT_FILES, build_dataset
+    from multimodal_feature_learning_tpu_torch.data.loader import DataLoader
+    from multimodal_feature_learning_tpu_torch.engine.evaluate import make_eval_step
+    from multimodal_feature_learning_tpu_torch.evaluation import run_eval
+    from multimodal_feature_learning_tpu_torch.models.criterion import build_criterion
+    from multimodal_feature_learning_tpu_torch.tools.profile_decode import decode_steps_run
+
+    cfg = apply_overrides(copy.deepcopy(cfg), [f"{k}={v}" for k, v in overrides.items()])
+    cfg.batch_size = BATCH
+    anet = cfg.dataset.activity_net
+    gt_path = os.path.join(anet.anet_path, SPLIT_FILES["val"])
+    with open(gt_path) as f:
+        gt = json.load(f)
+    per_forward = cfg.dvc.detr.enc_layers + cfg.dvc.detr.dec_layers
+    counters = kernel_counters()
+    criterion, weight_dict = build_criterion(cfg, model.pad_idx)
+    score_fn = lambda sub: run_eval(cfg.eval, sub, gt_path, rng=random.Random(cfg.seed))  # noqa: E731
+    arms, subs = {}, {}
+    for name, impl in (("one_by_one", "xla"), ("one_by_one_fused", "fused")):
+        val_ds, vocab = build_dataset("val", cfg)
+        loader = DataLoader(val_ds, BATCH, vocab.pad_idx, anet.video_rescale_len,
+                            anet.max_gt_target_segments, anet.max_caption_len_all,
+                            shuffle=False, seed=cfg.seed)
+        record = {}
+        model.decode_impl = impl
+        try:
+            step = make_eval_step(model, criterion, weight_dict, "one_by_one")
+            for k in counters.values():
+                k.launches = 0
+            stats, subs[name], scores = timed_evaluate(record)(
+                step, loader, vocab, cfg, score_fn=score_fn, device="cuda")
+            launches = {k: c.launches for k, c in counters.items()}
+        finally:
+            model.decode_impl = "xla"
+        record["decode_steps"] = [decode_steps_run(c, model.eos_idx, model.seq_len)
+                                  for c in record.pop("captions")]
+        arms[name] = {"decode_impl": impl, **record, "launches": launches,
+                      "stats": stats, "scores": score_summary(scores)}
+
+    record = {}
+    argv = ["--weights", SNAPSHOT, "--batch-size", str(BATCH), "--device", "cuda",
+            "--val-mode", "teacher_forcing", "--config-overrides", "use_differentiable_mask=false",
+            *[f"{k}={v}" for k, v in overrides.items()]]
+    run = inference.evaluate
+    inference.evaluate = timed_evaluate(record)
+    try:
+        for k in counters.values():
+            k.launches = 0
+        stats, subs["teacher_forcing"], scores = inference.main(argv)
+        launches = {k: c.launches for k, c in counters.items()}
+    finally:
+        inference.evaluate = run
+    record.pop("captions")
+    arms["teacher_forcing"] = {"entry": "inference.main", **record, "launches": launches,
+                               "stats": stats, "scores": score_summary(scores)}
+
+    for name, arm in arms.items():
+        results = subs[name]["results"]
+        rows = {k: len(v) for k, v in results.items()}
+        want = {k: min(len(v["timestamps"]), anet.max_gt_target_segments) for k, v in gt.items()}
+        if rows != want:
+            raise AssertionError(f"eval_loop {name}: submission rows {rows} != ground truth {want}")
+        if not all(math.isfinite(v) for v in arm["scores"].values()):
+            raise AssertionError(f"eval_loop {name}: non-finite scores {arm['scores']}")
+        if arm["launches"]["msda_fwd"] != per_forward * arm["batches"]:
+            raise AssertionError(f"eval_loop {name}: msda_fwd launched "
+                                 f"{arm['launches']['msda_fwd']} times over {arm['batches']} "
+                                 f"batches of {per_forward} MSDA calls")
+        expected = sum(arm["decode_steps"]) if name == "one_by_one_fused" else 0
+        if arm["launches"]["fused_decode_video"] != expected or \
+                arm["launches"]["fused_decode_batch"]:
+            raise AssertionError(f"eval_loop {name}: fused decode launched "
+                                 f"{arm['launches']} times, {expected} decode steps")
+    plain, fused = subs["one_by_one"]["results"], subs["one_by_one_fused"]["results"]
+    if any([e["timestamp"] for e in plain[k]] != [e["timestamp"] for e in fused[k]]
+           for k in plain):
+        raise AssertionError("eval_loop: timestamps differ between the plain-op and the "
+                             "fused decode")
+    pairs = [(a["sentence"], b["sentence"]) for k in plain for a, b in zip(plain[k], fused[k])]
+    same = sum(a == b for a, b in pairs)
+    if same < 0.9 * len(pairs):
+        raise AssertionError(f"eval_loop: {same}/{len(pairs)} sentences equal between the "
+                             "plain-op and the fused decode")
+    return {"videos": EVAL_VIDEOS, "batch": BATCH, "arms": arms,
+            "fused_sentences_equal_to_plain": same, "sentences": len(pairs),
+            "example": plain[next(iter(plain))][0]}
+
+
+def eval_loop_check(cfg, flat, model, overrides: dict):
+    """Phase eval_loop_check: the first EVAL_CHECK_VIDEOS videos of the
+    world through evaluate() (one_by_one, plain-op decode) on the card and
+    on the port's CPU path, from conv_e79: at least 90% of sentences equal,
+    timestamps within 1e-3 x the duration, stats within 1e-3 relative."""
+    import copy
+
+    from multimodal_feature_learning_tpu_torch.config import apply_overrides
+    from multimodal_feature_learning_tpu_torch.data.anet import build_dataset
+    from multimodal_feature_learning_tpu_torch.data.loader import DataLoader
+    from multimodal_feature_learning_tpu_torch.engine.evaluate import evaluate, make_eval_step
+    from multimodal_feature_learning_tpu_torch.models.criterion import build_criterion
+    from multimodal_feature_learning_tpu_torch.models.dvc import build_model
+    from multimodal_feature_learning_tpu_torch.utils.weights import load_flax_params
+
+    cfg = apply_overrides(copy.deepcopy(cfg), [f"{k}={v}" for k, v in overrides.items()])
+    cfg.save_submission = False
+    anet = cfg.dataset.activity_net
+    val_ds, vocab = build_dataset("val", cfg)
+    val_ds.keys = val_ds.keys[:EVAL_CHECK_VIDEOS]
+    durations = {k: float(val_ds.annotation[k]["duration"]) for k in val_ds.keys}
+    res = {}
+    for device in ("cuda", "cpu"):
+        m = model
+        if device == "cpu":
+            m = build_model(cfg, len(vocab), device="cpu")
+            load_flax_params(m, flat)
+        criterion, weight_dict = build_criterion(cfg, m.pad_idx)
+        loader = DataLoader(val_ds, EVAL_CHECK_VIDEOS, vocab.pad_idx, anet.video_rescale_len,
+                            anet.max_gt_target_segments, anet.max_caption_len_all,
+                            shuffle=False)
+        res[device] = evaluate(make_eval_step(m, criterion, weight_dict, "one_by_one"), loader,
+                               vocab, cfg, device=device)
+    (gs, gsub, _), (cs, csub, _) = res["cuda"], res["cpu"]
+    g, c = gsub["results"], csub["results"]
+    if set(g) != set(c) or any(len(g[k]) != len(c[k]) for k in c):
+        raise AssertionError("eval_loop_check: the card's and the CPU's submissions differ "
+                             "in keys or rows")
+    ts_err = max(abs(a - b) / durations[k] for k in c for x, y in zip(g[k], c[k])
+                 for a, b in zip(x["timestamp"], y["timestamp"]))
+    pairs = [(x["sentence"], y["sentence"]) for k in c for x, y in zip(g[k], c[k])]
+    same = sum(a == b for a, b in pairs)
+    rel = {k: abs(gs[k] - cs[k]) / max(abs(cs[k]), 1e-12) for k in cs}
+    if ts_err > 1e-3 or same < 0.9 * len(pairs) or set(gs) != set(cs) or \
+            max(rel.values()) > 1e-3:
+        raise AssertionError(f"eval_loop_check: timestamps {ts_err} x duration, {same}/"
+                             f"{len(pairs)} sentences equal, stats rel {rel}")
+    return {"videos": EVAL_CHECK_VIDEOS, "sentences_equal": same, "sentences": len(pairs),
+            "timestamp_max_err_over_duration": ts_err, "stats_max_rel": max(rel.values()),
+            "worst_stat": max(rel, key=rel.get), "loss_card": gs["loss"], "loss_cpu": cs["loss"]}
+
+
 def probe():
-    """Phase 14: the per-op overhead probe in both modes. K5's launch count
+    """Phase 16: the per-op overhead probe in both modes. K5's launch count
     is set to 0 just before and read just after; the tool reports the
     launches its graph replays ran, which the wrapper counts once at
     capture."""
@@ -1150,7 +1434,7 @@ def probe():
 
 
 def run_tools():
-    """Phase 15: the four other tools once each, at reduced iteration counts
+    """Phase 17: the four other tools once each, at reduced iteration counts
     (their defaults are for manual runs). onchip_decode_parity's fused arms
     may not move a segment, and its "video" arm must give at least 90% of
     the plain-op decode's caption rows exactly."""
@@ -1563,6 +1847,15 @@ def main() -> int:
     evaluated = evaluate_arms(cfg, model, eval_batch)
     log("eval", time.monotonic() - t, **evaluated)
     vocab_size = model.caption.head.out_features
+
+    t = time.monotonic()
+    world = write_eval_world(vocab_size, cfg.dvc.detr.feature_dim)
+    looped = eval_loop(cfg, model, world)
+    log("eval_loop", time.monotonic() - t, **looped)
+
+    t = time.monotonic()
+    loop_checked = eval_loop_check(cfg, flat, model, world)
+    log("eval_loop_check", time.monotonic() - t, **loop_checked)
     del model
     torch.cuda.empty_cache()
 
@@ -1605,7 +1898,9 @@ def main() -> int:
                                  "serve_fused": fused_served["video"]["launches"][name],
                                  "train": trained["launches"][name],
                                  "eval": sum(a["launches"][name]
-                                             for a in evaluated["arms"].values())},
+                                             for a in evaluated["arms"].values()),
+                                 "eval_loop": {arm: a["launches"][name]
+                                               for arm, a in looped["arms"].items()}},
             "max_abs_err": max(c["max_abs_err"] for c in all_cases
                                if c["dtype"] == "float32"),
             "ms": case["ms"], "eager_ms": case["eager_ms"], "kernel_ms": case["kernel_ms"],
@@ -1626,7 +1921,8 @@ def main() -> int:
             "replaces": counters[name].replaces,
             "launches": n, "launches_by_path": {
                 "serve_fused": n,
-                "eval": sum(a["launches"][name] for a in evaluated["arms"].values())},
+                "eval": sum(a["launches"][name] for a in evaluated["arms"].values()),
+                "eval_loop": {arm: a["launches"][name] for arm, a in looped["arms"].items()}},
             "max_abs_err": max(line["max_abs_err"] for line in lines),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],

@@ -78,9 +78,20 @@ class DVCConfig:
 
 @dataclass
 class ActivityNetConfig:
+    anet_path: str = "./anet_data"  # the annotation JSON files of each split
+    # a directory of <video key>.npy feature arrays (num_tokens, feature_dim);
+    # "" = deterministic synthetic features (data.anet.FeatureBackend)
+    video_features_file: str = ""
+    invalid_videos_json: str = ""
+    for_testing: bool = False
+    num_samples: int = 6
+    vocab_file_path: str = "./vocab.pkl"
+    min_freq: int = 2
     video_rescale_len: int = 300
     max_caption_len_all: int = 20
     max_gt_target_segments: int = 10
+    num_classes: int = 200
+    val_subset: int = 0  # > 0: evaluate the first val_subset sorted val keys
 
 
 @dataclass
@@ -90,6 +101,9 @@ class DatasetConfig:
 
 @dataclass
 class EvalConfig:
+    tious: list = field(default_factory=lambda: [0.3, 0.5, 0.7, 0.9])
+    max_proposals_per_video: int = 100
+    verbose: bool = False
     val_mode: str = "one_by_one"  # one_by_one | teacher_forcing | beam | serve
     # semantic, not a speed-up: the raw argmax fills every caption slot, so
     # the decode runs all seq_len steps and has no all-done early exit
@@ -101,6 +115,11 @@ class EvalConfig:
 @dataclass
 class Config:
     seed: int = 0
+    batch_size: int = 16
+    print_freq: int = 10
+    output_dir: str = "output"
+    submission_dir: str = "output/submission"
+    save_submission: bool = True
     lr: float = 1e-4
     lr_drop: int = 40  # StepLR: lr *= 0.1 every lr_drop epochs
     weight_decay: float = 1e-4
@@ -145,3 +164,28 @@ def recompute_losses(cfg: Config) -> None:
 
 def load_config() -> Config:
     return Config()
+
+
+def apply_overrides(cfg: Config, overrides) -> Config:
+    """Apply ``a.b.c=value`` overrides in place, as the JAX package's
+    ``main.py::apply_overrides`` does: the value takes the type of the
+    field's current value (bool from "1"/"true"/"True"; a list from
+    comma-separated items of its first element's type)."""
+    for kv in overrides:
+        key, val = kv.split("=", 1)
+        node = cfg
+        parts = key.split(".")
+        for part in parts[:-1]:
+            node = getattr(node, part)
+        old = getattr(node, parts[-1])
+        typ = type(old)
+        if typ is bool:
+            new = val in ("1", "true", "True")
+        elif typ is list:
+            items = [v for v in val.split(",") if v]
+            el = type(old[0]) if old else str
+            new = [el(v) for v in items] if el is not str else items
+        else:
+            new = typ(val)
+        setattr(node, parts[-1], new)
+    return cfg

@@ -7,8 +7,10 @@ mask), ``segments`` (L1 + gIoU of the matched pairs over ``num_segments``),
 log-softmax is folded into closed-form reductions, so no V-sized
 log-probability tensor is kept for the backward pass; in evaluation from the
 log-probabilities of the teacher-forced pass), ``contexts`` (masked BCE of
-the context-mask logits) and ``mask_prediction`` (multilabel soft margin of the saliency
-against the top-K tokens of the decoder attention map). The auxiliary
+the context-mask logits), ``mask_prediction`` (multilabel soft margin of the saliency
+against the top-K tokens of the decoder attention map) and ``corr`` (a
+diagnostic without gradient: the share of the decoder's attention mass on
+the tokens the encoder kept, averaged over the valid videos). The auxiliary
 decoder layers and the encoder's auxiliary heads repeat ``labels`` and
 ``segments``; the encoder's reuse the decoder's auxiliary matchings, as the
 reference does. Each caption layer but the last adds ``loss_caption_{i}``.
@@ -21,7 +23,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from ..ops.dam import attn_map_to_flat_grid
+from ..ops.dam import attn_map_to_flat_grid, compute_corr, idx_to_flat_grid
 from ..ops.segment_ops import generalized_box_iou, segment_cl_to_xy
 
 # Event-count prior rates over ActivityNet train; a dataset statistics table
@@ -202,6 +204,20 @@ class SetCriterion:
         return {"loss_mask_prediction": multilabel_soft_margin_loss(
             mask_prediction, target, row_valid=targets.get("batch_valid"))}
 
+    @torch.no_grad()
+    def corr(self, outputs, targets, indices, num_segments, num_tokens):
+        if outputs.get("backbone_topk_proposals") is None:
+            return {}
+        shapes = outputs["temporal_shapes"]
+        S = int(sum(int(t) for t in shapes))
+        flat_topk = idx_to_flat_grid(S, outputs["backbone_topk_proposals"])
+        flat_map = attn_map_to_flat_grid(
+            shapes, outputs["level_start_index"],
+            outputs["sampling_locations_dec"], outputs["attn_weights_dec"],
+        ).sum(dim=(1, 2))
+        corr = compute_corr(flat_topk, flat_map, shapes)
+        return {"loss_corr": _masked_row_mean(corr[0], targets.get("batch_valid"))}
+
     def get_loss(self, loss, outputs, targets, indices, num_segments, num_tokens,
                  memory_mask=None):
         if loss == "labels":
@@ -216,6 +232,8 @@ class SetCriterion:
         if loss == "mask_prediction":
             return self.loss_mask_prediction(outputs, targets, indices, num_segments,
                                              num_tokens)
+        if loss == "corr":
+            return self.corr(outputs, targets, indices, num_segments, num_tokens)
         raise ValueError(f"unknown loss {loss!r}")
 
     def __call__(self, outputs: Dict, targets: Dict, indices: torch.Tensor,
