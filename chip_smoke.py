@@ -61,8 +61,9 @@ Phases, each printing one line with its wall seconds:
 13. eval_loop (after eval, on the served model): the evaluation loop from
    files to scores on a world written under build/eval_world (a vocab of
    the snapshot's 6563 entries, 64 val videos of 120-900 feature tokens as
-   .npy files, 1-10 events each): vocab, dataset, prefetching loader,
-   evaluate() and the ActivityNet Captions scorers, batch 16, in three arms
+   .npy files, 1-10 events each, and 64 train videos made the same way):
+   vocab, dataset, prefetching loader, evaluate() and the ActivityNet
+   Captions scorers, batch 16, in three arms
    (one_by_one with the plain-op decode, one_by_one with the fused decode,
    teacher_forcing through inference.main), each with its videos/s, the
    split of each batch's time (loader wait, eval step, host transfer and
@@ -79,7 +80,24 @@ Phases, each printing one line with its wall seconds:
 16. probe: the per-op overhead probe (tools/probe_op_overhead.py), eager and
    from CUDA graphs, with K5's launches;
 17. tools: profile_msda, profile_decode, bench_fused_decode and
-   onchip_decode_parity, once each at reduced iteration counts.
+   onchip_decode_parity, once each at reduced iteration counts;
+18. serve_continuous (after check): the 48 requests through the port's
+   ContinuousDVCServer (16 slots, 4 decode tokens a chunk): every request
+   answered, the answers against serve's by check's standard (k equal,
+   segments within 1e-3 x duration, at least 90% of caption rows), K1
+   launched 12 times a prefill; videos/s, latency, prefills, chunks and the
+   device busy share of one profiled chunk;
+19. serve_cli (after eval_loop_check): the serving CLI (serve.main) over the
+   evaluation world with conv_e79, 128 requests at 50 rps Poisson, static
+   and continuous, then static with --max-queue 4 at 1000 rps, which must
+   shed; each CLI's JSON row;
+20. train_cli (after train): the training CLI (main.main) from conv_e79 over
+   the world's 64 train videos, batch 16, 2 epochs with eval and numbered
+   checkpoints every epoch, then --resume for a third, then inference.main
+   --resume: three epochs logged with finite losses, the resume at epoch 2,
+   K2 launched 12 times a train step and K1 12 times a train step and an
+   eval batch, the checkpoints written; seconds and examples/s an epoch,
+   peak memory.
 
 Then one JSON line of kernel measurements and, as the last line, a JSON
 object naming the device. Any failure exits non-zero without that line, as
@@ -689,9 +707,22 @@ def serve(model, requests):
         return out
 
     model.forward_serve = recording_forward
+    try:
+        results, latencies, wall, launches, stats = drive(server, requests)
+    finally:
+        del model.forward_serve
+    return results, latencies, wall, launches, stats, steps
+
+
+def drive(server, requests):
+    """The requests through ``server`` as one closed burst, then the server
+    closed. Every kernel's launch count is set to 0 just before the first
+    submit and read just after the last answer. Returns the results,
+    latencies, wall seconds (first submit to last answer), launches and the
+    server's stats."""
     counters = kernel_counters()
     try:
-        done_at = [0.0] * N_REQUESTS
+        done_at = [0.0] * len(requests)
         for k in counters.values():
             k.launches = 0
         t0 = time.monotonic()
@@ -713,9 +744,234 @@ def serve(model, requests):
         stats = dict(server.stats)
     finally:
         server.close()
-        del model.forward_serve
     latencies = [done_at[i] - t for i, (t, _) in enumerate(futures)]
-    return results, latencies, wall, launches, stats, steps
+    return results, latencies, wall, launches, stats
+
+
+CONTINUOUS_CHUNK = 4  # decode tokens a dispatch of the continuous server
+
+
+def compare_results(requests, results, reference, what: str) -> dict:
+    """``results`` against ``reference`` (both lists of events per request):
+    k equal, segments within 1e-3 x the duration, at least 90% of caption
+    rows identical (f32 sums in another order can flip a near-tie argmax,
+    which changes the rest of that caption)."""
+    import numpy as np
+
+    rows = rows_equal = 0
+    worst_seg = 0.0
+    for (_, dur), got, ref in zip(requests, results, reference):
+        if len(got) != len(ref):
+            raise AssertionError(f"{what}: k {len(got)} against {len(ref)}")
+        for a, b in zip(got, ref):
+            worst_seg = max(worst_seg, float(np.max(np.abs(np.subtract(a["segment"],
+                                                                       b["segment"])))) / dur)
+            rows += 1
+            rows_equal += a["caption"] == b["caption"]
+    if worst_seg > 1e-3 or rows_equal < 0.9 * rows:
+        raise AssertionError(f"{what}: segment err {worst_seg} of the duration, "
+                             f"{rows_equal}/{rows} caption rows equal")
+    return {"max_segment_err_of_duration": worst_seg, "caption_rows_equal": rows_equal,
+            "caption_rows": rows}
+
+
+def serve_continuous(cfg, model, requests, static_results, device="cuda"):
+    """Phase serve_continuous: the same requests through ContinuousDVCServer
+    (BATCH slots, CONTINUOUS_CHUNK tokens a chunk), launches counted over
+    exactly these requests. Checks: every request answered, well formed;
+    the answers against the serve phase's by check_results' standard; K1
+    launched 12 times a prefill and never by a chunk. Then one chunk of a
+    fresh full pool under torch.profiler (device busy share)."""
+    import numpy as np
+    import torch
+
+    from multimodal_feature_learning_tpu_torch.data.anet import nearest_resize
+    from multimodal_feature_learning_tpu_torch.serve import ContinuousDVCServer
+
+    server = ContinuousDVCServer(model, batch_size=BATCH, chunk=CONTINUOUS_CHUNK)
+    results, latencies, wall, launches, stats = drive(server, requests)
+    if len(results) != len(requests):
+        raise AssertionError(f"{len(results)} of {len(requests)} requests answered")
+    check_results(cfg, model, requests, results, compare_cpu=False)
+    agreement = compare_results(requests, results, static_results,
+                                "continuous against static serving")
+    per_forward = cfg.dvc.detr.enc_layers + cfg.dvc.detr.dec_layers
+    if launches["msda_fwd"] != per_forward * stats["prefills"] or stats["errors"]:
+        raise AssertionError(f"msda_fwd launched {launches['msda_fwd']} times over "
+                             f"{stats['prefills']} prefills ({per_forward} each); "
+                             f"{stats['errors']} errors")
+    if any(launches[k] for k in ("fused_decode_video", "fused_decode_batch", "msda_bwd")):
+        raise AssertionError(f"continuous serving launched {launches}")
+
+    T = model.video_rescale_len
+    video = torch.from_numpy(np.stack([nearest_resize(f[None], T, axis=1)[0]
+                                       for f, _ in requests[:BATCH]])).to(device)
+    durs = torch.tensor([d for _, d in requests[:BATCH]], dtype=torch.float32, device=device)
+    ctx, state = model.forward_serve_prefill(video, torch.zeros((BATCH, T), dtype=torch.bool,
+                                                                device=device), durs)
+    active = torch.ones(BATCH, dtype=torch.bool, device=device)
+    wall_ms, device_ms, chunk_launches, _ = profile_call(
+        lambda: model.forward_serve_decode_chunk(ctx, state, active, CONTINUOUS_CHUNK))
+    lat = sorted(latencies)
+    return {"requests": len(requests), "answered": len(results), "slots": BATCH,
+            "chunk": CONTINUOUS_CHUNK, "videos_per_s": len(requests) / wall,
+            "p50_latency_s": lat[len(lat) // 2], "max_latency_s": lat[-1],
+            "prefills": stats["prefills"], "chunks": stats["chunks"],
+            "dispatches": stats["dispatches"], "step_s": stats["step_s"],
+            "mean_prefill_ms": 1e3 * stats["prefill_s"] / stats["prefills"],
+            "mean_chunk_ms": 1e3 * stats["chunk_s"] / stats["chunks"],
+            "mean_step_ms": 1e3 * stats["step_s"] / (stats["dispatches"] + stats["chunks"]),
+            "launches": launches, "against_static": agreement,
+            "profiled_chunk_wall_ms": wall_ms, "profiled_chunk_device_ms": device_ms,
+            "profiled_chunk_launches": chunk_launches,
+            "chunk_device_busy_share": device_ms / wall_ms}
+
+
+SERVE_CLI_REQUESTS, SERVE_CLI_RPS, SHED_RPS, SHED_QUEUE = 128, 50, 1000, 4
+
+
+def serve_cli(world: dict, device="cuda"):
+    """Phase serve_cli: the serving CLI (serve.main) in-process over the
+    evaluation world with conv_e79, SERVE_CLI_REQUESTS val requests at
+    SERVE_CLI_RPS Poisson: static, then continuous (chunk
+    CONTINUOUS_CHUNK); then static with --max-queue SHED_QUEUE at SHED_RPS,
+    which it cannot sustain. Each row is printed; launches are counted over
+    each whole CLI call (model build and warm-up included)."""
+    from multimodal_feature_learning_tpu_torch import serve
+
+    common = ["--weights", SNAPSHOT, "--device", device, "--batch-size", str(BATCH),
+              "--n-requests", str(SERVE_CLI_REQUESTS), "--config-overrides",
+              "use_differentiable_mask=false", *[f"{k}={v}" for k, v in world.items()]]
+    counters = kernel_counters()
+    rows, launches = {}, {}
+    for name, extra in (("static", ["--rps", str(SERVE_CLI_RPS)]),
+                        ("continuous", ["--rps", str(SERVE_CLI_RPS), "--continuous",
+                                        "--chunk", str(CONTINUOUS_CHUNK)]),
+                        ("static_max_queue", ["--rps", str(SHED_RPS),
+                                              "--max-queue", str(SHED_QUEUE)])):
+        for k in counters.values():
+            k.launches = 0
+        rows[name] = serve.main([*extra, *common])
+        launches[name] = {k: c.launches for k, c in counters.items()}
+    for name in ("static", "continuous"):
+        row = rows[name]
+        if row["requests"] != SERVE_CLI_REQUESTS or row["shed"] or row["mode"] != name:
+            raise AssertionError(f"serve_cli {name}: {row}")
+    shed = rows["static_max_queue"]
+    if not (shed["shed"] > 0 and shed["requests"] + shed["shed"] == SERVE_CLI_REQUESTS):
+        raise AssertionError(f"serve_cli: --max-queue {SHED_QUEUE} at {SHED_RPS} rps shed "
+                             f"nothing: {shed}")
+    return {"rows": rows, "launches": launches}
+
+
+TRAIN_VIDEOS = 64  # train split of the evaluation world
+TRAIN_CLI_EPOCHS, TRAIN_CLI_VAL_SUBSET = 2, 16
+
+
+def train_cli(world: dict, device="cuda"):
+    """Phase train_cli: the training CLI (main.main) in-process over the
+    evaluation world's train split (TRAIN_VIDEOS videos, batch BATCH) from
+    conv_e79, with dropout: TRAIN_CLI_EPOCHS epochs with eval_rate 1,
+    checkpoint_rate 1 and the first TRAIN_CLI_VAL_SUBSET val videos; then
+    --resume of its checkpoint for one more epoch; then inference.main
+    --resume of the last checkpoint. Launches are counted over each CLI
+    call; each epoch's loader waits and steps are timed (TimedLoader around
+    the CLI's train loader). Checks: train_log.txt holds epochs 0, 1, 2 with finite losses; the
+    resumed run starts at epoch 2; K2 launched 12 times a train step, K1 12
+    times a train step and an eval batch; the rolling and the numbered
+    checkpoints exist; inference scores the checkpoint."""
+    import torch
+
+    from multimodal_feature_learning_tpu_torch import inference
+    from multimodal_feature_learning_tpu_torch import main as train_main
+    from multimodal_feature_learning_tpu_torch.config import load_config
+
+    out = os.path.join(EVAL_WORLD, "train_cli")
+    if os.path.isdir(out):
+        import shutil
+
+        shutil.rmtree(out)
+    overrides = ["use_differentiable_mask=false", "eval_rate=1", "checkpoint_rate=1",
+                 f"dataset.activity_net.val_subset={TRAIN_CLI_VAL_SUBSET}", "print_freq=0",
+                 *[f"{k}={v}" for k, v in world.items()]]
+    common = ["--weights", SNAPSHOT, "--device", device, "--batch-size", str(BATCH),
+              "--output-dir", out, "--config-overrides", *overrides]
+    counters = kernel_counters()
+    runs, launches, split = [], [], []
+    real_epoch = train_main.train_one_epoch
+
+    def timed_epoch(train_step, state, loader, epoch, *args, **kwargs):
+        timed = TimedLoader(loader)
+        result = real_epoch(train_step, state, timed, epoch, *args, **kwargs)
+        split.append({"epoch": epoch, "loader_wait_ms": [1e3 * s for s in timed.wait],
+                      "step_ms": [1e3 * s for s in timed.busy]})
+        return result
+
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    train_main.train_one_epoch = timed_epoch
+    try:
+        for extra in (["--epochs", str(TRAIN_CLI_EPOCHS)],
+                      ["--epochs", str(TRAIN_CLI_EPOCHS + 1), "--resume",
+                       os.path.join(out, "checkpoint")]):
+            for k in counters.values():
+                k.launches = 0
+            runs.append(train_main.main([*extra, *common]))
+            launches.append({k: c.launches for k, c in counters.items()})
+    finally:
+        train_main.train_one_epoch = real_epoch
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
+    for k in counters.values():
+        k.launches = 0
+    stats, submission, scores = inference.main(
+        ["--resume", os.path.join(out, "checkpoint"), "--device", device, "--batch-size",
+         str(BATCH), "--config-overrides", *overrides,
+         f"submission_dir={os.path.join(out, 'inference')}"])
+    inference_launches = {k: c.launches for k, c in counters.items()}
+
+    with open(os.path.join(out, "train_log.txt")) as f:
+        log = [json.loads(line) for line in f]
+    if [r["epoch"] for r in log] != list(range(TRAIN_CLI_EPOCHS + 1)) or not all(
+            math.isfinite(r["train_loss"]) and math.isfinite(r["val_loss"]) for r in log):
+        raise AssertionError(f"train_cli: train_log.txt {log}")
+    if runs[1]["start_epoch"] != TRAIN_CLI_EPOCHS:
+        raise AssertionError(f"train_cli: the resumed run started at {runs[1]['start_epoch']}")
+    det = load_config().dvc.detr
+    per_forward = det.enc_layers + det.dec_layers
+    steps_per_epoch = -(-TRAIN_VIDEOS // BATCH)
+    eval_batches = -(-TRAIN_CLI_VAL_SUBSET // BATCH)
+    for run, n in zip(runs, launches):
+        epochs = len(run["epochs"])
+        steps = epochs * steps_per_epoch
+        want = {"msda_bwd": per_forward * steps,
+                "msda_fwd": per_forward * (steps + epochs * eval_batches)}
+        if any(n[k] != v for k, v in want.items()):
+            raise AssertionError(f"train_cli: launches {n} over {steps} steps and "
+                                 f"{epochs * eval_batches} eval batches, expected {want}")
+    names = sorted(os.listdir(out))
+    want_files = ["checkpoint"] + [f"checkpoint{e:04d}" for e in range(TRAIN_CLI_EPOCHS + 1)]
+    if not set(want_files) <= set(names):
+        raise AssertionError(f"train_cli: {names} lacks a checkpoint of {want_files}")
+    if len(submission["results"]) != TRAIN_CLI_VAL_SUBSET or not all(
+            math.isfinite(v) for v in scores.values()) or \
+            inference_launches["msda_fwd"] != per_forward * eval_batches:
+        raise AssertionError(f"train_cli: inference --resume gave {len(submission['results'])}"
+                             f" videos, scores {scores}, launches {inference_launches}")
+    seconds = [s for run in runs for s in run["train_seconds"]]
+    return {"train_videos": TRAIN_VIDEOS, "batch": BATCH, "steps_per_epoch": steps_per_epoch,
+            "epochs": [{k: v for k, v in r.items() if not k.startswith("score_")
+                        or k in ("score_METEOR", "score_CIDEr", "score_F1_score")}
+                       for r in log],
+            "train_seconds_per_epoch": seconds,
+            "epoch_split": split,
+            "checkpoint_seconds_per_epoch": [s for run in runs
+                                             for s in run["checkpoint_seconds"]],
+            "eval_seconds_per_epoch": [s for run in runs for s in run["eval_seconds"]],
+            "examples_per_s_per_epoch": [TRAIN_VIDEOS / s for s in seconds],
+            "resumed_start_epoch": runs[1]["start_epoch"], "launches": launches,
+            "inference_launches": inference_launches, "inference_val_loss": stats["loss"],
+            "inference_scores": score_summary(scores), "max_memory_allocated_bytes": peak,
+            "files": names}
 
 
 def serve_fused(model, requests):
@@ -746,10 +1002,8 @@ def serve_fused(model, requests):
 
 def check_results(cfg, model, requests, results, compare_cpu: bool = True):
     """Served events are well formed and, with ``compare_cpu``, match the
-    port's CPU path (plain MSDA core, CPU matmuls) on the first N_CHECK videos: k equal, segments
-    within 1e-3 of the duration, and at least 90% of caption rows identical
-    (f32 sums in another order can flip a near-tie argmax, which changes the
-    rest of that caption)."""
+    port's CPU path (plain MSDA core, CPU matmuls) on the first N_CHECK
+    videos by ``compare_results``."""
     import copy
 
     import numpy as np
@@ -780,24 +1034,11 @@ def check_results(cfg, model, requests, results, compare_cpu: bool = True):
     ref = cpu_model.forward_serve(torch.from_numpy(video),
                                   torch.zeros(video.shape[:2], dtype=torch.bool),
                                   torch.from_numpy(durs))
-    rows_equal = rows = 0
-    worst_seg = 0.0
-    for i in range(N_CHECK):
-        events = results[i]
-        k = int(ref["k"][i])
-        if len(events) != k:
-            raise AssertionError(f"video {i}: GPU k={len(events)}, CPU k={k}")
-        for j, ev in enumerate(events):
-            seg = np.abs(np.array(ev["segment"]) - ref["segments"][i, j].numpy()) / durs[i]
-            worst_seg = max(worst_seg, float(seg.max()))
-            rows += 1
-            rows_equal += ev["caption"] == ref["captions"][i, j].tolist()
-    if worst_seg > 1e-3 or rows_equal < 0.9 * rows:
-        raise AssertionError(
-            f"GPU and CPU paths disagree: segment err {worst_seg} of the duration, "
-            f"{rows_equal}/{rows} caption rows equal")
-    return {"videos": N_CHECK, "max_segment_err_of_duration": worst_seg,
-            "caption_rows_equal": rows_equal, "caption_rows": rows}
+    cpu_results = [[{"segment": tuple(ref["segments"][i, j].tolist()),
+                     "caption": ref["captions"][i, j].tolist()}
+                    for j in range(int(ref["k"][i]))] for i in range(N_CHECK)]
+    return {"videos": N_CHECK, **compare_results(requests[:N_CHECK], results[:N_CHECK],
+                                                 cpu_results, "GPU against CPU serving")}
 
 
 def check_fused(cfg, model, requests):
@@ -1144,7 +1385,9 @@ def write_eval_world(vocab_size: int, feature_dim: int) -> dict:
     EVAL_VIDEOS val videos of 120-900 feature tokens x ``feature_dim`` as
     .npy files,
     durations of 10-180 s and 1-10 events each, with sentences of 4-12 of
-    the vocab's words. Returns the config overrides that point at it."""
+    the vocab's words; then, drawn on from the same generator, TRAIN_VIDEOS
+    train videos made the same way. Returns the config overrides that point
+    at it."""
     import numpy as np
 
     from multimodal_feature_learning_tpu_torch.data.anet import SPLIT_FILES
@@ -1156,22 +1399,24 @@ def write_eval_world(vocab_size: int, feature_dim: int) -> dict:
     vocab = Vocab(["<unk>", "<pad>", "<bos>", "<eos>"] + words)
     vocab.save(os.path.join(EVAL_WORLD, "vocab.pkl"))
     rng = np.random.default_rng(0)
-    ann = {}
-    for i in range(EVAL_VIDEOS):
-        key = f"v_eval_{i:04d}"
-        dur = float(rng.uniform(10, 180))
-        k = int(rng.integers(1, 11))
-        centers, lengths = rng.uniform(0.2, 0.8, size=k), rng.uniform(0.05, 0.3, size=k)
-        ann[key] = {
-            "duration": dur,
-            "timestamps": [[max(0.0, (c - ln / 2) * dur), min(dur, (c + ln / 2) * dur)]
-                           for c, ln in zip(centers, lengths)],
-            "sentences": [" ".join(rng.choice(words, size=int(rng.integers(4, 13))))
-                          for _ in range(k)]}
-        np.save(os.path.join(feat_dir, key + ".npy"),
-                rng.normal(size=(int(rng.integers(120, 901)), feature_dim)).astype(np.float32))
-    with open(os.path.join(EVAL_WORLD, SPLIT_FILES["val"]), "w") as f:
-        json.dump(ann, f)
+    for split, prefix, n in (("val", "v_eval", EVAL_VIDEOS), ("train", "v_train", TRAIN_VIDEOS)):
+        ann = {}
+        for i in range(n):
+            key = f"{prefix}_{i:04d}"
+            dur = float(rng.uniform(10, 180))
+            k = int(rng.integers(1, 11))
+            centers, lengths = rng.uniform(0.2, 0.8, size=k), rng.uniform(0.05, 0.3, size=k)
+            ann[key] = {
+                "duration": dur,
+                "timestamps": [[max(0.0, (c - ln / 2) * dur), min(dur, (c + ln / 2) * dur)]
+                               for c, ln in zip(centers, lengths)],
+                "sentences": [" ".join(rng.choice(words, size=int(rng.integers(4, 13))))
+                              for _ in range(k)]}
+            np.save(os.path.join(feat_dir, key + ".npy"),
+                    rng.normal(size=(int(rng.integers(120, 901)), feature_dim))
+                    .astype(np.float32))
+        with open(os.path.join(EVAL_WORLD, SPLIT_FILES[split]), "w") as f:
+            json.dump(ann, f)
     return {"dataset.activity_net.anet_path": EVAL_WORLD,
             "dataset.activity_net.video_features_file": feat_dir,
             "dataset.activity_net.vocab_file_path": os.path.join(EVAL_WORLD, "vocab.pkl"),
@@ -1824,6 +2069,10 @@ def main() -> int:
     log("check", time.monotonic() - t, **agreement)
 
     t = time.monotonic()
+    continuous = serve_continuous(cfg, model, requests, results)
+    log("serve_continuous", time.monotonic() - t, **continuous)
+
+    t = time.monotonic()
     fused_served = serve_fused(model, requests)
     for grid, served in fused_served.items():
         check_results(cfg, model, requests, served["results"], compare_cpu=False)
@@ -1860,8 +2109,16 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t = time.monotonic()
+    cli_served = serve_cli(world)
+    log("serve_cli", time.monotonic() - t, **cli_served)
+
+    t = time.monotonic()
     trained = train(cfg, flat, vocab_size)
     log("train", time.monotonic() - t, **trained)
+
+    t = time.monotonic()
+    trained_cli = train_cli(world)
+    log("train_cli", time.monotonic() - t, **trained_cli)
 
     t = time.monotonic()
     checked = train_check(cfg, flat, vocab_size)
@@ -1895,8 +2152,16 @@ def main() -> int:
             "replaces": replaces,
             "launches": trained["launches"][name],
             "launches_by_path": {"serve": launches[name],
+                                 "serve_continuous": continuous["launches"][name],
                                  "serve_fused": fused_served["video"]["launches"][name],
+                                 "serve_cli": {row: n[name] for row, n
+                                               in cli_served["launches"].items()},
                                  "train": trained["launches"][name],
+                                 "train_cli": {
+                                     "first_run": trained_cli["launches"][0][name],
+                                     "resumed_run": trained_cli["launches"][1][name],
+                                     "inference_resume":
+                                         trained_cli["inference_launches"][name]},
                                  "eval": sum(a["launches"][name]
                                              for a in evaluated["arms"].values()),
                                  "eval_loop": {arm: a["launches"][name]
@@ -1920,7 +2185,7 @@ def main() -> int:
             "source": os.path.relpath(str(CSRC_DIR / counters[name].source), ROOT),
             "replaces": counters[name].replaces,
             "launches": n, "launches_by_path": {
-                "serve_fused": n,
+                "serve_fused": n, "serve_continuous": continuous["launches"][name],
                 "eval": sum(a["launches"][name] for a in evaluated["arms"].values()),
                 "eval_loop": {arm: a["launches"][name] for arm, a in looped["arms"].items()}},
             "max_abs_err": max(line["max_abs_err"] for line in lines),

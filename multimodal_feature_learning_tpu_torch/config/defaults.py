@@ -92,6 +92,7 @@ class ActivityNetConfig:
     max_gt_target_segments: int = 10
     num_classes: int = 200
     val_subset: int = 0  # > 0: evaluate the first val_subset sorted val keys
+    train_subset: int = 0  # > 0: train on the first train_subset sorted train keys
 
 
 @dataclass
@@ -124,12 +125,19 @@ class Config:
     lr_drop: int = 40  # StepLR: lr *= 0.1 every lr_drop epochs
     weight_decay: float = 1e-4
     clip_max_norm: float = 0.1
+    checkpoint_rate: int = 10  # keep checkpoint{epoch:04d} every N epochs (0: never)
+    eval_rate: int = 10        # evaluate every N epochs (0: the last epoch only)
     epochs: int = 200
+    start_epoch: int = 0
+    resume: str = ""           # a checkpoint to resume from, at its epoch + 1
     use_differentiable_mask: bool = True
     compute_dtype: str = "float32"
     decode_impl: str = "xla"      # "xla" (plain-op loop) | "fused" (one kernel a step)
     decode_kv: str = "dense"       # fused path's memory K/V: "dense" | "int8"
     decode_fused_grid: str = "video"  # fused kernel's schedule: "video" | "batch"
+    # dtype of the features on their way to the card: "bfloat16" halves the
+    # bytes, and they are upcast to f32 there
+    transfer_dtype: str = "float32"
     dvc: DVCConfig = field(default_factory=DVCConfig)
     dataset: DatasetConfig = field(default_factory=DatasetConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
@@ -140,12 +148,13 @@ DECODE_CHOICES = {
     "decode_kv": ("dense", "int8"),
     "decode_fused_grid": ("video", "batch"),
     "val_mode": ("one_by_one", "teacher_forcing", "beam", "serve"),
+    "rank": ("stability", "class"),
 }
 
 
 def check_decode_options(**options) -> None:
-    """Raise ``ValueError`` on an unknown value of a decode knob or of
-    ``val_mode``."""
+    """Raise ``ValueError`` on an unknown value of a decode knob, of
+    ``val_mode`` or of the serving ``rank``."""
     for name, value in options.items():
         if value not in DECODE_CHOICES[name]:
             raise ValueError(f"{name} must be one of {DECODE_CHOICES[name]}, got {value!r}")

@@ -2,6 +2,9 @@
 
 from __future__ import annotations
 
+from typing import List
+
+import numpy as np
 import torch
 
 
@@ -32,3 +35,12 @@ def set_f32_numerics(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+
+
+def to_host(*tensors: torch.Tensor) -> List[np.ndarray]:
+    """Copies of ``tensors`` on the host as numpy arrays, behind one
+    synchronisation of the current CUDA stream."""
+    host = [t.to("cpu", non_blocking=True, copy=True) for t in tensors]
+    for dev in {t.device for t in tensors if t.is_cuda}:
+        torch.cuda.current_stream(dev).synchronize()
+    return [h.numpy() for h in host]

@@ -20,7 +20,7 @@ import torch
 
 from ..config import check_decode_options
 from ..data.loader import split_batch
-from ..device import resolve_device
+from ..device import resolve_device, to_host
 from ..ops.segment_ops import denormalize_segments
 from ..utils.postprocess import (captions_to_string, get_sample_submission,
                                  pprint_eval_scores, save_submission)
@@ -85,11 +85,8 @@ def evaluate(eval_step, loader, vocab, cfg, epoch: int = 0, score_fn=None,
         arrays, meta = split_batch(batch)
         captions, denorm, losses = eval_step(batch_to_device(arrays, dev))
         names = [k for k in losses if not any(ch.isdigit() for ch in k)]
-        host = [t.to("cpu", non_blocking=True) for t in
-                (captions, denorm, torch.stack([losses[k].float() for k in names]))]
-        if dev.type == "cuda":
-            torch.cuda.current_stream(dev).synchronize()
-        captions, denorm, values = (t.numpy() for t in host)
+        captions, denorm, values = to_host(
+            captions, denorm, torch.stack([losses[k].float() for k in names]))
         gt_mask = np.asarray(arrays["gt_mask"])
         strings = captions_to_string(captions, vocab)
 

@@ -6,11 +6,13 @@ adamw (beta 0.9 / 0.999, eps 1e-8, weight decay on every parameter), with
 the learning rate of a step-wise StepLR schedule. The clip follows optax's
 formula, g * min(1, max_norm / |g|), not ``torch.nn.utils.clip_grad_norm_``'s
 max_norm / (|g| + 1e-6). Checkpoints are
-``torch.save`` dicts of {model, optimizer, step, epoch}.
+``torch.save`` dicts of {model, optimizer, step, epoch}, one file
+``<output_dir>/<name>`` each.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import torch
@@ -87,18 +89,34 @@ def create_train_state(cfg, model: nn.Module, steps_per_epoch: int) -> TrainStat
                       optimizer=make_optimizer(cfg, model, steps_per_epoch))
 
 
-def save_checkpoint(path: str, state: TrainState, epoch: int) -> str:
+def save_checkpoint(output_dir: str, state: TrainState, epoch: int,
+                    name: str = "checkpoint") -> str:
+    """Write ``<output_dir>/<name>`` (the JAX package's layout, one file
+    here) and return its path."""
+    os.makedirs(output_dir, exist_ok=True)
+    path = os.path.join(output_dir, name)
     torch.save({"model": state.model.state_dict(),
                 "optimizer": state.optimizer.state_dict(),
                 "step": state.step, "epoch": epoch}, path)
     return path
 
 
+def _load(path: str, model: nn.Module) -> dict:
+    return torch.load(path, map_location=next(model.parameters()).device, weights_only=True)
+
+
 def load_checkpoint(path: str, state: TrainState) -> int:
     """Restore model, optimizer and step into ``state``; returns the epoch."""
-    ckpt = torch.load(path, map_location=next(state.model.parameters()).device,
-                      weights_only=True)
+    ckpt = _load(path, state.model)
     state.model.load_state_dict(ckpt["model"], strict=True)
     state.optimizer.load_state_dict(ckpt["optimizer"])
     state.step = int(ckpt["step"])
+    return int(ckpt["epoch"])
+
+
+def load_model_weights(path: str, model: nn.Module) -> int:
+    """Restore only the model's weights from a checkpoint, strictly (the
+    serving and evaluation entry points); returns the epoch."""
+    ckpt = _load(path, model)
+    model.load_state_dict(ckpt["model"], strict=True)
     return int(ckpt["epoch"])

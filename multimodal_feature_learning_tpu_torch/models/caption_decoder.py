@@ -1,5 +1,6 @@
 """Per-event caption decoder: the teacher-forced pass of training and
-evaluation, the KV-cached greedy decode of serving and the beam search of
+evaluation, the KV-cached greedy decode of serving (whole, or in chunks at
+per-video cursors for the continuous server) and the beam search of
 evaluation; counterpart of the JAX ``models/caption_decoder.py``. The greedy
 decode runs as plain ops, one ``decode_pair`` per token (``decode_impl``
 "xla"), or through the fused decode step, one kernel launch per token
@@ -60,18 +61,23 @@ class UnimodalCaptionDecoder(nn.Module):
         logits = self.head(torch.stack(intermediate))
         return torch.log_softmax(logits.float(), dim=-1) if log_probs else logits
 
-    def embed_at(self, tokens: torch.Tensor, pos: int) -> torch.Tensor:
-        """(N,) tokens at position ``pos`` -> (N, 1, D) with the sine table."""
-        return self.target_embedding(tokens[:, None]) + self.pos_table[:, pos:pos + 1]
+    def embed_at(self, tokens: torch.Tensor, pos) -> torch.Tensor:
+        """(N,) tokens at position ``pos`` -> (N, 1, D) with the sine table.
+        ``pos`` is an int, or an (N,) tensor of per-row positions."""
+        x = self.target_embedding(tokens[:, None])
+        if isinstance(pos, torch.Tensor):
+            return x + self.pos_table[0, pos][:, None, :]
+        return x + self.pos_table[:, pos:pos + 1]
 
     def precompute_memory_kv(self, memory: torch.Tensor):
         """Per-layer cross-attention (k, v) of the memory."""
         return [layer.project_memory_kv(memory) for layer in self.decoder]
 
-    def decode_pair(self, prev_tokens, pad_tokens, step: int, k_caches, v_caches,
+    def decode_pair(self, prev_tokens, pad_tokens, step, k_caches, v_caches,
                     mem_kv, memory_padding_mask, groups: int = 1, zeroed_mask=None):
         """Commit ``prev_tokens`` at ``step`` and predict position step+1 in
-        one pass through every layer. Returns f32 logits at step+1; the caches
+        one pass through every layer. ``step`` is an int or an (N,) tensor of
+        per-row positions. Returns f32 logits at step+1; the caches
         (depth, N, Tc, D) are updated in place."""
         x = torch.cat([self.embed_at(prev_tokens, step),
                        self.embed_at(pad_tokens, step + 1)], dim=1)  # (N, 2, D)
@@ -152,6 +158,54 @@ def greedy_decode(
         has_eos = (captions == eos_idx).any(dim=1)
         last = torch.where(has_eos, pad_idx, eos_idx).long()
     return torch.cat([captions, last[:, None]], dim=1)
+
+
+def greedy_decode_chunk(
+    module: UnimodalCaptionDecoder,
+    captions: torch.Tensor,        # (N, seq_len) int64, position 0 = <bos>
+    done: torch.Tensor,            # (N,) bool: the row emitted <eos>
+    t_vid: torch.Tensor,           # (B,) int64: next position to fill, per video
+    k_caches: torch.Tensor,        # (depth, N, seq_len, D)
+    v_caches: torch.Tensor,
+    mem_kv,                        # list of (k, v) from precompute_memory_kv
+    memory_padding_mask,           # (N, S)
+    seq_len: int,
+    eos_idx: int,
+    pad_idx: int,
+    groups: int,
+    zeroed_mask,
+    active_vid: torch.Tensor,      # (B,) bool: the slot holds a live request
+    chunk: int,
+):
+    """Advance each video's greedy decode by up to ``chunk`` positions at its
+    own cursor ``t_vid``: the continuous server's step, where slots at
+    different depths of their captions share one pass. The JAX
+    ``greedy_decode_chunk``.
+
+    Tokens follow ``greedy_decode`` (argmax, the first index on ties; done
+    rows take <pad>); a video freezes when all its ``groups`` rows are done,
+    its cursor reaches ``seq_len`` or its slot is inactive. A frozen video
+    still runs the layer pass, at the position it last committed, and
+    rewrites the same cache values there; its captions, ``done`` and cursor
+    do not move. Plain ops only.
+
+    ``captions``, ``done``, ``t_vid`` and the caches are updated in place
+    and returned: (captions, done, t_vid, k_caches, v_caches)."""
+    B = t_vid.shape[0]
+    N = captions.shape[0]
+    rows = torch.arange(N, device=captions.device)
+    pad_tok = torch.full((N,), pad_idx, dtype=captions.dtype, device=captions.device)
+    for _ in range(chunk):
+        adv_vid = active_vid & (t_vid < seq_len) & ~done.view(B, groups).all(dim=1)
+        adv_row = adv_vid.repeat_interleave(groups)
+        t_w = t_vid.repeat_interleave(groups).clamp(1, seq_len - 1)
+        logits = module.decode_pair(captions[rows, t_w - 1], pad_tok, t_w - 1, k_caches,
+                                    v_caches, mem_kv, memory_padding_mask, groups, zeroed_mask)
+        tok = torch.where(done, pad_tok, logits.argmax(dim=-1))
+        captions[rows, t_w] = torch.where(adv_row, tok, captions[rows, t_w])
+        done |= (tok == eos_idx) & adv_row
+        t_vid += adv_vid.to(t_vid.dtype)
+    return captions, done, t_vid, k_caches, v_caches
 
 
 def beam_search_decode(

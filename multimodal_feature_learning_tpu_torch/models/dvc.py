@@ -1,6 +1,8 @@
 """UnimodalDVC: GT-free serving, training and evaluation; counterpart of the
 JAX ``models/dvc.py`` (``ProposalNet``, ``forward_serve``, ``_serve_prepare``,
-``_propose_and_match``, ``forward_train``, ``forward_eval``).
+``_propose_and_match``, ``forward_train``, ``forward_eval``, and the
+continuous server's ``forward_serve_prefill``, ``forward_serve_decode_chunk``
+and ``merge_serve_slots``).
 
 Base encoder -> sparse deformable transformer -> segment and count heads.
 Serving: top-G proposals ranked by stability, k* from the count head ->
@@ -34,7 +36,8 @@ from ..ops.hungarian import batched_hungarian
 from ..ops.segment_ops import denormalize_segments, inverse_sigmoid
 from .base_encoder import BaseEncoder, pyramid_shapes
 from .caption_decoder import (
-    UnimodalCaptionDecoder, beam_search_decode, greedy_decode, make_causal_mask,
+    UnimodalCaptionDecoder, beam_search_decode, greedy_decode, greedy_decode_chunk,
+    make_causal_mask,
 )
 from .layers import FFN, ContextMaskModel
 from .matcher import match_cost
@@ -326,8 +329,11 @@ class UnimodalDVC(nn.Module):
                                           for i in range(log_probs.shape[0] - 1)]
         return out, captions, indices, indices_aux, crop_mask.float()
 
-    def _serve_prepare(self, video_tensor, video_mask, durations):
-        """Propose, rank by stability, select the top G, crop the memory."""
+    def _serve_prepare(self, video_tensor, video_mask, durations, rank: str = "stability"):
+        """Propose, rank, select the top G, crop the memory. ``rank`` "class"
+        ranks by the class head where there is one; the sparse family has
+        none, so it ranks by stability, as JAX falls back."""
+        check_decode_options(rank=rank)
         out = self.proposal(video_tensor.float(), video_mask, durations)
         G = self.max_gt
         seg_all = out["outputs_segment_all"]
@@ -358,15 +364,15 @@ class UnimodalDVC(nn.Module):
         }
 
     @torch.no_grad()
-    def forward_serve(self, video_tensor, video_mask, durations,
-                      faster_eval: bool = False) -> Dict[str, torch.Tensor]:
+    def forward_serve(self, video_tensor, video_mask, durations, faster_eval: bool = False,
+                      rank: str = "stability") -> Dict[str, torch.Tensor]:
         """GT-free serving forward. video_tensor (B, T, feature_dim),
         video_mask (B, T) True=pad, durations (B,) seconds. Returns segments
         (B, G, 2) seconds, captions (B, G, Lc+1) token ids including <bos>,
         k (B,) predicted event counts, scores (B, G), valid (B, G). The decode
         runs as ``decode_impl``, ``decode_kv`` and ``decode_fused_grid`` of
         the config say (attributes of the model, which a caller may change)."""
-        prep = self._serve_prepare(video_tensor, video_mask, durations)
+        prep = self._serve_prepare(video_tensor, video_mask, durations, rank)
         captions = greedy_decode(
             self.caption, prep["memory"], prep["caption_pad_mask"],
             self.seq_len, self.bos_idx, self.eos_idx, self.pad_idx,
@@ -381,6 +387,86 @@ class UnimodalDVC(nn.Module):
             "scores": prep["scores"],
             "valid": prep["valid"],
         }
+
+
+    # -- the continuous server's pieces (serve.py ContinuousDVCServer) --------
+
+    @torch.no_grad()
+    def forward_serve_prefill(self, video_tensor, video_mask, durations,
+                              rank: str = "stability"):
+        """The front half of ``forward_serve`` for the continuous server:
+        propose, select and crop, project every layer's cross-attention K/V
+        of the memory, and start each slot's decode at position 1 after
+        <bos>. Returns (ctx, state): ctx holds mem_kv, caption_pad_mask,
+        zeroed, segments, k, scores and valid; state holds captions
+        (N, Lc), done (N,), t (B,) and the zeroed k/v caches
+        (depth, N, Lc, D), which ``forward_serve_decode_chunk`` advances."""
+        prep = self._serve_prepare(video_tensor, video_mask, durations, rank)
+        memory = prep["memory"]
+        B, N = durations.shape[0], durations.shape[0] * self.max_gt
+        dev = memory.device
+        captions = torch.full((N, self.seq_len), self.pad_idx, dtype=torch.long, device=dev)
+        captions[:, 0] = self.bos_idx
+        cache_shape = (self.caption.depth, N, self.seq_len, memory.shape[-1])
+        ctx = {"mem_kv": self.caption.precompute_memory_kv(memory),
+               **{k: prep[k] for k in ("caption_pad_mask", "zeroed", "segments", "k",
+                                       "scores", "valid")}}
+        state = {
+            "captions": captions,
+            "done": torch.zeros((N,), dtype=torch.bool, device=dev),
+            "t": torch.ones((B,), dtype=torch.long, device=dev),
+            "k_caches": memory.new_zeros(cache_shape),
+            "v_caches": memory.new_zeros(cache_shape),
+        }
+        return ctx, state
+
+    @torch.no_grad()
+    def forward_serve_decode_chunk(self, ctx, state, active_vid, chunk: int):
+        """Advance every active slot's greedy decode by up to ``chunk``
+        tokens at its own cursor (``greedy_decode_chunk``), updating
+        ``state`` in place; returns it."""
+        greedy_decode_chunk(
+            self.caption, state["captions"], state["done"], state["t"], state["k_caches"],
+            state["v_caches"], ctx["mem_kv"], ctx["caption_pad_mask"], self.seq_len,
+            self.eos_idx, self.pad_idx, self.max_gt, ctx["zeroed"], active_vid, chunk)
+        return state
+
+    @staticmethod
+    @torch.no_grad()
+    def merge_serve_slots(ctx, state, new_ctx, new_state, replace, groups: int):
+        """The slots where ``replace`` (B,) is True taken from (new_ctx,
+        new_state), the others from (ctx, state): a ``torch.where`` per
+        leaf, whose leading dim is B, N = B * groups, or (depth, N, ...) for
+        the caches. Returns new tensors; the inputs are left as they were,
+        so a failed admit leaves the resident pool intact."""
+        B = replace.shape[0]
+        rrow = replace.repeat_interleave(groups)
+
+        def mb(o, n):  # leading dim B
+            return torch.where(replace.view((B,) + (1,) * (o.dim() - 1)), n, o)
+
+        def mrow(o, n):  # leading dim N
+            return torch.where(rrow.view((rrow.shape[0],) + (1,) * (o.dim() - 1)), n, o)
+
+        def mcache(o, n):  # (depth, N, ...)
+            return torch.where(rrow.view((1, rrow.shape[0]) + (1,) * (o.dim() - 2)), n, o)
+
+        merged_ctx = {
+            "mem_kv": [(mb(k, nk), mb(v, nv))
+                       for (k, v), (nk, nv) in zip(ctx["mem_kv"], new_ctx["mem_kv"])],
+            "caption_pad_mask": mrow(ctx["caption_pad_mask"], new_ctx["caption_pad_mask"]),
+            "zeroed": (None if ctx["zeroed"] is None
+                       else mrow(ctx["zeroed"], new_ctx["zeroed"])),
+            **{k: mb(ctx[k], new_ctx[k]) for k in ("segments", "k", "scores", "valid")},
+        }
+        merged_state = {
+            "captions": mrow(state["captions"], new_state["captions"]),
+            "done": mrow(state["done"], new_state["done"]),
+            "t": mb(state["t"], new_state["t"]),
+            "k_caches": mcache(state["k_caches"], new_state["k_caches"]),
+            "v_caches": mcache(state["v_caches"], new_state["v_caches"]),
+        }
+        return merged_ctx, merged_state
 
 
 def build_model(cfg, vocab_size: int, pad_idx: int = 1, bos_idx: int = 2,

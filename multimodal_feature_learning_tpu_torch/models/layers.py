@@ -281,10 +281,10 @@ class UnimodalCaptionDecoderLayer(nn.Module):
     def incremental_pair(
         self,
         x: torch.Tensor,        # (N, 2, D): [commit at step, predict at step+1]
-        step: int,              # position being committed (row 0)
+        step,                   # position being committed (row 0): int or (N,)
         k_cache: torch.Tensor,  # (N, Tc, D), updated in place
         v_cache: torch.Tensor,
-        valid_len: int,         # attendable prefix length after the commit
+        valid_len,              # attendable prefix length after the commit: int or (N,)
         mem_k: torch.Tensor,
         mem_v: torch.Tensor,
         memory_padding_mask,
@@ -293,14 +293,23 @@ class UnimodalCaptionDecoderLayer(nn.Module):
     ):
         """One layer pass for two positions: row 0 writes its projected k/v
         into the cache at ``step`` and attends keys [0, valid_len), which
-        include itself; row 1 attends the same prefix. The caches are written
-        in place (the JAX version returns updated copies)."""
+        include itself; row 1 attends the same prefix. ``step`` and
+        ``valid_len`` are ints (the whole batch in step) or (N,) tensors (a
+        position per row: the continuous server's slots). The caches are
+        written in place (the JAX version returns updated copies)."""
         N = x.shape[0]
         Tc = k_cache.shape[1]
         kx, vx = self.self_attention.project_kv(x[:, :1], x[:, :1])
-        k_cache[:, step] = kx[:, 0]
-        v_cache[:, step] = vx[:, 0]
-        key_mask = (torch.arange(Tc, device=x.device) >= valid_len)[None].expand(N, Tc)
+        positions = torch.arange(Tc, device=x.device)
+        if isinstance(step, torch.Tensor):
+            rows = torch.arange(N, device=x.device)
+            k_cache[rows, step] = kx[:, 0]
+            v_cache[rows, step] = vx[:, 0]
+            key_mask = positions[None, :] >= valid_len[:, None]
+        else:
+            k_cache[:, step] = kx[:, 0]
+            v_cache[:, step] = vx[:, 0]
+            key_mask = (positions >= valid_len)[None].expand(N, Tc)
         sa = self.self_attention.attend(
             self.self_attention.project_q(x), k_cache, v_cache,
             key_padding_mask=key_mask,

@@ -10,5 +10,7 @@
 - ``bench_fused_decode``: ``forward_eval(batch, "serve")`` per decode
   backend, the arms interleaved;
 - ``onchip_decode_parity``: each fused decode backend's tokens against the
-  plain-op decode's, with trained weights.
+  plain-op decode's, with trained weights;
+- ``load_test_serve``: the serving CLI, static and continuous, over offered
+  rates and chunk sizes (its ``run()`` returns a row a point).
 """

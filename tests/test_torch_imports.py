@@ -34,6 +34,8 @@ def imported_top_levels(path: Path):
 def test_the_scan_covers_the_port():
     rel = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert "multimodal_feature_learning_tpu_torch/serve.py" in rel
+    assert "multimodal_feature_learning_tpu_torch/main.py" in rel
+    assert "multimodal_feature_learning_tpu_torch/tools/load_test_serve.py" in rel
     assert "multimodal_feature_learning_tpu_torch/models/dvc.py" in rel
     assert "chip_smoke.py" in rel
 

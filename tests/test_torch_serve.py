@@ -195,3 +195,137 @@ def test_entry_point_without_device_raises_on_cpu_host(monkeypatch):
 
     with pytest.raises(RuntimeError, match="CUDA"):
         build_model(torch_cfg_like(jcfg), VOCAB_SIZE)
+
+
+def served_batch(tmodel, feats, durations, B, transfer=None, **kw):
+    """forward_serve of the requests as the static server assembles them:
+    nearest-rescaled into a zero batch of B rows, durations 1 elsewhere."""
+    from multimodal_feature_learning_tpu_torch.data.anet import nearest_resize
+
+    T = tmodel.video_rescale_len
+    video = np.zeros((B, T, feats[0].shape[1]), np.float32)
+    dur = np.ones((B,), np.float32)
+    for i, (f, d) in enumerate(zip(feats, durations)):
+        if f is not None:
+            video[i], dur[i] = nearest_resize(f[None], T, axis=1)[0], d
+    video = torch.from_numpy(video)
+    if transfer is not None:
+        video = video.to(transfer).float()
+    return tmodel.forward_serve(video, torch.zeros((B, T), dtype=torch.bool),
+                                torch.from_numpy(dur), **kw)
+
+
+def assert_events_equal(events, ref, i):
+    k = int(ref["k"][i])
+    assert len(events) == k
+    for j, ev in enumerate(events):
+        assert ev["caption"] == ref["captions"][i, j].tolist()
+        assert ev["segment"] == (float(ref["segments"][i, j, 0]), float(ref["segments"][i, j, 1]))
+        assert ev["score"] == float(ref["scores"][i, j])
+
+
+def test_server_sheds_beyond_max_queue(pair):
+    """With the worker busy on one request and max_queue=2 waiting, the next
+    submit is refused and counted; the three taken are all answered."""
+    import threading
+
+    jcfg, _, _, tmodel = pair
+    feats = np.random.default_rng(4).normal(size=(20, jcfg.dvc.detr.feature_dim)) \
+        .astype(np.float32)
+    server = DVCServer(tmodel, batch_size=1, max_wait_ms=0.0, max_queue=2)
+    entered, release = threading.Event(), threading.Event()
+    real_step = server._step
+
+    def held_step(video, durations):
+        entered.set()
+        assert release.wait(timeout=60)
+        return real_step(video, durations)
+
+    server._step = held_step
+    try:
+        futs = [server.submit(feats, 30.0)]
+        assert entered.wait(timeout=60)
+        futs += [server.submit(feats, 30.0) for _ in range(2)]
+        with pytest.raises(RuntimeError, match="max_queue=2"):
+            server.submit(feats, 30.0)
+        assert server.stats["shed"] == 1
+        release.set()
+        answers = [f.result(timeout=60) for f in futs]
+    finally:
+        release.set()
+        server.close()
+    assert answers[0] == answers[1] == answers[2] and len(answers[0]) >= 1
+    assert server.stats["dispatches"] == 3 and server.stats["shed"] == 1
+
+
+def test_ingest_failure_fails_only_its_request(pair):
+    """A request whose ingest raises fails its own future; the rest of its
+    batch is served on a zero slot in its place, as forward_serve answers
+    that batch."""
+    jcfg, _, _, tmodel = pair
+    rng = np.random.default_rng(5)
+    feats = [rng.normal(size=(n, jcfg.dvc.detr.feature_dim)).astype(np.float32)
+             for n in (20, 13, 30)]
+    durations = (30.0, 40.0, 50.0)
+    server = DVCServer(tmodel, batch_size=4, max_wait_ms=500.0)
+    real_ingest = server._ingest
+
+    def ingest(f):
+        if f.shape[0] == 13:
+            raise ValueError("undecodable features")
+        return real_ingest(f)
+
+    server._ingest = ingest
+    with server:
+        futs = [server.submit(f, d) for f, d in zip(feats, durations)]
+        with pytest.raises(ValueError, match="undecodable"):
+            futs[1].result(timeout=60)
+        answers = {i: futs[i].result(timeout=60) for i in (0, 2)}
+    assert server.stats["dispatches"] == 1 and server.stats["errors"] == 1
+    ref = served_batch(tmodel, [feats[0], None, feats[2]], durations, 4)
+    for i, events in answers.items():
+        assert_events_equal(events, ref, i)
+
+
+def test_rank_class_ranks_by_stability_on_the_sparse_family(pair):
+    """The sparse family has no class head, so rank="class" falls back to
+    stability, as JAX's does; an unknown rank raises."""
+    jcfg, jmodel, params, tmodel = pair
+    video, mask, durations = serve_inputs(jcfg)
+    args = (torch.from_numpy(video), torch.from_numpy(mask), torch.from_numpy(durations))
+    got = tmodel.forward_serve(*args, rank="class")
+    stability = tmodel.forward_serve(*args)
+    for k in got:
+        assert torch.equal(got[k], stability[k]), k
+    ref = jmodel.forward_serve(params, video, mask, durations, rank="class")
+    np.testing.assert_array_equal(got["captions"].numpy(), np.asarray(ref["captions"]))
+    np.testing.assert_array_equal(got["k"].numpy(), np.asarray(ref["k"]))
+    np.testing.assert_allclose(got["scores"].numpy(), np.asarray(ref["scores"]), rtol=0, atol=1e-4)
+    with pytest.raises(ValueError, match="rank"):
+        tmodel.forward_serve(*args, rank="confidence")
+
+
+@pytest.mark.parametrize("option", ["bf16_transfer", "faster_eval"])
+def test_server_options_answer_like_forward_serve(pair, option):
+    """transfer_dtype="bfloat16" answers forward_serve of the bf16-cast
+    features; faster_eval answers forward_serve(faster_eval=True)."""
+    jcfg, _, _, tmodel = pair
+    rng = np.random.default_rng(6)
+    feats = [rng.normal(size=(n, jcfg.dvc.detr.feature_dim)).astype(np.float32)
+             for n in (24, 40)]
+    durations = (25.0, 70.0)
+    if option == "bf16_transfer":
+        kw, ref_kw = {"transfer_dtype": "bfloat16"}, {"transfer": torch.bfloat16}
+    else:
+        kw, ref_kw = {"faster_eval": True}, {"faster_eval": True}
+    with DVCServer(tmodel, batch_size=2, max_wait_ms=500.0, **kw) as server:
+        futs = [server.submit(f, d) for f, d in zip(feats, durations)]
+        answers = [f.result(timeout=60) for f in futs]
+    ref = served_batch(tmodel, feats, durations, 2, **ref_kw)
+    for i, events in enumerate(answers):
+        assert_events_equal(events, ref, i)
+    if option == "bf16_transfer":  # the rounding reaches the answers
+        plain = served_batch(tmodel, feats, durations, 2)
+        assert not torch.equal(ref["scores"], plain["scores"])
+    with pytest.raises(ValueError, match="transfer_dtype"):
+        DVCServer(tmodel, transfer_dtype="float16")

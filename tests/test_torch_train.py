@@ -238,6 +238,46 @@ def test_a_step_after_save_and_load_equals_the_uninterrupted_step(port_setup, tm
         assert torch.equal(p, q), n
 
 
+def test_step_logger_gets_the_filtered_log(port_setup):
+    """The step logger gets the metrics the epoch averages, without the
+    auxiliary ``_0`` .. ``_enc_`` terms the step computes (JAX
+    ``engine/train.py`` hands its logger the same filtered ``log``)."""
+    tcfg, model, criterion, weight_dict, _ = port_setup
+    state = create_train_state(tcfg, copy.deepcopy(model), STEPS_PER_EPOCH)
+    step = make_train_step(criterion, weight_dict, seed=0)
+    computed, logged = [], []
+
+    def recording_step(state, batch, **kw):
+        metrics = step(state, batch, **kw)
+        computed.append(set(metrics))
+        return metrics
+
+    batches = synthetic_batches(tcfg, 2, VOCAB_SIZE, seed=2, num_batches=2)
+    _, stats = train_one_epoch(recording_step, state, batches, epoch=0, print_freq=0,
+                               step_logger=lambda log, step: logged.append((step, log)))
+    aux = {k for k in computed[0] if any(f"_{i}" in k for i in range(10)) or "_enc_" in k}
+    assert {"loss_caption_0", "loss_bbox_enc_0"} <= aux
+    assert [s for s, _ in logged] == [1, 2]
+    for _, log in logged:
+        assert set(log) == computed[0] - aux == set(stats)
+        assert all(isinstance(v, float) for v in log.values())
+
+
+def test_bf16_transfer_rounds_only_the_float_arrays(port_setup):
+    """``transfer_dtype`` bfloat16: the float arrays arrive as f32 holding
+    their bf16 roundings, the others unchanged."""
+    tcfg = port_setup[0]
+    batch = next(synthetic_batches(tcfg, 2, VOCAB_SIZE, seed=3))
+    plain = batch_to_device(batch, "cpu")
+    sent = batch_to_device(batch, "cpu", torch.bfloat16)
+    assert set(sent) == set(plain)
+    for k, v in plain.items():
+        assert sent[k].dtype == v.dtype, k
+        want = v.to(torch.bfloat16).float() if v.is_floating_point() else v
+        assert torch.equal(sent[k], want), k
+    assert not torch.equal(sent["video_tensor"], plain["video_tensor"])
+
+
 def test_train_one_epoch_over_synthetic_batches(port_setup):
     tcfg, model, criterion, weight_dict, _ = port_setup
     state = create_train_state(tcfg, copy.deepcopy(model), STEPS_PER_EPOCH)
