@@ -26,7 +26,9 @@ Phases, each printing one line with its wall seconds:
    probe's kernel (K5, x + 1) in f32 and bf16, bitwise at the probe's shape,
    at 1,000,003 elements, on a misaligned view and at 2^26 elements, eager
    and replayed from a CUDA graph beside torch.add (in turns), and at 2^26
-   elements against the HBM bound;
+   elements against the HBM bound. K2 and K3/K4 are held in bf16 too, K2
+   at the same three calls and K3/K4 in every case above, each against its
+   plain bf16 version, with its bf16 bound;
 4. model: the flagship sparse DVC model at full width (d_model 512, 6+6
    transformer layers, 6 caption layers, vocab 6563) on the card, carrying
    the trained weights of snapshots/conv_e79.npz, loaded strictly;
@@ -97,7 +99,28 @@ Phases, each printing one line with its wall seconds:
    --resume: three epochs logged with finite losses, the resume at epoch 2,
    K2 launched 12 times a train step and K1 12 times a train step and an
    eval batch, the checkpoints written; seconds and examples/s an epoch,
-   peak memory.
+   peak memory;
+21. serve_bf16 (after check_fused): conv_e79 built with compute_dtype
+   "bfloat16" (f32 masters, a bf16 copy in every forward), the 48 requests
+   through DVCServer with the plain-op decode and the fused decode (grid
+   "video", grid "batch", int8 K/V): videos/s, latency, peak memory,
+   launches (K1 12 times a dispatch, its bf16-value route on the encoder's
+   and the decoder's calls and the schedules chosen; the fused kernel once
+   per decode step), and the agreement with the f32 answers of the same
+   arm (k equal share, token agreement, rows equal);
+22. check_fused_bf16: check_fused's comparison on the bf16 model (the
+   fused decode, both grids and int8, against the plain-op decode, all
+   bf16: k and segments equal, at least 90% of caption tokens);
+23. serve_continuous_bf16: serve_continuous on the bf16 model, against
+   serve_bf16's plain-op answers;
+24. eval_bf16 (after eval_loop_check): evaluate_arms on the bf16 model,
+   each arm's loss beside the f32 model's, and one arm of the evaluation
+   loop (one_by_one, plain-op) from files to scores;
+25. train_bf16 (after train): the train phase with compute_dtype
+   "bfloat16", with f32 masters and with the fold (master_dtype
+   "bfloat16"): K2 exactly 12 times a step, median step ms, peak memory,
+   each step's loss beside the f32 run's. The kernel lines of K2 and K3/K4
+   (phase 3) hold their bf16 routes against their plain bf16 versions.
 
 Then one JSON line of kernel measurements and, as the last line, a JSON
 object naming the device. Any failure exits non-zero without that line, as
@@ -116,11 +139,12 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SNAPSHOT = os.path.join(ROOT, "snapshots", "conv_e79.npz")
 
-# f32 peak outside the tensor cores, dense TF32 tensor-core peak and memory
-# rate of an H100 SXM at 700 W (NVIDIA's data sheet); the bounds below are
-# stated against these
+# f32 peak outside the tensor cores, dense TF32 and bf16 tensor-core peaks
+# and memory rate of an H100 SXM at 700 W (NVIDIA's data sheet); the bounds
+# below are stated against these
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
 N_REQUESTS = 48
@@ -215,7 +239,7 @@ def msda_bwd_bound_ms(value, shapes, loc, aw, g):
     Dh = value.shape[3]
     value_bytes = msda_value_rows(shapes, loc) * Dh * value.element_size()
     nbytes = value_bytes + sum(t.numel() * t.element_size() for t in (g, loc, aw)) \
-        + value.numel() * 4 + 2 * loc.numel() * 4
+        + value.numel() * value.element_size() + 2 * loc.numel() * 4
     flops = loc.numel() * (8 * Dh + 15)
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
     return (1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"),
@@ -249,11 +273,19 @@ def msda_calls(model_dims):
             ("long_pyramid", 2, q_long, long_shapes))
 
 
+# K2's tolerance, x max |ref| of each output: f32 sums in another order
+# (a row's entries are summed in an order that changes from run to run);
+# in bf16 dvalue is rounded once from those f32 sums, which may round to
+# either neighbour: one bf16 step at its largest magnitude
+BWD_TOL = {"float32": {"dvalue": 1e-5, "dloc": 1e-5, "daw": 1e-5},
+           "bfloat16": {"dvalue": 2.0 ** -7, "dloc": 1e-5, "daw": 1e-5}}
+
+
 def check_msda_bwd(model_dims):
     """Phase 3: the MSDA backward kernel (K2) against the plain backward at
-    the training path's shapes and on the long pyramid, f32: each of
-    dvalue, dloc and daw within 1e-5 x its max |ref| (a row's entries are
-    summed in an order that changes from run to run). Then the autograd
+    the training path's shapes and on the long pyramid, value and output
+    gradient in f32 and in bf16 (loc and aw f32, as the model gives them):
+    each of dvalue, dloc and daw within BWD_TOL x its max |ref|. Then the autograd
     Function (K1 forward, K2 backward) against autograd through the plain
     core at a small size whose coordinates keep 0.01 from every whole
     token, where the two differentiate alike: rel 1e-5."""
@@ -266,36 +298,42 @@ def check_msda_bwd(model_dims):
 
     _, H, Dh, _, P = model_dims[:5]
     cases = []
-    for where, B, Q, shapes in msda_calls(model_dims):
-        value, loc, aw = msda_inputs(B, Q, H, Dh, shapes, P, torch.float32, seed=Q + 1)
-        g = torch.randn((B, Q, H * Dh), generator=torch.Generator(device="cuda").manual_seed(Q),
-                        device="cuda")
-        got = msda.MSDA_BWD(value, shapes, loc, aw, g)
-        ref = ms_deform_attn_core_backward(value, shapes, loc, aw, g)
-        torch.cuda.synchronize()
-        errs = {}
-        for name, a, b in zip(("dvalue", "dloc", "daw"), got, ref):
-            err = (a - b).abs().max().item()
-            scale = b.abs().max().item()
-            if a.shape != b.shape or not err <= 1e-5 * scale:
-                raise AssertionError(
-                    f"MSDA backward kernel disagrees with the plain backward ({where}, "
-                    f"{name}): max abs err {err} > 1e-5 x {scale}")
-            errs[name] = {"max_abs_err": err, "max_abs_ref": scale}
-        plan = msda.msda_bwd_plan(shapes, B, H, Dh, Q, P)
-        times = msda_device_times(lambda: msda.MSDA_BWD(value, shapes, loc, aw, g), "msda_bwd")
-        plain_ms = time_cuda(lambda: ms_deform_attn_core_backward(value, shapes, loc, aw, g),
-                             iters=10)
-        bound_ms, bound_by, nbytes = msda_bwd_bound_ms(value, shapes, loc, aw, g)
-        cases.append({
-            "call": where, "B": B, "Q": Q, "shapes": list(shapes), "dtype": "float32",
-            "schedule": plan.schedule, "plan": vars(plan), "errors": errs,
-            "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
-            **times, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "bytes": nbytes,
-            "library_ms": None,  # no single PyTorch call computes the MSDA backward
-        })
-        del value, loc, aw, g, got, ref
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        for where, B, Q, shapes in msda_calls(model_dims):
+            value, loc, aw = msda_inputs(B, Q, H, Dh, shapes, P, dtype, seed=Q + 1)
+            g = torch.randn((B, Q, H * Dh),
+                            generator=torch.Generator(device="cuda").manual_seed(Q),
+                            device="cuda").to(dtype)
+            got = msda.MSDA_BWD(value, shapes, loc, aw, g)
+            ref = ms_deform_attn_core_backward(value, shapes, loc, aw, g)
+            torch.cuda.synchronize()
+            errs = {}
+            for name, a, b in zip(("dvalue", "dloc", "daw"), got, ref):
+                tol = BWD_TOL[dname][name]
+                err = (a.float() - b.float()).abs().max().item()
+                scale = b.float().abs().max().item()
+                if a.shape != b.shape or a.dtype != b.dtype or not err <= tol * scale:
+                    raise AssertionError(
+                        f"MSDA backward kernel disagrees with the plain backward ({where}, "
+                        f"{dname}, {name}): max abs err {err} > {tol} x {scale}, "
+                        f"{a.dtype} against {b.dtype}")
+                errs[name] = {"max_abs_err": err, "max_abs_ref": scale, "tolerance": tol * scale}
+            plan = msda.msda_bwd_plan(shapes, B, H, Dh, Q, P, itemsize=value.element_size())
+            times = msda_device_times(lambda: msda.MSDA_BWD(value, shapes, loc, aw, g),
+                                      "msda_bwd")
+            plain_ms = time_cuda(
+                lambda: ms_deform_attn_core_backward(value, shapes, loc, aw, g), iters=10)
+            bound_ms, bound_by, nbytes = msda_bwd_bound_ms(value, shapes, loc, aw, g)
+            cases.append({
+                "call": where, "B": B, "Q": Q, "shapes": list(shapes), "dtype": dname,
+                "schedule": plan.schedule, "plan": vars(plan), "errors": errs,
+                "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+                **times, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "bytes": nbytes,
+                "library_ms": None,  # no single PyTorch call computes the MSDA backward
+            })
+            del value, loc, aw, g, got, ref
 
     # the Function against autograd through the plain core
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -362,17 +400,27 @@ def check_msda(model_dims):
 
 
 FUSED_STEPS = (0, 9, 18)  # decode steps at which the fused kernel is checked
-FUSED_TOL = 1e-4          # relative to max |ref| of x_out and of the committed rows
+# relative to max |ref| of x_out and of the committed rows. f32: 3xTF32
+# against f32 products, sums in another order. bf16: the kernel and the
+# plain version round to bf16 (8 significant bits, 2^-8 relative) at the
+# same points, but sum in other orders and the kernel rounds the
+# cross-attention's weights per chunk of 128 columns before it divides by
+# the row's sum; a value one bf16 step apart moves on through 6 layers and
+# 18 LayerNorms (0.02 of max |ref| on an NVIDIA H100 80GB HBM3 at 700 W):
+# held to 0.05
+FUSED_TOL = {"float32": 1e-4, "bfloat16": 0.05}
 
 
-def fused_decode_inputs(dims, bias_col: bool, kv_mode: str, seed: int):
+def fused_decode_inputs(dims, bias_col: bool, kv_mode: str, seed: int, dtype=None):
     """Inputs of one fused decode step at ``dims`` on the card, from a seed:
     weights of the scale a trained layer has, memory K/V projected from a
     random memory, caches full of random rows (the kernel may read only the
     positions < valid_len). Event rows take windows of the S tokens, as the
     crop mask makes them; with the bias column, a random context mask blocks
     positions and the crop windows are the zeroed mask. Event 0 of video 0
-    has every position blocked."""
+    has every position blocked. With ``dtype`` bf16 the same draws are
+    rounded to bf16: x, the caches and the weights, and the memory, whose
+    K/V are projected in bf16 as the bf16 decode projects them."""
     import torch
 
     from multimodal_feature_learning_tpu_torch.ops import fused_decode as fd
@@ -394,8 +442,10 @@ def fused_decode_inputs(dims, bias_col: bool, kv_mode: str, seed: int):
             w[name] = 1.0 + randn(depth, 1, width, scale=0.1)
         else:
             w[name] = randn(depth, 1, width, scale=0.1)
+    dtype = dtype or torch.float32
+    w = {k: v.to(dtype).contiguous() for k, v in w.items()}
     Sp = fd.padded_len(S)
-    mem_k, mem_v = fd.stack_memory_kv(w, randn(B, S, D), Sp)
+    mem_k, mem_v = fd.stack_memory_kv(w, randn(B, S, D).to(dtype), Sp)
     k_scales = v_scales = None
     if kv_mode == "int8":
         mem_k, k_scales = fd.quantize_kv_int8(mem_k)
@@ -413,8 +463,8 @@ def fused_decode_inputs(dims, bias_col: bool, kv_mode: str, seed: int):
         pad, zeroed = crop, None
         pad[0] = True
     mask_i8, log_m = fd.decode_masks(pad, zeroed, B, G, Sp)
-    return {"x": randn(B, 2 * G, D), "k_caches": randn(depth, B, Tc * G, D),
-            "v_caches": randn(depth, B, Tc * G, D), "mem_k": mem_k, "mem_v": mem_v,
+    return {"x": randn(B, 2 * G, D).to(dtype), "k_caches": randn(depth, B, Tc * G, D).to(dtype),
+            "v_caches": randn(depth, B, Tc * G, D).to(dtype), "mem_k": mem_k, "mem_v": mem_v,
             "k_scales": k_scales, "v_scales": v_scales, "mask_i8": mask_i8,
             "log_m": log_m, "weights": w}
 
@@ -426,10 +476,11 @@ def fused_decode_bound_ms(inp, dims, valid_len: int):
     written once, at 3.35 TB/s; against the operations of the products (two
     per multiply-add: per layer the q, k, v (commit rows), o, q', o'
     projections, the MLP, and both attentions over the keys each row reads,
-    valid_len own-event keys and Sp memory columns) done three times over,
-    as 3xTF32 does, at the TF32 tensor-core peak. Returns (bound ms, what
-    bounds it, bytes, flops, and for the record the bound of the same
-    operations once in f32 on the CUDA cores)."""
+    valid_len own-event keys and Sp memory columns): in f32 done three times
+    over, as 3xTF32 does, at the TF32 tensor-core peak; in bf16 once, at the
+    bf16 tensor-core peak. Returns (bound ms, what bounds it, bytes, flops,
+    and for the record the bound of the same operations once in f32 on the
+    CUDA cores)."""
     B, G, D, H, depth, Tc, S, F = dims
     R, Sp = 2 * G, inp["mem_k"].shape[2]
     M = B * R
@@ -441,13 +492,15 @@ def fused_decode_bound_ms(inp, dims, valid_len: int):
     nbytes += sum(size(inp[k]) for k in ("mem_k", "mem_v", "k_scales", "v_scales",
                                           "mask_i8", "log_m"))
     nbytes += 2 * size(inp["x"])
-    row = D * 4
+    row = D * inp["k_caches"].element_size()
     nbytes += 2 * depth * B * (valid_len - 1) * G * row  # cache rows read
     nbytes += 2 * depth * B * G * row                    # committed rows written
     macs = M * D * D * 4 + 2 * B * G * D * D + 2 * M * D * F \
         + 2 * M * valid_len * D + 2 * M * Sp * D
     flops = 2 * depth * macs
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, 3 * flops / PEAK_TF32_FLOPS
+    bf16 = inp["x"].element_size() == 2
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = flops / PEAK_BF16_FLOPS if bf16 else 3 * flops / PEAK_TF32_FLOPS
     f32_simt_ms = 1e3 * max(t_bytes, flops / PEAK_F32_FLOPS)
     return (1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"),
             nbytes, flops, f32_simt_ms)
@@ -456,10 +509,10 @@ def fused_decode_bound_ms(inp, dims, valid_len: int):
 def check_fused_decode(dims, steps_at=FUSED_STEPS):
     """Phase 3: the fused decode kernel (K3/K4) against its plain version on
     the card, at the serving path's shapes: grids "video" and "batch" x memory
-    K/V dense and int8 x bias column on and off, at steps 0, 9 and 18. The
-    kernel and the plain version start from the same caches; x_out and the
-    committed cache rows must agree within FUSED_TOL x max |ref|, and every
-    other cache row must be left exactly as it was."""
+    K/V dense and int8 x bias column on and off, at steps 0, 9 and 18, in
+    f32 and in bf16. The kernel and the plain version start from the same
+    caches; x_out and the committed cache rows must agree within FUSED_TOL
+    x max |ref|, and every other cache row must be left exactly as it was."""
     import torch
 
     from multimodal_feature_learning_tpu_torch.ops import fused_decode as fd
@@ -467,63 +520,66 @@ def check_fused_decode(dims, steps_at=FUSED_STEPS):
     B, G, D, H, depth, Tc, S, F = dims
     lines = []
     seed = 0
-    for grid in ("video", "batch"):
-        for kv_mode in ("dense", "int8"):
-            for bias_col in (False, True):
-                seed += 1
-                inp = fused_decode_inputs(dims, bias_col, kv_mode, seed)
-                steps = []
-                for step in steps_at:
-                    kw = dict(G=G, num_heads=H, has_bias_col=bias_col)
-                    args = lambda kc, vc: (inp["x"], kc, vc, step, step + 1, inp["mem_k"],  # noqa: E731
-                                           inp["mem_v"], inp["k_scales"], inp["v_scales"],
-                                           inp["mask_i8"], inp["log_m"], inp["weights"])
-                    kc0, vc0 = inp["k_caches"], inp["v_caches"]
-                    ref, rkc, rvc = fd.fused_decode_step_plain(*args(kc0.clone(), vc0.clone()), **kw)
-                    got, gkc, gvc = fd.FUSED_DECODE[grid](*args(kc0.clone(), vc0.clone()), **kw)
-                    torch.cuda.synchronize()
-                    rows = slice(step * G, (step + 1) * G)
-                    errs = {}
-                    for name, a, b in (("x_out", got, ref),
-                                       ("k_commit", gkc[:, :, rows], rkc[:, :, rows]),
-                                       ("v_commit", gvc[:, :, rows], rvc[:, :, rows])):
-                        err = (a - b).abs().max().item()
-                        scale = b.abs().max().item()
-                        if not (torch.isfinite(a).all() and err <= FUSED_TOL * scale):
-                            raise AssertionError(
-                                f"fused decode kernel disagrees with the plain version "
-                                f"({grid}, {kv_mode}, bias {bias_col}, step {step}, {name}): "
-                                f"max abs err {err} > {FUSED_TOL} x {scale}")
-                        errs[name] = {"max_abs_err": err, "max_abs_ref": scale}
-                    for name, a, b in (("k_caches", gkc, kc0), ("v_caches", gvc, vc0)):
-                        a, b = a.clone(), b.clone()
-                        a[:, :, rows] = b[:, :, rows] = 0
-                        if not torch.equal(a, b):
-                            raise AssertionError(f"the fused decode kernel wrote {name} rows "
-                                                 f"outside the commit rows of step {step}")
-                    kc, vc = kc0.clone(), vc0.clone()
-                    ms = time_cuda(lambda: fd.FUSED_DECODE[grid](*args(kc, vc), **kw))
-                    plain_ms = time_cuda(lambda: fd.fused_decode_step_plain(*args(kc, vc), **kw),
-                                         iters=10)
-                    bound_ms, bound_by, nbytes, flops, simt_ms = fused_decode_bound_ms(
-                        inp, dims, step + 1)
-                    steps.append({
-                        "step": step, "errors": errs,
-                        "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
-                        "tolerance": FUSED_TOL * errs["x_out"]["max_abs_ref"],
-                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "bound_f32_simt_ms": simt_ms,
-                        "bytes": nbytes, "flops": flops})
-                mid = steps[len(steps) // 2]
-                lines.append({
-                    "grid": grid, "kv": kv_mode, "bias_col": bias_col,
-                    "batch_tile": 1 if grid == "video" else fd.batch_tile_for(B),
-                    "max_abs_err": max(c["max_abs_err"] for c in steps),
-                    "ms": mid["ms"], "plain_ms": mid["plain_ms"], "bound_ms": mid["bound_ms"],
-                    "bound_by": mid["bound_by"], "bound_f32_simt_ms": mid["bound_f32_simt_ms"],
-                    "library_ms": None,  # no single PyTorch call computes a decode step
-                    "steps": steps})
-                del inp
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        tol = FUSED_TOL[dname]
+        for grid, kv_mode, bias_col in ((g, kv, bias) for g in ("video", "batch")
+                                        for kv in ("dense", "int8") for bias in (False, True)):
+            seed += 1
+            inp = fused_decode_inputs(dims, bias_col, kv_mode, seed, dtype)
+            steps = []
+            for step in steps_at:
+                kw = dict(G=G, num_heads=H, has_bias_col=bias_col)
+                args = lambda kc, vc: (inp["x"], kc, vc, step, step + 1, inp["mem_k"],  # noqa: E731
+                                       inp["mem_v"], inp["k_scales"], inp["v_scales"],
+                                       inp["mask_i8"], inp["log_m"], inp["weights"])
+                kc0, vc0 = inp["k_caches"], inp["v_caches"]
+                ref, rkc, rvc = fd.fused_decode_step_plain(*args(kc0.clone(), vc0.clone()), **kw)
+                got, gkc, gvc = fd.FUSED_DECODE[grid](*args(kc0.clone(), vc0.clone()), **kw)
+                torch.cuda.synchronize()
+                rows = slice(step * G, (step + 1) * G)
+                errs = {}
+                for name, a, b in (("x_out", got, ref),
+                                   ("k_commit", gkc[:, :, rows], rkc[:, :, rows]),
+                                   ("v_commit", gvc[:, :, rows], rvc[:, :, rows])):
+                    err = (a.float() - b.float()).abs().max().item()
+                    scale = b.float().abs().max().item()
+                    if not (a.dtype == b.dtype == dtype and torch.isfinite(a).all()
+                            and err <= tol * scale):
+                        raise AssertionError(
+                            f"fused decode kernel disagrees with the plain version "
+                            f"({dname}, {grid}, {kv_mode}, bias {bias_col}, step {step}, "
+                            f"{name}): max abs err {err} > {tol} x {scale}, {a.dtype}")
+                    errs[name] = {"max_abs_err": err, "max_abs_ref": scale}
+                for name, a, b in (("k_caches", gkc, kc0), ("v_caches", gvc, vc0)):
+                    a, b = a.clone(), b.clone()
+                    a[:, :, rows] = b[:, :, rows] = 0
+                    if not torch.equal(a, b):
+                        raise AssertionError(f"the fused decode kernel wrote {name} rows "
+                                             f"outside the commit rows of step {step}")
+                kc, vc = kc0.clone(), vc0.clone()
+                ms = time_cuda(lambda: fd.FUSED_DECODE[grid](*args(kc, vc), **kw))
+                plain_ms = time_cuda(lambda: fd.fused_decode_step_plain(*args(kc, vc), **kw),
+                                     iters=10)
+                bound_ms, bound_by, nbytes, flops, simt_ms = fused_decode_bound_ms(
+                    inp, dims, step + 1)
+                steps.append({
+                    "step": step, "errors": errs,
+                    "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+                    "tolerance": tol * errs["x_out"]["max_abs_ref"],
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "bound_f32_simt_ms": simt_ms,
+                    "bytes": nbytes, "flops": flops})
+            mid = steps[len(steps) // 2]
+            lines.append({
+                "dtype": dname, "grid": grid, "kv": kv_mode, "bias_col": bias_col,
+                "batch_tile": 1 if grid == "video" else fd.batch_tile_for(B),
+                "max_abs_err": max(c["max_abs_err"] for c in steps),
+                "ms": mid["ms"], "plain_ms": mid["plain_ms"], "bound_ms": mid["bound_ms"],
+                "bound_by": mid["bound_by"], "bound_f32_simt_ms": mid["bound_f32_simt_ms"],
+                "library_ms": None,  # no single PyTorch call computes a decode step
+                "steps": steps})
+            del inp
     return lines
 
 
@@ -535,22 +591,23 @@ def fused_stage_breakdown(dims):
     cross-attention as its chunk stage and the combine inside co_proj), the
     mean over the layers, the closing LayerNorm, and the phases of one
     chunk unit, for each grid, at step 9 with dense K/V and no bias
-    column."""
+    column; and for the bf16 step, grid "video" ("video_bf16")."""
     import torch
 
     from multimodal_feature_learning_tpu_torch.ops import fused_decode as fd
 
     B, G, D, H, depth, Tc, S, F = dims
-    inp = fused_decode_inputs(dims, False, "dense", seed=1)
     out = {}
-    for grid in ("video", "batch"):
+    for name, grid, dtype in (("video", "video", torch.float32), ("batch", "batch", torch.float32),
+                              ("video_bf16", "video", torch.bfloat16)):
+        inp = fused_decode_inputs(dims, False, "dense", seed=1, dtype=dtype)
         kernel = fd.FusedDecodeKernel(grid, "", flags=fd.STAGE_TIMING_FLAGS)
         for _ in range(3):
             kernel(inp["x"], inp["k_caches"], inp["v_caches"], 9, 10, inp["mem_k"],
                    inp["mem_v"], None, None, inp["mask_i8"], inp["log_m"], inp["weights"],
                    G=G, num_heads=H, has_bias_col=False)
         torch.cuda.synchronize()
-        out[grid] = kernel.stage_us(depth)
+        out[name] = kernel.stage_us(depth)
     return out
 
 
@@ -642,16 +699,19 @@ def check_probe_add():
     return cases
 
 
-def build_flagship(device):
+def build_flagship(device, compute_dtype: str = "float32"):
     """Full-width flagship model on ``device`` with the trained weights of
-    snapshots/conv_e79.npz, loaded strictly. conv_e79 was trained without
-    the differentiable context mask (the snapshot holds no context_mask
-    parameters), so it runs without it and without the contexts loss."""
+    snapshots/conv_e79.npz, loaded strictly, in ``compute_dtype`` (the
+    config's: f32 masters, bf16 copies in every forward). conv_e79 was
+    trained without the differentiable context mask (the snapshot holds no
+    context_mask parameters), so it runs without it and without the
+    contexts loss."""
     from multimodal_feature_learning_tpu_torch.config import load_config, recompute_losses
     from multimodal_feature_learning_tpu_torch.models.dvc import build_model
     from multimodal_feature_learning_tpu_torch.utils.weights import load_flax_params, load_npz
 
     cfg = load_config()
+    cfg.compute_dtype = compute_dtype
     cfg.use_differentiable_mask = False
     recompute_losses(cfg)  # labels, segments, captions, mask_prediction
     flat = load_npz(SNAPSHOT)
@@ -1041,15 +1101,19 @@ def check_results(cfg, model, requests, results, compare_cpu: bool = True):
                                                  cpu_results, "GPU against CPU serving")}
 
 
-def check_fused(cfg, model, requests):
+def check_fused(cfg, model, requests, compare_cpu: bool = True,
+                min_token_agreement: float = 0.0):
     """Phase 8: the first BATCH requests as one batch through forward_serve
     with the fused decode (both grids), with the plain-op decode, and with
-    int8 memory K/V, all on the card, and the fused decode on the port's CPU
-    path for the first N_CHECK videos. On the card k and segments are equal
-    (the proposal half is the same); the caption rows served (j < k) of the
-    fused decode are at least 90% identical to the plain-op decode's and to
-    the CPU path's (f32 sums in another order can flip a near-tie argmax,
-    which changes the rest of that caption). A row whose every memory
+    int8 memory K/V, all on the card, and, with ``compare_cpu``, the fused
+    decode on the port's CPU path for the first N_CHECK videos. On the card
+    k and segments are equal (the proposal half is the same); the caption
+    rows served (j < k) of the fused decode are at least 90% identical to
+    the plain-op decode's and to the CPU path's (f32 sums in another order
+    can flip a near-tie argmax, which changes the rest of that caption).
+    With ``min_token_agreement`` (the bf16 model, whose two decode paths
+    round at other places) their tokens must agree at least that often
+    instead of their rows. A row whose every memory
     position is blocked is left out of the comparison with the plain-op
     decode: there the fused step averages V over the Sp padded columns, as
     the TPU kernel does, and the plain-op decode over the S columns, as
@@ -1101,9 +1165,9 @@ def check_fused(cfg, model, requests):
                 and torch.equal(fused["segments"], plain["segments"])):
             raise AssertionError(f"fused ({grid}) and plain-op serving differ in k or segments")
         same, rows, tokens = agreement(fused, plain, skip=blocked_rows)
-        if same < 0.9 * rows:
-            raise AssertionError(f"fused ({grid}) decode: {same}/{rows} caption rows equal "
-                                 f"to the plain-op decode's")
+        if (tokens < min_token_agreement) if min_token_agreement else same < 0.9 * rows:
+            raise AssertionError(f"fused ({grid}) decode: {same}/{rows} caption rows and "
+                                 f"{tokens:.4f} of tokens equal to the plain-op decode's")
         report[grid] = {"caption_rows_equal_to_plain": same, "caption_rows": rows,
                         "token_agreement_with_plain": tokens,
                         "all_served_rows_equal_to_plain": agreement(fused, plain)[0]}
@@ -1112,6 +1176,13 @@ def check_fused(cfg, model, requests):
     same_vb, _, _ = agreement(video_fused, fused)
     int8 = run(model, "fused", "video", "int8")
     same8, rows8, tokens8 = agreement(int8, video_fused)
+    int8_plain = agreement(int8, plain, skip=blocked_rows)
+    report["int8_vs_plain"] = {"caption_rows_equal": int8_plain[0],
+                               "caption_rows": int8_plain[1], "token_agreement": int8_plain[2]}
+    if not compare_cpu:
+        return {"videos": BATCH, **report, "video_vs_batch_rows_equal": same_vb,
+                "int8_vs_dense": {"caption_rows_equal": same8, "caption_rows": rows8,
+                                  "token_agreement": tokens8}}
 
     cpu_model = copy.deepcopy(model).cpu()
     cpu = run(cpu_model, "fused", n=N_CHECK)
@@ -1491,6 +1562,57 @@ def score_summary(scores: dict) -> dict:
     return {k: scores[k] for k in keys}
 
 
+def world_cfg(cfg, overrides: dict):
+    """A copy of ``cfg`` pointed at the evaluation world, batch BATCH."""
+    import copy
+
+    from multimodal_feature_learning_tpu_torch.config import apply_overrides
+
+    cfg = apply_overrides(copy.deepcopy(cfg), [f"{k}={v}" for k, v in overrides.items()])
+    cfg.batch_size = BATCH
+    return cfg
+
+
+def eval_loop_arm(cfg, model, impl: str):
+    """One arm of the evaluation loop: the world's val split through
+    evaluate() with one_by_one and the ``impl`` decode on ``model``, scored.
+    Every kernel's count is set to 0 just before and read just after.
+    Returns (the arm's record, the submission)."""
+    import random
+
+    from multimodal_feature_learning_tpu_torch.data.anet import SPLIT_FILES, build_dataset
+    from multimodal_feature_learning_tpu_torch.data.loader import DataLoader
+    from multimodal_feature_learning_tpu_torch.engine.evaluate import make_eval_step
+    from multimodal_feature_learning_tpu_torch.evaluation import run_eval
+    from multimodal_feature_learning_tpu_torch.models.criterion import build_criterion
+    from multimodal_feature_learning_tpu_torch.tools.profile_decode import decode_steps_run
+
+    anet = cfg.dataset.activity_net
+    gt_path = os.path.join(anet.anet_path, SPLIT_FILES["val"])
+    counters = kernel_counters()
+    criterion, weight_dict = build_criterion(cfg, model.pad_idx)
+    score_fn = lambda sub: run_eval(cfg.eval, sub, gt_path, rng=random.Random(cfg.seed))  # noqa: E731
+    val_ds, vocab = build_dataset("val", cfg)
+    loader = DataLoader(val_ds, BATCH, vocab.pad_idx, anet.video_rescale_len,
+                        anet.max_gt_target_segments, anet.max_caption_len_all,
+                        shuffle=False, seed=cfg.seed)
+    record = {}
+    model.decode_impl = impl
+    try:
+        step = make_eval_step(model, criterion, weight_dict, "one_by_one")
+        for k in counters.values():
+            k.launches = 0
+        stats, sub, scores = timed_evaluate(record)(
+            step, loader, vocab, cfg, score_fn=score_fn, device="cuda")
+        launches = {k: c.launches for k, c in counters.items()}
+    finally:
+        model.decode_impl = "xla"
+    record["decode_steps"] = [decode_steps_run(c, model.eos_idx, model.seq_len)
+                              for c in record.pop("captions")]
+    return {"decode_impl": impl, **record, "launches": launches, "stats": stats,
+            "scores": score_summary(scores)}, sub
+
+
 def eval_loop(cfg, model, overrides: dict):
     """Phase eval_loop: the val split of the written world (EVAL_VIDEOS
     videos, batch BATCH) from the files to the scores, in three arms:
@@ -1502,49 +1624,18 @@ def eval_loop(cfg, model, overrides: dict):
     (capped) ground-truth event; finite scores; K1 launched 12 times a
     batch; the fused kernel once per decode step; the two one_by_one arms'
     timestamps equal and at least 90% of their sentences."""
-    import copy
-    import random
-
     from multimodal_feature_learning_tpu_torch import inference
-    from multimodal_feature_learning_tpu_torch.config import apply_overrides
-    from multimodal_feature_learning_tpu_torch.data.anet import SPLIT_FILES, build_dataset
-    from multimodal_feature_learning_tpu_torch.data.loader import DataLoader
-    from multimodal_feature_learning_tpu_torch.engine.evaluate import make_eval_step
-    from multimodal_feature_learning_tpu_torch.evaluation import run_eval
-    from multimodal_feature_learning_tpu_torch.models.criterion import build_criterion
-    from multimodal_feature_learning_tpu_torch.tools.profile_decode import decode_steps_run
+    from multimodal_feature_learning_tpu_torch.data.anet import SPLIT_FILES
 
-    cfg = apply_overrides(copy.deepcopy(cfg), [f"{k}={v}" for k, v in overrides.items()])
-    cfg.batch_size = BATCH
+    cfg = world_cfg(cfg, overrides)
     anet = cfg.dataset.activity_net
-    gt_path = os.path.join(anet.anet_path, SPLIT_FILES["val"])
-    with open(gt_path) as f:
+    with open(os.path.join(anet.anet_path, SPLIT_FILES["val"])) as f:
         gt = json.load(f)
     per_forward = cfg.dvc.detr.enc_layers + cfg.dvc.detr.dec_layers
     counters = kernel_counters()
-    criterion, weight_dict = build_criterion(cfg, model.pad_idx)
-    score_fn = lambda sub: run_eval(cfg.eval, sub, gt_path, rng=random.Random(cfg.seed))  # noqa: E731
     arms, subs = {}, {}
     for name, impl in (("one_by_one", "xla"), ("one_by_one_fused", "fused")):
-        val_ds, vocab = build_dataset("val", cfg)
-        loader = DataLoader(val_ds, BATCH, vocab.pad_idx, anet.video_rescale_len,
-                            anet.max_gt_target_segments, anet.max_caption_len_all,
-                            shuffle=False, seed=cfg.seed)
-        record = {}
-        model.decode_impl = impl
-        try:
-            step = make_eval_step(model, criterion, weight_dict, "one_by_one")
-            for k in counters.values():
-                k.launches = 0
-            stats, subs[name], scores = timed_evaluate(record)(
-                step, loader, vocab, cfg, score_fn=score_fn, device="cuda")
-            launches = {k: c.launches for k, c in counters.items()}
-        finally:
-            model.decode_impl = "xla"
-        record["decode_steps"] = [decode_steps_run(c, model.eos_idx, model.seq_len)
-                                  for c in record.pop("captions")]
-        arms[name] = {"decode_impl": impl, **record, "launches": launches,
-                      "stats": stats, "scores": score_summary(scores)}
+        arms[name], subs[name] = eval_loop_arm(cfg, model, impl)
 
     record = {}
     argv = ["--weights", SNAPSHOT, "--batch-size", str(BATCH), "--device", "cuda",
@@ -1680,7 +1771,8 @@ def probe():
 
 def run_tools():
     """Phase 17: the four other tools once each, at reduced iteration counts
-    (their defaults are for manual runs). onchip_decode_parity's fused arms
+    (their defaults are for manual runs), bench_fused_decode also with
+    ``--dtype bfloat16``. onchip_decode_parity's fused arms
     may not move a segment, and its "video" arm must give at least 90% of
     the plain-op decode's caption rows exactly."""
     import torch
@@ -1702,6 +1794,7 @@ def run_tools():
                     for k, us, c in sorted(kernels, key=lambda k: -k[1])]}
     out["profile_decode"] = profile_decode.run("cuda", n=3, reps=1)
     out["bench_fused_decode"] = bench_fused_decode.run("cuda", iters=3)
+    out["bench_fused_decode_bf16"] = bench_fused_decode.run("cuda", iters=3, dtype="bfloat16")
     parity = onchip_decode_parity.run("cuda")
     out["onchip_decode_parity"] = parity
     for arm in onchip_decode_parity.ARMS:
@@ -1968,6 +2061,181 @@ def train_check(cfg, flat, vocab_size):
             "largest_grad_gaps": [{"param": n, "gap_norm": g} for g, n in gaps[:5]]}
 
 
+# ---------------------------------------------------------------------------
+# bf16: the JAX package's mixed-precision policy (compute_dtype "bfloat16")
+# ---------------------------------------------------------------------------
+
+BF16_ARMS = (  # (name, decode_impl, decode_kv, decode_fused_grid)
+    ("plain", "xla", "dense", "video"),
+    ("fused_video", "fused", "dense", "video"),
+    ("fused_batch", "fused", "dense", "batch"),
+    ("fused_int8", "fused", "int8", "video"),
+)
+
+
+SEGMENT_MATCH = 0.01  # x duration: two events are the same proposal
+
+
+def against(requests, results, reference) -> dict:
+    """How far ``results`` stay from ``reference`` (events per request):
+    the share of requests with k equal; the events of ``results`` paired
+    with an event of ``reference`` whose segment lies within SEGMENT_MATCH
+    x duration at both ends (the stability ranking may order near-equal
+    proposals apart, so rows are paired by segment, not by position); of
+    the pairs, the share with the same caption and the share of tokens
+    equal; and the share of rows equal position by position. Reported, not
+    held: bf16 against f32 is another numerics, not a rounding of the same
+    one."""
+    import numpy as np
+
+    k_equal = rows = paired = pairs_equal = tokens = tokens_equal = by_position = 0
+    for (_, dur), got, ref in zip(requests, results, reference):
+        k_equal += len(got) == len(ref)
+        free = list(range(len(ref)))
+        for j, a in enumerate(got):
+            rows += 1
+            by_position += j < len(ref) and a["caption"] == ref[j]["caption"]
+            gaps = [float(np.max(np.abs(np.subtract(a["segment"], ref[i]["segment"])))) / dur
+                    for i in free]
+            if not gaps or min(gaps) > SEGMENT_MATCH:
+                continue
+            b = ref[free.pop(int(np.argmin(gaps)))]
+            paired += 1
+            pairs_equal += a["caption"] == b["caption"]
+            tokens += len(a["caption"])
+            tokens_equal += sum(x == y for x, y in zip(a["caption"], b["caption"]))
+    return {"k_equal_share": k_equal / len(requests), "rows": rows,
+            "rows_paired_by_segment": paired,
+            "paired_rows_equal_share": pairs_equal / max(paired, 1),
+            "paired_token_agreement": tokens_equal / max(tokens, 1),
+            "rows_equal_by_position_share": by_position / rows}
+
+
+def serve_bf16(cfg, model, requests, f32_results: dict):
+    """Phase serve_bf16: the N_REQUESTS requests through DVCServer on the
+    bf16 model (``compute_dtype="bfloat16"``, conv_e79), once per arm of
+    BF16_ARMS. Launches are counted over each arm's requests: K1 twelve
+    times a dispatch, the arm's fused kernel at least once a decode step and no other grid's.
+    K1's calls are recorded: both the encoder's and the decoder's take the
+    kernel's bf16-value route, with the schedule their plans chose. Each
+    arm's videos/s, latency and peak memory, and its agreement with
+    the f32 answers of the same arm (``against``; int8 against the f32
+    plain-op answers)."""
+    import torch
+
+    from multimodal_feature_learning_tpu_torch.ops import msda
+
+    per_forward = cfg.dvc.detr.enc_layers + cfg.dvc.detr.dec_layers
+    out, served = {}, {}
+    plan_fn, plans = msda.msda_fwd_plan, {}
+
+    def recording_plan(shapes, B, H, Dh, Q, P, itemsize, *a, **kw):
+        plan = plan_fn(shapes, B, H, Dh, Q, P, itemsize, *a, **kw)
+        plans.setdefault((Q, itemsize), plan.schedule)
+        return plan
+
+    for name, impl, kv, grid in BF16_ARMS:
+        model.decode_impl, model.decode_kv, model.decode_fused_grid = impl, kv, grid
+        msda.msda_fwd_plan = recording_plan
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            results, latencies, wall, launches, stats, steps = serve(model, requests)
+        finally:
+            msda.msda_fwd_plan = plan_fn
+            model.decode_impl, model.decode_kv, model.decode_fused_grid = "xla", "dense", "video"
+        peak = torch.cuda.max_memory_allocated()
+        check_results(cfg, model, requests, results, compare_cpu=False)
+        dispatches = stats["dispatches"]
+        if len(results) != len(requests) or launches["msda_fwd"] != per_forward * dispatches:
+            raise AssertionError(f"serve_bf16 {name}: {len(results)} answers, msda_fwd "
+                                 f"launched {launches['msda_fwd']} times over {dispatches} "
+                                 f"dispatches")
+        if impl == "fused":
+            mine, other = f"fused_decode_{grid}", \
+                f"fused_decode_{'batch' if grid == 'video' else 'video'}"
+            if launches[mine] < sum(steps) or launches[other]:
+                raise AssertionError(f"serve_bf16 {name}: {launches} over {steps} decode steps")
+        elif launches["fused_decode_video"] or launches["fused_decode_batch"]:
+            raise AssertionError(f"serve_bf16 {name}: the plain-op decode launched {launches}")
+        lat = sorted(latencies)
+        served[name] = results
+        out[name] = {
+            "decode": [impl, kv, grid], "answered": len(results), "dispatches": dispatches,
+            "videos_per_s": len(requests) / wall, "p50_latency_s": lat[len(lat) // 2],
+            "max_latency_s": lat[-1], "step_s": stats["step_s"],
+            "max_memory_allocated_bytes": peak, "launches": launches,
+            "decode_steps_per_dispatch": steps,
+            "against_f32": against(requests, results,
+                                   f32_results.get(name, f32_results["plain"]))}
+    q_enc = min(int(model.num_tokens * cfg.dvc.detr.rho) + 1, model.num_tokens)
+    if {i for _, i in plans} != {2} or {q for q, _ in plans} != {q_enc, model.num_queries}:
+        raise AssertionError(f"serve_bf16: K1 ran with plans {plans}; the encoder (Q={q_enc}) "
+                             f"and the decoder (Q={model.num_queries}) should both hand it "
+                             f"bf16 value")
+    out["msda_fwd_plans"] = [{"Q": q, "value_itemsize": i, "schedule": v}
+                             for (q, i), v in sorted(plans.items())]
+    return out, served
+
+
+def eval_bf16(cfg, model, batch, f32_arms: dict, world: dict):
+    """Phase eval_bf16: make_eval_step in every val_mode on the bf16 model
+    (``evaluate_arms``, with its checks: finite losses, K1 once per MSDA
+    call, the fused kernel once per decode step, beam 1 equal to greedy),
+    each arm's loss beside the f32 model's on the same batch; then one arm
+    of the evaluation loop from files to scores (one_by_one, plain-op
+    decode) on the bf16 model, its launches checked as eval_loop's."""
+    import math as _math
+
+    arms = evaluate_arms(cfg, model, batch)
+    for name, arm in arms["arms"].items():
+        ref = f32_arms["arms"][name]["loss"]
+        arm["f32_loss"] = ref
+        arm["loss_rel_gap_to_f32"] = abs(arm["loss"] - ref) / abs(ref)
+    loop_cfg = world_cfg(cfg, world)
+    arm, sub = eval_loop_arm(loop_cfg, model, "xla")
+    per_forward = cfg.dvc.detr.enc_layers + cfg.dvc.detr.dec_layers
+    if arm["launches"]["msda_fwd"] != per_forward * arm["batches"] or not all(
+            _math.isfinite(v) for v in arm["scores"].values()) or \
+            len(sub["results"]) != EVAL_VIDEOS:
+        raise AssertionError(f"eval_bf16 loop: launches {arm['launches']} over "
+                             f"{arm['batches']} batches, scores {arm['scores']}, "
+                             f"{len(sub['results'])} videos")
+    return {**arms, "eval_loop_one_by_one": arm}
+
+
+def train_bf16(cfg, flat, vocab_size, f32_run: dict):
+    """Phase train_bf16: the train phase (1 + TRAIN_STEPS steps from
+    conv_e79, batch BATCH, dropout, synthetic batches from seed 0) with
+    ``compute_dtype="bfloat16"``, once with f32 masters and once with the
+    master fold (``master_dtype="bfloat16"``): K2 launched 12 times a step,
+    exactly; each run's median step ms, peak memory and its losses beside
+    the f32 run's (the same batches and dropout masks)."""
+    import copy
+
+    per_step = cfg.dvc.detr.enc_layers + cfg.dvc.detr.dec_layers
+    out = {}
+    for masters in ("float32", "bfloat16"):
+        c = copy.deepcopy(cfg)
+        c.compute_dtype, c.master_dtype = "bfloat16", masters
+        run = train(c, flat, vocab_size)
+        if run["launches"]["msda_bwd"] != per_step * run["steps"]:
+            raise AssertionError(f"train_bf16 ({masters} masters): msda_bwd launched "
+                                 f"{run['launches']['msda_bwd']} times over {run['steps']} "
+                                 f"steps, {per_step} a step")
+        gaps = [abs(a - b) / abs(b) for a, b in zip(run["loss_per_step"],
+                                                      f32_run["loss_per_step"])]
+        out[f"{masters}_masters"] = {
+            **{k: run[k] for k in ("steps", "loss_per_step", "grad_norm_per_step", "step_ms",
+                                   "median_step_ms", "examples_per_s", "launches",
+                                   "max_memory_allocated_bytes", "device_busy_share",
+                                   "profiled_step_device_kernel_ms", "msda_fwd_device_ms",
+                                   "msda_bwd_device_ms", "top_kernels")},
+            "f32_loss_per_step": f32_run["loss_per_step"], "loss_rel_gap_to_f32": gaps,
+            "f32_median_step_ms": f32_run["median_step_ms"],
+            "f32_max_memory_allocated_bytes": f32_run["max_memory_allocated_bytes"]}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2084,6 +2352,22 @@ def main() -> int:
     log("check_fused", time.monotonic() - t, **fused_checked)
 
     t = time.monotonic()
+    cfg16, model16, _, _ = build_flagship("cuda", "bfloat16")
+    served16, results16 = serve_bf16(cfg16, model16, requests, {
+        "plain": results, "fused_video": fused_served["video"]["results"],
+        "fused_batch": fused_served["batch"]["results"]})
+    log("serve_bf16", time.monotonic() - t, **served16)
+
+    t = time.monotonic()
+    fused_checked16 = check_fused(cfg16, model16, requests, compare_cpu=False,
+                                  min_token_agreement=0.9)
+    log("check_fused_bf16", time.monotonic() - t, **fused_checked16)
+
+    t = time.monotonic()
+    continuous16 = serve_continuous(cfg16, model16, requests, results16["plain"])
+    log("serve_continuous_bf16", time.monotonic() - t, **continuous16)
+
+    t = time.monotonic()
     where_time_goes = breakdown(model, requests)
     log("breakdown", time.monotonic() - t, **where_time_goes)
 
@@ -2105,7 +2389,11 @@ def main() -> int:
     t = time.monotonic()
     loop_checked = eval_loop_check(cfg, flat, model, world)
     log("eval_loop_check", time.monotonic() - t, **loop_checked)
-    del model
+
+    t = time.monotonic()
+    evaluated16 = eval_bf16(cfg16, model16, eval_batch, evaluated, world)
+    log("eval_bf16", time.monotonic() - t, **evaluated16)
+    del model, model16
     torch.cuda.empty_cache()
 
     t = time.monotonic()
@@ -2115,6 +2403,10 @@ def main() -> int:
     t = time.monotonic()
     trained = train(cfg, flat, vocab_size)
     log("train", time.monotonic() - t, **trained)
+
+    t = time.monotonic()
+    trained16 = train_bf16(cfg, flat, vocab_size, trained)
+    log("train_bf16", time.monotonic() - t, **trained16)
 
     t = time.monotonic()
     trained_cli = train_cli(world)
@@ -2137,7 +2429,13 @@ def main() -> int:
     log("tools", time.monotonic() - t, **tools)
 
     enc = next(c for c in cases if c["call"] == "encoder" and c["dtype"] == "float32")
-    enc_bwd = next(c for c in bwd_cases if c["call"] == "encoder")
+    enc_bwd = next(c for c in bwd_cases if c["call"] == "encoder" and c["dtype"] == "float32")
+    bf16_of = {  # the encoder call's bf16 case of each MSDA kernel
+        "msda_fwd": next(c for c in cases if c["call"] == "encoder" and c["dtype"] == "bfloat16"),
+        "msda_bwd": next(c for c in bwd_cases
+                         if c["call"] == "encoder" and c["dtype"] == "bfloat16")}
+    bf16_keys = ("max_abs_err", "ms", "eager_ms", "kernel_ms", "cold_kernel_ms", "plain_ms",
+                 "bound_ms", "bound_by", "schedule")
     counters = kernel_counters()
     kernels = []
     for name, case, all_cases, replaces, shape in (
@@ -2165,9 +2463,20 @@ def main() -> int:
                                  "eval": sum(a["launches"][name]
                                              for a in evaluated["arms"].values()),
                                  "eval_loop": {arm: a["launches"][name]
-                                               for arm, a in looped["arms"].items()}},
+                                               for arm, a in looped["arms"].items()},
+                                 "serve_bf16": {arm: served16[arm]["launches"][name]
+                                                for arm, *_ in BF16_ARMS},
+                                 "serve_continuous_bf16": continuous16["launches"][name],
+                                 "train_bf16": {run: r["launches"][name]
+                                                for run, r in trained16.items()},
+                                 "eval_bf16": sum(a["launches"][name]
+                                                  for a in evaluated16["arms"].values())},
             "max_abs_err": max(c["max_abs_err"] for c in all_cases
                                if c["dtype"] == "float32"),
+            "bf16": {"shape": shape.replace("f32", "bf16"),
+                     **{k: bf16_of[name][k] for k in bf16_keys},
+                     **({"model_path_plans": served16["msda_fwd_plans"]}
+                        if name == "msda_fwd" else {})},
             "ms": case["ms"], "eager_ms": case["eager_ms"], "kernel_ms": case["kernel_ms"],
             "cold_kernel_ms": case["cold_kernel_ms"], "plain_ms": case["plain_ms"],
             "bound_ms": case["bound_ms"], "bound_by": case["bound_by"], "library_ms": None,
@@ -2178,7 +2487,10 @@ def main() -> int:
     for grid in ("video", "batch"):
         name = f"fused_decode_{grid}"
         lines = [line for line in fused_lines if line["grid"] == grid]
-        main_case = next(line for line in lines if line["kv"] == "dense" and not line["bias_col"])
+        f32_lines = [line for line in lines if line["dtype"] == "float32"]
+        main_case, bf16_case = (next(line for line in lines if line["dtype"] == dt
+                                     and line["kv"] == "dense" and not line["bias_col"])
+                                for dt in ("float32", "bfloat16"))
         n = fused_served[grid]["launches"][name]
         kernels.append({
             "name": name, "route": "cuda",
@@ -2187,13 +2499,21 @@ def main() -> int:
             "launches": n, "launches_by_path": {
                 "serve_fused": n, "serve_continuous": continuous["launches"][name],
                 "eval": sum(a["launches"][name] for a in evaluated["arms"].values()),
-                "eval_loop": {arm: a["launches"][name] for arm, a in looped["arms"].items()}},
-            "max_abs_err": max(line["max_abs_err"] for line in lines),
+                "eval_loop": {arm: a["launches"][name] for arm, a in looped["arms"].items()},
+                "serve_bf16": {arm: served16[arm]["launches"][name] for arm, *_ in BF16_ARMS},
+                "serve_continuous_bf16": continuous16["launches"][name],
+                "eval_bf16": sum(a["launches"][name] for a in evaluated16["arms"].values())},
+            "max_abs_err": max(line["max_abs_err"] for line in f32_lines),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
             "bound_f32_simt_ms": main_case["bound_f32_simt_ms"], "library_ms": None,
             "shape": f"one decode step, B={BATCH} G={fused_dims[1]} D={fused_dims[2]} "
                      f"depth {fused_dims[4]} Sp=640 f32, dense K/V, no bias column, step 9",
+            "bf16": {"shape": "the same step in bf16 (bf16 tensor cores, m16n8k16)",
+                     "max_abs_err": max(line["max_abs_err"] for line in lines
+                                        if line["dtype"] == "bfloat16"),
+                     **{k: bf16_case[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                     "launches_serve_bf16": served16[f"fused_{grid}"]["launches"][name]},
             "cases": [{k: v for k, v in line.items() if k != "steps"} for line in lines],
         })
     probe_case = next(c for c in probe_cases

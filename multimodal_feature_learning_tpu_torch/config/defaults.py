@@ -131,7 +131,13 @@ class Config:
     start_epoch: int = 0
     resume: str = ""           # a checkpoint to resume from, at its epoch + 1
     use_differentiable_mask: bool = True
+    # numerics, as the JAX package: "bfloat16" runs every forward over bf16
+    # copies of the float params and the features (utils/precision.py);
+    # "float32" (the default) is the full-f32 path
     compute_dtype: str = "float32"
+    # training's master params and AdamW moments: "bfloat16" folds them
+    # (engine/state.py); the default keeps f32 masters
+    master_dtype: str = "float32"
     decode_impl: str = "xla"      # "xla" (plain-op loop) | "fused" (one kernel a step)
     decode_kv: str = "dense"       # fused path's memory K/V: "dense" | "int8"
     decode_fused_grid: str = "video"  # fused kernel's schedule: "video" | "batch"

@@ -72,12 +72,32 @@
 // The two TPU grids are one decomposition here: grouping videos into a work
 // unit only cut the card's parallelism, so "batch" runs the "video" schedule.
 //
+// bf16 (the TPU kernels' ct = x.dtype = bf16, the JAX package's bf16
+// decode). The kernel is a template on the element type T of x, x_out, the
+// caches, the weights and dense memory K/V; the scratch buffers stay f32
+// and hold values rounded to bf16 where the TPU kernel's .astype(ct)
+// rounds: each product (f32 accumulators) before its bias, the bias sum,
+// each residual sum, the LayerNorms' outputs (f32 statistics), GELU step by
+// step, the attention logits before their f32 softmax, the self-attention
+// weights and weighted sums. The GEMM tiles run one bf16 mma.sync.m16n8k16
+// in place of the three TF32 passes, on a bf16 weight slab (half the bytes,
+// 64 KB a column block; the room it frees is not used yet: same tiles, same
+// schedule); the cross-attention's K and V chunks are bf16 (int8 widened to
+// bf16 exactly) and both of its products bf16 too. One departure from the
+// TPU kernel's rounding: the cross-attention's weights are rounded to bf16
+// per chunk, exp(logit - m_c), before the combine divides by the row's sum
+// (the TPU kernel rounds the weights after it divides); the combined sum is
+// rounded before the bias column's term is added, and after, as there. The
+// bf16 step moves half the bytes: about 0.19 GB, 0.058 ms at 3.35 TB/s;
+// its 15.6 GFLOP at 989 TFLOP/s take 0.016 ms.
+//
 // Built with nvcc -gencode arch=compute_90a,code=sm_90a into a shared
 // library with a plain C interface (ops/build.py); bound with ctypes
 // (ops/fused_decode.py). The launcher allocates nothing: the wrapper passes
 // every output and scratch buffer, the chunk partials included.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -153,21 +173,25 @@ enum {
   N_WEIGHTS
 };
 
+// The buffers of type T (float, or __nv_bfloat16 in the bf16 build of the
+// kernel) are held as void pointers: x_in, x_out, the caches, the weights
+// and the dense memory K/V. The scratch buffers are f32 in both; in bf16
+// they hold values rounded to bf16 where the TPU kernel rounds to ct.
 struct Params {
-  const float* x_in;
-  float* x_out;
+  const void* x_in;
+  void* x_out;
   float* xs;    // 2 x M x D: the hidden state after layer 0's first LayerNorm
   float* ybuf;  // M x D: x + (Wo or Wo' projection + bias), the input of LN1 and LN2
   float* part;  // SPLIT_2 x M x D: the split sums of the W2 projection
-  float* kc;
-  float* vc;
+  void* kc;
+  void* vc;
   const void* mem_k;
   const void* mem_v;
   const float* k_scales;
   const float* v_scales;
   const int8_t* mask;
   const float* log_m;
-  const float* w[N_WEIGHTS];
+  const void* w[N_WEIGHTS];
   float* q_buf;
   float* attn_buf;
   float* h_buf;
@@ -188,24 +212,33 @@ enum AMode {
 };
 
 struct GemmJob {
-  const float* A;
-  const float* W;      // K x N, row-major
-  const float* bias;   // N
-  const float* resid;  // M x N, or null: out = resid + (A W + bias)
-  float* out;          // (or, with splits > 1, p.part[ks] gets the raw sums)
+  const void* A;       // f32, or T where a_t is set (x_in of layer 0)
+  const void* W;       // K x N, row-major, T
+  const void* bias;    // N, T
+  const void* resid;   // M x N, or null: out = resid + (A W + bias); T where resid_t
+  void* out;           // f32, or T where o_cache (or, with splits > 1, p.part[ks] gets the raw sums)
   int M, N, lda, amode;
   int splits;    // K = splits D
   int nsub;      // column blocks of BN a tile takes in turn, its A prepared once
   int a_commit;  // A row m is x row (m / G) * R + m % G
   int o_cache;   // out row m is cache row (m / G) * C + step * G + m % G
   int gelu;
-  const float* ln_bias;
-  const float* ln_s;
-  const float* ln_b;
+  int a_t, resid_t;  // A, resid of type T (x_in; only in the bf16 build)
+  const void* ln_bias;
+  const void* ln_s;
+  const void* ln_b;
   float* x_next;  // the new x, written by the tiles of column block 0; or null
   int li;
   int tag;  // > 0: the timing build records block 0's first tile (g_gemm_ns[tag - 1])
 };
+
+template <typename T>
+constexpr bool IS_BF16 = sizeof(T) == 2;
+
+template <typename T>
+__device__ __forceinline__ const T* wt(const void* p) {
+  return static_cast<const T*>(p);
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -219,10 +252,53 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// erfc by Abramowitz & Stegun 7.1.26 and 0.5 x erfc(-x sqrt(1/2)), the JAX
-// kernel's _erfc_f32 / _gelu_exact, each operation rounded on its own.
-__device__ __forceinline__ float gelu_exact(float x) {
-  const float z = __fmul_rn(-x, 0.70710677f);
+// v rounded to T and back: the TPU kernel's .astype(ct) (the identity in f32)
+template <typename T>
+__device__ __forceinline__ float rnd(float v) {
+  if constexpr (IS_BF16<T>)
+    return __bfloat162float(__float2bfloat16_rn(v));
+  else
+    return v;
+}
+
+template <typename T>
+__device__ __forceinline__ float4 rnd4(float4 v) {
+  return make_float4(rnd<T>(v.x), rnd<T>(v.y), rnd<T>(v.z), rnd<T>(v.w));
+}
+
+__device__ __forceinline__ float4 bf4_to_f4(uint2 u) {
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ uint2 f4_to_bf4(float4 v) {
+  uint2 u;
+  *reinterpret_cast<__nv_bfloat162*>(&u.x) = __floats2bfloat162_rn(v.x, v.y);
+  *reinterpret_cast<__nv_bfloat162*>(&u.y) = __floats2bfloat162_rn(v.z, v.w);
+  return u;
+}
+
+// two f32 values (bf16-exact where the kernel feeds them to the tensor
+// cores) as a bf16x2 register: lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__device__ __forceinline__ uint32_t pack_raw(unsigned short lo, unsigned short hi) {
+  return (uint32_t)lo | ((uint32_t)hi << 16);
+}
+
+// an int8 as the bits of its bf16 value (exact: |v| <= 127)
+__device__ __forceinline__ unsigned short i8_bf16(int8_t v) {
+  const __nv_bfloat16 h = __float2bfloat16_rn((float)v);
+  return *reinterpret_cast<const unsigned short*>(&h);
+}
+
+// erfc by Abramowitz & Stegun 7.1.26, the JAX kernel's _erfc_f32, each
+// operation rounded on its own.
+__device__ __forceinline__ float erfc_f32(float z) {
   const float a = fabsf(z);
   const float t = __fdiv_rn(1.0f, __fadd_rn(1.0f, __fmul_rn(0.3275911f, a)));
   float poly = __fadd_rn(-1.453152027f, __fmul_rn(t, 1.061405429f));
@@ -231,8 +307,20 @@ __device__ __forceinline__ float gelu_exact(float x) {
   poly = __fadd_rn(0.254829592f, __fmul_rn(t, poly));
   poly = __fmul_rn(t, poly);
   const float erfc_a = __fmul_rn(poly, expf(__fmul_rn(-a, a)));
-  const float e = z >= 0.0f ? erfc_a : __fsub_rn(2.0f, erfc_a);
-  return __fmul_rn(__fmul_rn(0.5f, x), e);
+  return z >= 0.0f ? erfc_a : __fsub_rn(2.0f, erfc_a);
+}
+
+// 0.5 x erfc(-x sqrt(1/2)), the JAX kernel's _gelu_exact: in f32 each
+// operation rounded on its own; in bf16 each step rounded to bf16 as there
+// (sqrt(1/2) in bf16, the erfc in f32 then rounded).
+template <typename T>
+__device__ __forceinline__ float gelu_exact(float x) {
+  if constexpr (IS_BF16<T>) {
+    const float z = rnd<T>(-x * 0.70703125f);
+    return rnd<T>((0.5f * x) * rnd<T>(erfc_f32(z)));
+  } else {
+    return __fmul_rn(__fmul_rn(0.5f, x), erfc_f32(__fmul_rn(-x, 0.70710677f)));
+  }
 }
 
 // Activations are written inside the launch by other blocks, so they are
@@ -252,6 +340,41 @@ __device__ __forceinline__ float4 lds4(const float* p) {
 
 __device__ __forceinline__ void sts4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
+}
+
+// four T activations written in the launch (through L2), as f32
+template <typename T>
+__device__ __forceinline__ float4 ldc4(const T* p) {
+  if constexpr (IS_BF16<T>)
+    return bf4_to_f4(__ldcg(reinterpret_cast<const uint2*>(p)));
+  else
+    return ld4(p);
+}
+
+// four T weights (read-only path), as f32
+template <typename T>
+__device__ __forceinline__ float4 ldw4(const T* p) {
+  if constexpr (IS_BF16<T>)
+    return bf4_to_f4(__ldg(reinterpret_cast<const uint2*>(p)));
+  else
+    return ldg4(p);
+}
+
+template <typename T>
+__device__ __forceinline__ float ldw(const T* p) {
+  if constexpr (IS_BF16<T>)
+    return __bfloat162float(*p);
+  else
+    return __ldg(p);
+}
+
+// four values stored as T (rounded to nearest even in bf16)
+template <typename T>
+__device__ __forceinline__ void stt4(T* p, float4 v) {
+  if constexpr (IS_BF16<T>)
+    *reinterpret_cast<uint2*>(p) = f4_to_bf4(v);
+  else
+    *reinterpret_cast<float4*>(p) = v;
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
@@ -289,6 +412,16 @@ __device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, const uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// c += a b for a 16x16 (rows) by 16x8 (columns) bf16 fragment pair, f32
+// accumulators. a0: row gid, k 2tig, 2tig+1; a1: row gid+8; a2: k + 8;
+// a3: both. b0: k 2tig, 2tig+1 of column gid; b1: k + 8. c as in mma_tf32.
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
 __device__ __forceinline__ int a_row(const GemmJob& j, const Params& p, int m) {
   return j.a_commit ? (m / p.G) * p.R + m % p.G : m;
 }
@@ -310,9 +443,9 @@ __device__ __forceinline__ float4 ln_apply(float4 y, float mean, float inv, floa
                      (y.z - mean) * (inv * s.z) + b.z, (y.w - mean) * (inv * s.w) + b.w);
 }
 
-// One warp: out1 (and out2, if set) = LN(y) of row `row` of y.
-template <int D>
-__device__ __forceinline__ void ln_row(const float* y, int row, const float* s, const float* b,
+// One warp: out1 (and out2, if set) = LN(y) of row `row` of y, rounded to T.
+template <int D, typename T>
+__device__ __forceinline__ void ln_row(const float* y, int row, const T* s, const T* b,
                                        float* out1, float* out2) {
   constexpr int PER = D / 128;  // float4 per lane
   const int lane = threadIdx.x % 32;
@@ -330,19 +463,21 @@ __device__ __forceinline__ void ln_row(const float* y, int row, const float* s, 
 #pragma unroll
   for (int i = 0; i < PER; ++i) {
     const int c = lane * 4 + 128 * i;
-    const float4 o = ln_apply(v[i], mean, inv, ldg4(s + c), ldg4(b + c));
+    const float4 o = rnd4<T>(ln_apply(v[i], mean, inv, ldw4<T>(s + c), ldw4<T>(b + c)));
     sts4(out1 + c, o);  // shared or global: a generic store
     if (out2) *reinterpret_cast<float4*>(out2 + c) = o;
   }
 }
 
-// One warp: out1 (and out2, if set) = LN(x + (p.part[0] + ... + p.part[3]
-// + bias)) of row `row`; every load of the row is issued before the first
-// sum.
-template <int D, int SPLITS>
+// One warp: LN(x + (p.part[0] + ... + p.part[3] + bias)) of row `row`,
+// rounded to T, into out1 (and out2, if set) as f32, or into out_t as T;
+// every load of the row is issued before the first sum. In bf16 the sum of
+// the parts is the product, rounded before its bias is added, and the
+// residual sum is rounded too.
+template <int D, int SPLITS, typename T>
 __device__ __forceinline__ void ln_row_parts(const Params& p, const float* x, int row,
-                                             const float* bias, const float* s, const float* b,
-                                             float* out1, float* out2) {
+                                             const T* bias, const T* s, const T* b,
+                                             float* out1, float* out2, T* out_t) {
   constexpr int PER = D / 128;
   const int lane = threadIdx.x % 32;
   const size_t M = (size_t)p.B * p.R;
@@ -364,11 +499,11 @@ __device__ __forceinline__ void ln_row_parts(const Params& p, const float* x, in
   float sum = 0.f, sq = 0.f;
 #pragma unroll
   for (int i = 0; i < PER; ++i) {
-    const float4 bv = ldg4(bias + lane * 4 + 128 * i);
-    y[i].x = xv[i].x + (y[i].x + bv.x);
-    y[i].y = xv[i].y + (y[i].y + bv.y);
-    y[i].z = xv[i].z + (y[i].z + bv.z);
-    y[i].w = xv[i].w + (y[i].w + bv.w);
+    const float4 bv = ldw4<T>(bias + lane * 4 + 128 * i);
+    y[i].x = rnd<T>(xv[i].x + rnd<T>(rnd<T>(y[i].x) + bv.x));
+    y[i].y = rnd<T>(xv[i].y + rnd<T>(rnd<T>(y[i].y) + bv.y));
+    y[i].z = rnd<T>(xv[i].z + rnd<T>(rnd<T>(y[i].z) + bv.z));
+    y[i].w = rnd<T>(xv[i].w + rnd<T>(rnd<T>(y[i].w) + bv.w));
     sum += y[i].x + y[i].y + y[i].z + y[i].w;
     sq += y[i].x * y[i].x + y[i].y * y[i].y + y[i].z * y[i].z + y[i].w * y[i].w;
   }
@@ -377,7 +512,11 @@ __device__ __forceinline__ void ln_row_parts(const Params& p, const float* x, in
 #pragma unroll
   for (int i = 0; i < PER; ++i) {
     const int c = lane * 4 + 128 * i;
-    const float4 o = ln_apply(y[i], mean, inv, ldg4(s + c), ldg4(b + c));
+    const float4 o = rnd4<T>(ln_apply(y[i], mean, inv, ldw4<T>(s + c), ldw4<T>(b + c)));
+    if (out_t) {
+      stt4<T>(out_t + c, o);
+      continue;
+    }
     sts4(out1 + c, o);  // shared or global: a generic store
     if (out2) *reinterpret_cast<float4*>(out2 + c) = o;
   }
@@ -387,20 +526,36 @@ constexpr int AS = 516;              // A row stride (floats) in shared memory, 
 constexpr int WS = BN + 8;           // W row stride: conflict-free fragments
 constexpr int SPLIT_2 = 4;           // splits of the W2 reduction (F = 4 D)
 
+// bytes of the W slab region: the slab, and after the products the warps'
+// partial tiles (f32)
+template <int D, typename T>
+__host__ __device__ constexpr int w_region_bytes() {
+  return D * WS * (int)sizeof(T) > (NWARPS / 2) * BM * RS * 4 ? D * WS * (int)sizeof(T)
+                                                              : (NWARPS / 2) * BM * RS * 4;
+}
+
 // A GEMM tile's A operand into shared memory: one warp a row for the
 // LayerNorms, the combine in two passes (chunk weights of every (row,
 // head), then the weighted sums with every chunk's load in flight).
-template <int D, int DH>
+template <int D, int DH, typename T>
 __device__ void gemm_a(const GemmJob& j, const Params& p, int m0, int tn, int kb, float* As,
                        float* coef) {
   constexpr int H = D / DH, N4 = D / 4, CS = MAX_NC + 1;
   const int t = threadIdx.x, lane = t % 32;
   static_assert(AS == D + 4, "A rows are D + 4 floats apart");
-  if (j.amode == A_PLAIN) {
+  if (j.amode == A_PLAIN && IS_BF16<T> && j.a_t) {  // x_in (T), widened as it is read
+    for (int idx = t; idx < BM * N4; idx += THREADS) {
+      const int r = idx / N4, c = (idx % N4) * 4, m = m0 + r;
+      const float4 v = m < j.M ? ldc4<T>(wt<T>(j.A) + (size_t)a_row(j, p, m) * j.lda + kb + c)
+                               : make_float4(0, 0, 0, 0);
+      sts4(As + r * AS + c, v);
+    }
+  } else if (j.amode == A_PLAIN) {
+    const float* A = static_cast<const float*>(j.A);
     for (int idx = t; idx < BM * N4; idx += THREADS) {
       const int r = idx / N4, c = (idx % N4) * 4, m = m0 + r;
       const int src = m < j.M ? a_row(j, p, m) : 0;
-      cp_async16(As + r * AS + c, j.A + (size_t)src * j.lda + kb + c, m < j.M ? 16 : 0);
+      cp_async16(As + r * AS + c, A + (size_t)src * j.lda + kb + c, m < j.M ? 16 : 0);
     }
   } else if (j.amode == A_LN || j.amode == A_LN4) {
     const bool write_x = tn == 0 && j.x_next;
@@ -413,9 +568,10 @@ __device__ void gemm_a(const GemmJob& j, const Params& p, int m0, int tn, int kb
       const int row = a_row(j, p, m);
       float* x_out = write_x ? j.x_next + (size_t)row * D : nullptr;
       if (j.amode == A_LN)
-        ln_row<D>(p.ybuf, row, j.ln_s, j.ln_b, As + r * AS, x_out);
+        ln_row<D, T>(p.ybuf, row, wt<T>(j.ln_s), wt<T>(j.ln_b), As + r * AS, x_out);
       else
-        ln_row_parts<D, SPLIT_2>(p, j.A, row, j.ln_bias, j.ln_s, j.ln_b, As + r * AS, x_out);
+        ln_row_parts<D, SPLIT_2, T>(p, static_cast<const float*>(j.A), row, wt<T>(j.ln_bias),
+                                    wt<T>(j.ln_s), wt<T>(j.ln_b), As + r * AS, x_out, nullptr);
     }
   } else {
     const int NC = p.NC, R = p.R;
@@ -480,14 +636,18 @@ __device__ void gemm_a(const GemmJob& j, const Params& p, int m0, int tn, int kb
             v.w = fmaf(cf[cc], o[u][cc].w, v.w);
           }
         }
+        // bf16: the weighted sum is rounded before the bias column's f32
+        // term is added, and the sum rounded again (the TPU kernel's out_h)
+        v = rnd4<T>(v);
         if (p.has_bias) {
-          const float4 vb = ldg4(p.w[CA_BV] + (size_t)j.li * D + c);
+          const float4 vb = ldw4<T>(wt<T>(p.w[CA_BV]) + (size_t)j.li * D + c);
           const float wb = cf[MAX_NC];
           v.x = fmaf(wb, vb.x, v.x);
           v.y = fmaf(wb, vb.y, v.y);
           v.z = fmaf(wb, vb.z, v.z);
           v.w = fmaf(wb, vb.w, v.w);
         }
+        v = rnd4<T>(v);
       }
       sts4(As + r * AS + c, v);
       }
@@ -496,29 +656,36 @@ __device__ void gemm_a(const GemmJob& j, const Params& p, int m0, int tn, int kb
 }
 
 // One BM x (nsub BN) output tile over K columns [ks D, (ks + 1) D) of A,
-// by the whole block on the tensor cores in 3xTF32, one BN column block at
-// a time: the D x BN weight slab is in flight by cp.async while the A rows
-// are prepared (once for the nsub blocks), so a block waits for memory
-// once. Warp (nh, ksl) sums columns 32 nh .. + 32 of all BM rows over k
-// KW ksl .. + KW, splitting each operand into TF32 hi and lo as it reads
-// it; the k slices are added in order through shared memory.
-template <int D, int DH>
+// by the whole block on the tensor cores, one BN column block at a time:
+// the D x BN weight slab is in flight by cp.async while the A rows are
+// prepared (once for the nsub blocks), so a block waits for memory once.
+// Warp (nh, ksl) sums columns 32 nh .. + 32 of all BM rows over k KW ksl ..
+// + KW; the k slices are added in order through shared memory. f32: 3xTF32,
+// each operand split into TF32 hi and lo as it is read. bf16: the slab is
+// bf16 (half the bytes), A holds bf16 values in f32 and is packed into
+// bf16 pairs as it is read, one bf16 product (m16n8k16, f32 accumulators);
+// the epilogue rounds the product to bf16 before its bias, and each later
+// sum, as the TPU kernel's dense().
+template <int D, int DH, typename T>
 __device__ __noinline__ void gemm_tile(const GemmJob& j, const Params& p, int tm, int tg, int ks,
                                        float* smem, bool timed) {
-  constexpr int W4 = BN / 4, KW = D / (NWARPS / 2);
+  constexpr int KW = D / (NWARPS / 2);
+  constexpr int WE = 16 / (int)sizeof(T);  // elements of a 16-byte copy
   float* As = smem;            // BM x AS
-  float* Ws = As + BM * AS;    // D x WS, then the warps' partial tiles
-  float* coef = Ws + D * WS;   // the combine's chunk weights
+  float* Ws = As + BM * AS;    // D x WS of T, then the warps' partial tiles
+  float* coef = Ws + w_region_bytes<D, T>() / 4;  // the combine's chunk weights
+  T* Wt = reinterpret_cast<T*>(Ws);
+  const T* W = wt<T>(j.W);
   const int t = threadIdx.x, m0 = tm * BM, kb = ks * D;
   for (int sb = 0; sb < j.nsub; ++sb) {
     const int n0 = (tg * j.nsub + sb) * BN;
     GEMM_MARK(0);
-    for (int idx = t; idx < D * W4; idx += THREADS) {
-      const int k = idx / W4, n = (idx % W4) * 4;
-      cp_async16(Ws + k * WS + n, j.W + (size_t)(kb + k) * j.N + n0 + n, 16);
+    for (int idx = t; idx < D * (BN / WE); idx += THREADS) {
+      const int k = idx / (BN / WE), n = (idx % (BN / WE)) * WE;
+      cp_async16(Wt + k * WS + n, W + (size_t)(kb + k) * j.N + n0 + n, 16);
     }
     cp_async_commit();
-    if (sb == 0) gemm_a<D, DH>(j, p, m0, tg, kb, As, coef);
+    if (sb == 0) gemm_a<D, DH, T>(j, p, m0, tg, kb, As, coef);
     cp_async_commit();
     GEMM_MARK(1);
     cp_async_wait<0>();
@@ -528,34 +695,58 @@ __device__ __noinline__ void gemm_tile(const GemmJob& j, const Params& p, int tm
     const int warp = t / 32, lane = t % 32, gid = lane >> 2, tig = lane & 3;
     const int nh = warp & 1, ksl = warp >> 1;
     const float* Aw = As + KW * ksl;
-    const float* Ww = Ws + (KW * ksl) * WS + 32 * nh;
     float acc[2][4][4];
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt)
         acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
+    if constexpr (IS_BF16<T>) {
+      const unsigned short* Wb =
+          reinterpret_cast<const unsigned short*>(Wt) + (KW * ksl) * WS + 32 * nh;
 #pragma unroll 2
-    for (int k = 0; k < KW; k += 8) {
-      uint32_t ah[2][4], al[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const float* a = Aw + (16 * mt + gid) * AS + k + tig;
-        split_tf32(a[0], ah[mt][0], al[mt][0]);
-        split_tf32(a[8 * AS], ah[mt][1], al[mt][1]);
-        split_tf32(a[4], ah[mt][2], al[mt][2]);
-        split_tf32(a[8 * AS + 4], ah[mt][3], al[mt][3]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        uint32_t bh[2], bl[2];
-        split_tf32(Ww[(k + tig) * WS + nt * 8 + gid], bh[0], bl[0]);
-        split_tf32(Ww[(k + tig + 4) * WS + nt * 8 + gid], bh[1], bl[1]);
+      for (int k = 0; k < KW; k += 16) {
+        uint32_t a[2][4];
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt) {
-          mma_tf32(acc[mt][nt], al[mt], bh);
-          mma_tf32(acc[mt][nt], ah[mt], bl);
-          mma_tf32(acc[mt][nt], ah[mt], bh);
+          const float* ar = Aw + (16 * mt + gid) * AS + k + 2 * tig;
+          a[mt][0] = pack_bf16(ar[0], ar[1]);
+          a[mt][1] = pack_bf16(ar[8 * AS], ar[8 * AS + 1]);
+          a[mt][2] = pack_bf16(ar[8], ar[9]);
+          a[mt][3] = pack_bf16(ar[8 * AS + 8], ar[8 * AS + 9]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const unsigned short* wc = Wb + (k + 2 * tig) * WS + nt * 8 + gid;
+          const uint32_t b[2] = {pack_raw(wc[0], wc[WS]), pack_raw(wc[8 * WS], wc[9 * WS])};
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) mma_bf16(acc[mt][nt], a[mt], b);
+        }
+      }
+    } else {
+      const float* Ww = Ws + (KW * ksl) * WS + 32 * nh;
+#pragma unroll 2
+      for (int k = 0; k < KW; k += 8) {
+        uint32_t ah[2][4], al[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const float* a = Aw + (16 * mt + gid) * AS + k + tig;
+          split_tf32(a[0], ah[mt][0], al[mt][0]);
+          split_tf32(a[8 * AS], ah[mt][1], al[mt][1]);
+          split_tf32(a[4], ah[mt][2], al[mt][2]);
+          split_tf32(a[8 * AS + 4], ah[mt][3], al[mt][3]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          uint32_t bh[2], bl[2];
+          split_tf32(Ww[(k + tig) * WS + nt * 8 + gid], bh[0], bl[0]);
+          split_tf32(Ww[(k + tig + 4) * WS + nt * 8 + gid], bh[1], bl[1]);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            mma_tf32(acc[mt][nt], al[mt], bh);
+            mma_tf32(acc[mt][nt], ah[mt], bl);
+            mma_tf32(acc[mt][nt], ah[mt], bh);
+          }
         }
       }
     }
@@ -583,18 +774,26 @@ __device__ __noinline__ void gemm_tile(const GemmJob& j, const Params& p, int tm
       if (j.splits > 1) {
         *reinterpret_cast<float4*>(p.part + ((size_t)ks * j.M + m) * j.N + n) = v;
       } else {
-        const float4 bv = ldg4(j.bias + n);
-        v.x += bv.x; v.y += bv.y; v.z += bv.z; v.w += bv.w;
+        const float4 bv = ldw4<T>(wt<T>(j.bias) + n);
+        v = rnd4<T>(v);
+        v.x = rnd<T>(v.x + bv.x); v.y = rnd<T>(v.y + bv.y);
+        v.z = rnd<T>(v.z + bv.z); v.w = rnd<T>(v.w + bv.w);
         if (j.gelu) {
-          v.x = gelu_exact(v.x); v.y = gelu_exact(v.y);
-          v.z = gelu_exact(v.z); v.w = gelu_exact(v.w);
+          v.x = gelu_exact<T>(v.x); v.y = gelu_exact<T>(v.y);
+          v.z = gelu_exact<T>(v.z); v.w = gelu_exact<T>(v.w);
         }
         if (j.resid) {
-          const float4 x = ld4(j.resid + (size_t)m * j.N + n);
-          v.x = x.x + v.x; v.y = x.y + v.y; v.z = x.z + v.z; v.w = x.w + v.w;
+          const float4 x = IS_BF16<T> && j.resid_t
+                               ? ldc4<T>(wt<T>(j.resid) + (size_t)m * j.N + n)
+                               : ld4(static_cast<const float*>(j.resid) + (size_t)m * j.N + n);
+          v.x = rnd<T>(x.x + v.x); v.y = rnd<T>(x.y + v.y);
+          v.z = rnd<T>(x.z + v.z); v.w = rnd<T>(x.w + v.w);
         }
         const int row = j.o_cache ? (m / p.G) * p.C + p.step * p.G + m % p.G : m;
-        *reinterpret_cast<float4*>(j.out + (size_t)row * j.N + n) = v;
+        if (j.o_cache)  // the caches are T
+          stt4<T>(static_cast<T*>(j.out) + (size_t)row * j.N + n, v);
+        else
+          *reinterpret_cast<float4*>(static_cast<float*>(j.out) + (size_t)row * j.N + n) = v;
       }
     }
     __syncthreads();  // the next column block, or tile, reuses the shared buffers
@@ -607,7 +806,7 @@ __device__ __forceinline__ int gemm_tiles(const GemmJob& j) {
 }
 
 // The tiles of every job, one block each, spread over the blocks.
-template <int D, int DH>
+template <int D, int DH, typename T>
 __device__ void gemm_stage(const GemmJob* jobs, int njobs, const Params& p, float* smem) {
   int total = 0;
   for (int i = 0; i < njobs; ++i) total += gemm_tiles(jobs[i]);
@@ -617,21 +816,21 @@ __device__ void gemm_stage(const GemmJob* jobs, int njobs, const Params& p, floa
     const GemmJob& j = jobs[ji];
     const int ks = local % j.splits, tile = local / j.splits;
     const int tn_groups = j.N / (BN * j.nsub);
-    gemm_tile<D, DH>(j, p, tile / tn_groups, tile % tn_groups, ks, smem,
-                     j.tag && blockIdx.x == 0 && item == (int)blockIdx.x);
+    gemm_tile<D, DH, T>(j, p, tile / tn_groups, tile % tn_groups, ks, smem,
+                        j.tag && blockIdx.x == 0 && item == (int)blockIdx.x);
   }
 }
 
-__device__ GemmJob plain_job(const float* A, int lda, const float* W, const float* bias,
-                             float* out, int M, int N) {
+__device__ GemmJob plain_job(const void* A, int lda, const void* W, const void* bias, void* out,
+                             int M, int N) {
   GemmJob j = {};
   j.A = A; j.lda = lda; j.W = W; j.bias = bias; j.out = out;
   j.M = M; j.N = N; j.splits = 1; j.nsub = 1; j.amode = A_PLAIN;
   return j;
 }
 
-__device__ GemmJob ln_job(int amode, const float* s, const float* b, float* x_next,
-                          const float* W, const float* bias, float* out, int M, int N) {
+__device__ GemmJob ln_job(int amode, const void* s, const void* b, float* x_next,
+                          const void* W, const void* bias, void* out, int M, int N) {
   GemmJob j = {};
   j.ln_s = s; j.ln_b = b; j.x_next = x_next;
   j.W = W; j.bias = bias; j.out = out; j.M = M; j.N = N; j.splits = 1; j.nsub = 1;
@@ -642,8 +841,10 @@ __device__ GemmJob ln_job(int amode, const float* s, const float* b, float* x_ne
 // Self-attention of one video and one head a unit: the q rows and the cache
 // rows of positions < valid_len (every event's keys and values) land in
 // shared memory together; row r attends its own event's keys only, its own
-// commit among them.
-template <int D, int DH>
+// commit among them. In bf16 the cache rows are widened as they are read,
+// the logits rounded to bf16 before the f32 softmax, the weights rounded to
+// bf16 and the weighted sum rounded (the TPU kernel's mxu_dot rounds).
+template <int D, int DH, typename T>
 __device__ __noinline__ void self_attention_stage(const Params& p, int li, float* smem) {
   constexpr int H = D / DH, QS = DH + 4, D4 = DH / 4;
   const int t = threadIdx.x, warp = t / 32, lane = t % 32;
@@ -652,6 +853,8 @@ __device__ __noinline__ void self_attention_stage(const Params& p, int li, float
   float* ks = q + MAX_R * QS;    // C x QS
   float* vs = ks + p.C * QS;     // C x QS
   float* lg = vs + p.C * QS;     // R x Tc: logits, then weights
+  const T* kcache = static_cast<const T*>(p.kc);
+  const T* vcache = static_cast<const T*>(p.vc);
   for (int unit = blockIdx.x; unit < p.B * H; unit += gridDim.x) {
     const int b = unit / H, h = unit % H;
     const size_t cache = (size_t)(li * p.B + b) * p.C * D + h * DH;
@@ -661,8 +864,13 @@ __device__ __noinline__ void self_attention_stage(const Params& p, int li, float
     }
     for (int idx = t; idx < rows * D4; idx += THREADS) {
       const int r = idx / D4, d = (idx % D4) * 4;
-      cp_async16(ks + r * QS + d, p.kc + cache + (size_t)r * D + d, 16);
-      cp_async16(vs + r * QS + d, p.vc + cache + (size_t)r * D + d, 16);
+      if constexpr (IS_BF16<T>) {
+        sts4(ks + r * QS + d, ldc4<T>(kcache + cache + (size_t)r * D + d));
+        sts4(vs + r * QS + d, ldc4<T>(vcache + cache + (size_t)r * D + d));
+      } else {
+        cp_async16(ks + r * QS + d, kcache + cache + (size_t)r * D + d, 16);
+        cp_async16(vs + r * QS + d, vcache + cache + (size_t)r * D + d, 16);
+      }
     }
     cp_async_commit();
     cp_async_wait<0>();
@@ -680,7 +888,7 @@ __device__ __noinline__ void self_attention_stage(const Params& p, int li, float
         acc = fmaf(a.z, k.z, acc);
         acc = fmaf(a.w, k.w, acc);
       }
-      lg[r * Tc + pos] = acc * p.scale;
+      lg[r * Tc + pos] = rnd<T>(acc) * p.scale;
     }
     __syncthreads();
     for (int r = warp; r < R; r += NWARPS) {
@@ -695,7 +903,7 @@ __device__ __noinline__ void self_attention_stage(const Params& p, int li, float
         sum += e;
       }
       sum = warp_sum(sum);
-      for (int pos = lane; pos < vl; pos += 32) lr[pos] = lr[pos] / sum;
+      for (int pos = lane; pos < vl; pos += 32) lr[pos] = rnd<T>(lr[pos] / sum);
     }
     __syncthreads();
     for (int idx = t; idx < R * DH; idx += THREADS) {
@@ -703,7 +911,7 @@ __device__ __noinline__ void self_attention_stage(const Params& p, int li, float
       const float* lr = lg + r * Tc;
       float out = 0.f;
       for (int pos = 0; pos < vl; ++pos) out = fmaf(lr[pos], vs[(pos * G + r % G) * QS + d], out);
-      p.attn_buf[(size_t)(b * R + r) * D + h * DH + d] = out;
+      p.attn_buf[(size_t)(b * R + r) * D + h * DH + d] = rnd<T>(out);
     }
     __syncthreads();  // the next unit reuses the shared buffers
   }
@@ -888,7 +1096,7 @@ __device__ __noinline__ void cross_attention_stage(const Params& p, int li, floa
         ml[1] = sum;
       }
       if (p.has_bias && unit % NC == 0) {  // the bias column's logit, once a row
-        const float* kb = p.w[CA_BK] + (size_t)li * D + h * DH;
+        const float* kb = wt<float>(p.w[CA_BK]) + (size_t)li * D + h * DH;
         float l = 0.f;
         for (int d = lane; d < DH; d += 32) l = fmaf(q[r * QS + d], __ldg(kb + d), l);
         l = warp_sum(l);
@@ -938,31 +1146,263 @@ __device__ __noinline__ void cross_attention_stage(const Params& p, int li, floa
   cp_async_wait<0>();
 }
 
-// x_out = LN3(x + (the W2 partial sums + b2)) of the last layer, one warp a row.
-template <int D>
-__device__ void final_ln_stage(const Params& p, const float* x, int li) {
-  const int M = p.B * p.R;
-  for (int row = blockIdx.x * NWARPS + threadIdx.x / 32; row < M; row += gridDim.x * NWARPS)
-    ln_row_parts<D, SPLIT_2>(p, x, row, p.w[MLP_B2] + (size_t)li * D,
-                             p.w[LN3_S] + (size_t)li * D, p.w[LN3_B] + (size_t)li * D,
-                             p.x_out + (size_t)row * D, nullptr);
+
+// The bf16 build's cross-attention: the same units, chunks and combine as
+// cross_attention_stage, with the chunk's K and V bf16 in shared memory
+// (int8 widened to bf16 exactly as they are read), q packed into bf16
+// pairs, both products bf16 on the tensor cores (m16n8k16, f32
+// accumulators), the logits rounded to bf16 before the f32 softmax (the TPU
+// kernel's mxu_dot), and the chunk's weights exp(logit - m_c) (times the
+// v-scale for int8) rounded to bf16 for the weighted sum. The TPU kernel
+// rounds the weights after the softmax's division by the whole row's sum;
+// a chunk knows its own sum only, so here the division comes after, in the
+// combine, in f32.
+template <int D, int DH, bool INT8>
+struct CrossBufferB {
+  static constexpr int QS = DH + 4;
+  static constexpr int KROW = INT8 ? DH + 16 : (DH + 8) * 2;  // bytes of a K or V row
+  static constexpr int V_OFF = CHUNK * KROW;
+  static constexpr int Q_OFF = V_OFF + CHUNK * KROW;          // MAX_R x QS floats
+  static constexpr int MASK_OFF = Q_OFF + MAX_R * QS * 4;     // MAX_R x CHUNK bytes
+  static constexpr int SCALE_OFF = MASK_OFF + MAX_R * CHUNK;  // 2 x CHUNK floats (int8)
+  static constexpr int BYTES = SCALE_OFF + (INT8 ? 2 * CHUNK * 4 : 0);
+};
+
+constexpr int PSB = CHUNK + 8;  // row stride (bf16) of a unit's weights
+constexpr int QSB = 32 + 4;     // row stride (bf16 pairs) of the packed q, Dh = 64
+
+template <int D, int DH, bool INT8>
+__device__ __noinline__ void cross_attention_stage_bf16(const Params& p, int li, float* smem) {
+  using Buf = CrossBufferB<D, DH, INT8>;
+  static_assert(CHUNK == 8 * NWARPS && DH == 8 * (NWARPS / 2) && MAX_R == 32 && DH / 2 + 4 == QSB,
+                "a warp's share of the logits and of the weighted sum");
+  constexpr int H = D / DH, QS = Buf::QS, KROW = Buf::KROW;
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
+  const int R = p.R, NC = p.NC, Sp = p.Sp;
+  // the logits (f32); the weights (bf16); q packed in bf16 pairs; the two buffers
+  float* P = smem;                                                      // MAX_R x PS
+  unsigned short* Pb = reinterpret_cast<unsigned short*>(P + MAX_R * PS);  // MAX_R x PSB
+  uint32_t* Qb = reinterpret_cast<uint32_t*>(Pb + MAX_R * PSB);         // MAX_R x QSB
+  char* ring = reinterpret_cast<char*>(Qb + MAX_R * QSB);
+  const int units = p.B * H * NC;
+  const __nv_bfloat16* kb_w = wt<__nv_bfloat16>(p.w[CA_BK]) + (size_t)li * D;
+
+  auto issue = [&](int unit, int buf) {
+    const int b = unit / (H * NC), h = (unit / NC) % H, c = unit % NC;
+    const size_t base = ((size_t)(li * p.B + b) * Sp + (size_t)c * CHUNK) * D + h * DH;
+    char* dst = ring + buf * Buf::BYTES;
+    if (INT8) {
+      constexpr int N16 = DH / 16;
+      for (int idx = t; idx < CHUNK * N16; idx += THREADS) {
+        const int row = idx / N16, d = (idx % N16) * 16;
+        const size_t off = base + (size_t)row * D + d;
+        cp_async16(dst + row * KROW + d, static_cast<const int8_t*>(p.mem_k) + off, 16);
+        cp_async16(dst + Buf::V_OFF + row * KROW + d, static_cast<const int8_t*>(p.mem_v) + off,
+                   16);
+      }
+      const size_t sc = (size_t)(li * p.B + b) * Sp + c * CHUNK;
+      for (int idx = t; idx < 2 * CHUNK / 4; idx += THREADS) {
+        const float* src =
+            (idx < CHUNK / 4 ? p.k_scales : p.v_scales) + sc + (idx % (CHUNK / 4)) * 4;
+        cp_async16(dst + Buf::SCALE_OFF + idx * 16, src, 16);
+      }
+    } else {
+      constexpr int N8 = DH / 8;  // 16-byte pieces of a bf16 row
+      for (int idx = t; idx < CHUNK * N8; idx += THREADS) {
+        const int row = idx / N8, d = (idx % N8) * 8;
+        const size_t off = base + (size_t)row * D + d;
+        cp_async16(dst + row * KROW + d * 2, static_cast<const __nv_bfloat16*>(p.mem_k) + off,
+                   16);
+        cp_async16(dst + Buf::V_OFF + row * KROW + d * 2,
+                   static_cast<const __nv_bfloat16*>(p.mem_v) + off, 16);
+      }
+    }
+    for (int idx = t; idx < R * (DH / 4); idx += THREADS) {
+      const int r = idx / (DH / 4), d = (idx % (DH / 4)) * 4;
+      cp_async16(dst + Buf::Q_OFF + (r * QS + d) * 4,
+                 p.q_buf + (size_t)(b * R + r) * D + h * DH + d, 16);
+    }
+    for (int idx = t; idx < R * (CHUNK / 16); idx += THREADS) {
+      const int r = idx / (CHUNK / 16), s = (idx % (CHUNK / 16)) * 16;
+      cp_async16(dst + Buf::MASK_OFF + r * CHUNK + s,
+                 p.mask + (size_t)(b * R + r) * Sp + c * CHUNK + s, 16);
+    }
+  };
+
+  // element e of row s of a K or V chunk, as bf16 bits
+  auto kv = [&](const char* rows, int s, int e) -> unsigned short {
+    if (INT8) return i8_bf16(reinterpret_cast<const int8_t*>(rows)[s * KROW + e]);
+    return reinterpret_cast<const unsigned short*>(rows + s * KROW)[e];
+  };
+
+  int unit = blockIdx.x;
+  if (unit < units) issue(unit, 0);
+  cp_async_commit();
+  for (int it = 0; unit < units; ++it, unit += gridDim.x) {
+    SUB_MARK(0);
+    if (unit + (int)gridDim.x < units) issue(unit + gridDim.x, (it + 1) & 1);
+    cp_async_commit();
+    const int b = unit / (H * NC), h = (unit / NC) % H;
+    const char* buf = ring + (it & 1) * Buf::BYTES;
+    const char* kbuf = buf;
+    const char* vbuf = buf + Buf::V_OFF;
+    const float* q = reinterpret_cast<const float*>(buf + Buf::Q_OFF);
+    const int8_t* blocked = reinterpret_cast<const int8_t*>(buf + Buf::MASK_OFF);
+    const float* ksc = reinterpret_cast<const float*>(buf + Buf::SCALE_OFF);
+    const float* vsc = ksc + CHUNK;
+    cp_async_wait<1>();  // every group but the newest has landed: this unit's
+    __syncthreads();
+    for (int idx = t; idx < MAX_R * (DH / 2); idx += THREADS) {  // q packed once for every warp
+      const int r = idx / (DH / 2), k2 = idx % (DH / 2);
+      Qb[r * QSB + k2] = pack_bf16(q[r * QS + 2 * k2], q[r * QS + 2 * k2 + 1]);
+    }
+    __syncthreads();
+    SUB_MARK(1);
+
+    // logits: warp w takes columns 8 w .. + 8 of both 16-row tiles
+    {
+      const int gid = lane >> 2, tig = lane & 3, s0 = 8 * warp;
+      float acc[2][4] = {};
+#pragma unroll
+      for (int k = 0; k < DH; k += 16) {
+        uint32_t a[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const int o = (16 * mt + gid) * QSB + k / 2 + tig;
+          a[mt][0] = Qb[o];
+          a[mt][1] = Qb[o + 8 * QSB];
+          a[mt][2] = Qb[o + 4];
+          a[mt][3] = Qb[o + 8 * QSB + 4];
+        }
+        const int s = s0 + gid, e = k + 2 * tig;
+        const uint32_t bb[2] = {pack_raw(kv(kbuf, s, e), kv(kbuf, s, e + 1)),
+                                pack_raw(kv(kbuf, s, e + 8), kv(kbuf, s, e + 9))};
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) mma_bf16(acc[mt], a[mt], bb);
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {  // c0, c1: row gid; c2, c3: row gid + 8
+          const int r = 16 * mt + gid + 8 * (e >> 1), sc = s0 + 2 * tig + (e & 1);
+          if (r < R) {
+            float lg = rnd<__nv_bfloat16>(acc[mt][e]);
+            if (INT8) lg *= ksc[sc];
+            P[r * PS + sc] = (blocked[r * CHUNK + sc] ? NEG_MASK : lg) * p.scale;
+          }
+        }
+      }
+    }
+    __syncthreads();
+    SUB_MARK(2);
+
+    // the chunk's max and sum of exponentials, one warp a row; the weights
+    // in bf16 for the weighted sum (rows past R are zero)
+    for (int r = warp; r < MAX_R; r += NWARPS) {
+      unsigned short* Pr = Pb + r * PSB;
+      if (r >= R) {
+        for (int i = lane; i < CHUNK; i += 32) Pr[i] = 0;
+        continue;
+      }
+      float v[CHUNK / 32];
+      float m = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < CHUNK / 32; ++i) {
+        v[i] = P[r * PS + lane + 32 * i];
+        m = fmaxf(m, v[i]);
+      }
+      m = warp_max(m);
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < CHUNK / 32; ++i) {
+        const float e = expf(v[i] - m);
+        sum += e;
+        const __nv_bfloat16 w = __float2bfloat16_rn(INT8 ? e * vsc[lane + 32 * i] : e);
+        Pr[lane + 32 * i] = *reinterpret_cast<const unsigned short*>(&w);
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        float* ml = p.ca_ml + ((size_t)unit * R + r) * 2;
+        ml[0] = m;
+        ml[1] = sum;
+      }
+      if (p.has_bias && unit % NC == 0) {  // the bias column's logit, once a row
+        const __nv_bfloat16* kb = kb_w + h * DH;
+        float l = 0.f;
+        for (int d = lane; d < DH; d += 32) l = fmaf(q[r * QS + d], __bfloat162float(kb[d]), l);
+        l = warp_sum(l);
+        if (lane == 0)
+          p.ca_bl[(b * H + h) * R + r] =
+              rnd<__nv_bfloat16>(l) * p.scale + __ldg(p.log_m + b * R + r);
+      }
+    }
+    __syncthreads();
+    SUB_MARK(3);
+
+    // the weighted sum of V: warp w takes rows 16 (w % 2) .. + 16, channels
+    // 8 (w / 2) .. + 8
+    {
+      const int gid = lane >> 2, tig = lane & 3, mt = warp & 1, d0 = 8 * (warp >> 1);
+      float acc[4] = {};
+#pragma unroll 4
+      for (int k = 0; k < CHUNK; k += 16) {
+        const uint32_t* Pw = reinterpret_cast<const uint32_t*>(Pb);
+        const int o = ((16 * mt + gid) * PSB + k + 2 * tig) / 2;
+        const uint32_t a[4] = {Pw[o], Pw[o + 8 * PSB / 2], Pw[o + 4], Pw[o + 8 * PSB / 2 + 4]};
+        const int sv = k + 2 * tig, d = d0 + gid;
+        const uint32_t bb[2] = {pack_raw(kv(vbuf, sv, d), kv(vbuf, sv + 1, d)),
+                                pack_raw(kv(vbuf, sv + 8, d), kv(vbuf, sv + 9, d))};
+        mma_bf16(acc, a, bb);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 16 * mt + gid + 8 * (e >> 1), d = d0 + 2 * tig + (e & 1);
+        if (r < R) p.ca_o[((size_t)unit * R + r) * DH + d] = acc[e];
+      }
+    }
+    SUB_MARK(4);
+
+    __syncthreads();  // the next issue overwrites this unit's buffer
+  }
+  cp_async_wait<0>();
 }
 
-template <int D, int DH>
+// x_out = LN3(x + (the W2 partial sums + b2)) of the last layer, one warp a row.
+template <int D, typename T>
+__device__ void final_ln_stage(const Params& p, const float* x, int li) {
+  const int M = p.B * p.R;
+  const T* const* w = reinterpret_cast<const T* const*>(p.w);
+  for (int row = blockIdx.x * NWARPS + threadIdx.x / 32; row < M; row += gridDim.x * NWARPS) {
+    T* out = static_cast<T*>(p.x_out) + (size_t)row * D;
+    ln_row_parts<D, SPLIT_2, T>(p, x, row, w[MLP_B2] + (size_t)li * D,
+                                w[LN3_S] + (size_t)li * D, w[LN3_B] + (size_t)li * D,
+                                reinterpret_cast<float*>(out), nullptr,
+                                IS_BF16<T> ? out : nullptr);
+  }
+}
+
+template <int D, int DH, typename T>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_decode_kernel(const __grid_constant__ Params p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   cg::grid_group grid = cg::this_grid();
   const int M = p.B * p.R, MC = p.B * p.G;
-  const float* const* w = p.w;
+  const void* const* w = p.w;
+  constexpr int ES = (int)sizeof(T);
+  auto wl = [&](int i, size_t off) -> const void* {  // weight i at element offset off
+    return static_cast<const char*>(w[i]) + off * ES;
+  };
+  T* const kc = static_cast<T*>(p.kc);
+  T* const vc = static_cast<T*>(p.vc);
   STAGE_MARK(0);
 
-  // the residual stream x: x_in until layer 0's first LayerNorm, then one
-  // half of p.xs. LN1 and LN2 rewrite it in place (their stages read it
-  // nowhere else); LN3, whose tiles read x as its residual, writes the
-  // other half.
-  const float* x = p.x_in;
+  // the residual stream x: x_in (T) until layer 0's first LayerNorm, then
+  // one half of p.xs (f32). LN1 and LN2 rewrite it in place (their stages
+  // read it nowhere else); LN3, whose tiles read x as its residual, writes
+  // the other half.
+  const void* x = p.x_in;
+  bool x_in = true;  // x is p.x_in
   float* xw = p.xs;  // the half the LayerNorms write
   for (int li = 0; li < p.depth; ++li) {
     const size_t dd = (size_t)li * D * D, df = (size_t)li * D * p.F;
@@ -973,96 +1413,106 @@ fused_decode_kernel(const __grid_constant__ Params p) {
     // layer 1 on, the A rows are LN3 of the previous layer.
     {
       GemmJob jobs[3];
-      const float* Wq = w[SA_WQ] + dd;
-      const float* Wk = w[SA_WK] + dd;
-      const float* Wv = w[SA_WV] + dd;
-      const float* bq = w[SA_BQ] + li * D;
-      const float* bk = w[SA_BK] + li * D;
-      const float* bv = w[SA_BV] + li * D;
+      const void* Wq = wl(SA_WQ, dd);
+      const void* Wk = wl(SA_WK, dd);
+      const void* Wv = wl(SA_WV, dd);
+      const void* bq = wl(SA_BQ, li * D);
+      const void* bk = wl(SA_BK, li * D);
+      const void* bv = wl(SA_BV, li * D);
       if (li == 0) {
         jobs[0] = plain_job(x, D, Wq, bq, p.q_buf, M, D);
-        jobs[1] = plain_job(x, D, Wk, bk, p.kc + cache, MC, D);
-        jobs[2] = plain_job(x, D, Wv, bv, p.vc + cache, MC, D);
+        jobs[1] = plain_job(x, D, Wk, bk, kc + cache, MC, D);
+        jobs[2] = plain_job(x, D, Wv, bv, vc + cache, MC, D);
+        for (int i = 0; i < 3; ++i) jobs[i].a_t = 1;
       } else {
         xw = x == p.xs ? p.xs + (size_t)M * D : p.xs;
         const size_t pl = (size_t)(li - 1) * D;
-        const float *s3 = w[LN3_S] + pl, *c3 = w[LN3_B] + pl;
+        const void *s3 = wl(LN3_S, pl), *c3 = wl(LN3_B, pl);
         jobs[0] = ln_job(A_LN4, s3, c3, xw, Wq, bq, p.q_buf, M, D);
-        jobs[1] = ln_job(A_LN4, s3, c3, nullptr, Wk, bk, p.kc + cache, MC, D);
-        jobs[2] = ln_job(A_LN4, s3, c3, nullptr, Wv, bv, p.vc + cache, MC, D);
+        jobs[1] = ln_job(A_LN4, s3, c3, nullptr, Wk, bk, kc + cache, MC, D);
+        jobs[2] = ln_job(A_LN4, s3, c3, nullptr, Wv, bv, vc + cache, MC, D);
         for (int i = 0; i < 3; ++i) {
           jobs[i].A = x;
-          jobs[i].ln_bias = w[MLP_B2] + pl;
+          jobs[i].ln_bias = wl(MLP_B2, pl);
         }
       }
       for (int i = 0; i < 3; ++i) jobs[i].nsub = 2;  // one round of tiles, LN3 once a row block
       for (int i = 1; i < 3; ++i) jobs[i].a_commit = jobs[i].o_cache = 1;
       jobs[0].tag = li == 1 ? 2 : 0;
-      gemm_stage<D, DH>(jobs, 3, p, smem);
+      gemm_stage<D, DH, T>(jobs, 3, p, smem);
     }
     grid.sync();
     if (li) x = xw;
     STAGE_MARK(mark + 0);
 
-    self_attention_stage<D, DH>(p, li, smem);  // 2
+    self_attention_stage<D, DH, T>(p, li, smem);  // 2
     grid.sync();
     STAGE_MARK(mark + 1);
 
     {
-      GemmJob job = plain_job(p.attn_buf, D, w[SA_WO] + dd, w[SA_BO] + li * D, p.ybuf, M, D);
+      GemmJob job = plain_job(p.attn_buf, D, wl(SA_WO, dd), wl(SA_BO, li * D), p.ybuf, M, D);
       job.resid = x;  // 3: y = x + (attn Wo + bo)
+      job.resid_t = x_in;
       job.tag = li == 0 ? 1 : 0;
-      gemm_stage<D, DH>(&job, 1, p, smem);
+      gemm_stage<D, DH, T>(&job, 1, p, smem);
     }
     grid.sync();
     STAGE_MARK(mark + 2);
 
     {
-      const GemmJob job = ln_job(A_LN, w[LN1_S] + li * D, w[LN1_B] + li * D, xw,
-                                 w[CA_WQ] + dd, w[CA_BQ] + li * D, p.q_buf, M, D);
-      gemm_stage<D, DH>(&job, 1, p, smem);  // 4: x = LN1(y); qc = x Wq' + bq'
+      const GemmJob job = ln_job(A_LN, wl(LN1_S, li * D), wl(LN1_B, li * D), xw,
+                                 wl(CA_WQ, dd), wl(CA_BQ, li * D), p.q_buf, M, D);
+      gemm_stage<D, DH, T>(&job, 1, p, smem);  // 4: x = LN1(y); qc = x Wq' + bq'
     }
     grid.sync();
     x = xw;
+    x_in = false;
     STAGE_MARK(mark + 3);
 
-    if (p.kv_int8)
-      cross_attention_stage<D, DH, true>(p, li, smem);  // 5
-    else
-      cross_attention_stage<D, DH, false>(p, li, smem);
+    if constexpr (IS_BF16<T>) {
+      if (p.kv_int8)
+        cross_attention_stage_bf16<D, DH, true>(p, li, smem);  // 5
+      else
+        cross_attention_stage_bf16<D, DH, false>(p, li, smem);
+    } else {
+      if (p.kv_int8)
+        cross_attention_stage<D, DH, true>(p, li, smem);  // 5
+      else
+        cross_attention_stage<D, DH, false>(p, li, smem);
+    }
     grid.sync();
     STAGE_MARK(mark + 4);
 
     {
-      GemmJob job = plain_job(nullptr, D, w[CA_WO] + dd, w[CA_BO] + li * D, p.ybuf, M, D);
+      GemmJob job = plain_job(nullptr, D, wl(CA_WO, dd), wl(CA_BO, li * D), p.ybuf, M, D);
       job.amode = A_COMBINE;  // 6: y = x + (combine(chunks) Wo' + bo')
       job.li = li;
       job.resid = x;
       job.tag = li == 0 ? 4 : 0;
-      gemm_stage<D, DH>(&job, 1, p, smem);
+      gemm_stage<D, DH, T>(&job, 1, p, smem);
     }
     grid.sync();
     STAGE_MARK(mark + 5);
 
     {
-      GemmJob job = ln_job(A_LN, w[LN2_S] + li * D, w[LN2_B] + li * D, xw, w[MLP_W1] + df,
-                           w[MLP_B1] + (size_t)li * p.F, p.h_buf, M, p.F);
+      GemmJob job = ln_job(A_LN, wl(LN2_S, li * D), wl(LN2_B, li * D), xw, wl(MLP_W1, df),
+                           wl(MLP_B1, (size_t)li * p.F), p.h_buf, M, p.F);
       job.gelu = 1;  // 7: x = LN2(y); h = gelu(x W1 + b1)
       job.tag = li == 0 ? 3 : 0;
-      gemm_stage<D, DH>(&job, 1, p, smem);
+      gemm_stage<D, DH, T>(&job, 1, p, smem);
     }
     grid.sync();
     STAGE_MARK(mark + 6);
 
     {
-      GemmJob job = plain_job(p.h_buf, p.F, w[MLP_W2] + df, nullptr, nullptr, M, D);
+      GemmJob job = plain_job(p.h_buf, p.F, wl(MLP_W2, df), nullptr, nullptr, M, D);
       job.splits = p.F / D;  // 8: h W2, the reduction split in F / D (partial sums)
-      gemm_stage<D, DH>(&job, 1, p, smem);
+      gemm_stage<D, DH, T>(&job, 1, p, smem);
     }
     grid.sync();
     STAGE_MARK(mark + 7);
   }
-  final_ln_stage<D>(p, x, p.depth - 1);
+  final_ln_stage<D, T>(p, static_cast<const float*>(x), p.depth - 1);
 #ifdef FD_STAGE_TIMING
   grid.sync();
   STAGE_MARK(1 + LAYER_STAGES * p.depth);
@@ -1079,25 +1529,60 @@ fused_decode_kernel(const __grid_constant__ Params p) {
 
 constexpr int FD_D = 512, FD_DH = 64;  // the widths the kernel is built for
 
+template <typename T>
 size_t smem_bytes(int R, int C, int G, int kv_int8) {
   constexpr int QS = FD_DH + 4;
-  const size_t gemm = (size_t)(BM * AS + FD_D * WS + BM * MAX_H * (MAX_NC + 1)) * 4;
+  const size_t gemm =
+      (size_t)BM * AS * 4 + w_region_bytes<FD_D, T>() + (size_t)BM * MAX_H * (MAX_NC + 1) * 4;
   const size_t self_att = (size_t)(MAX_R * QS + 2 * C * QS + R * (C / G)) * 4;
-  const size_t cross = (size_t)(2 * MAX_R * PS + 2 * MAX_R * QS) * 4 + 2 * (kv_int8
-      ? CrossBuffer<FD_D, FD_DH, true>::BYTES : CrossBuffer<FD_D, FD_DH, false>::BYTES);
+  size_t cross;
+  if constexpr (IS_BF16<T>)
+    cross = (size_t)MAX_R * PS * 4 + (size_t)MAX_R * PSB * 2 + (size_t)MAX_R * QSB * 4 +
+            2 * (kv_int8 ? CrossBufferB<FD_D, FD_DH, true>::BYTES
+                         : CrossBufferB<FD_D, FD_DH, false>::BYTES);
+  else
+    cross = (size_t)(2 * MAX_R * PS + 2 * MAX_R * QS) * 4 + 2 * (kv_int8
+        ? CrossBuffer<FD_D, FD_DH, true>::BYTES : CrossBuffer<FD_D, FD_DH, false>::BYTES);
   size_t s = gemm > self_att ? gemm : self_att;
   return cross > s ? cross : s;
 }
 
+template <typename T>
+int launch(const Params& p, int kv_int8, cudaStream_t stream) {
+  const size_t smem = smem_bytes<T>(p.R, p.C, p.G, kv_int8);
+  auto kernel = fused_decode_kernel<FD_D, FD_DH, T>;
+  static size_t smem_set = 0;
+  cudaError_t err;
+  if (smem > smem_set) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = smem;
+  }
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  Params q = p;
+  void* args[] = {&q};
+  // every block must be resident for the grid barriers; a launch that cannot
+  // place one block on each SM is refused with an error, not run
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), dim3(sms), dim3(THREADS),
+                                    args, smem, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// x, x_out, the caches, the weights and dense memory K/V are f32
+// (is_bf16 = 0) or bf16 (1); the scratch buffers are f32.
 extern "C" int fused_decode_launch(
-    const float* x, float* x_out, float* x_scratch, float* y_buf, float* k_cache,
-    float* v_cache, const void* mem_k, const void* mem_v, const float* k_scales,
+    const void* x, void* x_out, float* x_scratch, float* y_buf, void* k_cache,
+    void* v_cache, const void* mem_k, const void* mem_v, const float* k_scales,
     const float* v_scales, const int8_t* mask, const float* log_m, void* const* weights,
     float* q_buf, float* attn_buf, float* part_buf, float* h_buf, float* ca_o, float* ca_ml,
     float* ca_bl, int B, int G, int D, int H, int depth, int C, int Sp, int F, int step,
-    int valid_len, int has_bias, int kv_int8, cudaStream_t stream) {
+    int valid_len, int has_bias, int kv_int8, int is_bf16, cudaStream_t stream) {
   Params p;
   p.x_in = x;
   p.x_out = x_out;
@@ -1112,7 +1597,7 @@ extern "C" int fused_decode_launch(
   p.v_scales = v_scales;
   p.mask = mask;
   p.log_m = log_m;
-  for (int i = 0; i < N_WEIGHTS; ++i) p.w[i] = static_cast<const float*>(weights[i]);
+  for (int i = 0; i < N_WEIGHTS; ++i) p.w[i] = weights[i];
   p.q_buf = q_buf;
   p.attn_buf = attn_buf;
   p.h_buf = h_buf;
@@ -1127,29 +1612,10 @@ extern "C" int fused_decode_launch(
   if (D != FD_D || H * FD_DH != D || F != SPLIT_2 * D || p.R > MAX_R || B < 1 || G < 1
       || H > MAX_H || Sp % CHUNK || p.NC < 1 || p.NC > MAX_NC || C % G || depth < 1
       || depth > MAX_DEPTH
-      || step < 0 || valid_len <= step || valid_len * G > C)
+      || step < 0 || valid_len <= step || valid_len * G > C || (is_bf16 != 0 && is_bf16 != 1))
     return (int)cudaErrorInvalidValue;
-
-  const size_t smem = smem_bytes(p.R, C, G, kv_int8);
-  auto kernel = fused_decode_kernel<FD_D, FD_DH>;
-  static size_t smem_set = 0;
-  cudaError_t err;
-  if (smem > smem_set) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    smem_set = smem;
-  }
-  int dev = 0, sms = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return (int)err;
-  void* args[] = {&p};
-  // every block must be resident for the grid barriers; a launch that cannot
-  // place one block on each SM is refused with an error, not run
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), dim3(sms), dim3(THREADS),
-                                    args, smem, stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  if (is_bf16) return launch<__nv_bfloat16>(p, kv_int8, stream);
+  return launch<float>(p, kv_int8, stream);
 }
 
 #ifdef FD_STAGE_TIMING

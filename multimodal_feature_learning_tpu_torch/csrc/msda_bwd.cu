@@ -50,6 +50,18 @@
 // The order in which a row's entries are summed follows the integer
 // atomics, so it changes from run to run.
 //
+// bf16. The JAX package's bf16 train step hands the kernel a bf16 value and
+// a bf16 output gradient; the Pallas kernel widens both to f32, sums in f32
+// and returns dvalue in value's dtype (pallas_msda.py:259-261). Here the
+// kernel is templated on the element type E of value, g and dvalue: it
+// reads E through the conversion intrinsics, keeps the round's g rows in
+// shared memory as E (half the slab of f32, so a round takes twice the
+// queries), sums every dvalue row in f32 registers and rounds it to E once,
+// at its store. Where the queries take more than one round, the running
+// sums between rounds go to an f32 accumulator (dacc) and only the last
+// round writes E; in f32, dacc is dvalue itself. dloc and daw stay f32
+// (loc and aw are f32 at the kernel).
+//
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32): memory. At the training
 // shapes (B=16, S=563, H=8, Dh=64, L=P=4, f32) the encoder call (Q=282)
 // reads the value rows its taps touch (nearly all of value, 18.4 MB), g
@@ -60,6 +72,7 @@
 // and one g row from shared memory per entry (2.3 MB a (b, h), about 10 us
 // at 128 bytes a clock per SM).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #define MSDA_MAX_LEVELS 16
@@ -89,7 +102,8 @@ struct __align__(8) Entry {
   float coef;
 };
 
-// VEC floats at p (one 16-byte access when VEC == 4), or zeros where !pred
+// VEC elements at p as f32 (one 16-byte access when VEC == 4 of f32, one
+// 8-byte access of bf16), or zeros where !pred
 __device__ __forceinline__ void load_f(const float* p, float (&v)[4], bool pred) {
   const float4 t = pred ? *reinterpret_cast<const float4*>(p) : make_float4(0.f, 0.f, 0.f, 0.f);
   v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
@@ -97,16 +111,35 @@ __device__ __forceinline__ void load_f(const float* p, float (&v)[4], bool pred)
 __device__ __forceinline__ void load_f(const float* p, float (&v)[1], bool pred) {
   v[0] = pred ? *p : 0.f;
 }
+__device__ __forceinline__ void load_f(const __nv_bfloat16* p, float (&v)[4], bool pred) {
+  uint2 t = make_uint2(0u, 0u);
+  if (pred) t = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
+__device__ __forceinline__ void load_f(const __nv_bfloat16* p, float (&v)[1], bool pred) {
+  v[0] = pred ? __bfloat162float(*p) : 0.f;
+}
 __device__ __forceinline__ void store_f(float* p, const float (&v)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
 __device__ __forceinline__ void store_f(float* p, const float (&v)[1]) { *p = v[0]; }
+__device__ __forceinline__ void store_f(__nv_bfloat16* p, const float (&v)[4]) {
+  uint2 t;
+  *reinterpret_cast<__nv_bfloat162*>(&t.x) = __floats2bfloat162_rn(v[0], v[1]);
+  *reinterpret_cast<__nv_bfloat162*>(&t.y) = __floats2bfloat162_rn(v[2], v[3]);
+  *reinterpret_cast<uint2*>(p) = t;
+}
+__device__ __forceinline__ void store_f(__nv_bfloat16* p, const float (&v)[1]) {
+  *p = __float2bfloat16_rn(v[0]);
+}
 
 // A row's channels of this lane (VEC * (gl + MSDA_LANES * j) .. + VEC - 1,
 // j < nv), or zeros where !pred; and the store of the same.
 // FULL: Dh is exactly VEC * MSDA_LANES * MAXNV, so no channel is out of range.
-template <int VEC, int MAXNV, bool FULL>
-__device__ __forceinline__ void load_row(const float* r, float (&v)[MAXNV][VEC], int gl, int Dh,
+template <int VEC, int MAXNV, bool FULL, typename E>
+__device__ __forceinline__ void load_row(const E* r, float (&v)[MAXNV][VEC], int gl, int Dh,
                                          int nv, bool pred) {
 #pragma unroll
   for (int j = 0; j < MAXNV; ++j) {
@@ -114,8 +147,8 @@ __device__ __forceinline__ void load_row(const float* r, float (&v)[MAXNV][VEC],
     load_f(r + c, v[j], pred && (FULL || (j < nv && c < Dh)));
   }
 }
-template <int VEC, int MAXNV, bool FULL>
-__device__ __forceinline__ void store_row(float* r, const float (&v)[MAXNV][VEC], int gl, int Dh,
+template <int VEC, int MAXNV, bool FULL, typename E>
+__device__ __forceinline__ void store_row(E* r, const float (&v)[MAXNV][VEC], int gl, int Dh,
                                           int nv) {
 #pragma unroll
   for (int j = 0; j < MAXNV; ++j) {
@@ -133,8 +166,8 @@ __device__ __forceinline__ void store_row(float* r, const float (&v)[MAXNV][VEC]
 // entry says. No branches: the U entries' loads are issued together (an
 // entry past n reads g row 0 with coefficient 0). Called by every lane of
 // the warp together, with U the same for all.
-template <int VEC, int MAXNV, bool FULL, int U>
-__device__ __forceinline__ void row_batch(const Entry* ent, int e, int n, const float* gs, int Dh,
+template <int VEC, int MAXNV, bool FULL, int U, typename E>
+__device__ __forceinline__ void row_batch(const Entry* ent, int e, int n, const E* gs, int Dh,
                                           int nv, int gl, const float (&v)[MAXNV][VEC],
                                           float (&dv)[MAXNV][VEC], float2* dots) {
   int qoff[U];
@@ -187,8 +220,8 @@ __device__ __forceinline__ void row_batch(const Entry* ent, int e, int n, const 
 }
 
 // row_batch at the width the warp's fullest batch needs (n is this group's).
-template <int VEC, int MAXNV, bool FULL>
-__device__ __forceinline__ void row_batch_any(const Entry* ent, int e, int n, const float* gs,
+template <int VEC, int MAXNV, bool FULL, typename E>
+__device__ __forceinline__ void row_batch_any(const Entry* ent, int e, int n, const E* gs,
                                               int Dh, int nv, int gl,
                                               const float (&v)[MAXNV][VEC],
                                               float (&dv)[MAXNV][VEC], float2* dots) {
@@ -208,12 +241,14 @@ __device__ __forceinline__ void row_batch_any(const Entry* ent, int e, int n, co
 // empty and its block exits. Lane gl of a row group holds channels
 // VEC * (gl + MSDA_LANES * j) .. + VEC - 1 for j < nv. Shared memory a round
 // of q_round queries: their g rows (f32), then a TapRec, a float2 (the dot
-// products g0, g1) and two Entry a tap, then the row cursors.
-template <int VEC, int MAXNV, bool FULL>
+// products g0, g1) and two Entry a tap, then the row cursors. E is the
+// element type of value, g (and its rows in shared memory) and dvalue;
+// dacc holds a row's f32 sums between rounds (dvalue itself when E is f32).
+template <typename E, int VEC, int MAXNV, bool FULL>
 __global__ void __launch_bounds__(512, 2)
-msda_bwd_kernel(const float* __restrict__ value, const float* __restrict__ loc,
-                const float* __restrict__ aw, const float* __restrict__ g,
-                float* __restrict__ dvalue, float* __restrict__ dloc,
+msda_bwd_kernel(const E* __restrict__ value, const float* __restrict__ loc,
+                const float* __restrict__ aw, const E* __restrict__ g,
+                E* dvalue, float* dacc, float* __restrict__ dloc,
                 float* __restrict__ daw, int S, int H, int Dh, int Q, int L, int P,
                 MsdaLevels lv, int chunks, int q_round) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -240,35 +275,42 @@ msda_bwd_kernel(const float* __restrict__ value, const float* __restrict__ loc,
   const int nrows = nr + halo;
 
   const int cap = q_round * P;
-  float* gs = reinterpret_cast<float*>(smem);
-  float2* dots = reinterpret_cast<float2*>(smem + (((size_t)q_round * Dh * 4 + 15) & ~(size_t)15));
+  E* gs = reinterpret_cast<E*>(smem);
+  float2* dots =
+      reinterpret_cast<float2*>(smem + (((size_t)q_round * Dh * sizeof(E) + 15) & ~(size_t)15));
   Entry* ent = reinterpret_cast<Entry*>(dots + cap);
   TapRec* rec = reinterpret_cast<TapRec*>(ent + 2 * cap);
   int* cur = reinterpret_cast<int*>(rec + cap);  // nrows row cursors
 
   const size_t row = (size_t)H * Dh;  // stride between tokens
-  const float* vl = value + ((size_t)b * S + lstart) * row + (size_t)h * Dh;
-  float* dvl = dvalue + ((size_t)b * S + lstart) * row + (size_t)h * Dh;
+  const E* vl = value + ((size_t)b * S + lstart) * row + (size_t)h * Dh;
+  E* dvl = dvalue + ((size_t)b * S + lstart) * row + (size_t)h * Dh;
+  float* dal = dacc + ((size_t)b * S + lstart) * row + (size_t)h * Dh;
   const int LP = L * P;
   const float Tf = (float)T;
   const int gl = threadIdx.x % MSDA_LANES;
   const int wgroup = (threadIdx.x & 31) / MSDA_LANES;  // the row group in its warp
   const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   const int nv = (Dh + VEC * MSDA_LANES - 1) / (VEC * MSDA_LANES);
-  const int vlines = (Dh + 31) / 32;  // 128-byte lines of a value row
+  constexpr int LINE = 128 / sizeof(E);  // elements of a 128-byte line
+  const int vlines = (Dh + LINE - 1) / LINE;  // 128-byte lines of a value row
 
   for (int qa = 0; qa < Q; qa += q_round) {
     const int nq = min(q_round, Q - qa), ntap = nq * P;
+    const bool last = qa + q_round >= Q;  // the round that writes dvalue in E
     __syncthreads();  // the last round is done with shared memory
     // 1. the round's g rows, and the taps
     const int gvec = Dh / VEC;
     for (int i = threadIdx.x; i < nq * gvec; i += blockDim.x) {
       const int q = i / gvec, j = i - q * gvec;
-      const float* src = g + (((size_t)b * Q + qa + q) * H + h) * Dh + j * VEC;
-      float* dst = gs + (size_t)q * Dh + j * VEC;
-      if (VEC == 4) {
+      const E* src = g + (((size_t)b * Q + qa + q) * H + h) * Dh + j * VEC;
+      E* dst = gs + (size_t)q * Dh + j * VEC;
+      if (VEC == 4 && sizeof(E) == 4) {
         const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
         asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+      } else if (VEC == 4) {  // four bf16
+        const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src));
       } else {
         *dst = __ldg(src);
       }
@@ -318,7 +360,7 @@ msda_bwd_kernel(const float* __restrict__ value, const float* __restrict__ loc,
     for (int i = threadIdx.x; i < nrows * vlines; i += blockDim.x) {
       const int k = i / vlines;
       if (cur[k] > 0)
-        asm volatile("prefetch.global.L2 [%0];" ::"l"(vl + (size_t)(c0 + k) * row + (i - k * vlines) * 32));
+        asm volatile("prefetch.global.L2 [%0];" ::"l"(vl + (size_t)(c0 + k) * row + (i - k * vlines) * LINE));
     }
     __syncthreads();
 
@@ -374,16 +416,24 @@ msda_bwd_kernel(const float* __restrict__ value, const float* __restrict__ loc,
       {
         const bool own_row = light && k < nr;
         const bool any = light && e0 < e1;
-        const float* vr = vl + (size_t)(c0 + (valid ? k : 0)) * row;
-        float* dr = dvl + (size_t)(c0 + (valid ? k : 0)) * row;
+        // a bf16 row the last round leaves alone still goes from dacc to dvalue
+        const bool finish = sizeof(E) != sizeof(float) && last && qa > 0;
+        const E* vr = vl + (size_t)(c0 + (valid ? k : 0)) * row;
+        E* dr = dvl + (size_t)(c0 + (valid ? k : 0)) * row;
+        float* ar = dal + (size_t)(c0 + (valid ? k : 0)) * row;
         float v[MAXNV][VEC], dv[MAXNV][VEC];
         load_row<VEC, MAXNV, FULL>(vr, v, gl, Dh, nv, any);
-        load_row<VEC, MAXNV, FULL>(dr, dv, gl, Dh, nv, any && qa > 0 && own_row);
+        load_row<VEC, MAXNV, FULL>(ar, dv, gl, Dh, nv, (any || finish) && qa > 0 && own_row);
         const int batches = __reduce_max_sync(0xffffffffu, light ? nb : 0);
         for (int bi = 0; bi < batches; ++bi)
           row_batch_any<VEC, MAXNV, FULL>(ent, e0 + 8 * bi, light ? min(8, e1 - e0 - 8 * bi) : 0,
                                       gs, Dh, nv, gl, v, dv, dots);
-        if (own_row && (qa == 0 || any)) store_row<VEC, MAXNV, FULL>(dr, dv, gl, Dh, nv);
+        if (own_row && (qa == 0 || any || finish)) {
+          if (last)
+            store_row<VEC, MAXNV, FULL>(dr, dv, gl, Dh, nv);
+          else
+            store_row<VEC, MAXNV, FULL>(ar, dv, gl, Dh, nv);
+        }
       }
       unsigned heavy = __ballot_sync(0xffffffffu, valid && !light && gl == 0);
       while (heavy) {
@@ -391,11 +441,12 @@ msda_bwd_kernel(const float* __restrict__ value, const float* __restrict__ loc,
         heavy &= heavy - 1;
         const int h0 = kh > 0 ? cur[kh - 1] : 0, h1 = cur[kh];
         const bool own_row = kh < nr;
-        const float* vr = vl + (size_t)(c0 + kh) * row;
-        float* dr = dvl + (size_t)(c0 + kh) * row;
+        const E* vr = vl + (size_t)(c0 + kh) * row;
+        E* dr = dvl + (size_t)(c0 + kh) * row;
+        float* ar = dal + (size_t)(c0 + kh) * row;
         float v[MAXNV][VEC], dv[MAXNV][VEC];
         load_row<VEC, MAXNV, FULL>(vr, v, gl, Dh, nv, true);
-        load_row<VEC, MAXNV, FULL>(dr, dv, gl, Dh, nv, wgroup == 0 && qa > 0 && own_row);
+        load_row<VEC, MAXNV, FULL>(ar, dv, gl, Dh, nv, wgroup == 0 && qa > 0 && own_row);
         const int steps = ((h1 - h0 + 7) / 8 + 3) / 4;
         for (int st = 0; st < steps; ++st) {
           const int e = h0 + 8 * (4 * st + wgroup);
@@ -408,7 +459,12 @@ msda_bwd_kernel(const float* __restrict__ value, const float* __restrict__ loc,
             dv[j][i] += __shfl_xor_sync(0xffffffffu, dv[j][i], 8);
             dv[j][i] += __shfl_xor_sync(0xffffffffu, dv[j][i], 16);
           }
-        if (own_row && wgroup == 0) store_row<VEC, MAXNV, FULL>(dr, dv, gl, Dh, nv);
+        if (own_row && wgroup == 0) {
+          if (last)
+            store_row<VEC, MAXNV, FULL>(dr, dv, gl, Dh, nv);
+          else
+            store_row<VEC, MAXNV, FULL>(ar, dv, gl, Dh, nv);
+        }
       }
     }
     __syncthreads();
@@ -427,22 +483,23 @@ msda_bwd_kernel(const float* __restrict__ value, const float* __restrict__ loc,
   }
 }
 
-// Shared memory of a block: a round of q_round queries, and at most `rows`
-// rows a block with the halo row; the wrapper's plan computes the same.
-static size_t msda_bwd_smem(int Dh, int q_round, int P, int rows) {
-  return (((size_t)q_round * Dh * 4 + 15) & ~(size_t)15) +
+// Shared memory of a block: a round of q_round queries (g rows of `esize`
+// bytes an element), and at most `rows` rows a block with the halo row; the
+// wrapper's plan computes the same.
+static size_t msda_bwd_smem(int Dh, int esize, int q_round, int P, int rows) {
+  return (((size_t)q_round * Dh * esize + 15) & ~(size_t)15) +
          (size_t)q_round * P * (sizeof(float2) + 2 * sizeof(Entry) + sizeof(TapRec)) +
          (size_t)rows * sizeof(int);
 }
 
-template <int VEC, int MAXNV, bool FULL>
+template <typename E, int VEC, int MAXNV, bool FULL>
 static int msda_bwd_run(const void* value, const void* loc, const void* aw, const void* g,
-                        void* dvalue, void* dloc, void* daw, int B, int S, int H, int Dh,
-                        int Q, int L, int P, const MsdaLevels& lv, int chunks, int q_round,
-                        int threads, size_t smem, cudaStream_t st) {
+                        void* dvalue, void* dacc, void* dloc, void* daw, int B, int S, int H,
+                        int Dh, int Q, int L, int P, const MsdaLevels& lv, int chunks,
+                        int q_round, int threads, size_t smem, cudaStream_t st) {
   static size_t smem_set = 48 * 1024;
   if (smem > smem_set) {
-    cudaError_t err = cudaFuncSetAttribute(msda_bwd_kernel<VEC, MAXNV, FULL>,
+    cudaError_t err = cudaFuncSetAttribute(msda_bwd_kernel<E, VEC, MAXNV, FULL>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return (int)err;
@@ -450,28 +507,52 @@ static int msda_bwd_run(const void* value, const void* loc, const void* aw, cons
   }
   const long long blocks = (long long)B * H * L * chunks;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  msda_bwd_kernel<VEC, MAXNV, FULL><<<(unsigned)blocks, threads, smem, st>>>(
-      (const float*)value, (const float*)loc, (const float*)aw, (const float*)g,
-      (float*)dvalue, (float*)dloc, (float*)daw, S, H, Dh, Q, L, P, lv, chunks, q_round);
+  msda_bwd_kernel<E, VEC, MAXNV, FULL><<<(unsigned)blocks, threads, smem, st>>>(
+      (const E*)value, (const float*)loc, (const float*)aw, (const E*)g, (E*)dvalue,
+      (float*)dacc, (float*)dloc, (float*)daw, S, H, Dh, Q, L, P, lv, chunks, q_round);
   return (int)cudaGetLastError();
 }
 
-// Plain C entry point, bound from Python with ctypes. value, loc, aw and g
-// are f32 and contiguous; dvalue, dloc and daw need no initial values. The
-// schedule comes from the wrapper's plan: `vec` channels a lane load (4:
-// Dh % 4 == 0 and value, g and dvalue 16-byte aligned; or 1), each level cut
-// into `chunks` row ranges, `q_round` queries a round, `threads` a block.
-// level_T is a host array of L ints. Returns the CUDA error code of the
-// launch (0 = success).
+template <typename E>
+static int msda_bwd_dispatch(const void* value, const void* loc, const void* aw, const void* g,
+                             void* dvalue, void* dacc, void* dloc, void* daw, int B, int S,
+                             int H, int Dh, int Q, int L, int P, const MsdaLevels& lv,
+                             int vec, int chunks, int q_round, int threads, size_t smem,
+                             cudaStream_t st) {
+  if (vec == 4 && Dh == 8 * MSDA_LANES)  // Dh = 64, every configuration of the model
+    return msda_bwd_run<E, 4, 2, true>(value, loc, aw, g, dvalue, dacc, dloc, daw, B, S, H, Dh,
+                                       Q, L, P, lv, chunks, q_round, threads, smem, st);
+  if (vec == 4 && Dh <= 8 * MSDA_LANES)
+    return msda_bwd_run<E, 4, 2, false>(value, loc, aw, g, dvalue, dacc, dloc, daw, B, S, H, Dh,
+                                        Q, L, P, lv, chunks, q_round, threads, smem, st);
+  if (vec == 4)
+    return msda_bwd_run<E, 4, 8, false>(value, loc, aw, g, dvalue, dacc, dloc, daw, B, S, H, Dh,
+                                        Q, L, P, lv, chunks, q_round, threads, smem, st);
+  return msda_bwd_run<E, 1, 32, false>(value, loc, aw, g, dvalue, dacc, dloc, daw, B, S, H, Dh,
+                                       Q, L, P, lv, chunks, q_round, threads, smem, st);
+}
+
+// Plain C entry point, bound from Python with ctypes. value, g and dvalue
+// are f32 (value_is_bf16 = 0) or bf16 (1); loc and aw f32; all contiguous.
+// dvalue, dloc and daw need no initial values. dacc is an f32 (B, S, H, Dh)
+// buffer for the running sums between rounds: dvalue itself in f32, and
+// only read when a bf16 call takes more than one round (else it may be
+// null). The schedule comes from the wrapper's plan: `vec` channels a lane
+// load (4: Dh % 4 == 0 and value, g and dvalue 16-byte aligned; or 1), each
+// level cut into `chunks` row ranges, `q_round` queries a round, `threads`
+// a block. level_T is a host array of L ints. Returns the CUDA error code of
+// the launch (0 = success).
 extern "C" int msda_bwd_launch(const void* value, const void* loc,
-                               const void* aw, const void* g, void* dvalue,
+                               const void* aw, const void* g, void* dvalue, void* dacc,
                                void* dloc, void* daw, int B, int S, int H,
                                int Dh, int Q, int L, int P, const int* level_T,
-                               int vec, int chunks, int q_round, int threads, void* stream) {
+                               int value_is_bf16, int vec, int chunks, int q_round, int threads,
+                               void* stream) {
   if (B <= 0 || Q <= 0 || H <= 0 || L <= 0 || P <= 0 || Dh <= 0 ||
       L > MSDA_MAX_LEVELS || Dh > 256 || chunks <= 0 || q_round <= 0 || q_round > 0xffff ||
       threads <= 0 || threads > 512 || threads % 32 != 0 || (vec != 1 && vec != 4) ||
-      Dh % vec != 0 || 2LL * q_round * P >= MSDA_NO_DOT)
+      Dh % vec != 0 || 2LL * q_round * P >= MSDA_NO_DOT ||
+      (value_is_bf16 && q_round < Q && dacc == nullptr))
     return (int)cudaErrorInvalidValue;
   MsdaLevels lv;
   int s = 0, max_rows = 0;
@@ -484,18 +565,14 @@ extern "C" int msda_bwd_launch(const void* value, const void* loc,
     if (rows > max_rows) max_rows = rows;
   }
   if (s != S) return (int)cudaErrorInvalidValue;
-  const size_t smem = msda_bwd_smem(Dh, q_round, P, max_rows + 1);  // the halo row
+  const int esize = value_is_bf16 ? 2 : 4;
+  const size_t smem = msda_bwd_smem(Dh, esize, q_round, P, max_rows + 1);  // the halo row
   if (smem > MSDA_SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (vec == 4 && Dh == 8 * MSDA_LANES)  // Dh = 64, every configuration of the model
-    return msda_bwd_run<4, 2, true>(value, loc, aw, g, dvalue, dloc, daw, B, S, H, Dh, Q, L, P,
-                                    lv, chunks, q_round, threads, smem, st);
-  if (vec == 4 && Dh <= 8 * MSDA_LANES)
-    return msda_bwd_run<4, 2, false>(value, loc, aw, g, dvalue, dloc, daw, B, S, H, Dh, Q, L, P, lv,
-                              chunks, q_round, threads, smem, st);
-  if (vec == 4)
-    return msda_bwd_run<4, 8, false>(value, loc, aw, g, dvalue, dloc, daw, B, S, H, Dh, Q, L, P, lv,
-                              chunks, q_round, threads, smem, st);
-  return msda_bwd_run<1, 32, false>(value, loc, aw, g, dvalue, dloc, daw, B, S, H, Dh, Q, L, P, lv,
-                             chunks, q_round, threads, smem, st);
+  if (value_is_bf16)
+    return msda_bwd_dispatch<__nv_bfloat16>(value, loc, aw, g, dvalue, dacc, dloc, daw, B, S, H,
+                                            Dh, Q, L, P, lv, vec, chunks, q_round, threads, smem,
+                                            st);
+  return msda_bwd_dispatch<float>(value, loc, aw, g, dvalue, dvalue, dloc, daw, B, S, H, Dh, Q,
+                                  L, P, lv, vec, chunks, q_round, threads, smem, st);
 }

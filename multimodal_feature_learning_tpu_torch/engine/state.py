@@ -18,6 +18,8 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
+from ..utils.precision import resolve_dtype
+
 
 def make_lr_schedule(base_lr: float, lr_drop_epochs: int, steps_per_epoch: int):
     """StepLR per step: lr * 0.1 ** ((step // steps_per_epoch) // lr_drop);
@@ -56,7 +58,9 @@ class ClippedAdamW:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
-        norm = torch.nn.utils.get_total_norm(grads)
+        # the global norm in f32 whatever the masters' dtype (bf16 grads of a
+        # folded model are widened for it; f32 grads are used as they are)
+        norm = torch.nn.utils.get_total_norm([g.float() for g in grads])
         torch._foreach_mul_(grads, (self.clip_max_norm / norm).clamp(max=1.0))
         lr = self.lr_schedule(step)
         for group in self.adamw.param_groups:
@@ -85,6 +89,14 @@ class TrainState:
 
 
 def create_train_state(cfg, model: nn.Module, steps_per_epoch: int) -> TrainState:
+    """The model and its optimizer at step 0. ``cfg.master_dtype``
+    "bfloat16" first folds the f32 master copy: every float parameter is
+    cast to bf16 in place, so the AdamW moments the optimizer derives from
+    them are bf16 too (JAX ``create_train_state``)."""
+    dtype = resolve_dtype(cfg.master_dtype)
+    for p in model.parameters():
+        if p.is_floating_point() and p.dtype != dtype:
+            p.data = p.data.to(dtype)
     return TrainState(step=0, model=model,
                       optimizer=make_optimizer(cfg, model, steps_per_epoch))
 
@@ -106,7 +118,11 @@ def _load(path: str, model: nn.Module) -> dict:
 
 
 def load_checkpoint(path: str, state: TrainState) -> int:
-    """Restore model, optimizer and step into ``state``; returns the epoch."""
+    """Restore model, optimizer and step into ``state``; returns the epoch.
+    The checkpoint's master dtype may differ from ``state``'s (an f32
+    checkpoint resumed into a bf16 fold, or back): the weights and the AdamW
+    moments are cast onto the dtypes of ``state``'s parameters, as JAX's
+    ``load_checkpoint`` casts the restore onto its template."""
     ckpt = _load(path, state.model)
     state.model.load_state_dict(ckpt["model"], strict=True)
     state.optimizer.load_state_dict(ckpt["optimizer"])

@@ -32,14 +32,24 @@ def pyramid_shapes(video_len: int, num_levels: int) -> tuple:
     return tuple(shapes)
 
 
+class Conv1d(nn.Conv1d):
+    """``nn.Conv1d`` rounded as flax's Conv: outside f32 the convolution is
+    rounded to the compute dtype before the bias is added (``layers.Linear``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.float32 or self.bias is None:
+            return super().forward(x)
+        return self._conv_forward(x, self.weight, None) + self.bias[:, None]
+
+
 class BaseEncoder(nn.Module):
     def __init__(self, num_feature_levels: int, d_model: int, feature_dim: int):
         super().__init__()
         self.pos_embed = PositionEmbeddingVideoSine(d_model // 2, normalize=True)
         self.input_proj = nn.ModuleList(
-            [nn.Conv1d(feature_dim, d_model, 1)]
+            [Conv1d(feature_dim, d_model, 1)]
             + [
-                nn.Conv1d(feature_dim if l == 1 else d_model, d_model, 3,
+                Conv1d(feature_dim if l == 1 else d_model, d_model, 3,
                           stride=2, padding=1)
                 for l in range(1, num_feature_levels)
             ]
@@ -60,6 +70,7 @@ class BaseEncoder(nn.Module):
             m = mask if l == 0 else interpolate_mask_nearest(mask, src.shape[2])
             srcs.append(src.transpose(1, 2))
             masks.append(m)
-            poses.append(self.pos_embed(m, duration).transpose(1, 2))
+            # the f32 sine table in the trunk's dtype, so a bf16 trunk stays bf16
+            poses.append(self.pos_embed(m, duration).transpose(1, 2).to(src.dtype))
             prev = src
         return srcs, masks, poses

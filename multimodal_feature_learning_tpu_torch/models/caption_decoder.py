@@ -14,7 +14,7 @@ from torch import nn
 from ..config import check_decode_options
 from ..ops import fused_decode as fd
 from .embeddings import VocabularyEmbedder, caption_positional_encoding
-from .layers import Dropout, UnimodalCaptionDecoderLayer
+from .layers import Dropout, Linear, UnimodalCaptionDecoderLayer
 
 
 def make_causal_mask(seq_len: int, device=None) -> torch.Tensor:
@@ -40,7 +40,7 @@ class UnimodalCaptionDecoder(nn.Module):
                                         attention_dropout, projection_dropout,
                                         mlp_dropout_1, mlp_dropout_2)
             for _ in range(depth))
-        self.head = nn.Linear(d_model, vocab_size)
+        self.head = Linear(d_model, vocab_size)
 
     def forward(self, tgt, memory, tgt_mask=None, tgt_padding_mask=None,
                 memory_padding_mask=None, groups: int = 1, zeroed_mask=None,
@@ -50,7 +50,9 @@ class UnimodalCaptionDecoder(nn.Module):
         logits (training: the criterion folds the log-softmax into its
         loss), or with ``log_probs`` f32 log-probabilities (evaluation), as
         the JAX ``__call__`` returns them unless ``return_logits``."""
-        x = self.pos_dropout(self.target_embedding(tgt) + self.pos_table[:, :tgt.shape[1]])
+        x = self.target_embedding(tgt)
+        # the f32 sine table in the embedding's dtype, so a bf16 trunk stays bf16
+        x = self.pos_dropout(x + self.pos_table[:, :tgt.shape[1]].to(x.dtype))
         if tgt_mask is not None and tgt_mask.dim() == 2:
             tgt_mask = tgt_mask[None, None]
         intermediate = []
@@ -66,12 +68,16 @@ class UnimodalCaptionDecoder(nn.Module):
         ``pos`` is an int, or an (N,) tensor of per-row positions."""
         x = self.target_embedding(tokens[:, None])
         if isinstance(pos, torch.Tensor):
-            return x + self.pos_table[0, pos][:, None, :]
-        return x + self.pos_table[:, pos:pos + 1]
+            return x + self.pos_table[0, pos][:, None, :].to(x.dtype)
+        return x + self.pos_table[:, pos:pos + 1].to(x.dtype)
 
-    def precompute_memory_kv(self, memory: torch.Tensor):
-        """Per-layer cross-attention (k, v) of the memory."""
-        return [layer.project_memory_kv(memory) for layer in self.decoder]
+    def precompute_memory_kv(self, memory: torch.Tensor, kv_dtype=None):
+        """Per-layer cross-attention (k, v) of the memory, in ``kv_dtype``
+        when one is given."""
+        kv = [layer.project_memory_kv(memory) for layer in self.decoder]
+        if kv_dtype is not None:
+            kv = [(k.to(kv_dtype), v.to(kv_dtype)) for k, v in kv]
+        return kv
 
     def decode_pair(self, prev_tokens, pad_tokens, step, k_caches, v_caches,
                     mem_kv, memory_padding_mask, groups: int = 1, zeroed_mask=None):
@@ -103,6 +109,7 @@ def greedy_decode(
     decode_impl: str = "xla",
     kv_mode: str = "dense",
     fused_grid: str = "video",
+    kv_dtype=None,
 ) -> torch.Tensor:
     """KV-cached greedy decode. Argmax per step; without ``faster_eval``
     captions freeze after <eos> (later slots take <pad>), the loop ends once
@@ -114,6 +121,9 @@ def greedy_decode(
     "fused" runs it through ``ops.fused_decode.fused_decode_step`` with the
     memory K/V kept ``kv_mode`` ("dense" or "int8") and the kernel's
     ``fused_grid`` schedule ("video" or "batch"); it needs ``groups`` > 1.
+    ``kv_dtype`` (a torch dtype, or None to keep the projections' dtype)
+    is the dtype the memory K/V are kept in; the self-attention caches take
+    the memory's dtype.
 
     Returns (N, seq_len + 1) int64 token ids including <bos>.
     """
@@ -131,9 +141,10 @@ def greedy_decode(
         if groups <= 1:
             raise ValueError("the fused decode needs the grouped shared-KV path (groups > 1)")
         step_logits = _fused_step_fn(module, memory, memory_padding_mask, seq_len, groups,
-                                     zeroed_mask, kv_mode, fused_grid, captions, pad_tok)
+                                     zeroed_mask, kv_mode, fused_grid, captions, pad_tok,
+                                     kv_dtype)
     else:
-        mem_kv = module.precompute_memory_kv(memory)
+        mem_kv = module.precompute_memory_kv(memory, kv_dtype)
         k_caches = memory.new_zeros((module.depth, N, seq_len, D))
         v_caches = memory.new_zeros((module.depth, N, seq_len, D))
 
@@ -297,16 +308,19 @@ def beam_search_decode(
 
 
 def _fused_step_fn(module, memory, memory_padding_mask, seq_len, groups, zeroed_mask,
-                   kv_mode, fused_grid, captions, pad_tok):
+                   kv_mode, fused_grid, captions, pad_tok, kv_dtype=None):
     """The fused path's inputs (JAX ``_greedy_decode_fused``) and a function
     of t that commits token t-1 of ``captions`` and returns the f32 logits
     at t. Embeddings and the vocabulary head stay plain ops, as in JAX; the
-    layers run in one ``fused_decode_step``."""
+    layers run in one ``fused_decode_step``, in the memory's dtype; the
+    head's logits are f32."""
     B, S, D = memory.shape
     G = groups
     Sp = fd.padded_len(S)
     weights = fd.extract_decoder_weights(module)
     mem_k, mem_v = fd.stack_memory_kv(weights, memory, Sp)
+    if kv_dtype is not None:
+        mem_k, mem_v = mem_k.to(kv_dtype), mem_v.to(kv_dtype)
     k_scales = v_scales = None
     if kv_mode == "int8":
         mem_k, k_scales = fd.quantize_kv_int8(mem_k)

@@ -22,6 +22,7 @@ state_dict one to one.
 
 from __future__ import annotations
 
+import functools
 import math
 import time
 from typing import Dict
@@ -34,12 +35,13 @@ from ..config import check_decode_options
 from ..device import resolve_device, set_f32_numerics
 from ..ops.hungarian import batched_hungarian
 from ..ops.segment_ops import denormalize_segments, inverse_sigmoid
+from ..utils.precision import cast_floating, params_in, resolve_dtype
 from .base_encoder import BaseEncoder, pyramid_shapes
 from .caption_decoder import (
     UnimodalCaptionDecoder, beam_search_decode, greedy_decode, greedy_decode_chunk,
     make_causal_mask,
 )
-from .layers import FFN, ContextMaskModel
+from .layers import FFN, ContextMaskModel, Linear
 from .matcher import match_cost
 from .transformer import SparseDeformableTransformer, predict_event_num
 
@@ -77,6 +79,21 @@ def crop_segment_mask(denorm_segments, durations, video_rescale_len: int,
     return ~inside
 
 
+def in_compute_dtype(method):
+    """Run a forward of ``UnimodalDVC`` over its float params cast to the
+    model's ``compute_dtype`` (JAX ``_cast_params``): a bf16 copy of each f32
+    master, made by a differentiable cast, so gradients reach the masters
+    in f32; with f32 compute, or params already in the compute dtype, the
+    params are used as they are."""
+
+    @functools.wraps(method)
+    def wrapper(self, *args, **kwargs):
+        with params_in(self, self.compute_dtype):
+            return method(self, *args, **kwargs)
+
+    return wrapper
+
+
 class ProposalNet(nn.Module):
     """Base encoder + sparse deformable transformer + segment/count heads."""
 
@@ -94,13 +111,13 @@ class ProposalNet(nn.Module):
             enc_n_points=enc_n_points, rho=rho)
         self.query_embedding = nn.Parameter(torch.randn(num_queries, 2 * d_model))
         self.segment_embedding_decoder = FFN(d_model, d_model, 2, 3, final_zero_init=True)
-        self.count_head_decoder = nn.Linear(d_model, max_eseq_length + 1)
+        self.count_head_decoder = Linear(d_model, max_eseq_length + 1)
         if use_enc_aux_loss:
             # heads of the encoder's auxiliary loss: trained, carried with the
             # weights, and not read on the serving path
             self.segment_embedding_encoder = FFN(d_model, d_model, 2, 3,
                                                  final_zero_init=True)
-            self.count_head_encoder = nn.Linear(d_model, max_eseq_length + 1)
+            self.count_head_encoder = Linear(d_model, max_eseq_length + 1)
 
     def forward(self, video, video_mask, durations,
                 with_enc_aux: bool = False) -> Dict[str, torch.Tensor]:
@@ -162,8 +179,13 @@ class UnimodalDVC(nn.Module):
         super().__init__()
         dvc, det = cfg.dvc, cfg.dvc.detr
         anet = cfg.dataset.activity_net
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError("the port serves in float32 only")
+        # mixed precision, as the JAX package: the float params and the
+        # features are cast to compute_dtype at the start of every forward
+        # (``in_compute_dtype``); the outputs the matcher and the criterion
+        # read come back in f32, the memory and the query features stay in
+        # compute_dtype; with bf16 the decode keeps its K/V in bf16
+        self.compute_dtype = resolve_dtype(cfg.compute_dtype)
+        self.kv_dtype = torch.bfloat16 if self.compute_dtype == torch.bfloat16 else None
         if not dvc.use_sparse_detr:
             raise NotImplementedError("the port serves the sparse family only")
         check_decode_options(decode_impl=cfg.decode_impl, decode_kv=cfg.decode_kv,
@@ -203,6 +225,18 @@ class UnimodalDVC(nn.Module):
         if self.use_differentiable_mask:
             self.context_mask = ContextMaskModel(dvc.d_model + 2, self.num_tokens)
 
+    def _propose(self, video, video_mask, durations, with_enc_aux: bool = False):
+        """The proposal forward on the features in the compute dtype. Its
+        outputs come back in f32 for the matcher and the criterion, except
+        ``memory`` and ``query_features``, which feed the caption decoder and
+        the context mask in the compute dtype (JAX ``_propose_and_match``)."""
+        out = self.proposal(video.to(self.compute_dtype), video_mask, durations,
+                            with_enc_aux=with_enc_aux)
+        if self.compute_dtype == torch.float32:
+            return out
+        keep = ("memory", "query_features")
+        return {k: v if k in keep else cast_floating(v, torch.float32) for k, v in out.items()}
+
     def _prepare_caption_inputs(self, out, durations, indices):
         """Per-event crop mask and, when configured, the differentiable
         context mask. Returns (memory (B,S,D), crop_mask (N,S),
@@ -223,6 +257,7 @@ class UnimodalDVC(nn.Module):
             caption_pad_mask = torch.sigmoid(logits) > 0.5
         return memory, crop_mask, caption_pad_mask, logits
 
+    @in_compute_dtype
     def _propose_and_match(self, batch, with_aux: bool = True):
         """Proposal forward, then the Hungarian matching of the final
         decoder layer and, with ``with_aux``, of every auxiliary layer to the
@@ -231,8 +266,8 @@ class UnimodalDVC(nn.Module):
         run either, since their losses reuse the auxiliary matchings. The
         matching runs on the host; ``self.matcher_ms`` keeps its time after
         the costs arrived there."""
-        out = self.proposal(batch["video_tensor"].float(), batch["video_mask"],
-                            batch["durations"], with_enc_aux=with_aux)
+        out = self._propose(batch["video_tensor"], batch["video_mask"], batch["durations"],
+                            with_enc_aux=with_aux)
         seg_all = out["outputs_segment_all"].detach()
         with_aux = with_aux and self.aux_loss
         n_layers = seg_all.shape[0] if with_aux else 1
@@ -248,6 +283,7 @@ class UnimodalDVC(nn.Module):
         idx = idx.reshape(n_layers, -1, self.max_gt)
         return out, idx[0], (idx[1:] if with_aux else None)
 
+    @in_compute_dtype
     def forward_train(self, batch):
         """Training forward over a batch dict of tensors on the model's
         device (``data.anet.collate_fixed``'s arrays). Dropout is active when
@@ -276,6 +312,7 @@ class UnimodalDVC(nn.Module):
                 for i in range(out["outputs_segment_all"].shape[0] - 1)]
 
     @torch.no_grad()
+    @in_compute_dtype
     def forward_eval(self, batch, val_mode: str = "one_by_one", faster_eval: bool = False,
                      beam_size: int = 0, length_penalty: float = 0.0):
         """Evaluation forward over a batch dict of tensors on the model's
@@ -311,7 +348,7 @@ class UnimodalDVC(nn.Module):
             captions = greedy_decode(
                 self.caption, *decode_args, faster_eval=faster_eval, groups=self.max_gt,
                 zeroed_mask=zeroed, decode_impl=self.decode_impl, kv_mode=self.decode_kv,
-                fused_grid=self.decode_fused_grid)
+                fused_grid=self.decode_fused_grid, kv_dtype=self.kv_dtype)
         if serving:
             return out, captions, indices, indices_aux, crop_mask.float()
 
@@ -329,12 +366,13 @@ class UnimodalDVC(nn.Module):
                                           for i in range(log_probs.shape[0] - 1)]
         return out, captions, indices, indices_aux, crop_mask.float()
 
+    @in_compute_dtype
     def _serve_prepare(self, video_tensor, video_mask, durations, rank: str = "stability"):
         """Propose, rank, select the top G, crop the memory. ``rank`` "class"
         ranks by the class head where there is one; the sparse family has
         none, so it ranks by stability, as JAX falls back."""
         check_decode_options(rank=rank)
-        out = self.proposal(video_tensor.float(), video_mask, durations)
+        out = self._propose(video_tensor, video_mask, durations)
         G = self.max_gt
         seg_all = out["outputs_segment_all"]
         if seg_all.shape[0] < 2:
@@ -364,6 +402,7 @@ class UnimodalDVC(nn.Module):
         }
 
     @torch.no_grad()
+    @in_compute_dtype
     def forward_serve(self, video_tensor, video_mask, durations, faster_eval: bool = False,
                       rank: str = "stability") -> Dict[str, torch.Tensor]:
         """GT-free serving forward. video_tensor (B, T, feature_dim),
@@ -378,7 +417,7 @@ class UnimodalDVC(nn.Module):
             self.seq_len, self.bos_idx, self.eos_idx, self.pad_idx,
             faster_eval=faster_eval, groups=self.max_gt, zeroed_mask=prep["zeroed"],
             decode_impl=self.decode_impl, kv_mode=self.decode_kv,
-            fused_grid=self.decode_fused_grid)
+            fused_grid=self.decode_fused_grid, kv_dtype=self.kv_dtype)
         B = durations.shape[0]
         return {
             "segments": prep["segments"],
@@ -392,6 +431,7 @@ class UnimodalDVC(nn.Module):
     # -- the continuous server's pieces (serve.py ContinuousDVCServer) --------
 
     @torch.no_grad()
+    @in_compute_dtype
     def forward_serve_prefill(self, video_tensor, video_mask, durations,
                               rank: str = "stability"):
         """The front half of ``forward_serve`` for the continuous server:
@@ -408,7 +448,7 @@ class UnimodalDVC(nn.Module):
         captions = torch.full((N, self.seq_len), self.pad_idx, dtype=torch.long, device=dev)
         captions[:, 0] = self.bos_idx
         cache_shape = (self.caption.depth, N, self.seq_len, memory.shape[-1])
-        ctx = {"mem_kv": self.caption.precompute_memory_kv(memory),
+        ctx = {"mem_kv": self.caption.precompute_memory_kv(memory, self.kv_dtype),
                **{k: prep[k] for k in ("caption_pad_mask", "zeroed", "segments", "k",
                                        "scores", "valid")}}
         state = {
@@ -421,6 +461,7 @@ class UnimodalDVC(nn.Module):
         return ctx, state
 
     @torch.no_grad()
+    @in_compute_dtype
     def forward_serve_decode_chunk(self, ctx, state, active_vid, chunk: int):
         """Advance every active slot's greedy decode by up to ``chunk``
         tokens at its own cursor (``greedy_decode_chunk``), updating

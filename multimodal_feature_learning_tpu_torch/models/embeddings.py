@@ -9,6 +9,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..utils.precision import linear_promoted
+
 
 def caption_positional_encoding(d_model: int, maxlen: int = 5000) -> torch.Tensor:
     """(1, maxlen, d_model) sin/cos table, computed in float64 and stored f32."""
@@ -50,7 +52,9 @@ class PositionEmbeddingVideoSine(nn.Module):
         # binary duration vector: ones in the first int(duration) slots
         slots = torch.arange(F, device=pad_mask.device)[None]
         dur_vec = (slots < duration.to(torch.int32)[:, None]).float()
-        dur_embed = self.duration_embed_layer(dur_vec)[:, None, :].expand(B, T, F)
+        # f32 input: computed in f32 whatever the layer's dtype, as flax's Dense
+        dur_embed = linear_promoted(self.duration_embed_layer, dur_vec)[:, None, :] \
+            .expand(B, T, F)
         return torch.cat([pos_x, dur_embed], dim=2).transpose(1, 2)
 
 

@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.precision import linear_promoted
+
 NEG_MASK = -1e20  # masked_fill value, applied before the scale
 
 _DROPOUT_GENERATOR = contextvars.ContextVar("dropout_generator", default=None)
@@ -30,6 +32,29 @@ def dropout_generator(gen: Optional[torch.Generator]):
         yield gen
     finally:
         _DROPOUT_GENERATOR.reset(token)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` rounded as flax's Dense rounds it: outside f32 the
+    product is rounded to the compute dtype before the bias is added, so a
+    bf16 layer rounds twice, after the dot and after the sum (one fused
+    ``addmm`` would round once). In f32 it is ``nn.Linear`` as it is."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.float32 or self.bias is None:
+            return F.linear(x, self.weight, self.bias)
+        return F.linear(x, self.weight) + self.bias
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact GELU. In f32 ``F.gelu``; in bf16 with jax.nn.gelu's
+    rounding, each step in the input's dtype: 0.5 x * erfc(-x sqrt(1/2)),
+    erfc in f32 rounded to the dtype (``F.gelu`` would round once)."""
+    if x.dtype == torch.float32:
+        return F.gelu(x)
+    sqrt_half = torch.tensor(0.5 ** 0.5, dtype=torch.float32).to(x.dtype)
+    e = torch.special.erfc((-x * sqrt_half).float()).to(x.dtype)
+    return (0.5 * x) * e
 
 
 class Dropout(nn.Module):
@@ -64,10 +89,10 @@ class CrossAttention(nn.Module):
         super().__init__()
         self.d_model = d_model
         self.num_heads = num_heads
-        self.q_linear = nn.Linear(d_model, d_model, bias=qkv_bias)
-        self.k_linear = nn.Linear(d_model, d_model, bias=qkv_bias)
-        self.v_linear = nn.Linear(d_model, d_model, bias=qkv_bias)
-        self.projection_layer = nn.Linear(d_model, d_model)
+        self.q_linear = Linear(d_model, d_model, bias=qkv_bias)
+        self.k_linear = Linear(d_model, d_model, bias=qkv_bias)
+        self.v_linear = Linear(d_model, d_model, bias=qkv_bias)
+        self.projection_layer = Linear(d_model, d_model)
         self.attn_drop = Dropout(attention_dropout)
 
     def project_q(self, q):
@@ -107,7 +132,9 @@ class CrossAttention(nn.Module):
         qh = qp.reshape(B, groups * Tq, H, Dh).transpose(1, 2)
         kh = kp.reshape(B, Tk, H, Dh).transpose(1, 2)
         vh = vp.reshape(B, Tk, H, Dh).transpose(1, 2)
-        logits = torch.matmul(qh, kh.transpose(-1, -2)).float()  # (B,H,gTq,Tk)
+        # the dot runs in the k/v dtype (a bf16 KV cache is read as bf16),
+        # accumulates in f32, and its logits are upcast after it
+        logits = torch.matmul(qh.to(kh.dtype), kh.transpose(-1, -2)).float()  # (B,H,gTq,Tk)
         if attn_mask is not None:
             if groups != 1 or zeroed_mask is not None:
                 raise ValueError("attn_mask is not taken on the shared-KV path")
@@ -117,7 +144,7 @@ class CrossAttention(nn.Module):
             if key_padding_mask is not None:
                 logits = logits.masked_fill(key_padding_mask[:, None, None, :], NEG_MASK)
             attn = self.attn_drop(torch.softmax(logits * scale, dim=-1))
-            out = torch.matmul(attn.to(vh.dtype), vh)
+            out = torch.matmul(attn.to(vh.dtype), vh).to(qp.dtype)
             out = out.transpose(1, 2).reshape(N, Tq, self.d_model)
             return self.projection_layer(out)
 
@@ -130,10 +157,10 @@ class CrossAttention(nn.Module):
         scaled = logits5.reshape(B, H, groups * Tq, Tk) * scale
 
         if zeroed_mask is not None:
-            zeros_in = qp.new_zeros((1, 1, self.d_model))
-            kb = self.k_linear(zeros_in).reshape(H, Dh)
-            vb = self.v_linear(zeros_in).reshape(H, Dh)
-            l_bias = torch.einsum("bhqd,hd->bhq", qh, kb).float() * scale
+            zeros_in = kp.new_zeros((1, 1, self.d_model))
+            kb = self.k_linear(zeros_in).reshape(H, Dh).to(kh.dtype)
+            vb = self.v_linear(zeros_in).reshape(H, Dh).to(vh.dtype)
+            l_bias = torch.einsum("bhqd,hd->bhq", qh.to(kh.dtype), kb).float() * scale
             m = (~pad & zeroed_mask).sum(dim=1).float()  # (N,)
             log_m = torch.where(m > 0, torch.log(m.clamp(min=1.0)),
                                 torch.full_like(m, NEG_MASK))
@@ -146,8 +173,9 @@ class CrossAttention(nn.Module):
             denom = e_main.sum(dim=-1) + e_bias
             attn = self.attn_drop(e_main / denom[..., None])
             attn_bias = self.attn_drop((e_bias / denom)[..., None])[..., 0]
+            # an f32 sum: the bias column's term is f32 (attn_bias) times v_bias
             out = torch.matmul(attn.to(vh.dtype), vh) \
-                + attn_bias[..., None] * vb[None, :, None, :]
+                + attn_bias[..., None] * vb[None, :, None, :].float()
         else:
             attn = self.attn_drop(torch.softmax(scaled, dim=-1))
             out = torch.matmul(attn.to(vh.dtype), vh)
@@ -166,13 +194,13 @@ class MLP(nn.Module):
     def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
                  dropout_1: float = 0.0, dropout_2: float = 0.0):
         super().__init__()
-        self.fully_connected_1 = nn.Linear(in_dim, hidden_dim)
-        self.fully_connected_2 = nn.Linear(hidden_dim, out_dim)
+        self.fully_connected_1 = Linear(in_dim, hidden_dim)
+        self.fully_connected_2 = Linear(hidden_dim, out_dim)
         self.drop_1 = Dropout(dropout_1)
         self.drop_2 = Dropout(dropout_2)
 
     def forward(self, x):
-        x = self.drop_1(F.gelu(self.fully_connected_1(x)))
+        x = self.drop_1(gelu(self.fully_connected_1(x)))
         return self.drop_2(self.fully_connected_2(x))
 
 
@@ -185,7 +213,7 @@ class FFN(nn.Module):
         super().__init__()
         dims = [in_dim] + [hidden_dim] * (num_layers - 1) + [out_dim]
         self.layers = nn.ModuleList(
-            nn.Linear(dims[i], dims[i + 1]) for i in range(num_layers)
+            Linear(dims[i], dims[i + 1]) for i in range(num_layers)
         )
         if final_zero_init:
             nn.init.zeros_(self.layers[-1].weight)
@@ -203,14 +231,16 @@ class ContextMaskModel(nn.Module):
 
     def __init__(self, in_dim: int, out_dim: int):
         super().__init__()
-        self.layer_1 = nn.Linear(in_dim, in_dim // 2)
-        self.layer_2 = nn.Linear(in_dim // 2, in_dim // 2)
-        self.layer_3 = nn.Linear(in_dim // 2, out_dim)
+        self.layer_1 = Linear(in_dim, in_dim // 2)
+        self.layer_2 = Linear(in_dim // 2, in_dim // 2)
+        self.layer_3 = Linear(in_dim // 2, out_dim)
 
     def forward(self, x):
-        x = F.relu(self.layer_1(x))
-        x = F.relu(self.layer_2(x))
-        return self.layer_3(x)
+        # an f32 input (the f32 segments beside bf16 query features) is
+        # computed in f32 whatever the layers' dtype, as flax's Dense
+        x = F.relu(linear_promoted(self.layer_1, x))
+        x = F.relu(linear_promoted(self.layer_2, x))
+        return linear_promoted(self.layer_3, x)
 
 
 class MaskPredictor(nn.Module):
@@ -221,18 +251,18 @@ class MaskPredictor(nn.Module):
     def __init__(self, in_dim: int, h_dim: int):
         super().__init__()
         self.norm = nn.LayerNorm(in_dim, eps=1e-6)
-        self.dense_in = nn.Linear(in_dim, h_dim)
-        self.dense_1 = nn.Linear(h_dim, h_dim // 2)
-        self.dense_2 = nn.Linear(h_dim // 2, h_dim // 4)
-        self.dense_out = nn.Linear(h_dim // 4, 1)
+        self.dense_in = Linear(in_dim, h_dim)
+        self.dense_1 = Linear(h_dim, h_dim // 2)
+        self.dense_2 = Linear(h_dim // 2, h_dim // 4)
+        self.dense_out = Linear(h_dim // 4, 1)
 
     def forward(self, x):
-        z = F.gelu(self.dense_in(self.norm(x)))
+        z = gelu(self.dense_in(self.norm(x)))
         z_local, z_global = z.chunk(2, dim=-1)
         z_global = z_global.mean(dim=1, keepdim=True).expand_as(z_local)
         z = torch.cat([z_local, z_global], dim=-1)
-        z = F.gelu(self.dense_1(z))
-        z = F.gelu(self.dense_2(z))
+        z = gelu(self.dense_1(z))
+        z = gelu(self.dense_2(z))
         return self.dense_out(z)[..., 0]
 
 

@@ -12,6 +12,7 @@ import torch
 from torch import nn
 
 from ..ops.msda import ms_deform_attn
+from .layers import Linear
 
 
 def _offset_bias_init(n_heads: int, n_levels: int, n_points: int) -> np.ndarray:
@@ -33,10 +34,10 @@ class MSDeformAttn(nn.Module):
         self.d_model, self.n_levels = d_model, n_levels
         self.n_heads, self.n_points = n_heads, n_points
         hlp = n_heads * n_levels * n_points
-        self.value_proj = nn.Linear(d_model, d_model)
-        self.sampling_offsets = nn.Linear(d_model, hlp)
-        self.attention_weights = nn.Linear(d_model, hlp)
-        self.output_proj = nn.Linear(d_model, d_model)
+        self.value_proj = Linear(d_model, d_model)
+        self.sampling_offsets = Linear(d_model, hlp)
+        self.attention_weights = Linear(d_model, hlp)
+        self.output_proj = Linear(d_model, d_model)
         with torch.no_grad():
             self.sampling_offsets.weight.zero_()
             self.sampling_offsets.bias.copy_(

@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import CrossAttention, Dropout, MaskPredictor
+from .layers import CrossAttention, Dropout, Linear, MaskPredictor
 from .msda_module import MSDeformAttn
 
 
@@ -80,9 +80,9 @@ class DeformableTransformerEncoderLayer(nn.Module):
         self.self_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points)
         self.dropout1 = Dropout(dropout)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
-        self.linear1 = nn.Linear(d_model, d_ffn)
+        self.linear1 = Linear(d_model, d_ffn)
         self.dropout2 = Dropout(dropout)
-        self.linear2 = nn.Linear(d_ffn, d_model)
+        self.linear2 = Linear(d_ffn, d_model)
         self.dropout3 = Dropout(dropout)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
 
@@ -110,9 +110,9 @@ class DeformableTransformerDecoderLayer(nn.Module):
                                         attention_dropout=dropout)
         self.dropout2 = Dropout(dropout)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
-        self.linear1 = nn.Linear(d_model, d_ffn)
+        self.linear1 = Linear(d_model, d_ffn)
         self.dropout3 = Dropout(dropout)
-        self.linear2 = nn.Linear(d_ffn, d_model)
+        self.linear2 = Linear(d_ffn, d_model)
         self.dropout4 = Dropout(dropout)
         self.norm3 = nn.LayerNorm(d_model, eps=1e-5)
 
@@ -148,9 +148,9 @@ class SparseDeformableTransformer(nn.Module):
                 dropout)
             for _ in range(num_decoder_layers))
         self.enc_mask_predictor = MaskPredictor(d_model, d_model)
-        self.enc_output = nn.Linear(d_model, d_model)
+        self.enc_output = Linear(d_model, d_model)
         self.enc_output_norm = nn.LayerNorm(d_model, eps=1e-5)
-        self.reference_points_head = nn.Linear(d_model, 1)
+        self.reference_points_head = Linear(d_model, 1)
 
     def prepare_encoder_inputs(self, srcs, masks, poses):
         """Flatten levels, add level embeds, and select the top-K tokens by

@@ -10,6 +10,12 @@ tensor cores in 3xTF32 (``split_tf32`` is the split's plain counterpart).
 The two grids run one schedule on the card and compute the same numbers;
 ``batch_tile`` is still validated, so the config knobs behave as before.
 
+The step runs in x's dtype ``ct``, f32 or bf16, as the TPU kernels run in
+theirs: in bf16 the weights, caches and dense memory K/V are bf16, each
+product accumulates in f32 and is rounded to bf16 (on bf16 tensor cores
+in the kernel), and the logits, softmaxes and LayerNorm statistics stay
+f32 (``fused_decode_step_plain`` has every rounding point).
+
 Row layout per video, as in JAX: R = 2G rows, rows [0, G) are the commit
 positions (the token at ``step``, one per event) and rows [G, 2G) the
 predict positions (``step + 1``). The self-attention caches are
@@ -144,15 +150,21 @@ def erfc_f32(z: torch.Tensor) -> torch.Tensor:
 
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
-    """0.5 x erfc(-x sqrt(1/2)) with the polynomial erfc, as ``_gelu_exact``."""
-    return (0.5 * x) * erfc_f32((-x) * SQRT_HALF)
+    """0.5 x erfc(-x sqrt(1/2)) with the polynomial erfc, as
+    ``_gelu_exact``: each step in x's dtype ``ct`` (sqrt(1/2) rounded to
+    it), the erfc in f32 and rounded to ``ct``."""
+    ct = x.dtype
+    z = (-x) * torch.tensor(SQRT_HALF, dtype=ct)
+    return (0.5 * x) * erfc_f32(z.float()).to(ct)
 
 
 def layer_norm_one_pass(x, scale, bias):
-    """LayerNorm with var = max(E[x^2] - mean^2, 0), eps 1e-6."""
-    mean = x.mean(dim=-1, keepdim=True)
-    var = ((x * x).mean(dim=-1, keepdim=True) - mean * mean).clamp(min=0.0)
-    return (x - mean) * (torch.rsqrt(var + LN_EPS) * scale) + bias
+    """LayerNorm with var = max(E[x^2] - mean^2, 0), eps 1e-6: statistics
+    and the affine map in f32, the result in x's dtype (``_layer_norm``)."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = ((xf * xf).mean(dim=-1, keepdim=True) - mean * mean).clamp(min=0.0)
+    return ((xf - mean) * (torch.rsqrt(var + LN_EPS) * scale.float()) + bias.float()).to(x.dtype)
 
 
 def _softmax_rows(logits):
@@ -181,20 +193,23 @@ def split_tf32(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def cross_attention_plain(qc, mem_k, mem_v, k_scales, v_scales, blocked, log_m, kb, vb,
                           *, num_heads: int, has_bias_col: bool):
     """One layer's shared-KV cross-attention of the decode step: qc (B, R,
-    D), memory K/V (B, Sp, D) f32 or int8 with scales (B, 1, Sp), ``blocked``
-    (B, 1, R, Sp) bool, ``log_m`` (B, R, 1), the K/V projections' biases kb,
-    vb (D,) (the bias column). Returns the heads' outputs (B, H, R, Dh)."""
+    D) in ``ct``, memory K/V (B, Sp, D) in ``ct`` or int8 with scales (B, 1,
+    Sp), ``blocked`` (B, 1, R, Sp) bool, ``log_m`` (B, R, 1), the K/V
+    projections' biases kb, vb (D,) (the bias column). Returns the heads'
+    outputs (B, H, R, Dh) in f32. Products run in ``ct`` (int8 K/V widened
+    to it) and are rounded to it; logits, softmax and scales are f32."""
     B, R, D = qc.shape
     H = num_heads
     Dh = D // H
     scale = Dh ** -0.5
+    ct = qc.dtype
 
     def heads(t):  # (B, T, D) -> (B, H, T, Dh)
         return t.reshape(t.shape[0], t.shape[1], H, Dh).transpose(1, 2)
 
     kv_int8 = mem_k.dtype == torch.int8
-    kh, vh = heads(mem_k.float()), heads(mem_v.float())
-    lg = heads(qc) @ kh.transpose(-1, -2)  # (B, H, R, Sp)
+    kh, vh = heads(mem_k.to(ct)), heads(mem_v.to(ct))
+    lg = (heads(qc) @ kh.transpose(-1, -2)).float()  # (B, H, R, Sp)
     if kv_int8:
         lg = lg * k_scales[:, None]
     scaled = lg.masked_fill(blocked, NEG_MASK) * scale
@@ -202,8 +217,10 @@ def cross_attention_plain(qc, mem_k, mem_v, k_scales, v_scales, blocked, log_m, 
         attn = _softmax_rows(scaled)
         if kv_int8:
             attn = attn * v_scales[:, None]
-        return attn @ vh
-    l_bias = (heads(qc) * kb.reshape(H, 1, Dh)).sum(dim=-1, keepdim=True) * scale
+        return (attn.to(ct) @ vh).float()
+    # q . k_bias as an f32 multiply-reduce rounded to ct, as the TPU kernel
+    prod = heads(qc).float() * kb.float().reshape(H, 1, Dh)
+    l_bias = prod.sum(dim=-1, keepdim=True).to(ct).float() * scale
     bias_logit = l_bias + log_m[:, None]  # (B, H, R, 1)
     m_max = torch.maximum(scaled.amax(dim=-1, keepdim=True), bias_logit)
     e_main = torch.exp(scaled - m_max)
@@ -212,7 +229,7 @@ def cross_attention_plain(qc, mem_k, mem_v, k_scales, v_scales, blocked, log_m, 
     attn = e_main / denom
     if kv_int8:
         attn = attn * v_scales[:, None]
-    return attn @ vh + (e_bias / denom) * vb.reshape(H, 1, Dh)
+    return (attn.to(ct) @ vh).float() + (e_bias / denom) * vb.float().reshape(H, 1, Dh)
 
 
 def fused_decode_step_plain(x, k_caches, v_caches, step: int, valid_len: int,
@@ -220,8 +237,11 @@ def fused_decode_step_plain(x, k_caches, v_caches, step: int, valid_len: int,
                             weights, *, G: int, num_heads: int, has_bias_col: bool):
     """The math of ``_decode_step_kernel`` in plain PyTorch, all videos at
     once: every video attends only its own event's keys and its own Sp
-    columns, so the result is that of any batch tile. Writes the commit rows
-    into the caches in place; returns (x_out, k_caches, v_caches)."""
+    columns, so the result is that of any batch tile. Runs in x's dtype
+    ``ct`` (f32 or bf16), with the TPU kernel's rounding: each product
+    accumulates in f32 and is rounded to ``ct`` before its bias is added;
+    logits, softmaxes and LayerNorm statistics are f32. Writes the commit
+    rows into the caches in place; returns (x_out, k_caches, v_caches)."""
     depth, B, C, D = k_caches.shape
     R = x.shape[1]
     H = num_heads
@@ -229,6 +249,7 @@ def fused_decode_step_plain(x, k_caches, v_caches, step: int, valid_len: int,
     scale = Dh ** -0.5
     kv_int8 = mem_k.dtype == torch.int8
     dev = x.device
+    ct = x.dtype
 
     rows = torch.arange(R, device=dev)[:, None]
     cols = torch.arange(C, device=dev)[None, :]
@@ -250,8 +271,8 @@ def fused_decode_step_plain(x, k_caches, v_caches, step: int, valid_len: int,
         # self-attention: commit the G rows' k/v at `step`, then attend
         k_caches[li, :, step * G:(step + 1) * G] = dense(x[:, :G], "sa", "k")
         v_caches[li, :, step * G:(step + 1) * G] = dense(x[:, :G], "sa", "v")
-        lg = heads(dense(x, "sa", "q")) @ heads(k_caches[li]).transpose(-1, -2)
-        attn = _softmax_rows(lg.masked_fill(sa_blocked, NEG_MASK) * scale)
+        lg = (heads(dense(x, "sa", "q")) @ heads(k_caches[li]).transpose(-1, -2)).float()
+        attn = _softmax_rows(lg.masked_fill(sa_blocked, NEG_MASK) * scale).to(ct)
         x = layer_norm_one_pass(x + dense(merge(attn @ heads(v_caches[li])), "sa", "o"),
                                 w["ln1_s"], w["ln1_b"])
 
@@ -260,7 +281,7 @@ def fused_decode_step_plain(x, k_caches, v_caches, step: int, valid_len: int,
             dense(x, "ca", "q"), mem_k[li], mem_v[li],
             k_scales[li] if kv_int8 else None, v_scales[li] if kv_int8 else None, blocked,
             log_m, w["ca_bk"][0], w["ca_bv"][0], num_heads=H, has_bias_col=has_bias_col)
-        x = layer_norm_one_pass(x + dense(merge(out), "ca", "o"), w["ln2_s"], w["ln2_b"])
+        x = layer_norm_one_pass(x + dense(merge(out).to(ct), "ca", "o"), w["ln2_s"], w["ln2_b"])
 
         # MLP
         y = dense(gelu_exact(dense(x, "mlp", "1")), "mlp", "2")
@@ -290,9 +311,9 @@ class FusedDecodeKernel(KernelBinding):
     # fused_decode_launch(x, x_out, x_scratch, y_buf, k_cache, v_cache, mem_k,
     #   mem_v, k_scales, v_scales, mask, log_m, weights[26], q_buf, attn_buf,
     #   part_buf, h_buf, ca_o, ca_ml, ca_bl, B, G, D, H, depth, C, Sp, F, step,
-    #   valid_len, has_bias, kv_int8, stream)
+    #   valid_len, has_bias, kv_int8, is_bf16, stream)
     argtypes = [ctypes.c_void_p] * 12 + [ctypes.POINTER(ctypes.c_void_p)] \
-        + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+        + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
 
     def __init__(self, grid_mode: str, replaces: str, flags: Tuple[str, ...] = ()):
         super().__init__()
@@ -308,6 +329,22 @@ class FusedDecodeKernel(KernelBinding):
         F = weights["mlp_w1"].shape[2]
         dev = x.device
         kv_int8 = mem_k.dtype == torch.int8
+        ct = x.dtype  # the kernel's element type: float32 or bfloat16
+        if ct not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"the fused decode kernel takes float32 or bfloat16 x, got {ct}")
+        # the caches, the weights and dense memory K/V in x's dtype; log_m
+        # and the int8 scales f32
+        in_ct = [("k_caches", k_caches), ("v_caches", v_caches)]
+        in_ct += [(n, weights[n]) for n in W_ORDER]
+        f32 = [("log_m", log_m)]
+        if kv_int8:
+            f32 += [("k_scales", k_scales), ("v_scales", v_scales)]
+        else:
+            in_ct += [("mem_k", mem_k), ("mem_v", mem_v)]
+        for want, group in ((ct, in_ct), (torch.float32, f32)):
+            for name, t in group:
+                if t.dtype != want:
+                    raise TypeError(f"{name} must be {want} (x is {ct}), got {t.dtype}")
         if dev.type != "cuda":
             raise ValueError(f"the fused decode kernel takes CUDA tensors, got {dev}")
         if R != 2 * G or x.shape != (B, R, D) or C % G or v_caches.shape != k_caches.shape:
@@ -321,18 +358,10 @@ class FusedDecodeKernel(KernelBinding):
                              f"to {5 * CHUNK}, R <= 32, depth <= 16")
         if not 0 <= step < C // G or not step < valid_len <= C // G:
             raise ValueError(f"step {step} / valid_len {valid_len} outside Tc={C // G}")
-        f32 = [("x", x), ("k_caches", k_caches), ("v_caches", v_caches), ("log_m", log_m)]
-        f32 += [(n, weights[n]) for n in W_ORDER]
-        if kv_int8:
-            f32 += [("k_scales", k_scales), ("v_scales", v_scales)]
-            if k_scales.shape != (depth, B, 1, Sp) or v_scales.shape != k_scales.shape:
-                raise ValueError(f"scales must be ({depth}, {B}, 1, {Sp})")
-        else:
-            f32 += [("mem_k", mem_k), ("mem_v", mem_v)]
-        for name, t in f32:
-            if t.dtype != torch.float32:
-                raise TypeError(f"{name} must be float32, got {t.dtype}")
-        tensors = f32 + [("mem_k", mem_k), ("mem_v", mem_v), ("mask_i8", mask_i8)]
+        if kv_int8 and (k_scales.shape != (depth, B, 1, Sp) or v_scales.shape != k_scales.shape):
+            raise ValueError(f"scales must be ({depth}, {B}, 1, {Sp})")
+        tensors = [("x", x)] + in_ct + f32 + [("mem_k", mem_k), ("mem_v", mem_v),
+                                              ("mask_i8", mask_i8)]
         for name, t in tensors:
             if t.device != dev or not t.is_contiguous():
                 raise ValueError(f"{name} must be a contiguous tensor on {dev}")
@@ -365,7 +394,7 @@ class FusedDecodeKernel(KernelBinding):
                     q_buf.data_ptr(), attn_buf.data_ptr(), part_buf.data_ptr(),
                     h_buf.data_ptr(), ca_o.data_ptr(), ca_ml.data_ptr(), ca_bl.data_ptr(),
                     B, G, D, num_heads, depth, C, Sp, F, int(step), int(valid_len),
-                    int(has_bias_col), int(kv_int8), stream)
+                    int(has_bias_col), int(kv_int8), int(ct == torch.bfloat16), stream)
         if rc != 0:
             raise RuntimeError(f"fused_decode_launch failed with CUDA error {rc}")
         self.launches += 1

@@ -115,9 +115,11 @@ class MsdaBwdPlan:
 
 
 def msda_bwd_plan(shapes: Sequence[int], B: int, H: int, Dh: int, Q: int, P: int,
-                  aligned: bool = True, num_sms: int = H100_SMS) -> MsdaBwdPlan:
-    """K2's schedule for value (B, S, H, Dh) f32 and loc (B, Q, H, L, P).
-    Raises on widths outside the kernel's contract."""
+                  aligned: bool = True, num_sms: int = H100_SMS,
+                  itemsize: int = 4) -> MsdaBwdPlan:
+    """K2's schedule for value (B, S, H, Dh) of ``itemsize`` bytes (f32 4,
+    bf16 2; the g rows a round stages in shared memory have the same) and
+    loc (B, Q, H, L, P). Raises on widths outside the kernel's contract."""
     L, longest = len(shapes), max(shapes)
     if Dh > BWD_MAX_DH or L > MAX_LEVELS:
         raise ValueError(f"the MSDA backward kernel takes Dh <= {BWD_MAX_DH} and L <= "
@@ -128,9 +130,9 @@ def msda_bwd_plan(shapes: Sequence[int], B: int, H: int, Dh: int, Q: int, P: int
     cursors = (-(-longest // chunks) + 1) * 4  # the rows a block owns, and its halo row
     # a query's g row, and per tap its two dot products (8 bytes), two
     # entries (16) and a TapRec (12); at most 32767 taps a round (16-bit slots)
-    per_query = Dh * 4 + P * 36
+    per_query = Dh * itemsize + P * 36
     q_round = max(1, min(Q, 32767 // P, (BWD_SMEM_TARGET - cursors - 16) // per_query))
-    smem = _round16(q_round * Dh * 4) + q_round * P * 36 + cursors
+    smem = _round16(q_round * Dh * itemsize) + q_round * P * 36 + cursors
     # at 64 registers a thread an SM holds 1024 threads: two 512-thread
     # blocks, or four 256-thread ones where shared memory lets four share it
     threads = 256 if SMEM_PER_SM // (smem + 1024) >= 4 else 512
@@ -142,8 +144,19 @@ def _num_sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def _as_f32(t: torch.Tensor) -> torch.Tensor:
+    """A float tensor as the f32 contiguous tensor the kernels read."""
+    if not t.is_floating_point():
+        raise TypeError(f"expected a float tensor, got {t.dtype}")
+    return t.float().contiguous()
+
+
 def _check_msda_args(value, shapes, loc, aw):
-    """Shapes, dtypes, devices and contiguity that both kernels take."""
+    """Shapes, dtypes, devices and contiguity that both kernels take: value
+    f32 or bf16, loc and aw f32. A dtype the kernels do not take raises
+    before the device is looked at."""
+    if value.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"value must be float32 or bfloat16, got {value.dtype}")
     if value.device.type != "cuda":
         raise ValueError(f"the MSDA kernels take CUDA tensors, got {value.device}")
     if value.dim() != 4 or loc.dim() != 5:
@@ -180,15 +193,17 @@ class MsdaForwardKernel(KernelBinding):
     def __call__(self, value, temporal_shapes, loc, aw):
         """The forward alone: its output carries no autograd history, so it
         refuses inputs that would need one. Differentiable callers go
-        through ``ms_deform_attn`` (``MSDeformAttnFunction``)."""
+        through ``ms_deform_attn`` (``MSDeformAttnFunction``). value is f32
+        or bf16 (the output takes its dtype); loc and aw may be any float
+        dtype and reach the kernel as f32, as JAX's wrapper casts them
+        (``pallas_msda.py:86-87``)."""
         if torch.is_grad_enabled() and any(t.requires_grad for t in (value, loc, aw)):
             raise RuntimeError(
                 "MSDA_FWD was called with inputs that require grad while grad "
                 "mode is on; its output would cut the autograd graph. Call "
                 "ops.msda.ms_deform_attn, which differentiates through K2")
         shapes = [int(t) for t in temporal_shapes]
-        if value.device.type == "cuda" and value.dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(f"value must be float32 or bfloat16, got {value.dtype}")
+        loc, aw = _as_f32(loc), _as_f32(aw)
         B, S, H, Dh, Q, L, P = _check_msda_args(value, shapes, loc, aw)
         out = torch.empty((B, Q, H * Dh), dtype=value.dtype, device=value.device)
         plan = msda_fwd_plan(shapes, B, H, Dh, Q, P, value.element_size(),
@@ -213,47 +228,54 @@ MSDA_FWD = MsdaForwardKernel()
 
 
 class MsdaBackwardKernel(KernelBinding):
-    """``msda_bwd_launch`` (K2); f32 value only."""
+    """``msda_bwd_launch`` (K2): value and grad_out f32 or bf16 (the same)."""
 
     source, symbol = "msda_bwd.cu", "msda_bwd_launch"
-    # msda_bwd_launch(value, loc, aw, g, dvalue, dloc, daw, B, S, H, Dh, Q,
-    #                 L, P, level_T, vec, chunks, q_round, threads, stream)
-    argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
-        ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    # msda_bwd_launch(value, loc, aw, g, dvalue, dacc, dloc, daw, B, S, H, Dh,
+    #                 Q, L, P, level_T, value_is_bf16, vec, chunks, q_round,
+    #                 threads, stream)
+    argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
+        ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
     def __call__(self, value, temporal_shapes, loc, aw, grad_out):
-        """(dvalue (B,S,H,Dh), dloc, daw (B,Q,H,L,P)), all f32. The kernel
-        writes every element of the three, so they start uninitialised."""
+        """(dvalue (B,S,H,Dh) in value's dtype, dloc and daw (B,Q,H,L,P) in
+        the dtypes of loc and aw), as JAX's ``_bwd_pallas`` returns them.
+        The kernel sums in f32 and rounds dvalue once; loc and aw reach it as
+        f32. It writes every element of the three, so they start
+        uninitialised."""
         shapes = [int(t) for t in temporal_shapes]
-        if value.device.type == "cuda" and value.dtype != torch.float32:
-            raise TypeError(f"the MSDA backward kernel takes float32 value, got {value.dtype}")
-        B, S, H, Dh, Q, L, P = _check_msda_args(value, shapes, loc, aw)
-        if grad_out.shape != (B, Q, H * Dh) or grad_out.dtype != torch.float32 \
+        loc32, aw32 = _as_f32(loc), _as_f32(aw)
+        B, S, H, Dh, Q, L, P = _check_msda_args(value, shapes, loc32, aw32)
+        if grad_out.shape != (B, Q, H * Dh) or grad_out.dtype != value.dtype \
                 or grad_out.device != value.device or not grad_out.is_contiguous():
             raise ValueError(
-                f"grad_out must be a contiguous float32 ({B}, {Q}, {H * Dh}) tensor on "
-                f"{value.device}, got {tuple(grad_out.shape)} {grad_out.dtype} "
+                f"grad_out must be a contiguous {value.dtype} ({B}, {Q}, {H * Dh}) tensor "
+                f"on {value.device}, got {tuple(grad_out.shape)} {grad_out.dtype} "
                 f"on {grad_out.device}")
+        bf16 = value.dtype == torch.bfloat16
         plan = msda_bwd_plan(shapes, B, H, Dh, Q, P,
                              aligned=value.data_ptr() % 16 == 0 and grad_out.data_ptr() % 16 == 0,
-                             num_sms=_num_sms(value.device))
+                             num_sms=_num_sms(value.device), itemsize=value.element_size())
         dvalue = torch.empty_like(value)
-        dloc = torch.empty_like(loc)
-        daw = torch.empty_like(aw)
+        dloc = torch.empty_like(loc32)
+        daw = torch.empty_like(aw32)
         if loc.numel() == 0:
-            return dvalue.zero_(), dloc, daw
+            return dvalue.zero_(), dloc.to(loc.dtype), daw.to(aw.dtype)
+        # bf16 over more than one round of queries: the f32 sums between rounds
+        dacc = torch.empty(value.shape, dtype=torch.float32, device=value.device) \
+            if bf16 and plan.q_round < Q else None
         fn = self._launcher()
         level_T = (ctypes.c_int * L)(*shapes)
         with torch.cuda.device(value.device):
             stream = torch.cuda.current_stream(value.device).cuda_stream
-            rc = fn(value.data_ptr(), loc.data_ptr(), aw.data_ptr(), grad_out.data_ptr(),
-                    dvalue.data_ptr(), dloc.data_ptr(), daw.data_ptr(),
-                    B, S, H, Dh, Q, L, P, level_T, plan.vec, plan.chunks, plan.q_round,
-                    plan.threads, stream)
+            rc = fn(value.data_ptr(), loc32.data_ptr(), aw32.data_ptr(), grad_out.data_ptr(),
+                    dvalue.data_ptr(), 0 if dacc is None else dacc.data_ptr(),
+                    dloc.data_ptr(), daw.data_ptr(), B, S, H, Dh, Q, L, P, level_T, int(bf16),
+                    plan.vec, plan.chunks, plan.q_round, plan.threads, stream)
         if rc != 0:
             raise RuntimeError(f"msda_bwd_launch failed with CUDA error {rc} ({plan})")
         self.launches += 1
-        return dvalue, dloc, daw
+        return dvalue, dloc.to(loc.dtype), daw.to(aw.dtype)
 
 
 MSDA_BWD = MsdaBackwardKernel()
@@ -261,7 +283,9 @@ MSDA_BWD = MsdaBackwardKernel()
 
 class MSDeformAttnFunction(torch.autograd.Function):
     """MSDA with its backward: K1 and K2 on a CUDA tensor, the plain core and
-    the plain backward on the CPU. Saves value, loc and aw."""
+    the plain backward on the CPU. Saves value, loc and aw. value may be
+    bf16 (the bf16 trunk's): the output and dvalue are in its dtype, dloc
+    and daw in those of loc and aw."""
 
     @staticmethod
     def forward(ctx, value, temporal_shapes, loc, aw):

@@ -7,20 +7,19 @@ on the card: counterpart of the JAX repository's
 Arms: ``xla`` (the plain-op decode), ``fused`` (the fused decode step, grid
 "video"), ``fusedb`` (grid "batch") and ``fusedb_int8`` (grid "batch", int8
 memory K/V). One model at the flagship's widths with random weights (seed
-0), f32, batches of 16 synthetic videos (``data/anet.py::synthetic_batches``,
+0), in ``--dtype`` ("float32", or "bfloat16": the config's
+``compute_dtype``, as the JAX tool's bf16 trunk), batches of 16 synthetic videos (``data/anet.py::synthetic_batches``,
 seed 0, the flagship vocabulary); the arms differ only in the decode
 backend, so the difference between them is the decode's. The arms take
 turns within every iteration, since the host's speed moves between calls
 and within one. Host clock around a synchronize per forward. Prints one
 JSON line with ``<arm>_videos_per_s`` and ``<arm>_step_ms``.
-
-The JAX tool serves a bf16 trunk; the port's is f32 until its bf16 slice,
-so ``--dtype bfloat16`` raises.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import time
 from typing import Dict, Sequence
@@ -56,11 +55,10 @@ def run(device="cuda", arms: Sequence[str] = ARMS, batch: int = 16, iters: int =
         vocab_size: int = VOCAB_SIZE) -> Dict:
     """Each arm's videos per second and mean ms per forward over ``iters``
     forwards, after one warm-up forward of every arm."""
-    if dtype != "float32":
-        raise NotImplementedError(f"the port serves in float32 only, got dtype={dtype!r}")
     dev = resolve_device(device)
     settings = {name: arm_settings(name) for name in arms}
-    cfg = cfg or load_config()
+    cfg = copy.deepcopy(cfg or load_config())
+    cfg.compute_dtype = dtype  # build_model raises on a dtype the port does not take
     model = build_model(cfg, vocab_size, device=dev, seed=0)
     batches = [batch_to_device(b, dev)
                for b in synthetic_batches(cfg, batch, vocab_size, seed=0, num_batches=n_batches)]

@@ -71,12 +71,16 @@ def jax_masks(pad, zeroed):
     return mask_i8, jnp.tile(log_m, (1, 2))[..., None]
 
 
-def step_inputs(setup, step, kv_mode, bias_col, seed=0, pad=None):
-    """Numpy inputs of one step, the memory K/V from JAX's stacking."""
+def step_inputs(setup, step, kv_mode, bias_col, seed=0, pad=None, dtype="float32"):
+    """Numpy inputs of one step, the memory K/V from JAX's stacking; with
+    ``dtype`` "bfloat16" the weights, memory, x and caches are rounded to
+    bf16 (held as f32 arrays, which both sides cast back exactly) and the
+    memory K/V are stacked in bf16, as JAX's bf16 decode stacks them."""
     _, params, _, memory, pad0, zeroed = setup
     rng = np.random.default_rng(seed)
-    w = jfd.extract_decoder_weights(params)
-    mem_k, mem_v = jfd.stack_memory_kv(w, jnp.asarray(memory), SP)
+    ct = jnp.dtype(dtype)
+    w = {k: v.astype(ct) for k, v in jfd.extract_decoder_weights(params).items()}
+    mem_k, mem_v = jfd.stack_memory_kv(w, jnp.asarray(memory).astype(ct), SP)
     ks = vs = None
     if kv_mode == "int8":
         mem_k, ks = jfd.quantize_kv_int8(mem_k)
@@ -87,25 +91,42 @@ def step_inputs(setup, step, kv_mode, bias_col, seed=0, pad=None):
     kc[:, :, :step * G] = rng.normal(size=(DEPTH, B, step * G, D))
     vc[:, :, :step * G] = rng.normal(size=(DEPTH, B, step * G, D))
     x = rng.normal(size=(B, R, D)).astype(np.float32)
-    return [np.asarray(a) if a is not None else None
+
+    def held(a):  # ct values as an f32 array (int8 and f32 arrays as they are)
+        a = np.asarray(a)
+        return a if a.dtype in (np.int8, np.float32, bool) else a.astype(np.float32)
+
+    kc, vc, x = (np.asarray(jnp.asarray(a).astype(ct).astype(jnp.float32)) for a in (kc, vc, x))
+    return [held(a) if a is not None else None
             for a in (x, kc, vc, mem_k, mem_v, ks, vs, mask_i8, log_m)], w
 
 
-def run_both(setup, step, kv_mode, bias_col, grid, pad=None):
+def run_both(setup, step, kv_mode, bias_col, grid, pad=None, dtype="float32"):
+    """One step on both sides; returns ([x, k caches, v caches] of JAX,
+    those of the port) as f32 numpy arrays."""
     (x, kc, vc, mk, mv, ks, vs, mask, log_m), w = step_inputs(setup, step, kv_mode,
-                                                              bias_col, pad=pad)
+                                                              bias_col, pad=pad, dtype=dtype)
+    ct, tt = jnp.dtype(dtype), getattr(torch, dtype)
+
+    def jx(a):  # the K/V keep int8; the rest go in ct
+        return jnp.asarray(a) if a.dtype == np.int8 else jnp.asarray(a).astype(ct)
+
+    def tx(a):
+        return t(a) if a.dtype == np.int8 else t(a).to(tt)
+
     ref = jfd.fused_decode_step(
-        jnp.asarray(x), jnp.asarray(kc), jnp.asarray(vc), jnp.int32(step),
-        jnp.int32(step + 1), jnp.asarray(mk), jnp.asarray(mv),
+        jx(x), jx(kc), jx(vc), jnp.int32(step), jnp.int32(step + 1), jx(mk), jx(mv),
         None if ks is None else jnp.asarray(ks), None if vs is None else jnp.asarray(vs),
         jnp.asarray(mask), jnp.asarray(log_m), w, G=G, num_heads=H,
         has_bias_col=bias_col, grid_mode=grid, interpret=True)
-    tw = tfd.extract_decoder_weights(setup[2])
+    tw = {k: v.to(tt) for k, v in tfd.extract_decoder_weights(setup[2]).items()}
     got = tfd.fused_decode_step(
-        t(x), t(kc), t(vc), step, step + 1, t(mk), t(mv),
+        tx(x), tx(kc), tx(vc), step, step + 1, tx(mk), tx(mv),
         None if ks is None else t(ks), None if vs is None else t(vs), t(mask), t(log_m),
         tw, G=G, num_heads=H, has_bias_col=bias_col, grid_mode=grid)
-    return [np.asarray(a) for a in ref], [a.numpy() for a in got]
+    assert all(a.dtype == tt for a in got)
+    return ([np.asarray(a.astype(jnp.float32)) for a in ref],
+            [a.float().numpy() for a in got])
 
 
 def test_extract_decoder_weights_matches_jax(setup):
@@ -163,6 +184,34 @@ def test_fused_step_matches_jax(setup, grid, bias_col, kv_mode, step):
     np.testing.assert_allclose(gvc, rvc, rtol=0, atol=1e-5)
     rows = slice(step * G, (step + 1) * G)
     assert np.abs(gkc[:, :, rows]).min() > 0  # the commit rows were written
+
+
+# bf16: both sides round where JAX's kernel writes ``.astype(ct)``, but the
+# interpret-mode kernel is one XLA program on the CPU, whose compiler may
+# keep a bf16 intermediate in f32 (excess precision: gelu's -x*sqrt(1/2)
+# before the f32 erfc is one such), so a few of the hidden state's values
+# land one bf16 step apart and move on through the LayerNorms. The step is
+# held to 1/64 of the largest value, two bf16 steps at that magnitude.
+BF16_STEP_REL = 1 / 64
+
+
+@pytest.mark.parametrize("kv_mode", ["dense", "int8"])
+@pytest.mark.parametrize("bias_col", [False, True])
+@pytest.mark.parametrize("grid", ["video", "batch"])
+def test_fused_step_bf16_matches_jax(setup, grid, bias_col, kv_mode):
+    """The step in bf16 (weights, x, caches and dense memory K/V), step 4:
+    the port's plain version returns bf16 and stays within BF16_STEP_REL of
+    JAX's kernel in interpret mode; the rows that are not committed stay
+    exactly as they were."""
+    (rx, rkc, rvc), (gx, gkc, gvc) = run_both(setup, 4, kv_mode, bias_col, grid,
+                                              dtype="bfloat16")
+    for got, ref in ((gx, rx), (gkc, rkc), (gvc, rvc)):
+        np.testing.assert_allclose(got, ref, rtol=0, atol=BF16_STEP_REL * np.abs(ref).max())
+    rows = slice(4 * G, 5 * G)
+    assert np.abs(gkc[:, :, rows]).min() > 0
+    keep = np.ones(gkc.shape[2], bool)
+    keep[rows] = False
+    np.testing.assert_array_equal(gkc[:, :, keep], rkc[:, :, keep])
 
 
 def _decode_both(setup, zeroed_on, faster_eval, grid, kv_mode="dense"):
@@ -281,6 +330,27 @@ def test_cpu_tensors_take_the_plain_version(setup):
         tfd.FUSED_DECODE["video"](t(x), t(kc), t(vc), 0, 1, t(mk), t(mv), None, None,
                                   t(mask), t(log_m), tfd.extract_decoder_weights(tmod),
                                   G=G, num_heads=H, has_bias_col=False)
+
+
+def test_kernel_wrapper_refuses_dtypes_it_does_not_take(setup):
+    """The kernel takes x in f32 or bf16, with the caches, the weights and
+    dense memory K/V in x's dtype: anything else raises TypeError before a
+    launch, on any device."""
+    (x, kc, vc, mk, mv, ks, vs, mask, log_m), _ = step_inputs(setup, 0, "dense", False)
+    w = tfd.extract_decoder_weights(setup[2])
+    kernel = tfd.FUSED_DECODE["video"]
+    before = kernel.launches
+    args = dict(G=G, num_heads=H, has_bias_col=False)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        kernel(t(x).half(), t(kc).half(), t(vc).half(), 0, 1, t(mk).half(), t(mv).half(),
+               None, None, t(mask), t(log_m), {k: v.half() for k, v in w.items()}, **args)
+    with pytest.raises(TypeError, match="k_caches must be torch.bfloat16"):
+        kernel(t(x).bfloat16(), t(kc), t(vc), 0, 1, t(mk), t(mv), None, None, t(mask),
+               t(log_m), w, **args)
+    with pytest.raises(TypeError, match="sa_wq must be torch.float32"):
+        kernel(t(x), t(kc), t(vc), 0, 1, t(mk), t(mv), None, None, t(mask), t(log_m),
+               {k: v.bfloat16() for k, v in w.items()}, **args)
+    assert kernel.launches == before
 
 
 def test_fused_decode_needs_groups(setup):
@@ -450,3 +520,4 @@ def test_chunked_combine_matches_plain_cross_attention(bias_col, kv_mode):
         mean_v = v[0].mean(dim=0).reshape(Hc, 1, Dc // Hc)
         for r in (0, Gc):
             assert (got[0, :, r:r + 1] - mean_v).abs().max().item() <= tol
+

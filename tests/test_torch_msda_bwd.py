@@ -97,6 +97,55 @@ def test_plain_backward_matches_jax_xla_and_pallas(case):
     assert (dloc == 0).any() and (dloc != 0).any()
 
 
+def bf16_values(a):
+    """An f32 array rounded to bf16, as a bf16 tensor and a bf16 JAX array."""
+    t = torch.from_numpy(a).to(torch.bfloat16)
+    return t, jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_backward_bf16_matches_pallas(case):
+    """value and the output gradient in bf16, loc and aw f32, as the bf16
+    train step hands them to K2: the plain backward returns dvalue in bf16
+    and dloc, daw in f32, as JAX's ``_bwd_pallas`` (interpret mode) does.
+    Both widen to f32, sum in f32 and round dvalue once, so dvalue is held
+    to one bf16 step at its largest magnitude (2^-7 x max |ref|: the f32
+    sums, taken in another order, may round to either neighbour); dloc and
+    daw to the f32 bound above, dloc away from the taps the Pallas kernel
+    rounds to another side (``rounding_moves_tap``)."""
+    dims, shapes, P = CASES[case]
+    value, loc, aw = make_inputs(dims, shapes, P, seed=7)
+    (tv, jv), (tg, jg) = bf16_values(value), bf16_values(grad_out(dims, seed=8))
+    got = ms_deform_attn_core_backward(tv, shapes, torch.from_numpy(loc),
+                                       torch.from_numpy(aw), tg)
+    ref = _bwd_pallas(jv, shapes, jnp.asarray(loc), jnp.asarray(aw), jg, interpret=True)
+    assert got[0].dtype == torch.bfloat16 and ref[0].dtype == jnp.bfloat16
+    assert got[1].dtype == got[2].dtype == torch.float32
+    assert_rel_close(got[0].float().numpy(), np.asarray(ref[0].astype(jnp.float32)),
+                     rel=2.0 ** -7)
+    assert_rel_close(got[2].numpy(), ref[2])
+    straddle = rounding_moves_tap(loc, shapes)
+    np.testing.assert_allclose(got[1].numpy()[~straddle], np.asarray(ref[1])[~straddle],
+                               rtol=0, atol=1e-5 * float(np.abs(ref[1]).max()))
+
+
+def test_kernel_wrappers_refuse_dtypes_their_kernels_do_not_take():
+    """K1 and K2 take value (and K2 the output gradient) in f32 or bf16:
+    an f16 value raises TypeError before anything is launched, on any
+    device; K2 takes an output gradient in value's dtype only."""
+    dims, shapes, P = CASES["ragged"]
+    value, loc, aw = (torch.from_numpy(a) for a in make_inputs(dims, shapes, P))
+    g = torch.from_numpy(grad_out(dims))
+    before = msda.MSDA_FWD.launches, msda.MSDA_BWD.launches
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        msda.MSDA_FWD(value.half(), shapes, loc, aw)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        msda.MSDA_BWD(value.half(), shapes, loc, aw, g.half())
+    with pytest.raises(TypeError, match="float"):
+        msda.MSDA_FWD(value, shapes, loc.to(torch.int32), aw)
+    assert (msda.MSDA_FWD.launches, msda.MSDA_BWD.launches) == before
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_function_backward_on_cpu_is_the_plain_backward(case):
     dims, shapes, P = CASES[case]

@@ -68,8 +68,14 @@ def test_bench_fused_decode_rows(cfg):
                                   vocab_size=VOCAB_SIZE)
     for arm in bench_fused_decode.ARMS:
         assert finite(rows[f"{arm}_videos_per_s"]) and finite(rows[f"{arm}_step_ms"]), arm
-    with pytest.raises(NotImplementedError, match="float32"):
-        bench_fused_decode.run("cpu", dtype="bfloat16", cfg=cfg, vocab_size=VOCAB_SIZE)
+    # the bf16 trunk runs (it raised before the port had one); an unknown dtype raises
+    bf16 = bench_fused_decode.run("cpu", arms=("xla", "fusedb_int8"), batch=2, iters=1,
+                                  n_batches=1, dtype="bfloat16", cfg=cfg,
+                                  vocab_size=VOCAB_SIZE)
+    assert bf16["dtype"] == "bfloat16" and finite(bf16["fusedb_int8_step_ms"])
+    assert cfg.compute_dtype == "float32"  # the caller's config is left as it was
+    with pytest.raises(ValueError, match="float16"):
+        bench_fused_decode.run("cpu", dtype="float16", cfg=cfg, vocab_size=VOCAB_SIZE)
     with pytest.raises(ValueError, match="arm"):
         bench_fused_decode.arm_settings("fusedc")
 
