@@ -121,6 +121,37 @@ Phases, each printing one line with its wall seconds:
    "bfloat16"): K2 exactly 12 times a step, median step ms, peak memory,
    each step's loss beside the f32 run's. The kernel lines of K2 and K3/K4
    (phase 3) hold their bf16 routes against their plain bf16 versions.
+26. dense_serve (after tools): the dense deformable family (BASELINE
+   config #2: every token a query, a class head) at full width with
+   weights drawn from seed 0, the 48 requests through DVCServer ranked by
+   "stability" and by "class" (1 - p(no-object)), each with the plain-op
+   and the fused "video" decode: videos/s, latency, K1 12 times a dispatch,
+   the fused kernel once per decode step, MSDA calls by shape (Q = S =
+   563), and in each rank the fused answers against the plain-op ones;
+27. dense_eval: evaluate_arms on the dense model (every val_mode, fused
+   and plain-op, beam 1 equal to greedy on at least 90% of rows, and where
+   they part, the top-2 logit gap there and how far the two decodes'
+   logits are apart);
+28. dense_check: the class-ranked served results of 2 videos and
+   eval_check's batch of 2, on the card against the port's CPU path;
+29. dense_train: the train phase on the dense family (K1 and K2 12 times a
+   step), and train_check's card-against-CPU step, K2 on the CPU step's
+   encoder MSDA inputs (Q = S = 563);
+30. mm_eval, mm_train, mm_check (twice: the context masks off, as the JAX
+   package trained BASELINE config #3, and on): the video + audio family
+   with the BiModalEncoder at full width (audio 50 -> S = 95), weights from
+   seed 0: evaluate_arms in one_by_one, teacher_forcing, beam 4 and
+   faster_eval (K1 36 times a forward: 4 calls an encoder layer, 2 a
+   decoder layer), the train phase (K2 36 times a step, MSDA calls by
+   shape, peak memory), and eval_check and train_check against the CPU;
+31. dense_cli, mm_cli: the training CLI on each family over the evaluation
+   world's 64 train videos (the multimodal family reads the video features
+   as audio, as the JAX package does without an audio file), one epoch with
+   eval and scoring, then --mode eval --resume of its checkpoint: K1 and
+   K2 once per MSDA call of every step and eval batch, the same val loss.
+   The kernel lines of phase 3 hold K1 and K2 at every call shape of the
+   two families (tools/msda_device_time.py::FAMILY_CALLS), f32, and the
+   dense encoder's in bf16 too.
 
 Then one JSON line of kernel measurements and, as the last line, a JSON
 object naming the device. Any failure exits non-zero without that line, as
@@ -264,13 +295,22 @@ def msda_device_times(fn, name: str) -> dict:
 
 
 def msda_calls(model_dims):
-    """(name, B, Q, level lengths) of the MSDA calls the kernel lines hold:
-    the encoder's and the decoder's at the main path's shapes, and the
-    sparse encoder of a longer video's pyramid at B=2, whose rows take the
-    kernels' chunked route."""
+    """(name, B, Q, level lengths, dtypes) of the MSDA calls the kernel
+    lines hold: the encoder's and the decoder's at the main path's shapes,
+    and the sparse encoder of a longer video's pyramid at B=2, whose rows
+    take the kernels' chunked route, each in f32 and bf16; then every call
+    of the dense and the multimodal families that those do not hold
+    (``tools/msda_device_time.py::FAMILY_CALLS``: the dense encoder's Q = S
+    = 563, the audio pyramid's 95 rows, and queries of one pyramid sampling
+    the other's value), in f32, and the dense encoder's in bf16 too."""
+    from multimodal_feature_learning_tpu_torch.tools.msda_device_time import FAMILY_CALLS
+
     B, H, Dh, shapes, P, q_enc, q_dec, q_long, long_shapes = model_dims
-    return (("encoder", B, q_enc, shapes), ("decoder", B, q_dec, shapes),
-            ("long_pyramid", 2, q_long, long_shapes))
+    both = ("float32", "bfloat16")
+    return (("encoder", B, q_enc, shapes, both), ("decoder", B, q_dec, shapes, both),
+            ("long_pyramid", 2, q_long, long_shapes, both),
+            *((name, b, q, s, both if name == "dense_encoder" else ("float32",))
+              for name, b, q, s in FAMILY_CALLS))
 
 
 # K2's tolerance, x max |ref| of each output: f32 sums in another order
@@ -300,7 +340,9 @@ def check_msda_bwd(model_dims):
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
-        for where, B, Q, shapes in msda_calls(model_dims):
+        for where, B, Q, shapes, dtypes in msda_calls(model_dims):
+            if dname not in dtypes:
+                continue
             value, loc, aw = msda_inputs(B, Q, H, Dh, shapes, P, dtype, seed=Q + 1)
             g = torch.randn((B, Q, H * Dh),
                             generator=torch.Generator(device="cuda").manual_seed(Q),
@@ -369,8 +411,10 @@ def check_msda(model_dims):
     _, H, Dh, _, P = model_dims[:5]
     tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2}  # relative to max |out|
     cases = []
-    for where, B, Q, shapes in msda_calls(model_dims):
+    for where, B, Q, shapes, dtypes in msda_calls(model_dims):
         for dtype in (torch.float32, torch.bfloat16):
+            if str(dtype).replace("torch.", "") not in dtypes:
+                continue
             value, loc, aw = msda_inputs(B, Q, H, Dh, shapes, P, dtype, seed=Q)
             got = msda.MSDA_FWD(value, shapes, loc, aw)
             ref = ms_deform_attn_core(value, shapes, loc, aw)
@@ -747,16 +791,76 @@ def kernel_counters():
             "fused_decode_batch": fd.FUSED_DECODE["batch"], "probe_add": PROBE_ADD}
 
 
-def serve(model, requests):
-    """Phases 5 and 7: the requests through DVCServer. Every kernel's launch
-    count is set to 0 just before the first request and read just after the
-    last; the decode steps of every dispatch are read from its captions.
-    Returns the results, latencies, wall seconds, launches, the server's
-    stats and the decode steps per dispatch."""
+def msda_per_forward(cfg, encoder_only: bool = False) -> int:
+    """MSDA calls (K1 launches) in one forward of ``cfg``'s family: a
+    unimodal encoder layer makes one and a decoder layer one; a multimodal
+    encoder layer four (self-attention in each modality and a cross-modal
+    call each way) and a decoder layer two (one into each memory)."""
+    det = cfg.dvc.detr
+    enc, dec = (4, 2) if len(cfg.dvc.input_modalities) == 2 else (1, 1)
+    return enc * det.enc_layers + (0 if encoder_only else dec * det.dec_layers)
+
+
+def without_dropout(cfg):
+    """A copy of ``cfg`` with every dropout rate 0."""
+    import dataclasses
+
+    cfg = dataclasses.replace(cfg)
+    cfg.dvc = dataclasses.replace(cfg.dvc, detr=dataclasses.replace(
+        cfg.dvc.detr, transformer_dropout_prob=0.0), caption=dataclasses.replace(
+        cfg.dvc.caption, positional_embedding_dropout=0.0, attention_dropout=0.0,
+        projection_dropout=0.0, bridge_dropout=0.0, mlp_dropout_1=0.0, mlp_dropout_2=0.0))
+    return cfg
+
+
+def build_family(cfg, vocab_size: int, device, flat=None):
+    """The model of ``cfg``'s family (the unimodal ``models.dvc`` model, or
+    the multimodal one for two input modalities) on ``device``, carrying the
+    flat flax params ``flat`` (loaded strictly) or, without them, weights
+    drawn from ``cfg.seed``."""
+    from multimodal_feature_learning_tpu_torch.models.dvc import build_model
+    from multimodal_feature_learning_tpu_torch.models.multimodal import build_multimodal_model
+    from multimodal_feature_learning_tpu_torch.utils.weights import load_flax_params
+
+    build = build_multimodal_model if len(cfg.dvc.input_modalities) == 2 else build_model
+    model = build(cfg, vocab_size, device=device, seed=cfg.seed)
+    if flat is not None:
+        load_flax_params(model, flat)
+    return model
+
+
+class counting_msda_shapes:
+    """Within the block, the model's MSDA calls counted by shape: {"Q=563
+    S=563": calls} (queries, value rows). Each call on the card is one K1
+    launch."""
+
+    def __enter__(self):
+        from multimodal_feature_learning_tpu_torch.models import msda_module
+
+        self.module, self.orig, counts = msda_module, msda_module.ms_deform_attn, {}
+
+        def counting(value, shapes, loc, aw):
+            key = f"Q={loc.shape[1]} S={value.shape[1]}"
+            counts[key] = counts.get(key, 0) + 1
+            return self.orig(value, shapes, loc, aw)
+
+        msda_module.ms_deform_attn = counting
+        return counts
+
+    def __exit__(self, *exc):
+        self.module.ms_deform_attn = self.orig
+
+
+def serve(model, requests, rank: str = "stability"):
+    """Phases 5 and 7: the requests through DVCServer (ranking by ``rank``).
+    Every kernel's launch count is set to 0 just before the first request
+    and read just after the last; the decode steps of every dispatch are
+    read from its captions. Returns the results, latencies, wall seconds,
+    launches, the server's stats and the decode steps per dispatch."""
     from multimodal_feature_learning_tpu_torch.serve import DVCServer
     from multimodal_feature_learning_tpu_torch.tools.profile_decode import decode_steps_run
 
-    server = DVCServer(model, batch_size=BATCH, max_wait_ms=10.0)
+    server = DVCServer(model, batch_size=BATCH, max_wait_ms=10.0, rank=rank)
     steps = []
     forward = model.forward_serve
 
@@ -1060,10 +1164,11 @@ def serve_fused(model, requests):
     return out
 
 
-def check_results(cfg, model, requests, results, compare_cpu: bool = True):
+def check_results(cfg, model, requests, results, compare_cpu: bool = True,
+                  rank: str = "stability", n_check: int = N_CHECK):
     """Served events are well formed and, with ``compare_cpu``, match the
-    port's CPU path (plain MSDA core, CPU matmuls) on the first N_CHECK
-    videos by ``compare_results``."""
+    port's CPU path (plain MSDA core, CPU matmuls, ranking by ``rank``) on
+    the first ``n_check`` videos by ``compare_results``."""
     import copy
 
     import numpy as np
@@ -1088,16 +1193,17 @@ def check_results(cfg, model, requests, results, compare_cpu: bool = True):
     if not compare_cpu:
         return None
     T = model.video_rescale_len
-    video = np.stack([nearest_resize(f[None], T, axis=1)[0] for f, _ in requests[:N_CHECK]])
-    durs = np.array([d for _, d in requests[:N_CHECK]], np.float32)
+    video = np.stack([nearest_resize(f[None], T, axis=1)[0] for f, _ in requests[:n_check]])
+    durs = np.array([d for _, d in requests[:n_check]], np.float32)
     cpu_model = copy.deepcopy(model).cpu()
+    cpu_model.decode_impl = "xla"
     ref = cpu_model.forward_serve(torch.from_numpy(video),
                                   torch.zeros(video.shape[:2], dtype=torch.bool),
-                                  torch.from_numpy(durs))
+                                  torch.from_numpy(durs), rank=rank)
     cpu_results = [[{"segment": tuple(ref["segments"][i, j].tolist()),
                      "caption": ref["captions"][i, j].tolist()}
-                    for j in range(int(ref["k"][i]))] for i in range(N_CHECK)]
-    return {"videos": N_CHECK, **compare_results(requests[:N_CHECK], results[:N_CHECK],
+                    for j in range(int(ref["k"][i]))] for i in range(n_check)]
+    return {"videos": n_check, **compare_results(requests[:n_check], results[:n_check],
                                                  cpu_results, "GPU against CPU serving")}
 
 
@@ -1313,12 +1419,18 @@ EVAL_ARMS = (  # (name, val_mode, keyword arguments, decode_impl)
 )
 
 
-def evaluate_arms(cfg, model, batch):
+def evaluate_arms(cfg, model, batch, eval_arms=EVAL_ARMS, beam1_min_share: float = 1.0):
     """Phase 12: make_eval_step on one batch (on the model's device) in every
-    arm of EVAL_ARMS, and beam 1. Every kernel's launch count is set to 0
+    arm of ``eval_arms`` (EVAL_ARMS), and beam 1. Every kernel's launch count is set to 0
     just before each arm and read just after it. Checks: every loss finite;
     K1 launched once per MSDA call of the forward; the fused arm's kernel
-    once per decode step; beam 1 equal to greedy, row for row."""
+    once per decode step; beam 1 equal to greedy on at least
+    ``beam1_min_share`` of the caption rows (the flagship's trained weights:
+    every row), and where they part, a near-tie (``beam1_divergence_gaps``
+    within NEAR_TIE). Beam 1 picks the top of score + log-softmax, greedy
+    the top logit: the same token but where two logits are within the
+    rounding of the running score, which seeded random weights leave in a
+    few of the 3,040 decisions of a batch."""
     import torch
 
     from multimodal_feature_learning_tpu_torch.engine.evaluate import make_eval_step
@@ -1327,9 +1439,9 @@ def evaluate_arms(cfg, model, batch):
 
     criterion, weight_dict = build_criterion(cfg, model.pad_idx)
     counters = kernel_counters()
-    per_forward = cfg.dvc.detr.enc_layers + cfg.dvc.detr.dec_layers
+    per_forward = msda_per_forward(cfg)
     arms, captions = {}, {}
-    for name, val_mode, kw, impl in EVAL_ARMS + (("beam1", "beam", {"beam_size": 1}, "xla"),):
+    for name, val_mode, kw, impl in eval_arms + (("beam1", "beam", {"beam_size": 1}, "xla"),):
         model.decode_impl = impl
         try:
             step = make_eval_step(model, criterion, weight_dict, val_mode, **kw)
@@ -1362,13 +1474,67 @@ def evaluate_arms(cfg, model, batch):
                       "caption_loss_terms": sum(k.startswith("loss_caption") for k in values),
                       "launches": launches,
                       "segments_max_s": float(denorm.abs().max())}
-    if not torch.equal(captions["beam1"], captions["one_by_one"]):
-        rows = int((captions["beam1"] != captions["one_by_one"]).any(dim=1).sum())
-        raise AssertionError(f"beam 1 differs from greedy on {rows} caption rows")
-    fused_rows = int((captions["one_by_one_fused"] == captions["one_by_one"]).all(dim=1).sum())
+    n_rows = captions["one_by_one"].shape[0]
+    beam1_rows = int((captions["beam1"] == captions["one_by_one"]).all(dim=1).sum())
+    gaps = beam1_divergence_gaps(model, batch, captions["one_by_one"], captions["beam1"])
+    if beam1_rows < beam1_min_share * n_rows or any(
+            g["greedy_top2_logit_gap"] > NEAR_TIE or g["max_abs_logit_diff_greedy_vs_beam1"]
+            > NEAR_TIE for g in gaps):
+        raise AssertionError(f"beam 1 differs from greedy on {n_rows - beam1_rows} of "
+                             f"{n_rows} caption rows: {gaps}")
+    fused_rows = None
+    if "one_by_one_fused" in captions:
+        fused_rows = int((captions["one_by_one_fused"] == captions["one_by_one"])
+                         .all(dim=1).sum())
     return {"batch": int(batch["video_tensor"].shape[0]), "arms": arms,
-            "beam1_equals_greedy": True,
+            "beam1_rows_equal_to_greedy": beam1_rows,
+            "beam1_divergences": gaps,
             "fused_rows_equal_to_plain": fused_rows, "rows": int(captions["one_by_one"].shape[0])}
+
+
+# where beam 1 and greedy part, greedy's top-2 logit gap and the two decodes'
+# logits must be within this of each other: a near-tie, which beam 1's sum of
+# a running score (tens) and a log-softmax rounds at about 4e-6
+NEAR_TIE = 1e-4
+
+
+def beam1_divergence_gaps(model, batch, greedy, beam1, max_rows: int = 5):
+    """Where beam 1 and greedy part (at most ``max_rows`` rows), both decodes
+    run again on ``batch`` with every step's logits recorded
+    (``caption.decode_pair``): at the first position the row differs, the
+    gap between greedy's two largest logits and the largest difference
+    between the two decodes' logits of that row. Logits that agree to f32
+    rounding with a gap of that size say the two decodes split a near-tie
+    (beam 1 ranks score + log-softmax, greedy the logits)."""
+    import torch
+
+    rows = (greedy != beam1).any(dim=1).nonzero()[:max_rows, 0].tolist()
+    if not rows:
+        return []
+    recorded = {}
+    decode_pair = model.caption.decode_pair
+    for mode, kw in (("one_by_one", {}), ("beam", {"beam_size": 1})):
+        logits = []
+
+        def recording(*args, **kwargs):
+            logits.append(decode_pair(*args, **kwargs).float())
+            return logits[-1]
+
+        model.caption.decode_pair = recording
+        try:
+            with torch.no_grad():
+                model.forward_eval(batch, mode, **kw)
+        finally:
+            del model.caption.decode_pair
+        recorded[mode] = logits
+    gaps = []
+    for r in rows:
+        t = int((greedy[r] != beam1[r]).nonzero()[0, 0])
+        g, b = recorded["one_by_one"][t - 1][r], recorded["beam"][t - 1][r]
+        top2 = g.topk(2).values
+        gaps.append({"row": r, "position": t, "greedy_top2_logit_gap": float(top2[0] - top2[1]),
+                     "max_abs_logit_diff_greedy_vs_beam1": float((g - b).abs().max())})
+    return gaps
 
 
 EVAL_CHECK_LOGP_TOL = 1e-3  # x max |ref| of the teacher-forced log-probabilities
@@ -1390,19 +1556,12 @@ def eval_check(cfg, flat, vocab_size):
     from multimodal_feature_learning_tpu_torch.data.anet import synthetic_batches
     from multimodal_feature_learning_tpu_torch.engine.train import batch_to_device
     from multimodal_feature_learning_tpu_torch.models.criterion import build_criterion
-    from multimodal_feature_learning_tpu_torch.models.dvc import build_model
-    from multimodal_feature_learning_tpu_torch.utils.weights import load_flax_params
 
-    cfg = dataclasses.replace(cfg)
-    cfg.dvc = dataclasses.replace(cfg.dvc, detr=dataclasses.replace(
-        cfg.dvc.detr, transformer_dropout_prob=0.0), caption=dataclasses.replace(
-        cfg.dvc.caption, positional_embedding_dropout=0.0, attention_dropout=0.0,
-        projection_dropout=0.0, mlp_dropout_1=0.0, mlp_dropout_2=0.0))
+    cfg = without_dropout(cfg)
     batch = next(synthetic_batches(cfg, 2, vocab_size, seed=0))
     res = {}
     for device in ("cuda", "cpu"):
-        model = build_model(cfg, vocab_size, device=device)
-        load_flax_params(model, flat)
+        model = build_family(cfg, vocab_size, device, flat)
         criterion, weight_dict = build_criterion(cfg, model.pad_idx)
         tb = batch_to_device(batch, device)
         out, caps, idx, idx_aux, mask = model.forward_eval(tb, "one_by_one")
@@ -1838,12 +1997,9 @@ def train(cfg, flat, vocab_size):
         batch_to_device, make_train_step, train_one_epoch,
     )
     from multimodal_feature_learning_tpu_torch.models.criterion import build_criterion
-    from multimodal_feature_learning_tpu_torch.models.dvc import build_model
     from multimodal_feature_learning_tpu_torch.ops import msda
-    from multimodal_feature_learning_tpu_torch.utils.weights import load_flax_params
 
-    model = build_model(cfg, vocab_size, device="cuda")
-    load_flax_params(model, flat)
+    model = build_family(cfg, vocab_size, "cuda", flat)
     criterion, weight_dict = build_criterion(cfg, model.pad_idx)
     state = create_train_state(cfg, model, steps_per_epoch=1000)
     step = make_train_step(criterion, weight_dict, seed=cfg.seed)
@@ -1859,8 +2015,9 @@ def train(cfg, flat, vocab_size):
     torch.cuda.reset_peak_memory_stats()
     msda.MSDA_FWD.launches = msda.MSDA_BWD.launches = 0
     t0 = time.perf_counter()
-    state, stats = train_one_epoch(step, state, batches[:TRAIN_STEPS + 1], epoch=0,
-                                   print_freq=0, step_logger=record)
+    with counting_msda_shapes() as shapes:
+        state, stats = train_one_epoch(step, state, batches[:TRAIN_STEPS + 1], epoch=0,
+                                       print_freq=0, step_logger=record)
     launches = {"msda_fwd": msda.MSDA_FWD.launches, "msda_bwd": msda.MSDA_BWD.launches}
     peak = torch.cuda.max_memory_allocated()
     times = [t0] + [t for t, _ in records]
@@ -1868,7 +2025,7 @@ def train(cfg, flat, vocab_size):
     losses = [v["loss"] for _, v in records]
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite training loss: {losses}")
-    per_step = cfg.dvc.detr.enc_layers + cfg.dvc.detr.dec_layers
+    per_step = msda_per_forward(cfg)
     steps = len(records)
     for name, n in launches.items():
         if n < per_step * steps:
@@ -1900,6 +2057,7 @@ def train(cfg, flat, vocab_size):
         "matcher_host_ms": [v["matcher_ms"] for _, v in records],
         "launches": launches,
         "launches_per_step": {k: v / steps for k, v in launches.items()},
+        "msda_calls_by_shape": shapes,
         "params_with_nonzero_grad_share": share,
         "msdeformattn_params": n_msda, "msdeformattn_params_without_grad": len(msda_missing),
         "max_memory_allocated_bytes": peak,
@@ -1952,8 +2110,9 @@ class recording_msda_calls:
         self.module.ms_deform_attn = self.orig
 
 
-def encoder_dloc_gaps(calls, enc_layers: int):
-    """For each encoder MSDA call of the CPU step: K2 on the card and the
+def encoder_dloc_gaps(calls, enc_calls: int):
+    """For each of the first ``enc_calls`` MSDA calls of the CPU step (the
+    encoder's): K2 on the card and the
     plain backward on the CPU, both on that step's own (value, loc, aw, g);
     the largest dloc gap over all taps and over the taps whose coordinate
     x = loc * T - 0.5 lies more than 1e-4 from a whole token. Then the same
@@ -1966,7 +2125,7 @@ def encoder_dloc_gaps(calls, enc_layers: int):
     from multimodal_feature_learning_tpu_torch.ops.msda import MSDA_BWD
 
     layers = []
-    for i in range(enc_layers):
+    for i in range(enc_calls):
         cpu, card = calls["cpu"][i], calls["cuda"][i]
         v, shapes, loc, aw, g = (cpu[k] for k in ("value", "shapes", "loc", "aw", "g"))
         ref = ms_deform_attn_core_backward(v, shapes, loc, aw, g)[1]
@@ -1981,7 +2140,8 @@ def encoder_dloc_gaps(calls, enc_layers: int):
                                                 card["aw"].cpu(), card["g"].cpu())[1]
         step_gap = (card_ref - ref).abs()
         layers.append({
-            "Q": loc.shape[1], "taps": loc.numel(), "near_whole_token_taps": int(near.sum()),
+            "Q": loc.shape[1], "S": v.shape[1], "taps": loc.numel(),
+            "near_whole_token_taps": int(near.sum()),
             "max_abs_dloc": ref.abs().max().item(),
             "k2_vs_plain_all_taps": gap.max().item(),
             "k2_vs_plain_off_whole_tokens": gap.masked_fill(near, 0).max().item(),
@@ -2010,26 +2170,20 @@ def train_check(cfg, flat, vocab_size):
         batch_to_device, make_train_step,
     )
     from multimodal_feature_learning_tpu_torch.models.criterion import build_criterion
-    from multimodal_feature_learning_tpu_torch.models.dvc import build_model
-    from multimodal_feature_learning_tpu_torch.utils.weights import load_flax_params
 
-    cfg = dataclasses.replace(cfg)
-    cfg.dvc = dataclasses.replace(cfg.dvc, detr=dataclasses.replace(
-        cfg.dvc.detr, transformer_dropout_prob=0.0), caption=dataclasses.replace(
-        cfg.dvc.caption, positional_embedding_dropout=0.0, attention_dropout=0.0,
-        projection_dropout=0.0, mlp_dropout_1=0.0, mlp_dropout_2=0.0))
+    cfg = without_dropout(cfg)
     batch = next(synthetic_batches(cfg, 2, vocab_size, seed=0))
     result, clipped, calls = {}, {}, {}
     for device in ("cuda", "cpu"):
-        model = build_model(cfg, vocab_size, device=device)
-        load_flax_params(model, flat)
+        model = build_family(cfg, vocab_size, device, flat)
         criterion, weight_dict = build_criterion(cfg, model.pad_idx)
         tb = batch_to_device(batch, device)
         with torch.no_grad():
             out, idx, idx_aux = model._propose_and_match(tb)
         if device == "cuda":
             near = {k: taps_near_whole_tokens(out[f"sampling_locations_{k}"],
-                                              out["temporal_shapes"]) for k in ("enc", "dec")}
+                                              out["temporal_shapes"]) for k in ("enc", "dec")
+                    if f"sampling_locations_{k}" in out}
         state = create_train_state(cfg, model, steps_per_epoch=1000)
         with recording_msda_calls() as calls[device]:
             metrics = make_train_step(criterion, weight_dict, seed=cfg.seed)(state, tb)
@@ -2037,7 +2191,7 @@ def train_check(cfg, flat, vocab_size):
                                                      if k not in ("lr", "matcher_ms")})
         # the gradients after the clip, which scales both sides to norm 0.1
         clipped[device] = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
-    enc_dloc = encoder_dloc_gaps(calls, cfg.dvc.detr.enc_layers)
+    enc_dloc = encoder_dloc_gaps(calls, msda_per_forward(cfg, encoder_only=True))
     (gi, ga, gm), (ci, ca, cm) = result["cuda"], result["cpu"]
     gaps = sorted(((float((clipped["cuda"][n] - clipped["cpu"][n]).norm()), n)
                    for n in clipped["cpu"]), reverse=True)
@@ -2236,6 +2390,149 @@ def train_bf16(cfg, flat, vocab_size, f32_run: dict):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the dense deformable family and the video + audio family (BASELINE #2, #3)
+# ---------------------------------------------------------------------------
+
+MM_EVAL_ARMS = (  # the multimodal family has no fused decode and no "serve" mode
+    ("one_by_one", "one_by_one", {}, "xla"),
+    ("teacher_forcing", "teacher_forcing", {}, "xla"),
+    ("beam4", "beam", {"beam_size": 4}, "xla"),
+    ("one_by_one_faster", "one_by_one", {"faster_eval": True}, "xla"),
+)
+DENSE_SERVE_ARMS = (("stability", "xla"), ("class", "xla"), ("stability", "fused"),
+                    ("class", "fused"))
+FAMILY_OVERRIDES = {
+    "dense": ["dvc.use_sparse_detr=false", "dvc.use_deformable_detr=true"],
+    "mm": ["dvc.input_modalities=video,audio", "dvc.use_bimodal_encoder=true"],
+}
+
+
+def family_config(family: str, use_differentiable_mask: bool = False):
+    """The full-width config of BASELINE config #2 ("dense": the dense
+    deformable family, tools/run_family_dense.sh) or #3 ("mm": video +
+    audio with the BiModalEncoder, tools/run_family_convergence.sh), f32,
+    both trained by the JAX package with the context mask off."""
+    from multimodal_feature_learning_tpu_torch.config import (
+        apply_overrides, load_config, recompute_losses,
+    )
+
+    cfg = apply_overrides(load_config(), FAMILY_OVERRIDES[family])
+    cfg.use_differentiable_mask = use_differentiable_mask
+    recompute_losses(cfg)
+    return cfg
+
+
+def family_model(cfg, vocab_size: int):
+    """(model on the card with weights drawn from cfg.seed, those weights as
+    flat flax params for the card-against-CPU checks)."""
+    from multimodal_feature_learning_tpu_torch.utils.weights import export_flax_params
+
+    model = build_family(cfg, vocab_size, "cuda")
+    return model, export_flax_params(model)
+
+
+def dense_serve(cfg, model, requests):
+    """Phase dense_serve: the 48 requests through DVCServer on the dense
+    family in each arm of DENSE_SERVE_ARMS (rank "stability" or "class",
+    plain-op or fused "video" decode). Every kernel's launches counted over
+    exactly the arm: K1 12 times a dispatch, the fused kernel once per
+    decode step. The events are well formed; in each rank the fused arm
+    answers as the plain-op one (``compare_results``)."""
+    arms, results = {}, {}
+    per_forward = msda_per_forward(cfg)
+    for rank, impl in DENSE_SERVE_ARMS:
+        model.decode_impl = impl
+        try:
+            with counting_msda_shapes() as shapes:
+                res, latencies, wall, launches, stats, steps = serve(model, requests, rank)
+        finally:
+            model.decode_impl = "xla"
+        check_results(cfg, model, requests, res, compare_cpu=False)
+        dispatches = stats["dispatches"]
+        if launches["msda_fwd"] != per_forward * dispatches or len(res) != N_REQUESTS:
+            raise AssertionError(f"dense_serve {rank} {impl}: msda_fwd launched "
+                                 f"{launches['msda_fwd']} times over {dispatches} dispatches")
+        if impl == "fused" and launches["fused_decode_video"] < sum(steps):
+            raise AssertionError(f"dense_serve {rank}: fused_decode_video launched "
+                                 f"{launches['fused_decode_video']} times over {steps} steps")
+        lat = sorted(latencies)
+        results[(rank, impl)] = res
+        arms[f"{rank}_{impl}"] = {
+            "answered": len(res), "dispatches": dispatches, "videos_per_s": N_REQUESTS / wall,
+            "p50_latency_s": lat[len(lat) // 2], "max_latency_s": lat[-1],
+            "step_s": stats["step_s"], "launches": launches, "decode_steps": steps,
+            "msda_calls_by_shape": shapes}
+    agreement = {rank: compare_results(requests, results[(rank, "fused")],
+                                       results[(rank, "xla")],
+                                       f"dense_serve {rank}: fused against plain-op")
+                 for rank in ("stability", "class")}
+    differs = any([e["segment"] for e in a] != [e["segment"] for e in b]
+                  for a, b in zip(results[("class", "xla")], results[("stability", "xla")]))
+    return {"arms": arms, "fused_vs_plain": agreement,
+            "class_rank_differs_from_stability": differs}, results
+
+
+def family_cli(world: dict, family: str, device="cuda"):
+    """Phases dense_cli and mm_cli: the training CLI (main.main) over the
+    evaluation world's train split with the family's overrides, weights from
+    cfg.seed, dropout on: one epoch with eval on the first
+    TRAIN_CLI_VAL_SUBSET val videos and scoring, then ``--mode eval
+    --resume`` of its checkpoint. The multimodal family reads the world's
+    video features as audio too (no audio file), as the JAX package does.
+    Checks: the epoch logged with finite losses and scores; K2 launched
+    once per MSDA call of each train step, K1 once per call of each train
+    step and eval batch; the eval run starts at epoch 1 and gives the
+    epoch's val loss (rel 1e-4)."""
+    import shutil
+
+    from multimodal_feature_learning_tpu_torch import main as train_main
+
+    out = os.path.join(EVAL_WORLD, f"{family}_cli")
+    if os.path.isdir(out):
+        shutil.rmtree(out)
+    overrides = [*FAMILY_OVERRIDES[family], "use_differentiable_mask=false", "eval_rate=1",
+                 "checkpoint_rate=1", f"dataset.activity_net.val_subset={TRAIN_CLI_VAL_SUBSET}",
+                 "print_freq=0", *[f"{k}={v}" for k, v in world.items()]]
+    common = ["--device", device, "--batch-size", str(BATCH), "--output-dir", out,
+              "--config-overrides", *overrides]
+    counters = kernel_counters()
+    launches = []
+    for k in counters.values():
+        k.launches = 0
+    run = train_main.main(["--epochs", "1", *common])
+    launches.append({k: c.launches for k, c in counters.items()})
+    for k in counters.values():
+        k.launches = 0
+    evaluated = train_main.main(["--mode", "eval", "--resume",
+                                 os.path.join(out, "checkpoint"), *common])
+    launches.append({k: c.launches for k, c in counters.items()})
+    rec = run["epochs"][0]
+    if rec["epoch"] != 0 or not all(math.isfinite(rec[k]) for k in ("train_loss", "val_loss",
+                                                                    "score_METEOR")):
+        raise AssertionError(f"{family}_cli: epoch record {rec}")
+    per_forward = msda_per_forward(family_config(family))
+    steps, eval_batches = -(-TRAIN_VIDEOS // BATCH), -(-TRAIN_CLI_VAL_SUBSET // BATCH)
+    want = [{"msda_bwd": per_forward * steps,
+             "msda_fwd": per_forward * (steps + eval_batches)},
+            {"msda_bwd": 0, "msda_fwd": per_forward * eval_batches}]
+    for got, w in zip(launches, want):
+        if any(got[k] != v for k, v in w.items()):
+            raise AssertionError(f"{family}_cli: launches {launches}, expected {want}")
+    val_rel = abs(evaluated["val_stats"]["loss"] - rec["val_loss"]) / abs(rec["val_loss"])
+    if evaluated["start_epoch"] != 1 or not val_rel <= 1e-4:
+        raise AssertionError(f"{family}_cli: --mode eval --resume started at "
+                             f"{evaluated['start_epoch']} with val loss rel {val_rel}")
+    return {"train_videos": TRAIN_VIDEOS, "batch": BATCH, "steps": steps,
+            "epoch": {k: v for k, v in rec.items() if not k.startswith("score_")
+                      or k in ("score_METEOR", "score_CIDEr", "score_F1_score")},
+            "train_seconds": run["train_seconds"][0], "eval_seconds": run["eval_seconds"][0],
+            "checkpoint_seconds": run["checkpoint_seconds"][0],
+            "examples_per_s": TRAIN_VIDEOS / run["train_seconds"][0],
+            "eval_mode_val_loss_rel": val_rel, "launches": launches[0],
+            "eval_mode_launches": launches[1]}
+
+
 def main() -> int:
     import torch
 
@@ -2428,6 +2725,73 @@ def main() -> int:
     tools = run_tools()
     log("tools", time.monotonic() - t, **tools)
 
+    # the dense deformable family (BASELINE config #2), seeded weights
+    t = time.monotonic()
+    cfg_d = family_config("dense")
+    model_d, flat_d = family_model(cfg_d, vocab_size)
+    dense_served, dense_results = dense_serve(cfg_d, model_d, requests)
+    log("dense_serve", time.monotonic() - t,
+        params=sum(p.numel() for p in model_d.parameters()), **dense_served)
+
+    t = time.monotonic()
+    dense_batch = batch_to_device(next(synthetic_batches(cfg_d, BATCH, vocab_size, seed=0)),
+                                  "cuda")
+    dense_evaluated = evaluate_arms(cfg_d, model_d, dense_batch, beam1_min_share=0.9)
+    log("dense_eval", time.monotonic() - t, **dense_evaluated)
+
+    t = time.monotonic()
+    dense_checked = {
+        "serve_rank_class": check_results(cfg_d, model_d, requests,
+                                          dense_results[("class", "xla")], rank="class",
+                                          n_check=2),
+        "eval": eval_check(cfg_d, flat_d, vocab_size)}
+    log("dense_check", time.monotonic() - t, **dense_checked)
+    del model_d, dense_batch
+    torch.cuda.empty_cache()
+
+    t = time.monotonic()
+    dense_trained = train(cfg_d, flat_d, vocab_size)
+    dense_trained["check"] = train_check(cfg_d, flat_d, vocab_size)
+    log("dense_train", time.monotonic() - t, **dense_trained)
+
+    # the video + audio family with the BiModalEncoder (BASELINE config #3),
+    # seeded weights, the context masks off (as the JAX package trained it)
+    # and on
+    mm_runs = {}
+    for mask in (False, True):
+        tag = "ctxmask" if mask else "cropmask"
+        cfg_m = family_config("mm", use_differentiable_mask=mask)
+        model_m, flat_m = family_model(cfg_m, vocab_size)
+        n_params = sum(p.numel() for p in model_m.parameters())
+        t = time.monotonic()
+        mm_batch = batch_to_device(next(synthetic_batches(cfg_m, BATCH, vocab_size, seed=0)),
+                                   "cuda")
+        torch.cuda.reset_peak_memory_stats()
+        with counting_msda_shapes() as shapes:
+            mm_evaluated = evaluate_arms(cfg_m, model_m, mm_batch, MM_EVAL_ARMS,
+                                         beam1_min_share=0.9)
+        mm_evaluated.update(msda_calls_by_shape=shapes,
+                            max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+        log("mm_eval", time.monotonic() - t, context_mask=mask, params=n_params,
+            **mm_evaluated)
+        del model_m, mm_batch
+        torch.cuda.empty_cache()
+        t = time.monotonic()
+        mm_trained = train(cfg_m, flat_m, vocab_size)
+        log("mm_train", time.monotonic() - t, context_mask=mask, **mm_trained)
+        t = time.monotonic()
+        mm_checked = {"eval": eval_check(cfg_m, flat_m, vocab_size),
+                      "train": train_check(cfg_m, flat_m, vocab_size)}
+        log("mm_check", time.monotonic() - t, context_mask=mask, **mm_checked)
+        mm_runs[tag] = {"train": mm_trained, "eval": mm_evaluated}
+        torch.cuda.empty_cache()
+
+    cli_runs = {}
+    for family in ("dense", "mm"):
+        t = time.monotonic()
+        cli_runs[family] = family_cli(world, family)
+        log(f"{family}_cli", time.monotonic() - t, **cli_runs[family])
+
     enc = next(c for c in cases if c["call"] == "encoder" and c["dtype"] == "float32")
     enc_bwd = next(c for c in bwd_cases if c["call"] == "encoder" and c["dtype"] == "float32")
     bf16_of = {  # the encoder call's bf16 case of each MSDA kernel
@@ -2437,6 +2801,32 @@ def main() -> int:
     bf16_keys = ("max_abs_err", "ms", "eager_ms", "kernel_ms", "cold_kernel_ms", "plain_ms",
                  "bound_ms", "bound_by", "schedule")
     counters = kernel_counters()
+
+    def family_launches(name):
+        """The launches of kernel ``name`` in each phase of the two families."""
+        return {
+            "dense_serve": {arm: a["launches"][name]
+                            for arm, a in dense_served["arms"].items()},
+            "dense_eval": sum(a["launches"][name] for a in dense_evaluated["arms"].values()),
+            "dense_train": dense_trained["launches"].get(name, 0),
+            "mm_eval": {tag: sum(a["launches"][name] for a in r["eval"]["arms"].values())
+                        for tag, r in mm_runs.items()},
+            "mm_train": {tag: r["train"]["launches"].get(name, 0)
+                         for tag, r in mm_runs.items()},
+            "dense_cli": {"train": cli_runs["dense"]["launches"][name],
+                          "eval_mode": cli_runs["dense"]["eval_mode_launches"][name]},
+            "mm_cli": {"train": cli_runs["mm"]["launches"][name],
+                       "eval_mode": cli_runs["mm"]["eval_mode_launches"][name]}}
+
+    # each phase's MSDA calls by (queries, value rows): one K1 launch each,
+    # and in training one K2 launch each
+    calls_by_shape = {
+        "train": trained["msda_calls_by_shape"],
+        "dense_serve": {arm: a["msda_calls_by_shape"]
+                        for arm, a in dense_served["arms"].items()},
+        "dense_train": dense_trained["msda_calls_by_shape"],
+        **{f"mm_train_{tag}": r["train"]["msda_calls_by_shape"] for tag, r in mm_runs.items()},
+        **{f"mm_eval_{tag}": r["eval"]["msda_calls_by_shape"] for tag, r in mm_runs.items()}}
     kernels = []
     for name, case, all_cases, replaces, shape in (
             ("msda_fwd", enc, cases, "multimodal_feature_learning_tpu/ops/pallas_msda.py:37",
@@ -2448,6 +2838,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": os.path.relpath(str(CSRC_DIR / counters[name].source), ROOT),
             "replaces": replaces,
+            "msda_calls_by_shape": calls_by_shape,
             "launches": trained["launches"][name],
             "launches_by_path": {"serve": launches[name],
                                  "serve_continuous": continuous["launches"][name],
@@ -2470,7 +2861,8 @@ def main() -> int:
                                  "train_bf16": {run: r["launches"][name]
                                                 for run, r in trained16.items()},
                                  "eval_bf16": sum(a["launches"][name]
-                                                  for a in evaluated16["arms"].values())},
+                                                  for a in evaluated16["arms"].values()),
+                                 **family_launches(name)},
             "max_abs_err": max(c["max_abs_err"] for c in all_cases
                                if c["dtype"] == "float32"),
             "bf16": {"shape": shape.replace("f32", "bf16"),
@@ -2502,7 +2894,11 @@ def main() -> int:
                 "eval_loop": {arm: a["launches"][name] for arm, a in looped["arms"].items()},
                 "serve_bf16": {arm: served16[arm]["launches"][name] for arm, *_ in BF16_ARMS},
                 "serve_continuous_bf16": continuous16["launches"][name],
-                "eval_bf16": sum(a["launches"][name] for a in evaluated16["arms"].values())},
+                "eval_bf16": sum(a["launches"][name] for a in evaluated16["arms"].values()),
+                "dense_serve": {arm: a["launches"][name]
+                                for arm, a in dense_served["arms"].items()},
+                "dense_eval": sum(a["launches"][name]
+                                  for a in dense_evaluated["arms"].values())},
             "max_abs_err": max(line["max_abs_err"] for line in f32_lines),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],

@@ -39,8 +39,11 @@ class CaptionConfig:
     positional_embedding_dropout: float = 0.1
     attention_dropout: float = 0.1
     projection_dropout: float = 0.1
+    bridge_dropout: float = 0.1  # the multimodal caption layers' concat bridge
     mlp_dropout_1: float = 0.1
     mlp_dropout_2: float = 0.1
+    # a GloVe file for the word embeddings; the port raises on one (not ported)
+    glove_file_path: str = ""
 
 
 @dataclass
@@ -51,13 +54,24 @@ class MatcherConfig:
 
 @dataclass
 class DVCConfig:
+    # ["video"]: the unimodal families; ["video", "audio"]: the multimodal one
+    input_modalities: list = field(default_factory=lambda: ["video"])
+    # BiModalEncoder fusion of the video and audio features ahead of the
+    # multimodal proposal stack
+    use_bimodal_encoder: bool = False
+    bimodal_depth: int = 2
     d_model: int = 512
     num_queries: int = 20
+    num_classes: int = 200  # the dense family's class head: num_classes + 1 logits
     max_eseq_length: int = 10
     aux_loss: bool = True
     lloss_gau_mask: int = 1
     lloss_beta: float = 1.0
+    # the family: sparse (Sparse-DETR encoder, top-rho tokens), dense
+    # (use_sparse_detr False, use_deformable_detr True: every token a query,
+    # and a class head); the regular family (both False) is not ported
     use_sparse_detr: bool = True
+    use_deformable_detr: bool = False
     smoothing: float = 0.5  # caption label smoothing epsilon
     cls_loss_coef: float = 1.0
     counter_loss_coef: float = 2.0
@@ -82,12 +96,16 @@ class ActivityNetConfig:
     # a directory of <video key>.npy feature arrays (num_tokens, feature_dim);
     # "" = deterministic synthetic features (data.anet.FeatureBackend)
     video_features_file: str = ""
+    # the same for the audio features; "" reads the video features as audio,
+    # as the JAX package does (the reference ships no audio features)
+    audio_features_file: str = ""
     invalid_videos_json: str = ""
     for_testing: bool = False
     num_samples: int = 6
     vocab_file_path: str = "./vocab.pkl"
     min_freq: int = 2
     video_rescale_len: int = 300
+    audio_rescale_len: int = 50
     max_caption_len_all: int = 20
     max_gt_target_segments: int = 10
     num_classes: int = 200
@@ -131,6 +149,7 @@ class Config:
     start_epoch: int = 0
     resume: str = ""           # a checkpoint to resume from, at its epoch + 1
     use_differentiable_mask: bool = True
+    use_raw_videos: bool = False  # raw frames and audio through ViViT / AST: not ported
     # numerics, as the JAX package: "bfloat16" runs every forward over bf16
     # copies of the float params and the features (utils/precision.py);
     # "float32" (the default) is the full-f32 path

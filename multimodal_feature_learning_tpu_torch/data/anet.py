@@ -1,6 +1,6 @@
 """ActivityNet Captions on precomputed features, and fixed-shape batches;
-the port's copy of the JAX package's ``data/anet.py`` (video features only),
-with a synthetic source of batches in the shape of the JAX package's
+the port's copy of the JAX package's ``data/anet.py`` (video features, and
+audio features for the multimodal family), with a synthetic source of batches in the shape of the JAX package's
 synthetic world (``__graft_entry__._synth_batch``).
 
 * ``FeatureBackend``: a directory of ``<video key>.npy`` arrays of shape
@@ -14,7 +14,8 @@ synthetic world (``__graft_entry__._synth_batch``).
   ``<bos> ... <eos>``, keep the raw captions.
 * ``collate_fixed``: zero-pad to the batch's longest video, mask, normalise
   the events to (centre, length), nearest-resize to ``video_rescale_len``,
-  and optionally pad the batch with dummy rows.
+  and optionally pad the batch with dummy rows; the audio features, when the
+  samples have them, likewise to ``audio_rescale_len``.
 """
 
 from __future__ import annotations
@@ -83,11 +84,13 @@ class ActivityNetDataset:
         num_samples: int = 6,
         num_classes: int = 200,
         seed: int = 0,
+        audio_features: Optional[FeatureBackend] = None,
     ):
         """In training the event subsets come from ``self.rng``
         (``np.random.default_rng(seed)``); in evaluation each key's subset
         comes from ``default_rng((crc32(key), seed))``, so it does not depend
-        on the order or the number of passes."""
+        on the order or the number of passes. With ``audio_features`` each
+        sample also holds its ``audio_feature``."""
         with open(annotation_file) as f:
             self.annotation = json.load(f)
         invalid = set()
@@ -100,6 +103,7 @@ class ActivityNetDataset:
         if for_testing:
             self.keys = self.keys[:num_samples]
         self.features = features
+        self.audio_features = audio_features
         self.vocab = vocab
         self.is_training = is_training
         self.max_gt = max_gt_target_segments
@@ -141,7 +145,7 @@ class ActivityNetDataset:
             ids = [self.vocab.bos_idx] + ids[: self.max_caption_len - 2] + [self.vocab.eos_idx]
             caption_tokens.append(ids)
 
-        return {
+        sample = {
             "key": key,
             "video_feature": self.features.get(key),  # (num_tokens, D)
             "duration": duration,
@@ -150,11 +154,29 @@ class ActivityNetDataset:
             "caption_tokens": caption_tokens,    # [n, <=Lc]
             "raw_captions": captions,            # [n]
         }
+        if self.audio_features is not None:
+            sample["audio_feature"] = self.audio_features.get(key)  # (audio tokens, D)
+        return sample
+
+
+def _pad_and_resize(feats: List[np.ndarray], B: int, n_real: int, rescale_len: int):
+    """Features (T_i, D) zero-padded to the longest and masked (True=pad),
+    both nearest-resized to ``rescale_len``; rows past the real ones are
+    dummies: valid zero features, not fully padded ones (a fully masked row
+    divides by a zero valid ratio and softmaxes over nothing, which gives
+    NaN gradients although the criterion masks its loss)."""
+    x = np.zeros((B, max(f.shape[0] for f in feats), feats[0].shape[1]), dtype=np.float32)
+    mask = np.ones(x.shape[:2], dtype=bool)
+    mask[n_real:] = False
+    for i, f in enumerate(feats):
+        x[i, :f.shape[0]] = f
+        mask[i, :f.shape[0]] = False
+    return nearest_resize(x, rescale_len, axis=1), nearest_resize(mask, rescale_len, axis=1)
 
 
 def collate_fixed(samples: List[Optional[Dict]], pad_idx: int, video_rescale_len: int = 300,
                   max_gt: int = 10, max_caption_len: int = 20,
-                  pad_to_batch: int = 0) -> Optional[Dict]:
+                  pad_to_batch: int = 0, audio_rescale_len: int = 0) -> Optional[Dict]:
     """Fixed-shape batch dict of numpy arrays; ``None`` samples are dropped.
     ``pad_to_batch`` pads the batch to that many rows with dummy videos, so
     that every step has the same shapes.
@@ -166,21 +188,17 @@ def collate_fixed(samples: List[Optional[Dict]], pad_idx: int, video_rescale_len
     durations (B,), batch_valid (B,) (False on dummy rows), gt_segments
     (B, G, 2) (center, length), gt_mask (B, G), gt_labels (B, G) i32,
     cap_tokens (B, G, Lc) i32 (<pad> in unused slots), and the lists
-    ``keys``, ``raw_captions`` and ``gt_timestamps`` of the real rows."""
+    ``keys``, ``raw_captions`` and ``gt_timestamps`` of the real rows. With
+    ``audio_rescale_len`` and samples that hold ``audio_feature``, also
+    audio_tensor (B, Ta, D) f32 and audio_mask (B, Ta)."""
     samples = [s for s in samples if s is not None]
     if not samples:
         return None
     n_real = len(samples)
     B = max(n_real, pad_to_batch)
-    D = samples[0]["video_feature"].shape[1]
-    max_len = max(s["video_feature"].shape[0] for s in samples)
-
-    video = np.zeros((B, max_len, D), dtype=np.float32)
-    mask = np.ones((B, max_len), dtype=bool)
-    # dummy rows are valid zero videos, not fully padded ones: a fully masked
-    # row divides by a zero valid ratio and softmaxes over nothing, which
-    # gives NaN gradients although the criterion masks its loss
-    mask[n_real:] = False
+    # pad to the batch max, then nearest-rescale the tensor and the mask
+    video, mask = _pad_and_resize([s["video_feature"] for s in samples], B, n_real,
+                                  video_rescale_len)
     durations = np.ones((B,), dtype=np.float32)
     gt_segments = np.zeros((B, max_gt, 2), dtype=np.float32)
     gt_mask = np.zeros((B, max_gt), dtype=bool)
@@ -188,9 +206,6 @@ def collate_fixed(samples: List[Optional[Dict]], pad_idx: int, video_rescale_len
     cap_tokens = np.full((B, max_gt, max_caption_len), pad_idx, dtype=np.int32)
     keys, raw_captions, gt_timestamps = [], [], []
     for i, s in enumerate(samples):
-        L = s["video_feature"].shape[0]
-        video[i, :L] = s["video_feature"]
-        mask[i, :L] = False
         durations[i] = s["duration"]
         n = len(s["gt_timestamps"])
         for j, ts in enumerate(s["gt_timestamps"]):
@@ -203,17 +218,25 @@ def collate_fixed(samples: List[Optional[Dict]], pad_idx: int, video_rescale_len
         keys.append(s["key"])
         raw_captions.append(s.get("raw_captions", []))
         gt_timestamps.append(s["gt_timestamps"])
-    # pad to the batch max, then nearest-rescale the tensor and the mask
-    video = nearest_resize(video, video_rescale_len, axis=1)
-    mask = nearest_resize(mask, video_rescale_len, axis=1)
     batch_valid = np.zeros((B,), dtype=bool)
     batch_valid[:n_real] = True
+    audio = {}
+    if audio_rescale_len and "audio_feature" in samples[0]:
+        audio["audio_tensor"], audio["audio_mask"] = _pad_and_resize(
+            [s["audio_feature"] for s in samples], B, n_real, audio_rescale_len)
     return {
-        "video_tensor": video, "video_mask": mask, "durations": durations,
+        "video_tensor": video, "video_mask": mask, **audio, "durations": durations,
         "batch_valid": batch_valid, "gt_segments": gt_segments, "gt_mask": gt_mask,
         "gt_labels": gt_labels, "cap_tokens": cap_tokens, "keys": keys,
         "raw_captions": raw_captions, "gt_timestamps": gt_timestamps,
     }
+
+
+def audio_rescale_len(cfg) -> int:
+    """The audio length batches are resized to: ``audio_rescale_len`` with
+    two input modalities, else 0 (no audio keys)."""
+    return cfg.dataset.activity_net.audio_rescale_len if len(cfg.dvc.input_modalities) == 2 \
+        else 0
 
 
 SPLIT_FILES = {
@@ -242,6 +265,12 @@ def build_dataset(split: str, cfg, vocab: Optional[Vocab] = None):
                 vocab.save(vpath)
 
     features = FeatureBackend(anet.video_features_file, feature_dim=cfg.dvc.detr.feature_dim)
+    audio_features = None
+    if len(cfg.dvc.input_modalities) == 2:
+        # no audio file given: the video features are read as audio, as in
+        # the JAX package (the reference ships no audio features)
+        audio_features = FeatureBackend(anet.audio_features_file or anet.video_features_file,
+                                        feature_dim=cfg.dvc.detr.feature_dim)
     ds = ActivityNetDataset(
         annotation_file,
         features,
@@ -254,6 +283,7 @@ def build_dataset(split: str, cfg, vocab: Optional[Vocab] = None):
         num_samples=anet.num_samples,
         num_classes=anet.num_classes,
         seed=cfg.seed,
+        audio_features=audio_features,
     )
     return ds, vocab
 
@@ -262,9 +292,12 @@ def synthetic_samples(cfg, n: int, vocab_size: int, rng: np.random.Generator,
                       pad_idx: int = 1, bos_idx: int = 2, eos_idx: int = 3) -> List[Dict]:
     """``n`` random videos: features of 120-900 tokens, durations 10-180 s,
     1 to max_gt events of 5-30% of the duration with centres in 20-80%, and
-    captions <bos> + 4..(Lc-2) words + <eos>."""
+    captions <bos> + 4..(Lc-2) words + <eos>; with two input modalities also
+    audio features of 20-150 tokens, drawn after every video, so that the
+    videos are those of one modality."""
     anet = cfg.dataset.activity_net
     G, Lc, D = anet.max_gt_target_segments, anet.max_caption_len_all, cfg.dvc.detr.feature_dim
+    audio = len(cfg.dvc.input_modalities) == 2
     out = []
     for i in range(n):
         T = int(rng.integers(120, 901))
@@ -286,6 +319,10 @@ def synthetic_samples(cfg, n: int, vocab_size: int, rng: np.random.Generator,
             "action_labels": [0] * k,
             "caption_tokens": caps,
         })
+    if audio:
+        for sample in out:
+            Ta = int(rng.integers(20, 151))
+            sample["audio_feature"] = rng.normal(size=(Ta, D)).astype(np.float32)
     return out
 
 
@@ -299,5 +336,6 @@ def synthetic_batches(cfg, batch_size: int, vocab_size: int, seed: int = 0,
     while num_batches is None or i < num_batches:
         yield collate_fixed(synthetic_samples(cfg, batch_size, vocab_size, rng, pad_idx),
                             pad_idx, anet.video_rescale_len, anet.max_gt_target_segments,
-                            anet.max_caption_len_all)
+                            anet.max_caption_len_all,
+                            audio_rescale_len=audio_rescale_len(cfg))
         i += 1

@@ -20,7 +20,7 @@ import numpy as np
 from .anet import collate_fixed
 
 ARRAY_KEYS = (
-    "video_tensor", "video_mask", "durations", "batch_valid",
+    "video_tensor", "video_mask", "audio_tensor", "audio_mask", "durations", "batch_valid",
     "gt_segments", "gt_mask", "gt_labels", "cap_tokens",
 )
 
@@ -46,7 +46,10 @@ class DataLoader:
         drop_last: bool = False,
         pad_batches: bool = True,
         num_prefetch: int = 2,
+        audio_rescale_len: int = 0,
     ):
+        """``audio_rescale_len`` > 0 collates the samples' audio features
+        too (the multimodal family)."""
         self.dataset = dataset
         self.batch_size = batch_size
         self.pad_idx = pad_idx
@@ -58,6 +61,7 @@ class DataLoader:
         self.drop_last = drop_last
         self.pad_batches = pad_batches
         self.num_prefetch = num_prefetch
+        self.audio_rescale_len = audio_rescale_len
         self.epoch = 0
 
     def set_epoch(self, epoch: int):
@@ -84,7 +88,8 @@ class DataLoader:
             batch = collate_fixed(
                 [self.dataset[int(i)] for i in chunk], self.pad_idx, self.video_rescale_len,
                 self.max_gt, self.max_caption_len,
-                pad_to_batch=self.batch_size if self.pad_batches else 0)
+                pad_to_batch=self.batch_size if self.pad_batches else 0,
+                audio_rescale_len=self.audio_rescale_len)
             if batch is not None:
                 yield batch
 

@@ -8,8 +8,10 @@ repository's root ``main.py``.
 
 In JAX's order: overrides, then the losses they imply; the train and val
 datasets (``train_subset`` / ``val_subset`` keep the first sorted keys) and
-their loaders; the model (``--weights``: a flat flax snapshot, loaded
-strictly; else weights drawn from ``cfg.seed``), the criterion and the train
+their loaders (with the audio features when ``dvc.input_modalities`` has
+two entries); the model of the config's family and its criterion
+(``models.build_model_and_criterion``; ``--weights``: a flat flax snapshot,
+loaded strictly; else weights drawn from ``cfg.seed``), and the train
 state, its LR schedule counting the train loader's batches; ``--resume``
 restores a checkpoint and goes on at its epoch + 1. Each epoch trains, writes
 the rolling ``<output_dir>/checkpoint``, keeps ``checkpoint{epoch:04d}`` on
@@ -34,7 +36,7 @@ import numpy as np
 import torch
 
 from .config import apply_overrides, load_config, recompute_losses
-from .data.anet import SPLIT_FILES, FeatureBackend, build_dataset
+from .data.anet import SPLIT_FILES, FeatureBackend, audio_rescale_len, build_dataset
 from .data.loader import DataLoader
 from .data.vocab import Vocab
 from .device import resolve_device
@@ -42,8 +44,7 @@ from .engine.evaluate import evaluate, make_eval_step
 from .engine.state import create_train_state, load_checkpoint, save_checkpoint
 from .engine.train import TRANSFER_DTYPES, make_train_step, train_one_epoch
 from .evaluation import run_eval
-from .models.criterion import build_criterion
-from .models.dvc import build_model
+from .models import build_model_and_criterion
 from .utils.weights import load_flax_params, load_npz
 
 SYNTHETIC_WORDS = ["a", "man", "is", "playing", "guitar", "the", "dog", "runs",
@@ -150,17 +151,17 @@ def main(argv=None) -> dict:
                           video_rescale_len=anet.video_rescale_len,
                           max_gt=anet.max_gt_target_segments,
                           max_caption_len=anet.max_caption_len_all,
-                          shuffle=shuffle, seed=cfg.seed)
+                          shuffle=shuffle, seed=cfg.seed,
+                          audio_rescale_len=audio_rescale_len(cfg))
 
     train_loader, val_loader = make_loader(train_ds, True), make_loader(val_ds, False)
     print(f"train videos: {len(train_ds)}  val videos: {len(val_ds)}  vocab: {len(vocab)}")
 
-    model = build_model(cfg, len(vocab), vocab.pad_idx, vocab.bos_idx, vocab.eos_idx,
-                        device=dev, seed=cfg.seed)
+    model, criterion, weight_dict = build_model_and_criterion(cfg, vocab, device=dev,
+                                                              seed=cfg.seed)
     if args.weights:
         load_flax_params(model, load_npz(args.weights))
     print(f"params: {sum(p.numel() for p in model.parameters()) / 1e6:.2f} M")
-    criterion, weight_dict = build_criterion(cfg, vocab.pad_idx)
     state = create_train_state(cfg, model, steps_per_epoch=max(len(train_loader), 1))
     start_epoch = cfg.start_epoch
     if cfg.resume:

@@ -111,11 +111,7 @@ def greedy_decode(
     fused_grid: str = "video",
     kv_dtype=None,
 ) -> torch.Tensor:
-    """KV-cached greedy decode. Argmax per step; without ``faster_eval``
-    captions freeze after <eos> (later slots take <pad>), the loop ends once
-    every caption is done, and a trailing <pad> (or <eos> if none was
-    emitted) is appended; with ``faster_eval`` every slot takes the raw
-    argmax and an <eos> column is appended.
+    """KV-cached greedy decode, with the rules of ``greedy_loop``.
 
     ``decode_impl`` "xla" runs each step as plain ops (``decode_pair``);
     "fused" runs it through ``ops.fused_decode.fused_decode_step`` with the
@@ -131,43 +127,52 @@ def greedy_decode(
                          decode_fused_grid=fused_grid)
     N = memory.shape[0] * groups
     D = memory.shape[2]
-    dev = memory.device
-    captions = torch.full((N, seq_len), pad_idx, dtype=torch.long, device=dev)
-    captions[:, 0] = bos_idx
-    done = torch.zeros((N,), dtype=torch.bool, device=dev)
-    pad_tok = torch.full((N,), pad_idx, dtype=torch.long, device=dev)
+    pad_tok = torch.full((N,), pad_idx, dtype=torch.long, device=memory.device)
 
     if decode_impl == "fused":
         if groups <= 1:
             raise ValueError("the fused decode needs the grouped shared-KV path (groups > 1)")
         step_logits = _fused_step_fn(module, memory, memory_padding_mask, seq_len, groups,
-                                     zeroed_mask, kv_mode, fused_grid, captions, pad_tok,
-                                     kv_dtype)
+                                     zeroed_mask, kv_mode, fused_grid, pad_tok, kv_dtype)
     else:
         mem_kv = module.precompute_memory_kv(memory, kv_dtype)
         k_caches = memory.new_zeros((module.depth, N, seq_len, D))
         v_caches = memory.new_zeros((module.depth, N, seq_len, D))
 
-        def step_logits(t):
-            return module.decode_pair(
-                captions[:, t - 1], pad_tok, t - 1, k_caches, v_caches, mem_kv,
-                memory_padding_mask, groups, zeroed_mask)
+        def step_logits(prev_tokens, t):
+            return module.decode_pair(prev_tokens, pad_tok, t - 1, k_caches, v_caches, mem_kv,
+                                      memory_padding_mask, groups, zeroed_mask)
 
+    return greedy_loop(step_logits, N, seq_len, bos_idx, eos_idx, pad_idx, memory.device,
+                       faster_eval)
+
+
+def greedy_loop(step_logits, N: int, seq_len: int, bos_idx: int, eos_idx: int, pad_idx: int,
+                device, faster_eval: bool = False) -> torch.Tensor:
+    """The greedy decode around ``step_logits(prev_tokens (N,), t)``, which
+    commits ``prev_tokens`` at position t - 1 and returns the logits (N, V)
+    at t. Argmax per step; without ``faster_eval`` captions freeze after
+    <eos> (later slots take <pad>), the loop ends once every caption is done
+    (one host sync a step), and a trailing <pad> (or <eos> if none was
+    emitted) is appended; with ``faster_eval`` every slot takes the raw
+    argmax and an <eos> column is appended. Returns (N, seq_len + 1) int64
+    token ids including <bos>."""
+    captions = torch.full((N, seq_len), pad_idx, dtype=torch.long, device=device)
+    captions[:, 0] = bos_idx
+    done = torch.zeros((N,), dtype=torch.bool, device=device)
     for t in range(1, seq_len):
-        # early exit once every caption has emitted <eos> (one host sync a step)
         if not faster_eval and bool(done.all()):
             break
-        tok = step_logits(t).argmax(dim=-1)
+        tok = step_logits(captions[:, t - 1], t).argmax(dim=-1)
         if not faster_eval:
-            tok = torch.where(done, pad_tok, tok)
+            tok = torch.where(done, pad_idx, tok)
         captions[:, t] = tok
         done |= tok == eos_idx
 
     if faster_eval:
-        last = torch.full((N,), eos_idx, dtype=torch.long, device=dev)
+        last = torch.full((N,), eos_idx, dtype=torch.long, device=device)
     else:
-        has_eos = (captions == eos_idx).any(dim=1)
-        last = torch.where(has_eos, pad_idx, eos_idx).long()
+        last = torch.where((captions == eos_idx).any(dim=1), pad_idx, eos_idx).long()
     return torch.cat([captions, last[:, None]], dim=1)
 
 
@@ -233,50 +238,62 @@ def beam_search_decode(
     zeroed_mask=None,
 ) -> torch.Tensor:
     """Batched beam search with per-layer KV caches, plain ops; the JAX
-    ``beam_search_decode``. The K beams of row n are rows n*K + k, so grouped
-    memory stays per video with group size groups*K and ungrouped memory is
-    repeated K times. Each step commits the previous token and predicts the
-    next in one ``decode_pair``, then reorders the caches by parent beam (JAX
-    commits, predicts and then reorders, in two passes). Candidates are the
-    top K of the (K * V) scores by a stable descending sort, so ties go to
-    the lower index as ``lax.top_k`` breaks them; finished beams extend only
-    with <pad> at cost 0. The loop ends once every beam is finished (one host
-    sync a step), which changes no result. With ``length_penalty`` the final
-    scores are divided by ((5 + length) / 6) ** length_penalty, the length
-    counting the tokens that are not <pad>, <bos> included.
-
-    Returns (N, seq_len + 1) int64 captions of the best beam, with the tail
-    rule of ``greedy_decode`` (a trailing <pad>, or <eos> if none was
-    emitted)."""
+    ``beam_search_decode``, with the rules of ``beam_loop``. The K beams of
+    row n are rows n*K + k, so grouped memory stays per video with group
+    size groups*K and ungrouped memory is repeated K times."""
     N = memory.shape[0] * groups
-    D = memory.shape[2]
     K = beam_size
-    dev = memory.device
-    NEG = -1e9
-
     mem_mask = memory_padding_mask.repeat_interleave(K, dim=0)  # (N*K, S)
     mem = memory if groups > 1 else memory.repeat_interleave(K, dim=0)
     groups_eff = groups * K if groups > 1 else 1
     zeroed_eff = zeroed_mask.repeat_interleave(K, dim=0) if zeroed_mask is not None else None
     mem_kv = module.precompute_memory_kv(mem)
+    pad_tok = torch.full((N * K,), pad_idx, dtype=torch.long, device=memory.device)
 
+    def step_logits(prev_tokens, t, k_caches, v_caches):
+        return module.decode_pair(prev_tokens, pad_tok, t - 1, k_caches, v_caches, mem_kv,
+                                  mem_mask, groups_eff, zeroed_eff)
+
+    return beam_loop(step_logits, N, K, seq_len, mem, module.depth, bos_idx, eos_idx, pad_idx,
+                     length_penalty)
+
+
+def beam_loop(step_logits, N: int, K: int, seq_len: int, cache_like: torch.Tensor, depth: int,
+              bos_idx: int, eos_idx: int, pad_idx: int, length_penalty: float = 0.0):
+    """The beam search around ``step_logits(prev_tokens (N*K,), t, k_caches,
+    v_caches)``, which commits ``prev_tokens`` at position t - 1 into the
+    caches (depth, N*K, seq_len, D; in ``cache_like``'s dtype, on its
+    device), in place, and returns the logits (N*K, V) at t. Beams of row n
+    are rows n*K + k. Each step commits the previous token and predicts the
+    next in one pass, then reorders the caches by parent beam (JAX commits,
+    predicts and then reorders, in two passes). Candidates are the top K of
+    the (K * V) scores by a stable descending sort, so ties go to the lower
+    index as ``lax.top_k`` breaks them; finished beams extend only with
+    <pad> at cost 0. The loop ends once every beam is finished (one host
+    sync a step), which changes no result. With ``length_penalty`` the final
+    scores are divided by ((5 + length) / 6) ** length_penalty, the length
+    counting the tokens that are not <pad>, <bos> included.
+
+    Returns (N, seq_len + 1) int64 captions of the best beam, with the tail
+    rule of ``greedy_loop`` (a trailing <pad>, or <eos> if none was
+    emitted)."""
+    D = cache_like.shape[-1]
+    dev = cache_like.device
+    NEG = -1e9
     tokens = torch.full((N, K, seq_len), pad_idx, dtype=torch.long, device=dev)
     tokens[:, :, 0] = bos_idx
     # only beam 0 is live at the start, so the first expansion diversifies
     scores = torch.full((N, K), NEG, dtype=torch.float32, device=dev)
     scores[:, 0] = 0.0
     done = torch.zeros((N, K), dtype=torch.bool, device=dev)
-    k_caches = mem.new_zeros((module.depth, N * K, seq_len, D))
-    v_caches = mem.new_zeros((module.depth, N * K, seq_len, D))
-    pad_tok = torch.full((N * K,), pad_idx, dtype=torch.long, device=dev)
+    k_caches = cache_like.new_zeros((depth, N * K, seq_len, D))
+    v_caches = cache_like.new_zeros((depth, N * K, seq_len, D))
     rows = torch.arange(N, device=dev)[:, None]
 
     for t in range(1, seq_len):
         if bool(done.all()):
             break
-        logits = module.decode_pair(
-            tokens[:, :, t - 1].reshape(N * K), pad_tok, t - 1, k_caches, v_caches,
-            mem_kv, mem_mask, groups_eff, zeroed_eff)
+        logits = step_logits(tokens[:, :, t - 1].reshape(N * K), t, k_caches, v_caches)
         logp = torch.log_softmax(logits, dim=-1).reshape(N, K, -1)  # (N, K, V)
         V = logp.shape[-1]
         pad_only = torch.full((V,), NEG, dtype=logp.dtype, device=dev)
@@ -308,10 +325,10 @@ def beam_search_decode(
 
 
 def _fused_step_fn(module, memory, memory_padding_mask, seq_len, groups, zeroed_mask,
-                   kv_mode, fused_grid, captions, pad_tok, kv_dtype=None):
+                   kv_mode, fused_grid, pad_tok, kv_dtype=None):
     """The fused path's inputs (JAX ``_greedy_decode_fused``) and a function
-    of t that commits token t-1 of ``captions`` and returns the f32 logits
-    at t. Embeddings and the vocabulary head stay plain ops, as in JAX; the
+    of (prev_tokens, t) that commits ``prev_tokens`` at t-1 and returns the
+    f32 logits at t. Embeddings and the vocabulary head stay plain ops, as in JAX; the
     layers run in one ``fused_decode_step``, in the memory's dtype; the
     head's logits are f32."""
     B, S, D = memory.shape
@@ -329,8 +346,8 @@ def _fused_step_fn(module, memory, memory_padding_mask, seq_len, groups, zeroed_
     k_caches = memory.new_zeros((module.depth, B, seq_len * G, D))
     v_caches = memory.new_zeros((module.depth, B, seq_len * G, D))
 
-    def step_logits(t):
-        x_prev = module.embed_at(captions[:, t - 1], t - 1)[:, 0].reshape(B, G, D)
+    def step_logits(prev_tokens, t):
+        x_prev = module.embed_at(prev_tokens, t - 1)[:, 0].reshape(B, G, D)
         x_next = module.embed_at(pad_tok, t)[:, 0].reshape(B, G, D)
         x = torch.cat([x_prev, x_next], dim=1).contiguous()  # (B, 2G, D), t-major rows
         x_out, _, _ = fd.fused_decode_step(

@@ -7,7 +7,8 @@ mask), ``segments`` (L1 + gIoU of the matched pairs over ``num_segments``),
 log-softmax is folded into closed-form reductions, so no V-sized
 log-probability tensor is kept for the backward pass; in evaluation from the
 log-probabilities of the teacher-forced pass), ``contexts`` (masked BCE of
-the context-mask logits), ``mask_prediction`` (multilabel soft margin of the saliency
+the context-mask logits; for the multimodal family, whose memory mask is a
+(video, audio) pair, the mean of the two), ``mask_prediction`` (multilabel soft margin of the saliency
 against the top-K tokens of the decoder attention map) and ``corr`` (a
 diagnostic without gradient: the share of the decoder's attention mass on
 the tokens the encoder kept, averaged over the valid videos). The auxiliary
@@ -168,14 +169,23 @@ class SetCriterion:
             loss = label_smoothing_kl(pred, cap[:, 1:], self.pad_idx, self.smoothing)
         return {"loss_caption": loss / num_tokens}
 
+    @staticmethod
+    def _masked_bce(pred, target, row_valid):
+        """BCE of (N, S) logits against the crop mask, over the valid rows."""
+        loss = _bce_with_logits(pred, target)
+        loss = torch.where(row_valid[:, None], loss, torch.zeros_like(loss))
+        return loss.sum() / (row_valid.sum() * pred.shape[1]).clamp(min=1)
+
     def loss_contexts(self, outputs, targets, indices, num_segments, num_tokens,
                       memory_mask):
-        pred = outputs["pred_memory_mask"]  # (N, S) logits
         row_valid = targets["gt_mask"].reshape(-1)
-        loss = _bce_with_logits(pred, memory_mask)
-        loss = torch.where(row_valid[:, None], loss, torch.zeros_like(loss))
-        denom = (row_valid.sum() * pred.shape[1]).clamp(min=1)
-        return {"loss_context": loss.sum() / denom}
+        if isinstance(memory_mask, tuple):
+            # multimodal: the mean of the video and the audio BCE
+            v = self._masked_bce(outputs["video_pred_memory_mask"], memory_mask[0], row_valid)
+            a = self._masked_bce(outputs["audio_pred_memory_mask"], memory_mask[1], row_valid)
+            return {"loss_context": (v + a) / 2}
+        return {"loss_context": self._masked_bce(outputs["pred_memory_mask"], memory_mask,
+                                                 row_valid)}
 
     def loss_mask_prediction(self, outputs, targets, indices, num_segments, num_tokens):
         mask_prediction = outputs["backbone_mask_prediction"]  # (B, S)

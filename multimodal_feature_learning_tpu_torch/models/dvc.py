@@ -4,8 +4,10 @@ JAX ``models/dvc.py`` (``ProposalNet``, ``forward_serve``, ``_serve_prepare``,
 continuous server's ``forward_serve_prefill``, ``forward_serve_decode_chunk``
 and ``merge_serve_slots``).
 
-Base encoder -> sparse deformable transformer -> segment and count heads.
-Serving: top-G proposals ranked by stability, k* from the count head ->
+Base encoder -> deformable transformer (sparse, rho > 0, or dense, rho = 0
+with a class head) -> segment and count heads.
+Serving: top-G proposals ranked by stability (or, with the dense family's
+class head, ``rank="class"``: 1 - p(no-object)), k* from the count head ->
 per-event crop mask (and the differentiable context mask when configured)
 -> KV-cached greedy caption decode over the shared per-video memory.
 Training: Hungarian matching of the final and auxiliary decoder layers to
@@ -79,6 +81,51 @@ def crop_segment_mask(denorm_segments, durations, video_rescale_len: int,
     return ~inside
 
 
+def crop_segments(memory, denorm_segments, durations, video_rescale_len: int,
+                  num_levels: int):
+    """Per-event memory crop: the memory (B, S, D) copied for each event and
+    zeroed outside its token window at every pyramid level. Returns (cropped
+    (B, G, S, D), pad_mask (B, G, S) True=outside). The unimodal families
+    share the per-video memory instead (``crop_segment_mask`` and grouped
+    cross-attention); the multimodal family materialises the crop."""
+    pad_mask = crop_segment_mask(denorm_segments, durations, video_rescale_len, num_levels,
+                                 num_tokens=memory.shape[1])
+    cropped = memory[:, None].masked_fill(pad_mask[..., None], 0.0)
+    return cropped, pad_mask
+
+
+def check_family(cfg) -> None:
+    """Raise on the families the port does not have: the regular one (both
+    family flags off)."""
+    if not (cfg.dvc.use_sparse_detr or cfg.dvc.use_deformable_detr):
+        raise NotImplementedError(
+            "the regular family (dvc.use_sparse_detr and dvc.use_deformable_detr both "
+            "False) is not ported yet (ROADMAP Queue 1 item 9); use the sparse or the "
+            "dense family")
+
+
+def match_layers(model, seg_all, batch, with_aux: bool):
+    """Hungarian matching of the final decoder layer's segments and, with
+    ``with_aux``, of every auxiliary layer's to the ground truth, on the host
+    (``model`` gives num_queries, max_gt and the cost weights, and keeps the
+    matching's host milliseconds, after the costs arrived there, in
+    ``matcher_ms``). seg_all (layers, B, Q, 2) -> (indices (B, G),
+    indices_aux (layers-1, B, G) or None)."""
+    seg_all = seg_all.detach()
+    n_layers = seg_all.shape[0] if with_aux else 1
+    gt, gt_mask = batch["gt_segments"], batch["gt_mask"]
+    flat = seg_all[-n_layers:].roll(1, dims=0)  # final layer first, then aux
+    cost = match_cost(flat.reshape(-1, model.num_queries, 2), gt.float().repeat(n_layers, 1, 1),
+                      model.cost_segment, model.cost_giou).cpu().numpy()
+    valid = gt_mask.repeat(n_layers, 1).cpu().numpy()
+    t0 = time.perf_counter()
+    idx = batched_hungarian(cost, valid)
+    model.matcher_ms = 1e3 * (time.perf_counter() - t0)
+    idx = torch.from_numpy(idx.astype(np.int64)).to(seg_all.device)
+    idx = idx.reshape(n_layers, -1, model.max_gt)
+    return idx[0], (idx[1:] if with_aux else None)
+
+
 def in_compute_dtype(method):
     """Run a forward of ``UnimodalDVC`` over its float params cast to the
     model's ``compute_dtype`` (JAX ``_cast_params``): a bf16 copy of each f32
@@ -95,12 +142,15 @@ def in_compute_dtype(method):
 
 
 class ProposalNet(nn.Module):
-    """Base encoder + sparse deformable transformer + segment/count heads."""
+    """Base encoder + deformable transformer + segment/count heads, and the
+    dense family's class head (``with_class_head``; ``num_classes`` + 1
+    logits, the last one "no object")."""
 
     def __init__(self, d_model=512, feature_dim=512, num_queries=20,
                  num_feature_levels=4, num_heads=8, enc_layers=6, dec_layers=6,
                  ff_dim=2048, dropout=0.1, enc_n_points=4, dec_n_points=4, rho=0.5,
-                 use_enc_aux_loss=True, max_eseq_length=10):
+                 use_enc_aux_loss=True, max_eseq_length=10, with_class_head=False,
+                 num_classes=200):
         super().__init__()
         self.use_enc_aux_loss = use_enc_aux_loss
         self.base_encoder = BaseEncoder(num_feature_levels, d_model, feature_dim)
@@ -118,6 +168,9 @@ class ProposalNet(nn.Module):
             self.segment_embedding_encoder = FFN(d_model, d_model, 2, 3,
                                                  final_zero_init=True)
             self.count_head_encoder = Linear(d_model, max_eseq_length + 1)
+        if with_class_head:
+            # read by rank="class" only: no loss reaches it, as in JAX
+            self.class_embedding = Linear(d_model, num_classes + 1)
 
     def forward(self, video, video_mask, durations,
                 with_enc_aux: bool = False) -> Dict[str, torch.Tensor]:
@@ -157,10 +210,15 @@ class ProposalNet(nn.Module):
             "mask_flatten": enc["mask_flatten"],
             "outputs_segment_all": outputs_segment,  # (layers, B, Q, 2)
             "outputs_count_all": outputs_count,      # (layers, B, C)
-            "backbone_topk_proposals": enc["topk"],
-            "backbone_mask_prediction": enc["saliency"],
-            "sparse_token_nums": enc["sparse_token_nums"],
         }
+        if hasattr(self, "class_embedding"):
+            out["outputs_class_all"] = torch.softmax(
+                self.class_embedding(query_features).float(), dim=-1)
+            out["pred_logits"] = out["outputs_class_all"][-1]
+        if enc["topk"] is not None:
+            out["backbone_topk_proposals"] = enc["topk"]
+            out["backbone_mask_prediction"] = enc["saliency"]
+            out["sparse_token_nums"] = enc["sparse_token_nums"]
         if with_enc_aux and self.use_enc_aux_loss and enc_inter is not None:
             counts = predict_event_num(self.count_head_encoder, enc_inter).float()
             offsets = self.segment_embedding_encoder(enc_inter).float()
@@ -172,7 +230,10 @@ class ProposalNet(nn.Module):
 
 
 class UnimodalDVC(nn.Module):
-    """Serving model: ``forward_serve`` maps features to events and captions."""
+    """The sparse (``dvc.use_sparse_detr``) and the dense
+    (``dvc.use_deformable_detr``) families on video features: ``forward_serve``
+    maps features to events and captions, ``forward_train`` and
+    ``forward_eval`` add the matching to the ground truth."""
 
     def __init__(self, cfg, vocab_size: int, pad_idx: int = 1, bos_idx: int = 2,
                  eos_idx: int = 3):
@@ -186,8 +247,13 @@ class UnimodalDVC(nn.Module):
         # compute_dtype; with bf16 the decode keeps its K/V in bf16
         self.compute_dtype = resolve_dtype(cfg.compute_dtype)
         self.kv_dtype = torch.bfloat16 if self.compute_dtype == torch.bfloat16 else None
-        if not dvc.use_sparse_detr:
-            raise NotImplementedError("the port serves the sparse family only")
+        check_family(cfg)
+        if len(dvc.input_modalities) != 1:
+            raise ValueError(
+                f"UnimodalDVC takes the video features alone, but dvc.input_modalities is "
+                f"{list(dvc.input_modalities)}; the multimodal family is built by "
+                f"models.build_model_and_criterion and evaluated with "
+                f"`python -m multimodal_feature_learning_tpu_torch.main --mode eval`")
         check_decode_options(decode_impl=cfg.decode_impl, decode_kv=cfg.decode_kv,
                              decode_fused_grid=cfg.decode_fused_grid)
         self.decode_impl = cfg.decode_impl
@@ -213,8 +279,10 @@ class UnimodalDVC(nn.Module):
             dec_layers=det.dec_layers, ff_dim=det.transformer_ff_dim,
             dropout=det.transformer_dropout_prob,
             enc_n_points=det.enc_n_points, dec_n_points=det.dec_n_points,
-            rho=det.rho, use_enc_aux_loss=det.use_enc_aux_loss,
-            max_eseq_length=dvc.max_eseq_length)
+            rho=det.rho if dvc.use_sparse_detr else 0.0,
+            use_enc_aux_loss=det.use_enc_aux_loss and dvc.use_sparse_detr,
+            max_eseq_length=dvc.max_eseq_length,
+            with_class_head=bool(dvc.use_deformable_detr), num_classes=dvc.num_classes)
         cap = dvc.caption
         self.caption = UnimodalCaptionDecoder(
             vocab_size, cap.d_model, cap.depth, cap.num_heads,
@@ -268,20 +336,8 @@ class UnimodalDVC(nn.Module):
         the costs arrived there."""
         out = self._propose(batch["video_tensor"], batch["video_mask"], batch["durations"],
                             with_enc_aux=with_aux)
-        seg_all = out["outputs_segment_all"].detach()
-        with_aux = with_aux and self.aux_loss
-        n_layers = seg_all.shape[0] if with_aux else 1
-        gt, gt_mask = batch["gt_segments"], batch["gt_mask"]
-        flat = seg_all[-n_layers:].roll(1, dims=0)  # final layer first, then aux
-        cost = match_cost(flat.reshape(-1, self.num_queries, 2), gt.float().repeat(n_layers, 1, 1),
-                          self.cost_segment, self.cost_giou).cpu().numpy()
-        valid = gt_mask.repeat(n_layers, 1).cpu().numpy()
-        t0 = time.perf_counter()
-        idx = batched_hungarian(cost, valid)
-        self.matcher_ms = 1e3 * (time.perf_counter() - t0)
-        idx = torch.from_numpy(idx.astype(np.int64)).to(seg_all.device)
-        idx = idx.reshape(n_layers, -1, self.max_gt)
-        return out, idx[0], (idx[1:] if with_aux else None)
+        return (out, *match_layers(self, out["outputs_segment_all"], batch,
+                                   with_aux and self.aux_loss))
 
     @in_compute_dtype
     def forward_train(self, batch):
@@ -369,13 +425,16 @@ class UnimodalDVC(nn.Module):
     @in_compute_dtype
     def _serve_prepare(self, video_tensor, video_mask, durations, rank: str = "stability"):
         """Propose, rank, select the top G, crop the memory. ``rank`` "class"
-        ranks by the class head where there is one; the sparse family has
-        none, so it ranks by stability, as JAX falls back."""
+        ranks by the class head's foreground probability, 1 - p(no-object),
+        where there is one (the dense family); the sparse family has none,
+        so it ranks by stability, as JAX falls back."""
         check_decode_options(rank=rank)
         out = self._propose(video_tensor, video_mask, durations)
         G = self.max_gt
         seg_all = out["outputs_segment_all"]
-        if seg_all.shape[0] < 2:
+        if rank == "class" and "pred_logits" in out:
+            scores = 1.0 - out["pred_logits"][..., -1]  # (B, Q)
+        elif seg_all.shape[0] < 2:
             # one decoder layer has no drift to rank by: uniform scores
             scores = seg_all.new_zeros(seg_all.shape[1:3])
         else:

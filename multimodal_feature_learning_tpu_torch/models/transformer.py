@@ -1,11 +1,16 @@
-"""Deformable proposal transformer with Sparse-DETR encoder sparsification;
-counterpart of the JAX ``models/transformer.py`` (sparse family), with the
-dropouts of its layers active in training mode.
+"""Deformable proposal transformer, with Sparse-DETR encoder sparsification
+(rho > 0, the sparse family) or without it (rho = 0, the dense family);
+counterpart of the JAX ``models/transformer.py``, with the dropouts of its
+layers active in training mode.
 
 The sparse token budget is static, K = int(rho * S) + 1, as in the JAX
 package; per-sample counts gate the scatter-back. Top-K selection sorts the
 saliency with a stable descending sort, so ties keep the lower index first as
 ``jax.lax.top_k`` does (``torch.topk`` on CUDA promises no order on ties).
+With rho = 0 every token is a query and the encoder's output is the layer's;
+there is no saliency, and the saliency net (``enc_mask_predictor``,
+``enc_output``, ``enc_output_norm``), which flax creates only when it is
+called, is not created either.
 """
 
 from __future__ import annotations
@@ -129,12 +134,15 @@ class DeformableTransformerDecoderLayer(nn.Module):
 
 
 class SparseDeformableTransformer(nn.Module):
+    """``with_query_head`` False leaves out ``reference_points_head``, which
+    the multimodal family's per-modality preparation never calls (so flax
+    never creates it there)."""
+
     def __init__(self, d_model=512, num_heads=8, num_encoder_layers=6,
                  num_decoder_layers=6, dim_feedforward=2048, dropout=0.1,
-                 num_feature_levels=4, dec_n_points=4, enc_n_points=4, rho=0.5):
+                 num_feature_levels=4, dec_n_points=4, enc_n_points=4, rho=0.5,
+                 with_query_head: bool = True):
         super().__init__()
-        if not rho:
-            raise NotImplementedError("the port has the sparse family (rho > 0) only")
         self.rho = rho
         self.level_embed = nn.Parameter(torch.randn(num_feature_levels, d_model))
         self.enc_layers = nn.ModuleList(
@@ -147,18 +155,21 @@ class SparseDeformableTransformer(nn.Module):
                 d_model, dim_feedforward, num_feature_levels, num_heads, dec_n_points,
                 dropout)
             for _ in range(num_decoder_layers))
-        self.enc_mask_predictor = MaskPredictor(d_model, d_model)
-        self.enc_output = Linear(d_model, d_model)
-        self.enc_output_norm = nn.LayerNorm(d_model, eps=1e-5)
-        self.reference_points_head = Linear(d_model, 1)
+        if rho:
+            self.enc_mask_predictor = MaskPredictor(d_model, d_model)
+            self.enc_output = Linear(d_model, d_model)
+            self.enc_output_norm = nn.LayerNorm(d_model, eps=1e-5)
+        if with_query_head:
+            self.reference_points_head = Linear(d_model, 1)
 
     def prepare_encoder_inputs(self, srcs, masks, poses):
-        """Flatten levels, add level embeds, and select the top-K tokens by
-        saliency. Returns a dict of src_flatten (B,S,D), mask_flatten (B,S),
-        lvl_pos_flatten (B,S,D), valid_ratios (B,L), temporal_shapes,
-        proposals (B,S,2) (the grid proposal bases, +inf where invalid),
-        saliency (B,S) (the mask prediction), topk (B,K) and
-        sparse_token_nums (B,)."""
+        """Flatten levels, add level embeds, and (sparse) select the top-K
+        tokens by saliency. Returns a dict of src_flatten (B,S,D),
+        mask_flatten (B,S), lvl_pos_flatten (B,S,D), valid_ratios (B,L),
+        temporal_shapes and, when rho > 0, proposals (B,S,2) (the grid
+        proposal bases, +inf where invalid), saliency (B,S) (the mask
+        prediction), topk (B,K) and sparse_token_nums (B,); with rho = 0
+        those four are None."""
         temporal_shapes = tuple(int(s.shape[1]) for s in srcs)
         src_flatten = torch.cat(srcs, dim=1)
         mask_flatten = torch.cat(masks, dim=1)
@@ -166,6 +177,19 @@ class SparseDeformableTransformer(nn.Module):
             [pos + self.level_embed[lvl][None, None] for lvl, pos in enumerate(poses)],
             dim=1)
         valid_ratios = get_valid_ratios(masks)
+        out = {
+            "src_flatten": src_flatten,
+            "mask_flatten": mask_flatten,
+            "lvl_pos_flatten": lvl_pos_flatten,
+            "valid_ratios": valid_ratios,
+            "temporal_shapes": temporal_shapes,
+            "proposals": None,
+            "saliency": None,
+            "topk": None,
+            "sparse_token_nums": None,
+        }
+        if not self.rho:
+            return out
 
         proposals_unact, _ = gen_encoder_output_proposals(temporal_shapes, mask_flatten)
         valid_token_nums = (~mask_flatten).sum(dim=1)
@@ -188,30 +212,32 @@ class SparseDeformableTransformer(nn.Module):
         # pad area takes the global minimum over the batch
         saliency = torch.where(mask_flatten, saliency.min(), saliency)
         topk = torch.sort(saliency, dim=1, descending=True, stable=True).indices[:, :K]
-        return {
-            "src_flatten": src_flatten,
-            "mask_flatten": mask_flatten,
-            "lvl_pos_flatten": lvl_pos_flatten,
-            "valid_ratios": valid_ratios,
-            "temporal_shapes": temporal_shapes,
-            "proposals": proposals_unact,
-            "saliency": saliency,
-            "topk": topk,
-            "sparse_token_nums": sparse_token_nums,
-        }
+        out.update(proposals=proposals_unact, saliency=saliency, topk=topk,
+                   sparse_token_nums=sparse_token_nums)
+        return out
 
     def forward_encoder(self, enc_inputs):
-        """Sparse encoder stack: the top-K tokens attend the dense memory and
-        are scattered back into it after every layer. Returns (memory
-        (B,S,D), sampling_locations and attention_weights (B,layers,K,H,L,P),
-        the sparse tokens after every layer but the last (layers-1,B,K,D),
-        and their proposal bases (B,K,2))."""
+        """Encoder stack. Sparse: the top-K tokens attend the dense memory
+        and are scattered back into it after every layer. Dense: every token
+        attends, and the memory is the layer's output. Returns (memory
+        (B,S,D), sampling_locations and attention_weights (B,layers,Q,H,L,P)
+        with Q = K or S, and, sparse only (else None), the sparse tokens
+        after every layer but the last (layers-1,B,K,D) and their proposal
+        bases (B,K,2))."""
         output = enc_inputs["src_flatten"]
         mask_flatten = enc_inputs["mask_flatten"]
         temporal_shapes = enc_inputs["temporal_shapes"]
         topk = enc_inputs["topk"]
         reference_points = get_encoder_reference_points(
             temporal_shapes, enc_inputs["valid_ratios"])
+        if topk is None:
+            locs, attns = [], []
+            for layer in self.enc_layers:
+                output, loc, attn = layer(output, enc_inputs["lvl_pos_flatten"],
+                                          reference_points, temporal_shapes, mask_flatten)
+                locs.append(loc)
+                attns.append(attn)
+            return output, torch.stack(locs, dim=1), torch.stack(attns, dim=1), None, None
 
         B, K = topk.shape
         rows = torch.arange(B, device=topk.device)[:, None].expand(B, K)

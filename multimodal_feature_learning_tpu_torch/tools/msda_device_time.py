@@ -49,6 +49,22 @@ LONG_PYRAMID = (1200, 600, 300, 150)
 # (name, B, Q, level lengths); H=8, Dh=64, P=4 throughout
 CASES = (("encoder", 16, 282, FLAGSHIP), ("decoder", 16, 20, FLAGSHIP),
          ("long_pyramid", 2, 1126, LONG_PYRAMID))
+AUDIO = (50, 25, 13, 7)  # pyramid_shapes(50, 4): the audio features' pyramid
+# the calls of the dense and the multimodal families at full width that the
+# flagship's CASES do not already hold (the sparse multimodal encoder's video
+# self-attention is the flagship encoder's call, its decoder's video
+# cross-attention the flagship decoder's): (name, B, Q, the value's level
+# lengths); the queries of a cross-modal call come from the other pyramid
+FAMILY_CALLS = (
+    ("dense_encoder", 16, 563, FLAGSHIP),     # every video token a query
+    ("mm_audio_self", 16, 48, AUDIO),         # int(95 * 0.5) + 1 sparse audio tokens
+    ("mm_v2a", 16, 282, AUDIO),               # sparse video tokens sample the audio
+    ("mm_a2v", 16, 48, FLAGSHIP),             # sparse audio tokens sample the video
+    ("mm_decoder_audio", 16, 20, AUDIO),      # the decoder's queries over the audio
+    ("mm_dense_audio_self", 16, 95, AUDIO),
+    ("mm_dense_v2a", 16, 563, AUDIO),
+    ("mm_dense_a2v", 16, 95, FLAGSHIP),
+)
 FLUSH_BYTES = 64 << 20  # more than the H100's 50 MB L2
 
 

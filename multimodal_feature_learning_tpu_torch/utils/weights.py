@@ -7,9 +7,12 @@ flattens a params tree, becomes the port's state_dict and is loaded with
 ``strict=True``, so a key left over on either side raises.
 
 Key mapping: the collection key ``params`` is dropped (it comes first in a
-module's own tree, second under the model's ``proposal`` / ``caption`` /
-``context_mask`` trees); list members
-``enc_layers_3`` become ``enc_layers.3``; ``Embed_0`` becomes ``embed``.
+module's own tree, second under the model's trees: ``proposal``,
+``caption``, ``context_mask``, and the multimodal family's ``bimodal``,
+``video_context_mask``, ``audio_context_mask``); list members
+``enc_layers_3`` (also ``enc_layers_mod_3``, ``dec_layers_mod_3``) become
+``enc_layers.3``; the BiModalEncoder's ``layer_0`` stays a name, as the
+port's module is named; ``Embed_0`` becomes ``embed``.
 Leaves: a Dense ``kernel`` (in, out) becomes ``weight`` (out, in), a Conv
 ``kernel`` (k, in, out) becomes ``weight`` (out, in, k), a norm ``scale`` and
 an ``embedding`` become ``weight``. ``BF16||``-prefixed uint16 leaves hold the
@@ -31,10 +34,12 @@ from torch import nn
 
 SEP = "||"
 BF16_PREFIX = "BF16" + SEP
-_LIST_MEMBER = re.compile(r"^(enc_layers|dec_layers|decoder|layers|input_proj|gn)_(\d+)$")
-_LISTS = ("enc_layers", "dec_layers", "decoder", "layers", "input_proj", "gn")
+_LISTS = ("enc_layers", "dec_layers", "enc_layers_mod", "dec_layers_mod", "decoder",
+          "layers", "input_proj", "gn")
+_LIST_MEMBER = re.compile(r"^(" + "|".join(_LISTS) + r")_(\d+)$")
 # the model's top-level trees, each a flax module tree of its own
-_TREES = ("proposal", "caption", "context_mask")
+_TREES = ("proposal", "caption", "context_mask", "bimodal", "video_context_mask",
+          "audio_context_mask")
 
 
 def expand_bf16(u: np.ndarray) -> np.ndarray:

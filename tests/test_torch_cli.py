@@ -43,6 +43,7 @@ from test_torch_common import flatten_params
 from multimodal_feature_learning_tpu_torch import inference, serve
 from multimodal_feature_learning_tpu_torch import main as port_main
 from multimodal_feature_learning_tpu_torch.config import Config, apply_overrides
+from multimodal_feature_learning_tpu_torch.data.anet import build_dataset
 
 DIMS = [o for o in TINY if not o.startswith(("eval_rate", "checkpoint_rate", "print_freq"))]
 NO_DROPOUT = ["dvc.detr.transformer_dropout_prob=0"] + [
@@ -313,6 +314,58 @@ def test_load_test_sweeps_the_serving_cli(world, straight):
     assert [(r["point"], r["mode"], r["requests"]) for r in rows] == [
         ("static@500rps", "static", 4), ("continuous_c2@500rps", "continuous", 4)]
     assert load_test_serve.markdown(rows).count("@500rps") == 2
+
+
+FAMILIES = {
+    "dense": ["dvc.use_sparse_detr=False", "dvc.use_deformable_detr=True"],
+    "multimodal": ["dvc.input_modalities=video,audio", "dvc.use_bimodal_encoder=True",
+                   "dataset.activity_net.audio_rescale_len=12"],
+}
+
+
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_other_families_train_resume_and_evaluate(world, family, tmp_path):
+    """The dense and the multimodal family through the training CLI: an
+    epoch from a flat snapshot (``--weights``, loaded strictly) with eval
+    and scoring and a numbered checkpoint, ``--resume`` for a second, then
+    ``--mode eval --resume``, which gives the second epoch's evaluation."""
+    from multimodal_feature_learning_tpu_torch.models import build_model_and_criterion
+    from multimodal_feature_learning_tpu_torch.utils.weights import export_flax_params
+
+    extra = [*FAMILIES[family], "checkpoint_rate=1"]
+    cfg = apply_overrides(Config(), DIMS + extra + world[1])
+    _, vocab = build_dataset("train", cfg)
+    model, _, _ = build_model_and_criterion(cfg, vocab, device="cpu", seed=5)
+    snapshot = str(tmp_path / "init.npz")
+    np.savez(snapshot, **export_flax_params(model))
+    out = str(tmp_path / "run")
+    common = ["--device", "cpu", "--batch-size", str(BATCH), "--output-dir", out]
+    first = port_main.main(["--weights", snapshot, "--epochs", "1", *common,
+                            *overrides(world, *extra)])
+    rec = first["epochs"][0]
+    assert rec["epoch"] == 0 and np.isfinite(rec["train_loss"]) and "score_F1_score" in rec
+    assert ("train_loss_mask_prediction" in rec) == (family == "multimodal")
+    assert os.path.exists(os.path.join(out, "checkpoint0000"))
+    ckpt = os.path.join(out, "checkpoint")
+    second = port_main.main(["--resume", ckpt, "--epochs", "2", *common,
+                             *overrides(world, *extra)])
+    assert second["start_epoch"] == 1 and [r["epoch"] for r in second["epochs"]] == [1]
+    evaluated = port_main.main(["--mode", "eval", "--resume", ckpt, *common,
+                                *overrides(world, *extra)])
+    assert evaluated["start_epoch"] == 2
+    assert {f"val_{k}": v for k, v in evaluated["val_stats"].items()} == {
+        k: v for k, v in second["epochs"][-1].items() if k.startswith("val_")}
+
+
+def test_two_modalities_override_parses_as_jax():
+    from main import apply_overrides as jax_apply_overrides
+
+    from multimodal_feature_learning_tpu.config import load_config
+
+    override = ["dvc.input_modalities=video,audio"]
+    jcfg = jax_apply_overrides(load_config("train"), override)
+    assert apply_overrides(Config(), override).dvc.input_modalities == \
+        list(jcfg.dvc.input_modalities) == ["video", "audio"]
 
 
 def test_cli_config_fields_match_jax():

@@ -8,7 +8,9 @@ timestamp, one listed as invalid, videos with more events than
 the JAX package's synthetic features of every key. The JAX side reads its
 synthetic generator, the port the files. Everything is held equal, exactly:
 features, chosen events, token ids, raw captions, every collated array and
-both metadata lists, batch order over two shuffled epochs."""
+both metadata lists, batch order over two shuffled epochs; with two input
+modalities, the audio features (the video features read as audio, as JAX's
+dataset does without an audio file) through the collate and the loader."""
 
 from __future__ import annotations
 
@@ -235,6 +237,75 @@ def test_loader_order_over_two_epochs_equals_jax(datasets, drop_last):
     n_valid = sum(tds[i] is not None for i in range(len(tds)))
     if not drop_last:
         assert sorted(orders[0]) == sorted(orders[1]) and len(orders[0]) == n_valid
+
+
+A_RESCALE = 6  # the audio length of the two-modality cases
+
+
+@pytest.fixture(scope="module")
+def mm_datasets(world):
+    """(jax val dataset, port val dataset) with two input modalities: no
+    audio file, so each side reads its video features as audio (JAX
+    ``data/anet.py``'s aliasing)."""
+    jcfg, tcfg = jax_cfg(world), port_cfg(world)
+    jcfg.dvc.input_modalities = ["video", "audio"]
+    tcfg.dvc.input_modalities = ["video", "audio"]
+    jds, jv = janet.build_dataset("val", jcfg)
+    tds, _ = tanet.build_dataset("val", tcfg, tvocab.Vocab(jv.itos))
+    assert tds.audio_features.path == tcfg.dataset.activity_net.video_features_file
+    return jds, tds
+
+
+@pytest.mark.parametrize("pad_to_batch", [0, 5])
+def test_audio_collate_equals_jax(mm_datasets, pad_to_batch):
+    """The audio keys: padded to the longest, masked, nearest-resized to
+    audio_rescale_len, dummy rows valid zero audio; every array equal to
+    JAX's, and no audio keys without audio_rescale_len."""
+    jds, tds = mm_datasets
+    got = tanet.collate_fixed([tds[i] for i in range(1, 4)], 1, T_RESCALE, MAX_GT, LC,
+                              pad_to_batch=pad_to_batch, audio_rescale_len=A_RESCALE)
+    ref = janet.collate_fixed([jds[i] for i in range(1, 4)], 1, T_RESCALE, MAX_GT, LC,
+                              pad_to_batch=pad_to_batch, audio_rescale_len=A_RESCALE)
+    assert set(got) == set(ref) and "audio_tensor" in got
+    for k, r in ref.items():
+        if isinstance(r, np.ndarray):
+            assert got[k].dtype == r.dtype and got[k].shape == r.shape, k
+            np.testing.assert_array_equal(got[k], r, err_msg=k)
+    assert got["audio_tensor"].shape == (max(3, pad_to_batch), A_RESCALE, D)
+    assert not got["audio_mask"][3:].any() and not got["audio_tensor"][3:].any()
+    plain = tanet.collate_fixed([tds[1]], 1, T_RESCALE, MAX_GT, LC)
+    assert "audio_tensor" not in plain and "audio_mask" not in plain
+
+
+def test_audio_loader_equals_jax(mm_datasets):
+    """Both loaders with audio_rescale_len: the same batches, the audio keys
+    among the arrays ``split_batch`` takes."""
+    jds, tds = mm_datasets
+    assert set(tloader.ARRAY_KEYS) == set(jloader.ARRAY_KEYS)
+    kw = dict(video_rescale_len=T_RESCALE, max_gt=MAX_GT, max_caption_len=LC, shuffle=True,
+              seed=3, audio_rescale_len=A_RESCALE)
+    ref = list(jloader.DataLoader(jds, 3, 1, **kw))
+    got = list(tloader.DataLoader(tds, 3, 1, **kw))
+    assert len(got) == len(ref) > 0
+    for r, g in zip(ref, got):
+        rarr, garr = jloader.split_batch(r)[0], tloader.split_batch(g)[0]
+        assert set(garr) == set(rarr) and "audio_mask" in garr
+        for k in rarr:
+            np.testing.assert_array_equal(garr[k], rarr[k], err_msg=k)
+
+
+def test_synthetic_batches_carry_audio_for_two_modalities():
+    """``synthetic_batches`` adds audio for two input modalities and leaves
+    the one-modality stream as it was."""
+    cfg = Config()
+    cfg.dvc.detr.feature_dim = D
+    one = next(tanet.synthetic_batches(cfg, 3, 20, seed=5))
+    cfg.dvc.input_modalities = ["video", "audio"]
+    cfg.dataset.activity_net.audio_rescale_len = A_RESCALE
+    two = next(tanet.synthetic_batches(cfg, 3, 20, seed=5))
+    assert "audio_tensor" not in one and two["audio_tensor"].shape == (3, A_RESCALE, D)
+    for k in ("video_tensor", "video_mask", "gt_segments", "cap_tokens"):
+        np.testing.assert_array_equal(two[k], one[k])
 
 
 def test_loader_raises_a_worker_error_and_stops_early():

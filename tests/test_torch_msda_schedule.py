@@ -83,6 +83,66 @@ def test_decoder_call_takes_the_gather_schedule(itemsize):
     assert plan.threads == msda.FWD_GATHER_THREADS
 
 
+# the schedule each new call of the dense and the multimodal families takes:
+# "gather" where 2 Q L P < 4 S (the audio queries over the video, 2 * 48 * 16
+# < 4 * 563), "staged" elsewhere, the whole slab in shared memory
+FAMILY_SCHEDULES = {
+    "dense_encoder": "staged", "mm_audio_self": "staged", "mm_v2a": "staged",
+    "mm_a2v": "gather", "mm_decoder_audio": "staged", "mm_dense_audio_self": "staged",
+    "mm_dense_v2a": "staged", "mm_dense_a2v": "staged",
+}
+
+
+@pytest.mark.parametrize("call", msda_device_time.FAMILY_CALLS, ids=lambda c: c[0])
+def test_family_calls_plans_and_shared_memory(call):
+    """The forward's schedule and shared memory in f32 and bf16 and the
+    backward's at every new call shape of the two families; the plans read
+    the value's pyramid and the query count only, so a cross-modal call
+    (queries of one pyramid, the value of the other) is planned as any."""
+    name, b, q, shapes = call
+    assert b == B
+    S = sum(shapes)
+    for itemsize in (4, 2):
+        plan = msda.msda_fwd_plan(shapes, b, H, DH, q, P, itemsize)
+        assert plan.schedule == FAMILY_SCHEDULES[name], (name, itemsize)
+        assert (2 * q * 4 * P < msda.FWD_STAGE_READS_PER_ROW * S) == (plan.schedule == "gather")
+        assert plan.smem_bytes <= msda.SMEM_PER_BLOCK
+        if plan.schedule == "staged":
+            assert plan.rows == S
+            assert plan.smem_bytes == -(-S * DH * itemsize // 16) * 16 + plan.threads * 16
+        else:
+            assert plan.smem_bytes == 0
+    for itemsize in (4, 2):
+        bwd = msda.msda_bwd_plan(shapes, b, H, DH, q, P, itemsize=itemsize)
+        assert bwd.smem_bytes <= msda.SMEM_PER_BLOCK
+        assert fits_an_sm(bwd.smem_bytes, 1024 // bwd.threads)
+        # the longest level is at most 300 rows: one block a level; the 563
+        # queries of a dense video call take two rounds of g rows, the
+        # others one
+        assert bwd.schedule == "level" and bwd.chunks == 1
+        assert -(-q // bwd.q_round) == (2 if q == 563 else 1), (name, itemsize)
+
+
+def test_family_calls_are_the_models_calls():
+    """FAMILY_CALLS are the full-width models' pyramids and query counts."""
+    from multimodal_feature_learning_tpu_torch.config import load_config
+    from multimodal_feature_learning_tpu_torch.models.base_encoder import pyramid_shapes
+
+    cfg = load_config()
+    det, anet = cfg.dvc.detr, cfg.dataset.activity_net
+    video = pyramid_shapes(det.video_rescale_len, det.num_feature_levels)
+    audio = pyramid_shapes(anet.audio_rescale_len, det.num_feature_levels)
+    k = {s: int(sum(s) * det.rho) + 1 for s in (video, audio)}
+    expected = {
+        "dense_encoder": (sum(video), video), "mm_audio_self": (k[audio], audio),
+        "mm_v2a": (k[video], audio), "mm_a2v": (k[audio], video),
+        "mm_decoder_audio": (cfg.dvc.num_queries, audio),
+        "mm_dense_audio_self": (sum(audio), audio), "mm_dense_v2a": (sum(video), audio),
+        "mm_dense_a2v": (sum(audio), video)}
+    assert {n: (q, s) for n, _, q, s in msda_device_time.FAMILY_CALLS} == expected
+    assert video == FLAGSHIP and sum(audio) == 95 and k[audio] == 48
+
+
 def test_stage_rule_threshold_at_the_flagship_pyramid():
     """K1 stages the rows once its taps read each row four times on
     average: 2 * Q * L * P >= 4 * S, so Q >= 71 at S = 563, L = P = 4."""

@@ -121,3 +121,89 @@ def test_snapshot_key_set_round_trips_without_loading_the_tensors():
         plain = k[len(weights.BF16_PREFIX):] if k.startswith(weights.BF16_PREFIX) else k
         name = weights.torch_key(plain)
         assert weights.flax_key(name, sd[name].dim()) == plain
+
+
+# -- the dense and the multimodal families' trees ---------------------------------
+
+FAMILY_TREES = {  # (family, differentiable mask, BiModalEncoder)
+    "dense": ("dense", False, False),
+    "multimodal_bimodal_ctxmask": ("mm", True, True),
+    "multimodal_dense": ("mm_dense", False, False),
+}
+
+
+@pytest.mark.parametrize("case", list(FAMILY_TREES))
+def test_family_trees_carry_strictly_and_export_back(case):
+    """A JAX init of the dense family, of the multimodal one with the
+    BiModalEncoder (``bimodal||params||layer_0``) and both context masks
+    (``video_context_mask``, ``audio_context_mask``), and of the dense
+    multimodal one loads into the port with strict=True (the cross-modal
+    ``enc_layers_mod_{i}`` / ``dec_layers_mod_{i}`` lists included) and
+    exports back key for key and value for value."""
+    from test_torch_common import build_jax_family, build_port_family, family_cfg, flatten_params
+
+    family, mask, bimodal = FAMILY_TREES[case]
+    jcfg = family_cfg(family, mask, bimodal)
+    _, params = build_jax_family(jcfg)
+    flat = flatten_params(params)
+    model, _, _ = build_port_family(jcfg, params)
+    out = weights.export_flax_params(model)
+    assert set(out) == set(flat)
+    for k in flat:
+        np.testing.assert_array_equal(out[k], flat[k], err_msg=k)
+    trees = {k.split(weights.SEP)[0] for k in flat}
+    expected = {"proposal", "caption"} | ({"bimodal"} if bimodal else set())
+    if mask:
+        expected |= ({"context_mask"} if family == "dense"
+                     else {"video_context_mask", "audio_context_mask"})
+    assert trees == expected
+    if family.startswith("mm"):
+        assert any("enc_layers_mod_1" in k for k in flat)
+        assert "proposal.enc_layers_mod.1.cross_attn_v2a.value_proj.weight" in model.state_dict()
+    if bimodal:
+        assert "bimodal.layer_1.attention_va.q_linear.weight" in model.state_dict()
+
+
+@pytest.mark.parametrize("family,millions", [("dense", 74.71), ("multimodal_bimodal", 119.68)])
+def test_full_width_param_counts_equal_jax(family, millions):
+    """At full width with the 6563-word vocabulary and the context mask off,
+    as the JAX package trained them, the port's models count the JAX init's
+    params exactly (``jax.eval_shape``: no compute; the port's on the meta
+    device): 74.71 M dense (runs_dense_conv.log) and 119.68 M multimodal
+    with the BiModalEncoder (runs_mm_conv.log)."""
+    import jax
+
+    from multimodal_feature_learning_tpu.config import load_config as jax_load_config
+    from multimodal_feature_learning_tpu.config import recompute_losses
+    from multimodal_feature_learning_tpu.models.dvc import build_model as jax_build_model
+    from multimodal_feature_learning_tpu.models.multimodal import build_multimodal_model
+    from test_torch_common import torch_cfg_like
+
+    from multimodal_feature_learning_tpu_torch.models.dvc import UnimodalDVC
+    from multimodal_feature_learning_tpu_torch.models.multimodal import MultimodalDVC
+
+    jcfg = jax_load_config("train")
+    jcfg.use_differentiable_mask = False
+    if family == "dense":
+        jcfg.dvc.use_sparse_detr, jcfg.dvc.use_deformable_detr = False, True
+        jmodel, cls = jax_build_model(jcfg, 6563), UnimodalDVC
+    else:
+        jcfg.dvc.input_modalities = ["video", "audio"]
+        jcfg.dvc.use_bimodal_encoder = True
+        jmodel, cls = build_multimodal_model(jcfg, 6563), MultimodalDVC
+    recompute_losses(jcfg)
+    anet = jcfg.dataset.activity_net
+    G, Lc, F = anet.max_gt_target_segments, anet.max_caption_len_all, jcfg.dvc.detr.feature_dim
+    spec = jax.ShapeDtypeStruct
+    batch = {"video_tensor": spec((1, anet.video_rescale_len, F), np.float32),
+             "video_mask": spec((1, anet.video_rescale_len), bool),
+             "audio_tensor": spec((1, anet.audio_rescale_len, F), np.float32),
+             "audio_mask": spec((1, anet.audio_rescale_len), bool),
+             "durations": spec((1,), np.float32), "gt_segments": spec((1, G, 2), np.float32),
+             "gt_mask": spec((1, G), bool), "cap_tokens": spec((1, G, Lc), np.int32)}
+    shapes = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0), batch)
+    n_jax = sum(int(np.prod(leaf.shape)) for leaf in jax.tree_util.tree_leaves(shapes))
+    with torch.device("meta"):
+        model = cls(torch_cfg_like(jcfg), 6563)
+    assert sum(p.numel() for p in model.parameters()) == n_jax
+    assert round(n_jax / 1e6, 2) == millions
