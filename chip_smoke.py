@@ -829,26 +829,47 @@ def build_family(cfg, vocab_size: int, device, flat=None):
     return model
 
 
-class counting_msda_shapes:
-    """Within the block, the model's MSDA calls counted by shape: {"Q=563
-    S=563": calls} (queries, value rows). Each call on the card is one K1
+class recording_msda_calls:
+    """Within the block, every MSDA call of the model (``models/msda_module``)
+    records its query and value rows (``Q``, ``S``) and, with ``tensors``,
+    its (value, loc, aw) and, once the backward has run, the gradient of its
+    output: a list of dicts, in call order. Each call on the card is one K1
     launch."""
+
+    def __init__(self, tensors: bool = True):
+        self.tensors = tensors
 
     def __enter__(self):
         from multimodal_feature_learning_tpu_torch.models import msda_module
 
-        self.module, self.orig, counts = msda_module, msda_module.ms_deform_attn, {}
+        self.module, self.orig, records = msda_module, msda_module.ms_deform_attn, []
 
-        def counting(value, shapes, loc, aw):
-            key = f"Q={loc.shape[1]} S={value.shape[1]}"
-            counts[key] = counts.get(key, 0) + 1
-            return self.orig(value, shapes, loc, aw)
+        def recording(value, shapes, loc, aw):
+            out = self.orig(value, shapes, loc, aw)
+            rec = {"Q": loc.shape[1], "S": value.shape[1]}
+            if self.tensors:
+                rec.update(value=value.detach(), shapes=tuple(shapes), loc=loc.detach(),
+                           aw=aw.detach())
+                if out.requires_grad:
+                    out.register_hook(lambda g: rec.__setitem__("g", g.detach().contiguous()))
+            records.append(rec)
+            return out
 
-        msda_module.ms_deform_attn = counting
-        return counts
+        msda_module.ms_deform_attn = recording
+        return records
 
     def __exit__(self, *exc):
         self.module.ms_deform_attn = self.orig
+
+
+def calls_by_shape(records) -> dict:
+    """``recording_msda_calls``' records counted by shape: {"Q=563 S=563":
+    calls} (queries, value rows)."""
+    counts = {}
+    for r in records:
+        key = f"Q={r['Q']} S={r['S']}"
+        counts[key] = counts.get(key, 0) + 1
+    return counts
 
 
 def serve(model, requests, rank: str = "stability"):
@@ -1422,15 +1443,16 @@ EVAL_ARMS = (  # (name, val_mode, keyword arguments, decode_impl)
 def evaluate_arms(cfg, model, batch, eval_arms=EVAL_ARMS, beam1_min_share: float = 1.0):
     """Phase 12: make_eval_step on one batch (on the model's device) in every
     arm of ``eval_arms`` (EVAL_ARMS), and beam 1. Every kernel's launch count is set to 0
-    just before each arm and read just after it. Checks: every loss finite;
+    just before each arm and read just after it, as are the arm's MSDA calls
+    by shape; the peak memory is that of the arms. Checks: every loss finite;
     K1 launched once per MSDA call of the forward; the fused arm's kernel
     once per decode step; beam 1 equal to greedy on at least
-    ``beam1_min_share`` of the caption rows (the flagship's trained weights:
-    every row), and where they part, a near-tie (``beam1_divergence_gaps``
-    within NEAR_TIE). Beam 1 picks the top of score + log-softmax, greedy
-    the top logit: the same token but where two logits are within the
-    rounding of the running score, which seeded random weights leave in a
-    few of the 3,040 decisions of a batch."""
+    ``beam1_min_share`` of the caption rows (by default every row), and
+    every row where they part a near-tie (``beam1_divergence_gaps`` within
+    NEAR_TIE). Beam 1 picks the top of score + log-softmax, greedy the top
+    logit: the same token but where two logits are within the rounding of
+    the running score, which the multimodal family's seeded random weights
+    leave in a few of the 3,040 decisions of a batch."""
     import torch
 
     from multimodal_feature_learning_tpu_torch.engine.evaluate import make_eval_step
@@ -1440,7 +1462,8 @@ def evaluate_arms(cfg, model, batch, eval_arms=EVAL_ARMS, beam1_min_share: float
     criterion, weight_dict = build_criterion(cfg, model.pad_idx)
     counters = kernel_counters()
     per_forward = msda_per_forward(cfg)
-    arms, captions = {}, {}
+    arms, captions, shapes = {}, {}, {}
+    torch.cuda.reset_peak_memory_stats()
     for name, val_mode, kw, impl in eval_arms + (("beam1", "beam", {"beam_size": 1}, "xla"),):
         model.decode_impl = impl
         try:
@@ -1449,12 +1472,16 @@ def evaluate_arms(cfg, model, batch, eval_arms=EVAL_ARMS, beam1_min_share: float
                 k.launches = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            caps, denorm, losses = step(batch)
+            with recording_msda_calls(tensors=False) as calls:
+                caps, denorm, losses = step(batch)
             torch.cuda.synchronize()
             ms = 1e3 * (time.perf_counter() - t0)
         finally:
             model.decode_impl = "xla"
         launches = {k: c.launches for k, c in counters.items()}
+        arm_shapes = calls_by_shape(calls)
+        for key, n in arm_shapes.items():
+            shapes[key] = shapes.get(key, 0) + n
         values = {k: float(v) for k, v in losses.items()}
         if not all(math.isfinite(v) for v in values.values()):
             raise AssertionError(f"eval {name}: non-finite losses {values}")
@@ -1472,8 +1499,9 @@ def evaluate_arms(cfg, model, batch, eval_arms=EVAL_ARMS, beam1_min_share: float
                       "captions_shape": list(caps.shape), "decode_steps": steps,
                       "loss": values["loss"], "loss_terms": len(values) - 1,
                       "caption_loss_terms": sum(k.startswith("loss_caption") for k in values),
-                      "launches": launches,
+                      "launches": launches, "msda_calls_by_shape": arm_shapes,
                       "segments_max_s": float(denorm.abs().max())}
+    peak = torch.cuda.max_memory_allocated()
     n_rows = captions["one_by_one"].shape[0]
     beam1_rows = int((captions["beam1"] == captions["one_by_one"]).all(dim=1).sum())
     gaps = beam1_divergence_gaps(model, batch, captions["one_by_one"], captions["beam1"])
@@ -1487,6 +1515,7 @@ def evaluate_arms(cfg, model, batch, eval_arms=EVAL_ARMS, beam1_min_share: float
         fused_rows = int((captions["one_by_one_fused"] == captions["one_by_one"])
                          .all(dim=1).sum())
     return {"batch": int(batch["video_tensor"].shape[0]), "arms": arms,
+            "msda_calls_by_shape": shapes, "max_memory_allocated_bytes": peak,
             "beam1_rows_equal_to_greedy": beam1_rows,
             "beam1_divergences": gaps,
             "fused_rows_equal_to_plain": fused_rows, "rows": int(captions["one_by_one"].shape[0])}
@@ -1498,8 +1527,8 @@ def evaluate_arms(cfg, model, batch, eval_arms=EVAL_ARMS, beam1_min_share: float
 NEAR_TIE = 1e-4
 
 
-def beam1_divergence_gaps(model, batch, greedy, beam1, max_rows: int = 5):
-    """Where beam 1 and greedy part (at most ``max_rows`` rows), both decodes
+def beam1_divergence_gaps(model, batch, greedy, beam1):
+    """In every row where beam 1 and greedy part, both decodes
     run again on ``batch`` with every step's logits recorded
     (``caption.decode_pair``): at the first position the row differs, the
     gap between greedy's two largest logits and the largest difference
@@ -1508,7 +1537,7 @@ def beam1_divergence_gaps(model, batch, greedy, beam1, max_rows: int = 5):
     (beam 1 ranks score + log-softmax, greedy the logits)."""
     import torch
 
-    rows = (greedy != beam1).any(dim=1).nonzero()[:max_rows, 0].tolist()
+    rows = (greedy != beam1).any(dim=1).nonzero()[:, 0].tolist()
     if not rows:
         return []
     recorded = {}
@@ -2015,7 +2044,7 @@ def train(cfg, flat, vocab_size):
     torch.cuda.reset_peak_memory_stats()
     msda.MSDA_FWD.launches = msda.MSDA_BWD.launches = 0
     t0 = time.perf_counter()
-    with counting_msda_shapes() as shapes:
+    with recording_msda_calls(tensors=False) as calls:
         state, stats = train_one_epoch(step, state, batches[:TRAIN_STEPS + 1], epoch=0,
                                        print_freq=0, step_logger=record)
     launches = {"msda_fwd": msda.MSDA_FWD.launches, "msda_bwd": msda.MSDA_BWD.launches}
@@ -2057,7 +2086,7 @@ def train(cfg, flat, vocab_size):
         "matcher_host_ms": [v["matcher_ms"] for _, v in records],
         "launches": launches,
         "launches_per_step": {k: v / steps for k, v in launches.items()},
-        "msda_calls_by_shape": shapes,
+        "msda_calls_by_shape": calls_by_shape(calls),
         "params_with_nonzero_grad_share": share,
         "msdeformattn_params": n_msda, "msdeformattn_params_without_grad": len(msda_missing),
         "max_memory_allocated_bytes": peak,
@@ -2082,32 +2111,6 @@ def taps_near_whole_tokens(loc, shapes, tol=1e-4):
     inside = (x > 0) & (x < T - 1)
     near = inside & ((x - x.round()).abs() < tol)
     return float(near.sum()) / max(float(inside.sum()), 1.0)
-
-
-class recording_msda_calls:
-    """Within the block, every MSDA call of the model (``models/msda_module``)
-    records its (value, loc, aw) and, once the backward has run, the
-    gradient of its output: a list of dicts, in call order."""
-
-    def __enter__(self):
-        from multimodal_feature_learning_tpu_torch.models import msda_module
-
-        self.module, self.orig, records = msda_module, msda_module.ms_deform_attn, []
-
-        def recording(value, shapes, loc, aw):
-            out = self.orig(value, shapes, loc, aw)
-            rec = {"value": value.detach(), "shapes": tuple(shapes), "loc": loc.detach(),
-                   "aw": aw.detach()}
-            if out.requires_grad:
-                out.register_hook(lambda g: rec.__setitem__("g", g.detach().contiguous()))
-            records.append(rec)
-            return out
-
-        msda_module.ms_deform_attn = recording
-        return records
-
-    def __exit__(self, *exc):
-        self.module.ms_deform_attn = self.orig
 
 
 def encoder_dloc_gaps(calls, enc_calls: int):
@@ -2444,7 +2447,7 @@ def dense_serve(cfg, model, requests):
     for rank, impl in DENSE_SERVE_ARMS:
         model.decode_impl = impl
         try:
-            with counting_msda_shapes() as shapes:
+            with recording_msda_calls(tensors=False) as calls:
                 res, latencies, wall, launches, stats, steps = serve(model, requests, rank)
         finally:
             model.decode_impl = "xla"
@@ -2462,7 +2465,7 @@ def dense_serve(cfg, model, requests):
             "answered": len(res), "dispatches": dispatches, "videos_per_s": N_REQUESTS / wall,
             "p50_latency_s": lat[len(lat) // 2], "max_latency_s": lat[-1],
             "step_s": stats["step_s"], "launches": launches, "decode_steps": steps,
-            "msda_calls_by_shape": shapes}
+            "msda_calls_by_shape": calls_by_shape(calls)}
     agreement = {rank: compare_results(requests, results[(rank, "fused")],
                                        results[(rank, "xla")],
                                        f"dense_serve {rank}: fused against plain-op")
@@ -2736,7 +2739,7 @@ def main() -> int:
     t = time.monotonic()
     dense_batch = batch_to_device(next(synthetic_batches(cfg_d, BATCH, vocab_size, seed=0)),
                                   "cuda")
-    dense_evaluated = evaluate_arms(cfg_d, model_d, dense_batch, beam1_min_share=0.9)
+    dense_evaluated = evaluate_arms(cfg_d, model_d, dense_batch)
     log("dense_eval", time.monotonic() - t, **dense_evaluated)
 
     t = time.monotonic()
@@ -2766,12 +2769,8 @@ def main() -> int:
         t = time.monotonic()
         mm_batch = batch_to_device(next(synthetic_batches(cfg_m, BATCH, vocab_size, seed=0)),
                                    "cuda")
-        torch.cuda.reset_peak_memory_stats()
-        with counting_msda_shapes() as shapes:
-            mm_evaluated = evaluate_arms(cfg_m, model_m, mm_batch, MM_EVAL_ARMS,
-                                         beam1_min_share=0.9)
-        mm_evaluated.update(msda_calls_by_shape=shapes,
-                            max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+        mm_evaluated = evaluate_arms(cfg_m, model_m, mm_batch, MM_EVAL_ARMS,
+                                     beam1_min_share=0.9)
         log("mm_eval", time.monotonic() - t, context_mask=mask, params=n_params,
             **mm_evaluated)
         del model_m, mm_batch
