@@ -151,7 +151,34 @@ Phases, each printing one line with its wall seconds:
    K2 once per MSDA call of every step and eval batch, the same val loss.
    The kernel lines of phase 3 hold K1 and K2 at every call shape of the
    two families (tools/msda_device_time.py::FAMILY_CALLS), f32, and the
-   dense encoder's in bf16 too.
+   dense encoder's in bf16 too;
+32. raw_ingest: the host side of raw ingest over a world of annotations
+   written under build/raw_world (16 val and 16 train videos of 10-180 s,
+   the evaluation world's vocabulary; frames and waves from the synthetic
+   decoder): per video the ms of the decode, the resample to 300 frames,
+   the fbank (128 mels x 64 frames) and the whole dataset item, collate_raw
+   of 16, the loader's wait and copy a batch, and the bytes a batch moves
+   to the card (the frames as uint8);
+33. raw_eval, raw_train, raw_check: the raw multimodal family (BASELINE
+   config #5: uint8 frames -> ViViT "factorised encoder" depth 12 + 4, AST
+   depth 12 over 93 tokens, the multimodal stack; 8 heads, audio rescale
+   length 93, weights from seed 0), its parameter count equal to the JAX
+   init's: evaluate_arms at batch 16 on the world's val videos (K1 36
+   times a forward), the forward's device busy share and its split into
+   ViViT, AST and the DVC stack; the train phase at the largest batch of
+   8, 4 or 2 whose step peaks under 70 GB (K2 36 times a step, gradients
+   into both backbones); eval_check and train_check of 2 videos cut to 32
+   frames on the card against the CPU (every greedy parting a near-tie,
+   the backbones' features within 1e-4 of their largest);
+34. regular_raw_eval/_train/_check and regular_eval/_train/_check: the same
+   for the regular family over raw frames (BASELINE config #4: its own
+   ViViT, depth 4 + 2) and over synthetic features (training at batch 16),
+   K1 and K2 never launched, beam 1 equal to greedy on every row;
+35. raw_cli: the training CLI on the raw family over the raw world, one
+   epoch at the raw training batch with eval and scoring, then --mode eval
+   --resume: K1 and K2 once per MSDA call of every step and eval batch.
+   The kernel lines of phase 3 hold K1 and K2 at the raw family's new call
+   shapes too (tools/msda_device_time.py::RAW_CALLS), f32.
 
 Then one JSON line of kernel measurements and, as the last line, a JSON
 object naming the device. Any failure exits non-zero without that line, as
@@ -302,15 +329,18 @@ def msda_calls(model_dims):
     of the dense and the multimodal families that those do not hold
     (``tools/msda_device_time.py::FAMILY_CALLS``: the dense encoder's Q = S
     = 563, the audio pyramid's 95 rows, and queries of one pyramid sampling
-    the other's value), in f32, and the dense encoder's in bf16 too."""
-    from multimodal_feature_learning_tpu_torch.tools.msda_device_time import FAMILY_CALLS
+    the other's value) and of the raw multimodal family (``RAW_CALLS``: the
+    pyramid of 93 AST tokens, 176 rows, and its 89 sparse queries), in f32,
+    and the dense encoder's in bf16 too."""
+    from multimodal_feature_learning_tpu_torch.tools.msda_device_time import (
+        FAMILY_CALLS, RAW_CALLS)
 
     B, H, Dh, shapes, P, q_enc, q_dec, q_long, long_shapes = model_dims
     both = ("float32", "bfloat16")
     return (("encoder", B, q_enc, shapes, both), ("decoder", B, q_dec, shapes, both),
             ("long_pyramid", 2, q_long, long_shapes, both),
             *((name, b, q, s, both if name == "dense_encoder" else ("float32",))
-              for name, b, q, s in FAMILY_CALLS))
+              for name, b, q, s in FAMILY_CALLS + RAW_CALLS))
 
 
 # K2's tolerance, x max |ref| of each output: f32 sums in another order
@@ -795,8 +825,11 @@ def msda_per_forward(cfg, encoder_only: bool = False) -> int:
     """MSDA calls (K1 launches) in one forward of ``cfg``'s family: a
     unimodal encoder layer makes one and a decoder layer one; a multimodal
     encoder layer four (self-attention in each modality and a cross-modal
-    call each way) and a decoder layer two (one into each memory)."""
+    call each way) and a decoder layer two (one into each memory); the
+    regular family none."""
     det = cfg.dvc.detr
+    if not (cfg.dvc.use_sparse_detr or cfg.dvc.use_deformable_detr):
+        return 0  # the regular family attends with plain products only
     enc, dec = (4, 2) if len(cfg.dvc.input_modalities) == 2 else (1, 1)
     return enc * det.enc_layers + (0 if encoder_only else dec * det.dec_layers)
 
@@ -814,15 +847,20 @@ def without_dropout(cfg):
 
 
 def build_family(cfg, vocab_size: int, device, flat=None):
-    """The model of ``cfg``'s family (the unimodal ``models.dvc`` model, or
-    the multimodal one for two input modalities) on ``device``, carrying the
+    """The model of ``cfg``'s family (the unimodal ``models.dvc`` model, the
+    multimodal one for two input modalities, raw with ``use_raw_videos``, or
+    the regular one with both family flags off) on ``device``, carrying the
     flat flax params ``flat`` (loaded strictly) or, without them, weights
     drawn from ``cfg.seed``."""
     from multimodal_feature_learning_tpu_torch.models.dvc import build_model
     from multimodal_feature_learning_tpu_torch.models.multimodal import build_multimodal_model
+    from multimodal_feature_learning_tpu_torch.models.regular_dvc import build_regular_model
     from multimodal_feature_learning_tpu_torch.utils.weights import load_flax_params
 
-    build = build_multimodal_model if len(cfg.dvc.input_modalities) == 2 else build_model
+    if not (cfg.dvc.use_sparse_detr or cfg.dvc.use_deformable_detr):
+        build = build_regular_model
+    else:
+        build = build_multimodal_model if len(cfg.dvc.input_modalities) == 2 else build_model
     model = build(cfg, vocab_size, device=device, seed=cfg.seed)
     if flat is not None:
         load_flax_params(model, flat)
@@ -1569,7 +1607,71 @@ def beam1_divergence_gaps(model, batch, greedy, beam1):
 EVAL_CHECK_LOGP_TOL = 1e-3  # x max |ref| of the teacher-forced log-probabilities
 
 
-def eval_check(cfg, flat, vocab_size):
+class recording_decode_logits:
+    """Within the block, every step of the model's plain-op decode
+    (``caption.decode_pair``) keeps a CPU copy of its f32 logits: a list,
+    in step order."""
+
+    def __init__(self, model):
+        self.caption = model.caption
+
+    def __enter__(self):
+        decode_pair, logits = self.caption.decode_pair, []
+
+        def recording(*args, **kwargs):
+            out = decode_pair(*args, **kwargs)
+            logits.append(out.float().cpu())
+            return out
+
+        self.caption.decode_pair = recording
+        return logits
+
+    def __exit__(self, *exc):
+        del self.caption.decode_pair
+
+
+def device_partings(card_caps, cpu_caps, step_logits):
+    """Each greedy row where the card's and the CPU's captions part: at the
+    first differing position, the CPU's top-2 logit gap and the largest
+    difference between the two devices' logits of that row. A gap within
+    twice that difference is a near-tie that rounding may flip."""
+    out = []
+    for r in (card_caps != cpu_caps).any(dim=1).nonzero()[:, 0].tolist():
+        t = int((card_caps[r] != cpu_caps[r]).nonzero()[0, 0])
+        g, c = step_logits["cuda"][t - 1][r], step_logits["cpu"][t - 1][r]
+        top2 = c.topk(2).values
+        out.append({"row": r, "position": t, "cpu_top2_logit_gap": float(top2[0] - top2[1]),
+                    "max_abs_logit_diff_card_vs_cpu": float((g - c).abs().max())})
+    return out
+
+
+def backbone_fns(model, batch) -> dict:
+    """{name: a call that returns the backbone's features of ``batch``}:
+    ViViT and AST of the raw multimodal family, the regular family's own
+    ViViT over raw frames; nothing for a model on features."""
+    from multimodal_feature_learning_tpu_torch.data.video_transforms import normalize
+
+    frames = batch["video_tensor"]
+    if hasattr(model, "video_backbone"):
+        return {"vivit": lambda: model.video_backbone(normalize(frames)),
+                "ast": lambda: model.audio_backbone(batch["audio_tensor"])}
+    if hasattr(model.proposal, "backbone"):
+        return {"vivit": lambda: model.proposal.backbone(normalize(frames))}
+    return {}
+
+
+def dropout_off(model):
+    """Every ``Dropout`` of ``model`` at p = 0 (the regular family's query
+    decoder fixes its rate at 0.1, outside the config)."""
+    from multimodal_feature_learning_tpu_torch.models.layers import Dropout
+
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.p = 0.0
+    return model
+
+
+def eval_check(cfg, flat, vocab_size, batch=None, partings: bool = False):
     """Phase 15: one batch of 2 with dropout off, from conv_e79, through
     forward_eval on the card and on the port's CPU path: matched indices
     (final and auxiliary) equal; the teacher-forced log-probabilities of
@@ -1577,7 +1679,12 @@ def eval_check(cfg, flat, vocab_size):
     within rel 1e-4 and every term within rel 1e-3 (atol 1e-5), as
     train_check holds them; at least 90% of caption rows equal in one_by_one
     and in beam (beam 4), where f32 sums in another order can flip a
-    near-tie."""
+    near-tie. ``batch`` (a numpy batch of 2) replaces the synthetic one.
+    With ``partings``, every greedy row where the two devices part must
+    part at a near-tie: at its first differing position the CPU's two
+    largest logits lie within twice the largest gap between the two
+    devices' logits there (``device_partings``); and the backbones' features
+    (``backbone_fns``) agree within 1e-4 of their largest."""
     import dataclasses
 
     import torch
@@ -1587,13 +1694,18 @@ def eval_check(cfg, flat, vocab_size):
     from multimodal_feature_learning_tpu_torch.models.criterion import build_criterion
 
     cfg = without_dropout(cfg)
-    batch = next(synthetic_batches(cfg, 2, vocab_size, seed=0))
-    res = {}
+    if batch is None:
+        batch = next(synthetic_batches(cfg, 2, vocab_size, seed=0))
+    res, step_logits, features = {}, {}, {}
     for device in ("cuda", "cpu"):
         model = build_family(cfg, vocab_size, device, flat)
         criterion, weight_dict = build_criterion(cfg, model.pad_idx)
         tb = batch_to_device(batch, device)
-        out, caps, idx, idx_aux, mask = model.forward_eval(tb, "one_by_one")
+        with recording_decode_logits(model) as step_logits[device]:
+            out, caps, idx, idx_aux, mask = model.forward_eval(tb, "one_by_one")
+        if partings:
+            with torch.no_grad():
+                features[device] = {k: fn().cpu() for k, fn in backbone_fns(model, tb).items()}
         losses = criterion(out, tb, idx, idx_aux, mask)
         losses["loss"] = sum(losses[k] * weight_dict[k] for k in losses if k in weight_dict)
         logp = torch.stack([a["pred_captions"] for a in out["aux_outputs_caption"]]
@@ -1624,7 +1736,23 @@ def eval_check(cfg, flat, vocab_size):
             raise AssertionError(f"eval: {same}/{g[key].shape[0]} {key} rows equal on the "
                                  f"card and the CPU")
         rows[key] = same
-    return {"batch": 2, "indices_equal": True, "logp_max_abs_err": logp_err,
+    extra = {}
+    if partings:
+        extra["partings"] = device_partings(g["caps"], c["caps"], step_logits)
+        if any(p["cpu_top2_logit_gap"] > 2 * p["max_abs_logit_diff_card_vs_cpu"]
+               for p in extra["partings"]):
+            raise AssertionError(f"eval: the card and the CPU part away from a near-tie: "
+                                 f"{extra['partings']}")
+        extra["backbone_features"] = {}
+        for k, ref in features["cpu"].items():
+            err = (features["cuda"][k] - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            if not err <= 1e-4 * scale:
+                raise AssertionError(f"eval: {k} features differ by {err} > 1e-4 x {scale} "
+                                     f"between the card and the CPU")
+            extra["backbone_features"][k] = {"shape": list(ref.shape), "max_abs_err": err,
+                                             "max_abs_ref": scale}
+    return {**extra, "batch": 2, "indices_equal": True, "logp_max_abs_err": logp_err,
             "logp_max_abs_ref": logp_scale, "loss_card": gm["loss"], "loss_cpu": cm["loss"],
             "loss_rel": rel["loss"], "terms": len(cm) - 1,
             "worst_term": max((k for k in cm if k != "loss"), key=lambda k: rel[k]),
@@ -2013,10 +2141,26 @@ def param_grad_report(model):
     return len(nonzero) / len(params), n_msda, msda_missing
 
 
-def train(cfg, flat, vocab_size):
+def grads_by_tree(model) -> dict:
+    """For each top-level module of ``model``: the share of its parameter
+    tensors whose gradient is not all zero, and whether every gradient
+    there is finite."""
+    trees = {}
+    for name, p in model.named_parameters():
+        tree = trees.setdefault(name.split(".")[0], [0, 0, True])
+        tree[0] += 1
+        if p.grad is not None:
+            tree[1] += bool(p.grad.abs().sum() > 0)
+            tree[2] &= bool(p.grad.isfinite().all())
+    return {t: {"nonzero_share": nz / n, "finite": fin} for t, (n, nz, fin) in trees.items()}
+
+
+def train(cfg, flat, vocab_size, batches=None, batch_size: int = BATCH):
     """Phase 10: 1 + TRAIN_STEPS steps through train_one_epoch at full width,
     from conv_e79, with dropout. Kernel launch counts are set to 0 just
-    before and read just after; then one more step under torch.profiler."""
+    before and read just after; then one more step under torch.profiler.
+    ``batches`` (TRAIN_STEPS + 2 numpy batch dicts of ``batch_size``
+    videos) replaces the synthetic feature batches (raw ingest)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2032,8 +2176,9 @@ def train(cfg, flat, vocab_size):
     criterion, weight_dict = build_criterion(cfg, model.pad_idx)
     state = create_train_state(cfg, model, steps_per_epoch=1000)
     step = make_train_step(criterion, weight_dict, seed=cfg.seed)
-    batches = list(synthetic_batches(cfg, BATCH, vocab_size, seed=0,
-                                     num_batches=TRAIN_STEPS + 2))
+    if batches is None:
+        batches = list(synthetic_batches(cfg, batch_size, vocab_size, seed=0,
+                                         num_batches=TRAIN_STEPS + 2))
     records = []
 
     def record(values, global_step):
@@ -2061,6 +2206,7 @@ def train(cfg, flat, vocab_size):
             raise AssertionError(f"{name} launched {n} times over {steps} training steps; "
                                  f"the training path launches it {per_step} times a step")
     share, n_msda, msda_missing = param_grad_report(model)
+    trees = grads_by_tree(model)
     if msda_missing:
         raise AssertionError(f"MSDeformAttn parameters without gradient: {msda_missing[:6]}")
 
@@ -2077,17 +2223,17 @@ def train(cfg, flat, vocab_size):
     measured = sorted(step_ms[1:])
     median_ms = measured[len(measured) // 2]
     return {
-        "batch": BATCH, "steps": steps, "warmup_steps": 1,
+        "batch": batch_size, "steps": steps, "warmup_steps": 1,
         "loss_per_step": losses,
         "grad_norm_per_step": [v["grad_norm"] for _, v in records],
         "lr": records[-1][1]["lr"],
         "step_ms": step_ms, "median_step_ms": median_ms,
-        "examples_per_s": BATCH / (median_ms / 1e3),
+        "examples_per_s": batch_size / (median_ms / 1e3),
         "matcher_host_ms": [v["matcher_ms"] for _, v in records],
         "launches": launches,
         "launches_per_step": {k: v / steps for k, v in launches.items()},
         "msda_calls_by_shape": calls_by_shape(calls),
-        "params_with_nonzero_grad_share": share,
+        "params_with_nonzero_grad_share": share, "grads_by_tree": trees,
         "msdeformattn_params": n_msda, "msdeformattn_params_without_grad": len(msda_missing),
         "max_memory_allocated_bytes": peak,
         "profiled_step_wall_ms": prof_wall_ms,
@@ -2155,14 +2301,16 @@ def encoder_dloc_gaps(calls, enc_calls: int):
     return layers
 
 
-def train_check(cfg, flat, vocab_size):
-    """Phase 11: one step of batch 2 with dropout off, from conv_e79, on the
+def train_check(cfg, flat, vocab_size, batch=None):
+    """Phase 11: one step of batch 2 with dropout off (``dropout_off``), from
+    conv_e79, on the
     card and on the port's CPU path (plain MSDA core and backward, CPU
     matmuls). Matchings equal; total loss within rel 1e-4; every loss term
     within rel 1e-3 (atol 1e-5); gradient norm within rel 1e-3. The card
     adds dvalue with atomics and sums in another order, so the sides differ
     by f32 rounding carried through a full-width forward and backward; the
-    parameters whose clipped gradients differ most are reported."""
+    parameters whose clipped gradients differ most are reported. ``batch``
+    (a numpy batch of 2) replaces the synthetic one."""
     import dataclasses
 
     import torch
@@ -2175,10 +2323,11 @@ def train_check(cfg, flat, vocab_size):
     from multimodal_feature_learning_tpu_torch.models.criterion import build_criterion
 
     cfg = without_dropout(cfg)
-    batch = next(synthetic_batches(cfg, 2, vocab_size, seed=0))
+    if batch is None:
+        batch = next(synthetic_batches(cfg, 2, vocab_size, seed=0))
     result, clipped, calls = {}, {}, {}
     for device in ("cuda", "cpu"):
-        model = build_family(cfg, vocab_size, device, flat)
+        model = dropout_off(build_family(cfg, vocab_size, device, flat))
         criterion, weight_dict = build_criterion(cfg, model.pad_idx)
         tb = batch_to_device(batch, device)
         with torch.no_grad():
@@ -2476,17 +2625,23 @@ def dense_serve(cfg, model, requests):
             "class_rank_differs_from_stability": differs}, results
 
 
-def family_cli(world: dict, family: str, device="cuda"):
-    """Phases dense_cli and mm_cli: the training CLI (main.main) over the
+def family_cli(world: dict, family: str, device="cuda", family_overrides=None, cfg=None,
+               train_videos: int = TRAIN_VIDEOS, val_videos: int = TRAIN_CLI_VAL_SUBSET,
+               batch: int = BATCH):
+    """Phases dense_cli, mm_cli and raw_cli: the training CLI (main.main) over the
     evaluation world's train split with the family's overrides, weights from
     cfg.seed, dropout on: one epoch with eval on the first
     TRAIN_CLI_VAL_SUBSET val videos and scoring, then ``--mode eval
     --resume`` of its checkpoint. The multimodal family reads the world's
     video features as audio too (no audio file), as the JAX package does.
-    Checks: the epoch logged with finite losses and scores; K2 launched
-    once per MSDA call of each train step, K1 once per call of each train
-    step and eval batch; the eval run starts at epoch 1 and gives the
-    epoch's val loss (rel 1e-4)."""
+    The epoch's loader waits, steps and eval batches are timed
+    (TimedLoader around the CLI's train and val loaders). Checks: the epoch
+    logged with finite losses and scores; K2 launched once per MSDA call of
+    each train step, K1 once per call of each train step and eval batch;
+    the eval run starts at epoch 1 and gives the epoch's val loss (rel
+    1e-4). ``family_overrides``, ``cfg`` (the
+    family's config, for its MSDA calls), ``train_videos``, ``val_videos``
+    and ``batch`` name another family and world (raw_cli)."""
     import shutil
 
     from multimodal_feature_learning_tpu_torch import main as train_main
@@ -2494,16 +2649,37 @@ def family_cli(world: dict, family: str, device="cuda"):
     out = os.path.join(EVAL_WORLD, f"{family}_cli")
     if os.path.isdir(out):
         shutil.rmtree(out)
-    overrides = [*FAMILY_OVERRIDES[family], "use_differentiable_mask=false", "eval_rate=1",
-                 "checkpoint_rate=1", f"dataset.activity_net.val_subset={TRAIN_CLI_VAL_SUBSET}",
+    family_overrides = family_overrides or FAMILY_OVERRIDES[family]
+    overrides = [*family_overrides, "use_differentiable_mask=false", "eval_rate=1",
+                 "checkpoint_rate=1", f"dataset.activity_net.val_subset={val_videos}",
                  "print_freq=0", *[f"{k}={v}" for k, v in world.items()]]
-    common = ["--device", device, "--batch-size", str(BATCH), "--output-dir", out,
+    common = ["--device", device, "--batch-size", str(batch), "--output-dir", out,
               "--config-overrides", *overrides]
     counters = kernel_counters()
-    launches = []
+    launches, waits = [], {}
+    real_epoch, real_evaluate = train_main.train_one_epoch, train_main.evaluate
+
+    def timed_epoch(train_step, state, loader, *args, **kwargs):
+        timed = TimedLoader(loader)
+        result = real_epoch(train_step, state, timed, *args, **kwargs)
+        waits["train"] = {"loader_wait_ms": [1e3 * w for w in timed.wait],
+                          "step_ms": [1e3 * b for b in timed.busy]}
+        return result
+
+    def timed_evaluate(eval_step, loader, *args, **kwargs):
+        timed = TimedLoader(loader)
+        result = real_evaluate(eval_step, timed, *args, **kwargs)
+        waits["eval"] = {"loader_wait_ms": [1e3 * w for w in timed.wait],
+                         "batch_ms": [1e3 * b for b in timed.busy]}
+        return result
+
     for k in counters.values():
         k.launches = 0
-    run = train_main.main(["--epochs", "1", *common])
+    train_main.train_one_epoch, train_main.evaluate = timed_epoch, timed_evaluate
+    try:
+        run = train_main.main(["--epochs", "1", *common])
+    finally:
+        train_main.train_one_epoch, train_main.evaluate = real_epoch, real_evaluate
     launches.append({k: c.launches for k, c in counters.items()})
     for k in counters.values():
         k.launches = 0
@@ -2514,8 +2690,8 @@ def family_cli(world: dict, family: str, device="cuda"):
     if rec["epoch"] != 0 or not all(math.isfinite(rec[k]) for k in ("train_loss", "val_loss",
                                                                     "score_METEOR")):
         raise AssertionError(f"{family}_cli: epoch record {rec}")
-    per_forward = msda_per_forward(family_config(family))
-    steps, eval_batches = -(-TRAIN_VIDEOS // BATCH), -(-TRAIN_CLI_VAL_SUBSET // BATCH)
+    per_forward = msda_per_forward(cfg or family_config(family))
+    steps, eval_batches = -(-train_videos // batch), -(-val_videos // batch)
     want = [{"msda_bwd": per_forward * steps,
              "msda_fwd": per_forward * (steps + eval_batches)},
             {"msda_bwd": 0, "msda_fwd": per_forward * eval_batches}]
@@ -2526,14 +2702,336 @@ def family_cli(world: dict, family: str, device="cuda"):
     if evaluated["start_epoch"] != 1 or not val_rel <= 1e-4:
         raise AssertionError(f"{family}_cli: --mode eval --resume started at "
                              f"{evaluated['start_epoch']} with val loss rel {val_rel}")
-    return {"train_videos": TRAIN_VIDEOS, "batch": BATCH, "steps": steps,
+    return {"train_videos": train_videos, "val_videos": val_videos, "batch": batch,
+            "steps": steps, "eval_batches": eval_batches,
             "epoch": {k: v for k, v in rec.items() if not k.startswith("score_")
                       or k in ("score_METEOR", "score_CIDEr", "score_F1_score")},
             "train_seconds": run["train_seconds"][0], "eval_seconds": run["eval_seconds"][0],
             "checkpoint_seconds": run["checkpoint_seconds"][0],
-            "examples_per_s": TRAIN_VIDEOS / run["train_seconds"][0],
+            "examples_per_s": train_videos / run["train_seconds"][0],
             "eval_mode_val_loss_rel": val_rel, "launches": launches[0],
-            "eval_mode_launches": launches[1]}
+            "eval_mode_launches": launches[1], "epoch_loader": waits}
+
+
+# ---------------------------------------------------------------------------
+# raw ingest and the regular family (BASELINE configs #4 and #5)
+# ---------------------------------------------------------------------------
+
+RAW_FAMILIES = {  # full-width configurations, the context mask off
+    # config #5: RawMultimodalDVC; 8 heads (JAX's 12 do not divide 512), and
+    # the audio rescale length at the 93 tokens AST gives 128 mels x 64 frames
+    "raw": ["use_raw_videos=true", "dvc.input_modalities=video,audio",
+            "dvc.vivit.num_heads=8", "dvc.ast.num_heads=8",
+            "dataset.activity_net.audio_rescale_len=93"],
+    # config #4: RegularDVC with its own ViViT (depth 4, temporal depth 2)
+    "regular_raw": ["use_raw_videos=true", "dvc.use_sparse_detr=false"],
+    # the regular family on .npy features
+    "regular": ["dvc.use_sparse_detr=false"],
+}
+# the JAX init's parameter counts of each (tests/test_torch_weights.py,
+# jax.eval_shape at a 6563-word vocabulary)
+FULL_WIDTH_PARAMS = {"raw": 202_161_075, "regular_raw": 81_586_809, "regular": 58_083_449}
+RAW_WORLD = os.path.join(ROOT, "build", "raw_world")
+RAW_VIDEOS = 16  # videos of each split of the raw world
+RAW_CHECK_FRAMES = 32  # video_rescale_len of the card-against-CPU checks
+RAW_TRAIN_SIZES = (8, 4, 2)  # training batches tried, the largest that fits first
+TRAIN_FIT_BYTES = 70e9  # a training step fits when its peak stays under this
+
+
+def raw_family_config(name: str, frames: int = 0):
+    """The full-width config of RAW_FAMILIES[name], f32, context mask off;
+    ``frames`` > 0 cuts video_rescale_len (the dataset's and the
+    proposal stack's) to that many frames."""
+    from multimodal_feature_learning_tpu_torch.config import (
+        apply_overrides, load_config, recompute_losses,
+    )
+
+    cfg = apply_overrides(load_config(), RAW_FAMILIES[name] + ["use_differentiable_mask=false"])
+    if frames:
+        cfg.dataset.activity_net.video_rescale_len = cfg.dvc.detr.video_rescale_len = frames
+    recompute_losses(cfg)
+    return cfg
+
+
+def write_raw_world(eval_world: dict) -> dict:
+    """The raw world on disk, from numpy seed 1: annotations only (the
+    frames and the waves come from the synthetic decoder), RAW_VIDEOS val
+    and RAW_VIDEOS train videos of 10-180 s with 1-10 events, the
+    evaluation world's vocabulary and words. Returns the config overrides
+    that point at it."""
+    import numpy as np
+
+    from multimodal_feature_learning_tpu_torch.data.anet import SPLIT_FILES
+    from multimodal_feature_learning_tpu_torch.data.vocab import Vocab
+
+    os.makedirs(RAW_WORLD, exist_ok=True)
+    vocab_path = eval_world["dataset.activity_net.vocab_file_path"]
+    words = Vocab.load(vocab_path).itos[4:]
+    rng = np.random.default_rng(1)
+    for split, prefix in (("val", "v_raw_eval"), ("train", "v_raw_train")):
+        ann = {}
+        for i in range(RAW_VIDEOS):
+            dur = float(rng.uniform(10, 180))
+            k = int(rng.integers(1, 11))
+            centers, lengths = rng.uniform(0.2, 0.8, size=k), rng.uniform(0.05, 0.3, size=k)
+            ann[f"{prefix}_{i:04d}"] = {
+                "duration": dur,
+                "timestamps": [[max(0.0, (c - ln / 2) * dur), min(dur, (c + ln / 2) * dur)]
+                               for c, ln in zip(centers, lengths)],
+                "sentences": [" ".join(rng.choice(words, size=int(rng.integers(4, 13))))
+                              for _ in range(k)]}
+        with open(os.path.join(RAW_WORLD, SPLIT_FILES[split]), "w") as f:
+            json.dump(ann, f)
+    return {"dataset.activity_net.anet_path": RAW_WORLD,
+            "dataset.activity_net.vocab_file_path": vocab_path,
+            "submission_dir": os.path.join(RAW_WORLD, "submission")}
+
+
+def raw_samples(cfg, world: dict, split: str, n: int = RAW_VIDEOS):
+    """The first ``n`` samples of ``split`` of the raw world under ``cfg``
+    (decoded frames, and spectrograms with two modalities)."""
+    from multimodal_feature_learning_tpu_torch.data.raw_anet import build_raw_dataset
+
+    ds, _ = build_raw_dataset(split, world_cfg(cfg, world))
+    return [s for s in (ds[i] for i in range(min(n, len(ds)))) if s is not None]
+
+
+def raw_batch(cfg, samples) -> dict:
+    """``collate_raw`` of the samples, as numpy arrays."""
+    from multimodal_feature_learning_tpu_torch.data.raw_anet import collate_raw
+
+    anet = cfg.dataset.activity_net
+    batch = collate_raw(samples, 1, anet.max_gt_target_segments, anet.max_caption_len_all)
+    return {k: v for k, v in batch.items() if hasattr(v, "dtype")}
+
+
+def raw_ingest(cfg, world: dict):
+    """Phase raw_ingest: the host side of raw ingest for the raw world's
+    val videos at full width: per video the milliseconds of the synthetic
+    decode (duration x 4 frames of 128 x 128 x 3), the nearest resample to
+    video_rescale_len frames, the fbank (128 mels x 64 frames) and the whole
+    dataset item (the base item's (64, 1) synthetic feature included, which
+    it then drops, as JAX's); collate_raw of a batch of BATCH; then the
+    loader (prefetch thread, batch 4) with a consumer that copies each batch
+    to the card: its wait and copy per batch, and the bytes the copy moves
+    (the frames as uint8, a quarter of their f32 bytes). Returns (the
+    report, the val samples)."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from multimodal_feature_learning_tpu_torch.data.audio import aframes_to_fbank_static
+    from multimodal_feature_learning_tpu_torch.data.loader import DataLoader
+    from multimodal_feature_learning_tpu_torch.data.raw_anet import build_raw_dataset, collate_raw
+    from multimodal_feature_learning_tpu_torch.data.video_transforms import (
+        temporal_resample_nearest)
+    from multimodal_feature_learning_tpu_torch.engine.train import batch_to_device
+
+    anet = cfg.dataset.activity_net
+    ds, vocab = build_raw_dataset("val", world_cfg(cfg, world))
+    stages = {"decode_ms": [], "resample_ms": [], "fbank_ms": [], "item_ms": []}
+    frames_decoded, samples = [], []
+    for i, key in enumerate(ds.keys):
+        dur = float(ds.annotation[key]["duration"])
+        t0 = time.perf_counter()
+        frames, wave, sr = ds.decoder(key, dur)
+        t1 = time.perf_counter()
+        temporal_resample_nearest(frames, anet.video_rescale_len)
+        t2 = time.perf_counter()
+        aframes_to_fbank_static(wave, float(sr), anet.num_mel_bins, anet.audio_target_length)
+        t3 = time.perf_counter()
+        samples.append(ds[i])
+        t4 = time.perf_counter()
+        frames_decoded.append(int(frames.shape[0]))
+        for k, a, b in (("decode_ms", t0, t1), ("resample_ms", t1, t2), ("fbank_ms", t2, t3),
+                        ("item_ms", t3, t4)):
+            stages[k].append(1e3 * (b - a))
+    t0 = time.perf_counter()
+    batch = collate_raw(samples[:BATCH], vocab.pad_idx, anet.max_gt_target_segments,
+                        anet.max_caption_len_all)
+    collate_ms = 1e3 * (time.perf_counter() - t0)
+    collate = functools.partial(collate_raw, pad_idx=vocab.pad_idx,
+                                max_gt=anet.max_gt_target_segments,
+                                max_caption_len=anet.max_caption_len_all)
+    loader = TimedLoader(DataLoader(ds, 4, vocab.pad_idx, shuffle=False, collate_fn=collate))
+    copy_ms, moved = [], []
+    for b in loader:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tb = batch_to_device(b, "cuda")
+        torch.cuda.synchronize()
+        copy_ms.append(1e3 * (time.perf_counter() - t0))
+        moved.append(sum(t.numel() * t.element_size() for t in tb.values()))
+        if tb["video_tensor"].dtype != torch.uint8:
+            raise AssertionError(f"raw_ingest: frames reached the card as "
+                                 f"{tb['video_tensor'].dtype}")
+    frames_bytes = int(batch["video_tensor"].nbytes)
+    report = {"videos": len(samples), "frames_decoded": frames_decoded,
+              **{k: v for k, v in stages.items()},
+              **{f"median_{k}": float(np.median(v)) for k, v in stages.items()},
+              "collate_ms_batch": collate_ms, "batch": BATCH,
+              "batch_frames_uint8_bytes": frames_bytes,
+              "batch_frames_f32_bytes": 4 * frames_bytes,
+              "batch_audio_bytes": int(batch["audio_tensor"].nbytes),
+              "loader_batch": 4, "loader_wait_ms": [1e3 * w for w in loader.wait],
+              "loader_copy_ms": copy_ms, "loader_bytes_moved": moved}
+    return report, samples
+
+
+def forward_split(model, batch) -> dict:
+    """One profiled forward_eval (one_by_one) of ``batch``: wall and device
+    kernel ms, the device busy share and the largest kernels; then each
+    backbone (``backbone_fns``) profiled alone, and its share of the
+    forward's device kernel time (the DVC stack has the rest)."""
+    import torch
+
+    with torch.no_grad():
+        wall, dev_ms, n, kernels = profile_call(lambda: model.forward_eval(batch, "one_by_one"))
+        backbones = {name: profile_call(fn)[1] for name, fn in backbone_fns(model, batch).items()}
+    top = sorted(kernels, key=lambda k: -k[1])[:8]
+    return {"wall_ms": wall, "device_kernel_ms": dev_ms, "device_busy_share": dev_ms / wall,
+            "kernel_launches": n,
+            "backbone_device_ms": backbones,
+            "backbone_share_of_kernel_time": {k: v / dev_ms for k, v in backbones.items()},
+            "dvc_stack_device_ms": dev_ms - sum(backbones.values()),
+            "top_kernels": [{"name": k[:90], "ms": us / 1e3, "count": c} for k, us, c in top]}
+
+
+def train_batches(cfg, samples, batch_size: int):
+    """TRAIN_STEPS + 2 numpy batches of ``batch_size`` of the samples, in
+    order and round again."""
+    n = len(samples)
+    return [raw_batch(cfg, [samples[(i * batch_size + j) % n] for j in range(batch_size)])
+            for i in range(TRAIN_STEPS + 2)]
+
+
+def fit_train_batch(cfg, flat, vocab_size, samples):
+    """The largest of RAW_TRAIN_SIZES whose training step (one step of a
+    model from ``flat``, dropout on) runs with a peak under TRAIN_FIT_BYTES:
+    (that size, each size tried with its peak bytes or "out of memory")."""
+    import torch
+
+    from multimodal_feature_learning_tpu_torch.engine.state import create_train_state
+    from multimodal_feature_learning_tpu_torch.engine.train import batch_to_device, make_train_step
+    from multimodal_feature_learning_tpu_torch.models.criterion import build_criterion
+
+    tried = {}
+    for size in RAW_TRAIN_SIZES:
+        model = build_family(cfg, vocab_size, "cuda", flat)
+        criterion, weight_dict = build_criterion(cfg, model.pad_idx)
+        state = create_train_state(cfg, model, steps_per_epoch=1000)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            make_train_step(criterion, weight_dict, seed=cfg.seed)(
+                state, batch_to_device(train_batches(cfg, samples, size)[0], "cuda"))
+            torch.cuda.synchronize()
+            tried[size] = torch.cuda.max_memory_allocated()
+        except torch.cuda.OutOfMemoryError:
+            tried[size] = "out of memory"
+        del model, state
+        torch.cuda.empty_cache()
+        if isinstance(tried[size], int) and tried[size] <= TRAIN_FIT_BYTES:
+            return size, tried
+    raise AssertionError(f"no training batch of {RAW_TRAIN_SIZES} fits: {tried}")
+
+
+def family_eval(name: str, cfg, model, batch) -> dict:
+    """Phases raw_eval, regular_raw_eval and regular_eval: evaluate_arms in
+    MM_EVAL_ARMS (K1 36 times a raw forward, 0 times a regular one; beam 1
+    equal to greedy on every row of the regular family, on 90% of the raw
+    multimodal family's with every parting a near-tie, PR 13's multimodal
+    rule), then ``forward_split``. One teacher-forced forward first warms
+    the backbones' new shapes (cuBLAS picks its kernels on a first call),
+    outside every arm."""
+    model.forward_eval(batch, "teacher_forcing")
+    evaluated = evaluate_arms(cfg, model, batch, MM_EVAL_ARMS,
+                              beam1_min_share=0.9 if name == "raw" else 1.0)
+    evaluated["forward_split"] = forward_split(model, batch)
+    return evaluated
+
+
+def family_train(name: str, cfg, flat, vocab_size, samples=None) -> dict:
+    """Phases raw_train, regular_raw_train and regular_train: the train
+    phase on the family, raw families at the batch ``fit_train_batch``
+    finds, the feature family at BATCH on synthetic batches. K2 exactly 36
+    times a raw step and never on the regular family; gradients finite and
+    reaching every tree, the backbones' included."""
+    fit = None
+    if samples is None:
+        trained = train(cfg, flat, vocab_size)
+    else:
+        size, tried = fit_train_batch(cfg, flat, vocab_size, samples)
+        fit = {"batch": size, "peak_bytes_by_batch": {str(k): v for k, v in tried.items()}}
+        trained = train(cfg, flat, vocab_size, train_batches(cfg, samples, size), size)
+    want = msda_per_forward(cfg) * trained["steps"]
+    if trained["launches"]["msda_bwd"] != want or trained["launches"]["msda_fwd"] != want:
+        raise AssertionError(f"{name}_train: launches {trained['launches']}, expected {want} "
+                             f"of each over {trained['steps']} steps")
+    bad = {t: r for t, r in trained["grads_by_tree"].items()
+           if not r["finite"] or r["nonzero_share"] < 0.5}
+    if bad:
+        raise AssertionError(f"{name}_train: gradients of {bad}")
+    return {"batch_fit": fit, **trained}
+
+
+def raw_family_phases(name: str, vocab_size: int, raw_world: dict, val_samples,
+                      train_samples) -> dict:
+    """Phases {name}_eval, {name}_train and {name}_check of one of
+    RAW_FAMILIES, weights drawn from seed 0: its parameter count against
+    the JAX init's; evaluation at batch BATCH (the raw world's val videos,
+    or synthetic feature batches); training; and eval_check and train_check
+    of a batch of 2 on the card against the CPU path (raw: the first two
+    val videos at RAW_CHECK_FRAMES frames), with the partings and the
+    backbones' features checked. Returns each phase's report."""
+    import torch
+
+    from multimodal_feature_learning_tpu_torch.data.anet import synthetic_batches
+    from multimodal_feature_learning_tpu_torch.engine.train import batch_to_device
+
+    cfg = raw_family_config(name)
+    raw = cfg.use_raw_videos
+    audio = len(cfg.dvc.input_modalities) == 2
+
+    def strip(samples):  # one modality: no spectrograms in the batch
+        return samples if audio else [{k: v for k, v in s.items() if k != "audio_feature"}
+                                      for s in samples]
+
+    model, flat = family_model(cfg, vocab_size)
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != FULL_WIDTH_PARAMS[name]:
+        raise AssertionError(f"{name}: {n_params} params, the JAX init has "
+                             f"{FULL_WIDTH_PARAMS[name]}")
+    reports = {}
+    t = time.monotonic()
+    if raw:
+        batch = batch_to_device(raw_batch(cfg, strip(val_samples[:BATCH])), "cuda")
+    else:
+        batch = batch_to_device(next(synthetic_batches(cfg, BATCH, vocab_size, seed=0)), "cuda")
+    reports["eval"] = {"params": n_params, **family_eval(name, cfg, model, batch)}
+    log(f"{name}_eval", time.monotonic() - t, **reports["eval"])
+    del model, batch
+    torch.cuda.empty_cache()
+
+    t = time.monotonic()
+    reports["train"] = family_train(name, cfg, flat, vocab_size,
+                                    strip(train_samples) if raw else None)
+    log(f"{name}_train", time.monotonic() - t, **reports["train"])
+
+    t = time.monotonic()
+    check_batch = None
+    cfg_check = cfg
+    if raw:
+        cfg_check = raw_family_config(name, frames=RAW_CHECK_FRAMES)
+        check_batch = raw_batch(cfg_check, strip(raw_samples(cfg_check, raw_world, "val", 2)))
+    reports["check"] = {
+        "video_rescale_len": cfg_check.dataset.activity_net.video_rescale_len,
+        "eval": eval_check(cfg_check, flat, vocab_size, check_batch, partings=True),
+        "train": train_check(cfg_check, flat, vocab_size, check_batch)}
+    log(f"{name}_check", time.monotonic() - t, **reports["check"])
+    torch.cuda.empty_cache()
+    return reports
 
 
 def main() -> int:
@@ -2791,6 +3289,23 @@ def main() -> int:
         cli_runs[family] = family_cli(world, family)
         log(f"{family}_cli", time.monotonic() - t, **cli_runs[family])
 
+    # raw ingest and the regular family (BASELINE configs #4 and #5), seeded
+    # weights, the context mask off
+    t = time.monotonic()
+    raw_world = write_raw_world(world)
+    cfg_r = raw_family_config("raw")
+    ingested, raw_val = raw_ingest(cfg_r, raw_world)
+    log("raw_ingest", time.monotonic() - t, **ingested)
+    raw_train = raw_samples(cfg_r, raw_world, "train")
+    raw_runs = {name: raw_family_phases(name, vocab_size, raw_world, raw_val, raw_train)
+                for name in RAW_FAMILIES}
+    del raw_val, raw_train
+    t = time.monotonic()
+    cli_runs["raw"] = family_cli(raw_world, "raw", family_overrides=RAW_FAMILIES["raw"],
+                                 cfg=cfg_r, train_videos=RAW_VIDEOS, val_videos=RAW_VIDEOS,
+                                 batch=raw_runs["raw"]["train"]["batch"])
+    log("raw_cli", time.monotonic() - t, **cli_runs["raw"])
+
     enc = next(c for c in cases if c["call"] == "encoder" and c["dtype"] == "float32")
     enc_bwd = next(c for c in bwd_cases if c["call"] == "encoder" and c["dtype"] == "float32")
     bf16_of = {  # the encoder call's bf16 case of each MSDA kernel
@@ -2802,7 +3317,8 @@ def main() -> int:
     counters = kernel_counters()
 
     def family_launches(name):
-        """The launches of kernel ``name`` in each phase of the two families."""
+        """The launches of kernel ``name`` in each phase of the dense, the
+        multimodal, the raw multimodal and the regular families."""
         return {
             "dense_serve": {arm: a["launches"][name]
                             for arm, a in dense_served["arms"].items()},
@@ -2812,10 +3328,14 @@ def main() -> int:
                         for tag, r in mm_runs.items()},
             "mm_train": {tag: r["train"]["launches"].get(name, 0)
                          for tag, r in mm_runs.items()},
-            "dense_cli": {"train": cli_runs["dense"]["launches"][name],
-                          "eval_mode": cli_runs["dense"]["eval_mode_launches"][name]},
-            "mm_cli": {"train": cli_runs["mm"]["launches"][name],
-                       "eval_mode": cli_runs["mm"]["eval_mode_launches"][name]}}
+            **{f"{family}_cli": {"train": cli_runs[family]["launches"][name],
+                                 "eval_mode": cli_runs[family]["eval_mode_launches"][name]}
+               for family in ("dense", "mm", "raw")},
+            **{f"{family}_eval": sum(a["launches"][name]
+                                     for a in r["eval"]["arms"].values())
+               for family, r in raw_runs.items()},
+            **{f"{family}_train": r["train"]["launches"].get(name, 0)
+               for family, r in raw_runs.items()}}
 
     # each phase's MSDA calls by (queries, value rows): one K1 launch each,
     # and in training one K2 launch each
@@ -2825,7 +3345,9 @@ def main() -> int:
                         for arm, a in dense_served["arms"].items()},
         "dense_train": dense_trained["msda_calls_by_shape"],
         **{f"mm_train_{tag}": r["train"]["msda_calls_by_shape"] for tag, r in mm_runs.items()},
-        **{f"mm_eval_{tag}": r["eval"]["msda_calls_by_shape"] for tag, r in mm_runs.items()}}
+        **{f"mm_eval_{tag}": r["eval"]["msda_calls_by_shape"] for tag, r in mm_runs.items()},
+        "raw_train": raw_runs["raw"]["train"]["msda_calls_by_shape"],
+        "raw_eval": raw_runs["raw"]["eval"]["msda_calls_by_shape"]}
     kernels = []
     for name, case, all_cases, replaces, shape in (
             ("msda_fwd", enc, cases, "multimodal_feature_learning_tpu/ops/pallas_msda.py:37",

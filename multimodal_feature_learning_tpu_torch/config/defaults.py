@@ -53,6 +53,37 @@ class MatcherConfig:
 
 
 @dataclass
+class DecoderConfig:
+    """The regular family's query decoder (``models/regular_dvc.py``): its
+    depth, the one field of JAX's ``dvc.decoder`` that JAX reads (its width
+    and heads are d_model's and dvc.detr.num_heads)."""
+    depth: int = 6
+
+
+@dataclass
+class VivitConfig:
+    """The raw multimodal family's ViViT (``models/backbones.py``). JAX's
+    default of 12 heads does not divide d_model 512: the attention's reshape
+    fails there, in both packages, so a full-width run sets 8."""
+    model_name: str = "factorised encoder"
+    depth: int = 12
+    temporal_depth: int = 4
+    num_heads: int = 12
+    spatial_patch_size: int = 16
+    temporal_patch_size: int = 1
+
+
+@dataclass
+class AstConfig:
+    """The raw multimodal family's audio spectrogram transformer."""
+    depth: int = 12
+    num_heads: int = 12
+    patch_size: int = 16
+    frequency_stride: int = 10
+    time_stride: int = 10
+
+
+@dataclass
 class DVCConfig:
     # ["video"]: the unimodal families; ["video", "audio"]: the multimodal one
     input_modalities: list = field(default_factory=lambda: ["video"])
@@ -69,7 +100,8 @@ class DVCConfig:
     lloss_beta: float = 1.0
     # the family: sparse (Sparse-DETR encoder, top-rho tokens), dense
     # (use_sparse_detr False, use_deformable_detr True: every token a query,
-    # and a class head); the regular family (both False) is not ported
+    # and a class head), or regular (both False: a vanilla query decoder over
+    # the frame features, models/regular_dvc.py)
     use_sparse_detr: bool = True
     use_deformable_detr: bool = False
     smoothing: float = 0.5  # caption label smoothing epsilon
@@ -88,6 +120,9 @@ class DVCConfig:
     matcher: MatcherConfig = field(default_factory=MatcherConfig)
     detr: DetrConfig = field(default_factory=DetrConfig)
     caption: CaptionConfig = field(default_factory=CaptionConfig)
+    decoder: DecoderConfig = field(default_factory=DecoderConfig)
+    vivit: VivitConfig = field(default_factory=VivitConfig)
+    ast: AstConfig = field(default_factory=AstConfig)
 
 
 @dataclass
@@ -106,11 +141,19 @@ class ActivityNetConfig:
     min_freq: int = 2
     video_rescale_len: int = 300
     audio_rescale_len: int = 50
+    # raw ingest (use_raw_videos): the log-mel bins and frames of each clip
+    num_mel_bins: int = 128
+    audio_target_length: int = 64
     max_caption_len_all: int = 20
     max_gt_target_segments: int = 10
     num_classes: int = 200
     val_subset: int = 0  # > 0: evaluate the first val_subset sorted val keys
     train_subset: int = 0  # > 0: train on the first train_subset sorted train keys
+    # raw ingest: a folder of <key>.<video ext> files read by the OpenCV
+    # decoder (when cv2 imports; else the synthetic decoder), and optional
+    # <key>.wav sidecars for its audio
+    raw_video_folder: str = ""
+    raw_audio_folder: str = ""
 
 
 @dataclass
@@ -149,7 +192,9 @@ class Config:
     start_epoch: int = 0
     resume: str = ""           # a checkpoint to resume from, at its epoch + 1
     use_differentiable_mask: bool = True
-    use_raw_videos: bool = False  # raw frames and audio through ViViT / AST: not ported
+    # raw uint8 frames (and log-mel spectrograms) in the batches, through
+    # ViViT (and AST) inside the model: data/raw_anet.py
+    use_raw_videos: bool = False
     # numerics, as the JAX package: "bfloat16" runs every forward over bf16
     # copies of the float params and the features (utils/precision.py);
     # "float32" (the default) is the full-f32 path

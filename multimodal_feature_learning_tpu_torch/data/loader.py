@@ -4,9 +4,10 @@ JAX package's ``data/loader.py`` for one process (shard 0 of 1).
 An epoch's order is ``np.random.default_rng(seed + epoch).permutation`` when
 shuffling, else the dataset's order; batches are fixed-shape dicts of numpy
 arrays (``data.anet.collate_fixed``), padded to ``batch_size`` rows unless
-``pad_batches`` is off. The worker thread only reads and collates: it makes
-numpy batches and never touches torch or CUDA, so all device work stays on
-the caller's thread.
+``pad_batches`` is off, or what the caller's ``collate_fn`` makes of the
+samples (raw batches: uint8 frames, kept uint8 to the card). The worker
+thread only reads and collates: it makes numpy batches and never touches
+torch or CUDA, so all device work stays on the caller's thread.
 """
 
 from __future__ import annotations
@@ -47,9 +48,12 @@ class DataLoader:
         pad_batches: bool = True,
         num_prefetch: int = 2,
         audio_rescale_len: int = 0,
+        collate_fn=None,
     ):
         """``audio_rescale_len`` > 0 collates the samples' audio features
-        too (the multimodal family)."""
+        too (the multimodal family). ``collate_fn`` (a list of samples -> a
+        batch dict or None) replaces ``collate_fixed``: raw batches go
+        through ``data.raw_anet.collate_raw``, which pads no batch."""
         self.dataset = dataset
         self.batch_size = batch_size
         self.pad_idx = pad_idx
@@ -62,6 +66,7 @@ class DataLoader:
         self.pad_batches = pad_batches
         self.num_prefetch = num_prefetch
         self.audio_rescale_len = audio_rescale_len
+        self.collate_fn = collate_fn
         self.epoch = 0
 
     def set_epoch(self, epoch: int):
@@ -85,11 +90,15 @@ class DataLoader:
             chunk = idxs[start: start + self.batch_size]
             if self.drop_last and len(chunk) < self.batch_size:
                 break
-            batch = collate_fixed(
-                [self.dataset[int(i)] for i in chunk], self.pad_idx, self.video_rescale_len,
-                self.max_gt, self.max_caption_len,
-                pad_to_batch=self.batch_size if self.pad_batches else 0,
-                audio_rescale_len=self.audio_rescale_len)
+            samples = [self.dataset[int(i)] for i in chunk]
+            if self.collate_fn is not None:
+                batch = self.collate_fn(samples)
+            else:
+                batch = collate_fixed(
+                    samples, self.pad_idx, self.video_rescale_len, self.max_gt,
+                    self.max_caption_len,
+                    pad_to_batch=self.batch_size if self.pad_batches else 0,
+                    audio_rescale_len=self.audio_rescale_len)
             if batch is not None:
                 yield batch
 

@@ -9,9 +9,11 @@ repository's root ``main.py``.
 In JAX's order: overrides, then the losses they imply; the train and val
 datasets (``train_subset`` / ``val_subset`` keep the first sorted keys) and
 their loaders (with the audio features when ``dvc.input_modalities`` has
-two entries); the model of the config's family and its criterion
-(``models.build_model_and_criterion``; ``--weights``: a flat flax snapshot,
-loaded strictly; else weights drawn from ``cfg.seed``), and the train
+two entries; with ``use_raw_videos`` the raw datasets, decoded frames and
+log-mel spectrograms through ``data.raw_anet.collate_raw``); the model of
+the config's family and its criterion (``models.build_model_and_criterion``;
+``--weights``: a flat flax snapshot, loaded strictly; else weights drawn
+from ``cfg.seed``), and the train
 state, its LR schedule counting the train loader's batches; ``--resume``
 restores a checkpoint and goes on at its epoch + 1. Each epoch trains, writes
 the rolling ``<output_dir>/checkpoint``, keeps ``checkpoint{epoch:04d}`` on
@@ -26,6 +28,7 @@ eval epochs, ``val_log.txt``. ``--mode eval`` evaluates once and returns.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import random
@@ -38,6 +41,7 @@ import torch
 from .config import apply_overrides, load_config, recompute_losses
 from .data.anet import SPLIT_FILES, FeatureBackend, audio_rescale_len, build_dataset
 from .data.loader import DataLoader
+from .data.raw_anet import build_raw_dataset, collate_raw
 from .data.vocab import Vocab
 from .device import resolve_device
 from .engine.evaluate import evaluate, make_eval_step
@@ -138,8 +142,16 @@ def main(argv=None) -> dict:
     np.random.seed(cfg.seed)
 
     anet = cfg.dataset.activity_net
-    train_ds, vocab = build_dataset("train", cfg)
-    val_ds, _ = build_dataset("val", cfg, vocab)
+    collate_fn = None
+    if cfg.use_raw_videos:
+        train_ds, vocab = build_raw_dataset("train", cfg)
+        val_ds, _ = build_raw_dataset("val", cfg, vocab)
+        collate_fn = functools.partial(collate_raw, pad_idx=vocab.pad_idx,
+                                       max_gt=anet.max_gt_target_segments,
+                                       max_caption_len=anet.max_caption_len_all)
+    else:
+        train_ds, vocab = build_dataset("train", cfg)
+        val_ds, _ = build_dataset("val", cfg, vocab)
     if anet.val_subset:
         val_ds.keys = sorted(val_ds.keys)[: anet.val_subset]
     if anet.train_subset:
@@ -152,7 +164,7 @@ def main(argv=None) -> dict:
                           max_gt=anet.max_gt_target_segments,
                           max_caption_len=anet.max_caption_len_all,
                           shuffle=shuffle, seed=cfg.seed,
-                          audio_rescale_len=audio_rescale_len(cfg))
+                          audio_rescale_len=audio_rescale_len(cfg), collate_fn=collate_fn)
 
     train_loader, val_loader = make_loader(train_ds, True), make_loader(val_ds, False)
     print(f"train videos: {len(train_ds)}  val videos: {len(val_ds)}  vocab: {len(vocab)}")

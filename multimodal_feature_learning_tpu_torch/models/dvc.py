@@ -95,13 +95,27 @@ def crop_segments(memory, denorm_segments, durations, video_rescale_len: int,
 
 
 def check_family(cfg) -> None:
-    """Raise on the families the port does not have: the regular one (both
-    family flags off)."""
-    if not (cfg.dvc.use_sparse_detr or cfg.dvc.use_deformable_detr):
-        raise NotImplementedError(
-            "the regular family (dvc.use_sparse_detr and dvc.use_deformable_detr both "
-            "False) is not ported yet (ROADMAP Queue 1 item 9); use the sparse or the "
-            "dense family")
+    """Raise on a config that ``UnimodalDVC`` (the sparse and the dense
+    families on video features) does not take: the regular family (both
+    family flags off), raw frames (``use_raw_videos``) and two input
+    modalities. Those are built by ``models.build_model_and_criterion``;
+    the serving and inference entry points build ``UnimodalDVC`` only, as
+    JAX's ``serve.py`` and ``inference.py`` do."""
+    dvc = cfg.dvc
+    where = ("it is built by models.build_model_and_criterion and evaluated with "
+             "`python -m multimodal_feature_learning_tpu_torch.main --mode eval`")
+    if not (dvc.use_sparse_detr or dvc.use_deformable_detr):
+        raise ValueError("UnimodalDVC is the sparse or the dense family, but "
+                         "dvc.use_sparse_detr and dvc.use_deformable_detr are both off (the "
+                         f"regular family, models/regular_dvc.py); {where}")
+    if cfg.use_raw_videos:
+        raise ValueError("UnimodalDVC takes video features, but use_raw_videos is on; raw "
+                         "frames go through the regular or the raw multimodal family: "
+                         f"{where}")
+    if len(dvc.input_modalities) != 1:
+        raise ValueError(
+            f"UnimodalDVC takes the video features alone, but dvc.input_modalities is "
+            f"{list(dvc.input_modalities)}; the multimodal family: {where}")
 
 
 def match_layers(model, seg_all, batch, with_aux: bool):
@@ -248,12 +262,6 @@ class UnimodalDVC(nn.Module):
         self.compute_dtype = resolve_dtype(cfg.compute_dtype)
         self.kv_dtype = torch.bfloat16 if self.compute_dtype == torch.bfloat16 else None
         check_family(cfg)
-        if len(dvc.input_modalities) != 1:
-            raise ValueError(
-                f"UnimodalDVC takes the video features alone, but dvc.input_modalities is "
-                f"{list(dvc.input_modalities)}; the multimodal family is built by "
-                f"models.build_model_and_criterion and evaluated with "
-                f"`python -m multimodal_feature_learning_tpu_torch.main --mode eval`")
         check_decode_options(decode_impl=cfg.decode_impl, decode_kv=cfg.decode_kv,
                              decode_fused_grid=cfg.decode_fused_grid)
         self.decode_impl = cfg.decode_impl

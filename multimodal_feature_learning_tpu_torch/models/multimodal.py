@@ -16,6 +16,8 @@
   ``BiModalEncoder`` fusion ahead of the proposal stack and a context-mask
   model per modality. Unlike the unimodal families it materialises each
   event's crop of both memories, as the JAX package does.
+* ``RawMultimodalDVC``: the same over raw frames and log-mel spectrograms,
+  through the ViViT and AST backbones (``use_raw_videos``).
 
 JAX's ``MultimodalDVC`` never reads ``compute_dtype``: it computes in f32
 whatever the setting, and so does this one.
@@ -32,7 +34,8 @@ from torch import nn
 from ..config import check_decode_options
 from ..device import resolve_device, set_f32_numerics
 from ..ops.segment_ops import denormalize_segments, inverse_sigmoid
-from .backbones import BiModalEncoder
+from ..data.video_transforms import normalize
+from .backbones import AudioSpectrogramTransformer, BiModalEncoder, VideoVisionTransformer
 from .base_encoder import BaseEncoder, pyramid_shapes
 from .caption_decoder import beam_loop, greedy_loop, make_causal_mask
 from .dvc import crop_segments, match_layers
@@ -445,7 +448,9 @@ class MultimodalDVC(nn.Module):
     ``video_context_mask``, ``audio_context_mask``)."""
 
     def __init__(self, cfg, vocab_size: int, pad_idx: int = 1, bos_idx: int = 2,
-                 eos_idx: int = 3):
+                 eos_idx: int = 3, feature_dim: int = 0):
+        """``feature_dim``: the width of the features the proposal stack
+        reads (0: ``dvc.detr.feature_dim``)."""
         super().__init__()
         dvc, det = cfg.dvc, cfg.dvc.detr
         anet = cfg.dataset.activity_net
@@ -464,7 +469,8 @@ class MultimodalDVC(nn.Module):
         if dvc.use_bimodal_encoder:
             self.bimodal = BiModalEncoder(det.feature_dim, dvc.bimodal_depth, det.num_heads)
         self.proposal = MultimodalProposalNet(
-            d_model=dvc.d_model, feature_dim=det.feature_dim, num_queries=dvc.num_queries,
+            d_model=dvc.d_model, feature_dim=feature_dim or det.feature_dim,
+            num_queries=dvc.num_queries,
             num_feature_levels=det.num_feature_levels, num_heads=det.num_heads,
             enc_layers=det.enc_layers, dec_layers=det.dec_layers,
             ff_dim=det.transformer_ff_dim, dropout=det.transformer_dropout_prob,
@@ -585,19 +591,55 @@ class MultimodalDVC(nn.Module):
 
 
 class RawMultimodalDVC(MultimodalDVC):
-    """Raw frames and log-mel spectrograms through ViViT and AST ahead of the
-    multimodal stack (JAX ``RawMultimodalDVC``): not ported."""
+    """The full raw pipeline (BASELINE config #5): uint8 frames, normalised
+    on the model's device, through ViViT (``video_backbone``) and log-mel
+    spectrograms through AST (``audio_backbone``); their features, with
+    all-false masks, replace the batch's video and audio tensors ahead of
+    the multimodal stack. The backbones emit d_model-wide features, so the
+    proposal stack reads d_model. As in JAX, the pyramids follow the
+    backbones' token counts, while the crop windows and the context masks
+    follow ``video_rescale_len`` / ``audio_rescale_len``: a configuration
+    should make them equal."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "raw ingest (use_raw_videos: ViViT / AST backbones, data/raw_anet.py) is not "
-            "ported yet (ROADMAP Queue 1 item 10); use precomputed features")
+    def __init__(self, cfg, vocab_size: int, pad_idx: int = 1, bos_idx: int = 2,
+                 eos_idx: int = 3):
+        super().__init__(cfg, vocab_size, pad_idx, bos_idx, eos_idx,
+                         feature_dim=cfg.dvc.d_model)
+        viv, ast = cfg.dvc.vivit, cfg.dvc.ast
+        self.video_backbone = VideoVisionTransformer(
+            model_name=viv.model_name, d_model=cfg.dvc.d_model, depth=viv.depth,
+            temporal_depth=viv.temporal_depth, num_heads=viv.num_heads,
+            spatial_patch_size=viv.spatial_patch_size,
+            temporal_patch_size=viv.temporal_patch_size)
+        self.audio_backbone = AudioSpectrogramTransformer(
+            d_model=cfg.dvc.d_model, depth=ast.depth, num_heads=ast.num_heads,
+            patch_size=ast.patch_size, frequency_stride=ast.frequency_stride,
+            time_stride=ast.time_stride)
+
+    def backbone_features(self, batch):
+        """(ViViT features (B, T', D), AST features (B, P + 2, D)) of the
+        batch's frames (uint8 are normalised here) and spectrograms."""
+        frames = batch["video_tensor"]
+        if frames.dtype == torch.uint8:
+            frames = normalize(frames)
+        return self.video_backbone(frames), self.audio_backbone(batch["audio_tensor"])
+
+    def _propose_and_match(self, batch):
+        vfeat, afeat = self.backbone_features(batch)
+        feat_batch = dict(batch)
+        feat_batch["video_tensor"], feat_batch["audio_tensor"] = vfeat, afeat
+        feat_batch["video_mask"] = torch.zeros(vfeat.shape[:2], dtype=torch.bool,
+                                               device=vfeat.device)
+        feat_batch["audio_mask"] = torch.zeros(afeat.shape[:2], dtype=torch.bool,
+                                               device=afeat.device)
+        return super()._propose_and_match(feat_batch)
 
 
 def build_multimodal_model(cfg, vocab_size: int, pad_idx: int = 1, bos_idx: int = 2,
                            eos_idx: int = 3, device="cuda", seed: int = 0) -> MultimodalDVC:
     """The multimodal model in eval mode on ``device``, its weights drawn
-    from ``seed``; ``use_raw_videos`` raises (``RawMultimodalDVC``)."""
+    from ``seed``: ``RawMultimodalDVC`` with ``use_raw_videos``, else
+    ``MultimodalDVC``."""
     cls = RawMultimodalDVC if cfg.use_raw_videos else MultimodalDVC
     dev = resolve_device(device)
     set_f32_numerics(dev)

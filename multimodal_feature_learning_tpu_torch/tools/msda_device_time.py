@@ -65,6 +65,15 @@ FAMILY_CALLS = (
     ("mm_dense_v2a", 16, 563, AUDIO),
     ("mm_dense_a2v", 16, 95, FLAGSHIP),
 )
+RAW_AUDIO = (93, 47, 24, 12)  # pyramid_shapes(93, 4): the AST tokens' pyramid
+# the calls of the raw multimodal family at full width (93 AST tokens of 128
+# mels x 64 frames) that FAMILY_CALLS and CASES do not hold
+RAW_CALLS = (
+    ("raw_audio_self", 16, 89, RAW_AUDIO),     # int(176 * 0.5) + 1 sparse audio tokens
+    ("raw_v2a", 16, 282, RAW_AUDIO),           # sparse video tokens sample the audio
+    ("raw_a2v", 16, 89, FLAGSHIP),             # sparse audio tokens sample the video
+    ("raw_decoder_audio", 16, 20, RAW_AUDIO),  # the decoder's queries over the audio
+)
 FLUSH_BYTES = 64 << 20  # more than the H100's 50 MB L2
 
 

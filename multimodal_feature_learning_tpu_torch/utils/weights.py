@@ -8,14 +8,19 @@ flattens a params tree, becomes the port's state_dict and is loaded with
 
 Key mapping: the collection key ``params`` is dropped (it comes first in a
 module's own tree, second under the model's trees: ``proposal``,
-``caption``, ``context_mask``, and the multimodal family's ``bimodal``,
-``video_context_mask``, ``audio_context_mask``); list members
-``enc_layers_3`` (also ``enc_layers_mod_3``, ``dec_layers_mod_3``) become
-``enc_layers.3``; the BiModalEncoder's ``layer_0`` stays a name, as the
-port's module is named; ``Embed_0`` becomes ``embed``.
-Leaves: a Dense ``kernel`` (in, out) becomes ``weight`` (out, in), a Conv
-``kernel`` (k, in, out) becomes ``weight`` (out, in, k), a norm ``scale`` and
-an ``embedding`` become ``weight``. ``BF16||``-prefixed uint16 leaves hold the
+``caption``, ``context_mask``, the multimodal family's ``bimodal``,
+``video_context_mask``, ``audio_context_mask``, and the raw multimodal
+family's ``video_backbone``, ``audio_backbone``); list members
+``enc_layers_3`` (also ``enc_layers_mod_3``, ``dec_layers_mod_3``,
+``decoder_3``, and the backbones' ``encoder_3``, ``spatial_encoder_3``,
+``temporal_encoder_3``) become ``enc_layers.3``; the BiModalEncoder's
+``layer_0`` and flax's automatic names inside a module (``LayerNorm_0``,
+``MLP_0``) stay names, as the port's modules are named; ``Embed_0`` becomes
+``embed``. Leaves: a Dense ``kernel`` (in, out) becomes ``weight`` (out,
+in), a Conv ``kernel`` (k..., in, out) of rank 3, 4 or 5 becomes ``weight``
+(out, in, k...), a norm ``scale`` and an ``embedding`` become ``weight``;
+other params (``pos_embedding``, ``cls``, ``query_embedding``) keep their
+names and layouts. ``BF16||``-prefixed uint16 leaves hold the
 upper halves of bf16 values and are expanded to f32; ``__epoch__`` is skipped.
 
 ``export_flax_params`` goes the other way, so that parameters, gradients or
@@ -35,11 +40,14 @@ from torch import nn
 SEP = "||"
 BF16_PREFIX = "BF16" + SEP
 _LISTS = ("enc_layers", "dec_layers", "enc_layers_mod", "dec_layers_mod", "decoder",
-          "layers", "input_proj", "gn")
+          "layers", "input_proj", "gn", "encoder", "spatial_encoder", "temporal_encoder")
 _LIST_MEMBER = re.compile(r"^(" + "|".join(_LISTS) + r")_(\d+)$")
 # the model's top-level trees, each a flax module tree of its own
 _TREES = ("proposal", "caption", "context_mask", "bimodal", "video_context_mask",
-          "audio_context_mask")
+          "audio_context_mask", "video_backbone", "audio_backbone")
+# flax Conv kernels (k..., in, out) -> torch (out, in, k...), by rank
+_TO_TORCH = {3: (2, 1, 0), 4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}
+_TO_FLAX = {3: (2, 1, 0), 4: (2, 3, 1, 0), 5: (2, 3, 4, 1, 0)}
 
 
 def expand_bf16(u: np.ndarray) -> np.ndarray:
@@ -70,8 +78,8 @@ def _to_torch_layout(flax_key: str, arr: np.ndarray) -> np.ndarray:
     if flax_key.endswith(SEP + "kernel"):
         if arr.ndim == 2:
             return arr.T
-        if arr.ndim == 3:
-            return arr.transpose(2, 1, 0)
+        if arr.ndim in _TO_TORCH:
+            return arr.transpose(_TO_TORCH[arr.ndim])
         raise ValueError(f"kernel of rank {arr.ndim} at {flax_key!r}")
     return arr
 
@@ -139,7 +147,7 @@ def flax_key(name: str, ndim: int) -> str:
 
 def _to_flax_layout(arr: np.ndarray, key: str) -> np.ndarray:
     if key.endswith(SEP + "kernel"):
-        return arr.T if arr.ndim == 2 else arr.transpose(2, 1, 0)
+        return arr.T if arr.ndim == 2 else arr.transpose(_TO_FLAX[arr.ndim])
     return arr
 
 
@@ -148,7 +156,7 @@ def export_flax_params(source: Union[nn.Module, Mapping[str, torch.Tensor]]
     """A module's state_dict, or any {state_dict name: tensor} mapping (a
     state_dict, or gradients by parameter name), as flat flax params
     {"a||b||c": f32 np.ndarray}: kernels transposed back to (in, out) or
-    (k, in, out). Inverse of ``flax_to_state_dict`` on plain f32 keys."""
+    (k..., in, out). Inverse of ``flax_to_state_dict`` on plain f32 keys."""
     tensors = source.state_dict() if isinstance(source, nn.Module) else source
     out = {}
     for name, t in tensors.items():

@@ -316,17 +316,25 @@ def test_load_test_sweeps_the_serving_cli(world, straight):
     assert load_test_serve.markdown(rows).count("@500rps") == 2
 
 
+RAW = ["use_raw_videos=true", "dataset.activity_net.num_mel_bins=16"]
 FAMILIES = {
     "dense": ["dvc.use_sparse_detr=False", "dvc.use_deformable_detr=True"],
     "multimodal": ["dvc.input_modalities=video,audio", "dvc.use_bimodal_encoder=True",
                    "dataset.activity_net.audio_rescale_len=12"],
+    # frames from the synthetic decoder; AST: 7 x 2 patches + 2 = 16 tokens
+    "raw": [*RAW, "dvc.input_modalities=video,audio", "dvc.vivit.depth=1",
+            "dvc.vivit.temporal_depth=1", "dvc.vivit.num_heads=2", "dvc.ast.depth=1",
+            "dvc.ast.num_heads=2", "dataset.activity_net.audio_rescale_len=16"],
+    "regular": ["dvc.use_sparse_detr=False", "dvc.decoder.depth=2"],
+    "regular_raw": [*RAW, "dvc.use_sparse_detr=False", "dvc.decoder.depth=2"],
 }
 
 
 @pytest.mark.parametrize("family", list(FAMILIES))
 def test_other_families_train_resume_and_evaluate(world, family, tmp_path):
-    """The dense and the multimodal family through the training CLI: an
-    epoch from a flat snapshot (``--weights``, loaded strictly) with eval
+    """The dense, the multimodal, the raw multimodal and the regular family
+    (on features and on raw frames) through the training CLI: an epoch from
+    a flat snapshot (``--weights``, loaded strictly) with eval
     and scoring and a numbered checkpoint, ``--resume`` for a second, then
     ``--mode eval --resume``, which gives the second epoch's evaluation."""
     from multimodal_feature_learning_tpu_torch.models import build_model_and_criterion
@@ -344,7 +352,7 @@ def test_other_families_train_resume_and_evaluate(world, family, tmp_path):
                             *overrides(world, *extra)])
     rec = first["epochs"][0]
     assert rec["epoch"] == 0 and np.isfinite(rec["train_loss"]) and "score_F1_score" in rec
-    assert ("train_loss_mask_prediction" in rec) == (family == "multimodal")
+    assert ("train_loss_mask_prediction" in rec) == (family in ("multimodal", "raw"))
     assert os.path.exists(os.path.join(out, "checkpoint0000"))
     ckpt = os.path.join(out, "checkpoint")
     second = port_main.main(["--resume", ckpt, "--epochs", "2", *common,

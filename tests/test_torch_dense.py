@@ -257,16 +257,18 @@ def test_dense_bf16_runs_like_the_sparse_family(dense):
 
 
 def test_regular_family_and_glove_raise():
-    """The regular family (both family flags off) and a GloVe file are not
-    ported: the builder names ROADMAP Queue 1 item 9; a model with two
-    input modalities is not a UnimodalDVC."""
+    """The regular family (both family flags off) is built by the family
+    builder, not as a UnimodalDVC, which points it to ``main.py --mode
+    eval``; a GloVe file is not ported (the builder names ROADMAP Queue 1
+    item 9); a model with two input modalities is not a UnimodalDVC."""
     from multimodal_feature_learning_tpu_torch.models.dvc import build_model
+    from multimodal_feature_learning_tpu_torch.models.regular_dvc import RegularDVC
 
     tcfg = torch_cfg_like(family_cfg("dense"))
     tcfg.dvc.use_deformable_detr = False
-    with pytest.raises(NotImplementedError, match="item 9"):
-        build_model_and_criterion(tcfg, small_vocab(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    model, _, _ = build_model_and_criterion(tcfg, small_vocab(), device="cpu")
+    assert isinstance(model, RegularDVC)
+    with pytest.raises(ValueError, match="regular family.*--mode eval"):
         build_model(tcfg, VOCAB_SIZE, device="cpu")
     tcfg = torch_cfg_like(family_cfg("dense"))
     tcfg.dvc.caption.glove_file_path = "glove.840B.300d.txt"

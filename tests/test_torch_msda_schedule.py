@@ -240,3 +240,51 @@ def test_device_time_needs_the_card(monkeypatch):
         msda_device_time.run(turns=1)
     with pytest.raises(ValueError, match="CUDA"):
         timing.graph_call_ms(lambda: None, torch.device("cpu"))
+
+
+# the raw multimodal family's new calls: K1 stages wherever 2 Q L P >= 4 S
+# (89 audio queries over the 563 video rows: 2848 >= 2252), and gathers the
+# decoder's 20 queries over the 176 audio rows (640 < 704)
+RAW_SCHEDULES = {"raw_audio_self": "staged", "raw_v2a": "staged", "raw_a2v": "staged",
+                 "raw_decoder_audio": "gather"}
+
+
+@pytest.mark.parametrize("call", msda_device_time.RAW_CALLS, ids=lambda c: c[0])
+def test_raw_calls_plans_and_shared_memory(call):
+    """K1's schedule and shared memory and K2's in f32 and bf16 at each new
+    call of the raw multimodal family (the audio pyramid of 93 AST tokens)."""
+    name, b, q, shapes = call
+    S = sum(shapes)
+    for itemsize in (4, 2):
+        plan = msda.msda_fwd_plan(shapes, b, H, DH, q, P, itemsize)
+        assert plan.schedule == RAW_SCHEDULES[name], (name, itemsize)
+        assert (2 * q * 4 * P < msda.FWD_STAGE_READS_PER_ROW * S) == (plan.schedule == "gather")
+        assert plan.smem_bytes <= msda.SMEM_PER_BLOCK
+        bwd = msda.msda_bwd_plan(shapes, b, H, DH, q, P, itemsize=itemsize)
+        assert bwd.smem_bytes <= msda.SMEM_PER_BLOCK
+        assert fits_an_sm(bwd.smem_bytes, 1024 // bwd.threads)
+        assert bwd.schedule == "level" and bwd.chunks == 1
+
+
+def test_raw_calls_are_the_raw_models_calls():
+    """RAW_CALLS are the full-width raw model's calls: AST over 128 mels x
+    64 frames gives 7 x 13 + 2 = 93 tokens, the audio pyramid (93, 47, 24,
+    12), S = 176 and int(0.5 S) + 1 = 89 sparse audio queries."""
+    from multimodal_feature_learning_tpu_torch.config import load_config
+    from multimodal_feature_learning_tpu_torch.models.backbones import same_padding
+    from multimodal_feature_learning_tpu_torch.models.base_encoder import pyramid_shapes
+
+    cfg = load_config()
+    det, anet, ast = cfg.dvc.detr, cfg.dataset.activity_net, cfg.dvc.ast
+    strides = (ast.frequency_stride, ast.time_stride)
+    grid = [-(-n // s) for n, s in zip((anet.audio_target_length, anet.num_mel_bins), strides)]
+    assert same_padding((anet.audio_target_length, anet.num_mel_bins),
+                        (ast.patch_size,) * 2, strides) == ((6, 6), (4, 4))
+    tokens = grid[0] * grid[1] + 2
+    audio = pyramid_shapes(tokens, det.num_feature_levels)
+    video = pyramid_shapes(det.video_rescale_len, det.num_feature_levels)
+    k = {s: int(sum(s) * det.rho) + 1 for s in (video, audio)}
+    expected = {"raw_audio_self": (k[audio], audio), "raw_v2a": (k[video], audio),
+                "raw_a2v": (k[audio], video), "raw_decoder_audio": (cfg.dvc.num_queries, audio)}
+    assert {n: (q, s) for n, _, q, s in msda_device_time.RAW_CALLS} == expected
+    assert tokens == 93 and sum(audio) == 176 and k[audio] == 89

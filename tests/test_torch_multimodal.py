@@ -172,17 +172,21 @@ MM = ["dvc.input_modalities=video,audio", "dataset.activity_net.audio_rescale_le
 
 
 def test_unported_paths_raise(tmp_path, monkeypatch):
-    """Raw ingest names ROADMAP item 10; the serving and inference entry
-    points, which build the unimodal model, point a two-modality config to
-    ``main.py --mode eval`` (JAX's ignore the audio)."""
+    """Raw ingest builds ``RawMultimodalDVC``; the serving and inference
+    entry points, which build the unimodal model (as JAX's), point a
+    two-modality config, a raw one and the regular family to ``main.py
+    --mode eval``."""
     from multimodal_feature_learning_tpu_torch import inference, serve
-    from multimodal_feature_learning_tpu_torch.models.multimodal import build_multimodal_model
+    from multimodal_feature_learning_tpu_torch.models.multimodal import (
+        RawMultimodalDVC, build_multimodal_model)
 
     tcfg = torch_cfg_like(family_cfg("mm"))
     tcfg.use_raw_videos = True
-    with pytest.raises(NotImplementedError, match="item 10"):
-        build_multimodal_model(tcfg, VOCAB_SIZE, device="cpu")
+    tcfg.dvc.vivit.num_heads = tcfg.dvc.ast.num_heads = 8
+    assert isinstance(build_multimodal_model(tcfg, VOCAB_SIZE, device="cpu"), RawMultimodalDVC)
     monkeypatch.chdir(tmp_path)
-    for entry in (inference.main, serve.main):
-        with pytest.raises(ValueError, match="--mode eval"):
-            entry(["--synthetic", "--device", "cpu", "--config-overrides", *DIMS, *MM])
+    for extra in (MM, ["use_raw_videos=true"],
+                  ["dvc.use_sparse_detr=false", "dvc.use_deformable_detr=false"]):
+        for entry in (inference.main, serve.main):
+            with pytest.raises(ValueError, match="--mode eval"):
+                entry(["--synthetic", "--device", "cpu", "--config-overrides", *DIMS, *extra])

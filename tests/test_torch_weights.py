@@ -207,3 +207,133 @@ def test_full_width_param_counts_equal_jax(family, millions):
         model = cls(torch_cfg_like(jcfg), 6563)
     assert sum(p.numel() for p in model.parameters()) == n_jax
     assert round(n_jax / 1e6, 2) == millions
+
+
+# -- the raw multimodal and the regular families' trees ---------------------------
+
+NEW_FAMILY_TREES = ("raw_multimodal", "regular_ctxmask", "regular_raw")
+
+
+@pytest.mark.parametrize("case", NEW_FAMILY_TREES)
+def test_raw_and_regular_trees_carry_strictly_and_export_back(case):
+    """A JAX init of the raw multimodal family (``video_backbone`` and
+    ``audio_backbone``: Conv kernels of rank 5 and 4, ``pos_embedding``,
+    ``cls``, ``spatial_token``, ``temporal_token``, ``distill_token``, the
+    ``spatial_encoder_{i}`` / ``temporal_encoder_{i}`` / ``encoder_{i}``
+    lists), of the regular family (``decoder_{i}``, ``query_embedding``,
+    ``context_mask``) and of the regular family over raw frames (its own
+    ViViT under ``proposal||params||backbone``) loads into the port with
+    strict=True and exports back key for key and value for value."""
+    import jax
+    import jax.numpy as jnp
+    from test_torch_common import (BOS, EOS, PAD, VOCAB_SIZE, array_batch, build_port_family,
+                                   flatten_params, perturb, torch_cfg_like)
+
+    if case == "raw_multimodal":
+        from multimodal_feature_learning_tpu.models.multimodal import build_multimodal_model
+        from test_torch_raw_multimodal import raw_batch, raw_cfg
+
+        jcfg, batch = raw_cfg(), raw_batch()
+        jmodel = build_multimodal_model(jcfg, VOCAB_SIZE, PAD, BOS, EOS)
+    else:
+        from multimodal_feature_learning_tpu.models.regular_dvc import build_regular_model
+        from test_torch_regular import raw_world, regular_cfg
+
+        jcfg = regular_cfg(raw=case == "regular_raw")
+        jmodel = build_regular_model(jcfg, VOCAB_SIZE, PAD, BOS, EOS)
+        if case == "regular_raw":
+            import tempfile
+
+            batch = raw_world(Path(tempfile.mkdtemp()))
+        else:
+            batch = array_batch(torch_cfg_like(jcfg), 2)
+    params = perturb(jmodel.init(jax.random.PRNGKey(0),
+                                 {k: jnp.asarray(v) for k, v in batch.items()}), 0)
+    flat = flatten_params(params)
+    model, _, _ = build_port_family(jcfg, params)
+    out = weights.export_flax_params(model)
+    assert set(out) == set(flat)
+    for k in flat:
+        np.testing.assert_array_equal(out[k], flat[k], err_msg=k)
+    sd = model.state_dict()
+    ranks = {v.ndim for k, v in flat.items() if k.endswith("project_to_patch||kernel")}
+    if case == "raw_multimodal":
+        assert ranks == {4, 5}
+        assert sd["video_backbone.encoder.spatial_encoder.0.attention.q_linear.weight"] \
+            .shape == (32, 32)
+        assert sd["audio_backbone.distill_token"].shape == (1, 1, 32)
+        assert {k.split(weights.SEP)[0] for k in flat} == {
+            "video_backbone", "audio_backbone", "proposal", "caption"}
+    elif case == "regular_raw":
+        assert ranks == {5}
+        assert "proposal.backbone.encoder.temporal_encoder.0.mlp.fully_connected_1.weight" in sd
+    else:
+        assert "context_mask.layer_1.weight" in sd and "proposal.decoder.1.norm3.weight" in sd
+    assert "proposal.query_embedding" in sd
+
+
+FULL_WIDTH = {  # chip_smoke.py's full-width raw, regular_raw and regular configurations
+    "raw": ["use_raw_videos=true", "dvc.input_modalities=video,audio",
+            "dvc.vivit.num_heads=8", "dvc.ast.num_heads=8",
+            "dataset.activity_net.audio_rescale_len=93"],
+    "regular_raw": ["use_raw_videos=true", "dvc.use_sparse_detr=false"],
+    "regular": ["dvc.use_sparse_detr=false"],
+}
+FULL_WIDTH_PARAMS = {"raw": 202_161_075, "regular_raw": 81_586_809, "regular": 58_083_449}
+
+
+@pytest.mark.parametrize("name", list(FULL_WIDTH))
+def test_raw_and_regular_full_width_param_counts_equal_jax(name):
+    """At full width (6563 words, context mask off, 128 x 128 frames, 128
+    mels x 64 frames), the port's models count the JAX init's params
+    exactly (``jax.eval_shape``: no compute; the port's on the meta device);
+    chip_smoke.py holds the same numbers on the card."""
+    import jax
+
+    from multimodal_feature_learning_tpu.config import load_config as jax_load_config
+    from multimodal_feature_learning_tpu.config import recompute_losses
+    from multimodal_feature_learning_tpu.models import build_model_and_criterion as jax_build
+    from multimodal_feature_learning_tpu_torch.config import apply_overrides
+    from multimodal_feature_learning_tpu_torch.config import load_config as port_load_config
+    from multimodal_feature_learning_tpu_torch.models.multimodal import RawMultimodalDVC
+    from multimodal_feature_learning_tpu_torch.models.regular_dvc import RegularDVC
+
+    overrides = FULL_WIDTH[name] + ["use_differentiable_mask=false"]
+    jcfg = jax_load_config("train")
+    for kv in overrides:
+        key, val = kv.split("=")
+        *path, leaf = key.split(".")
+        node = jcfg
+        for p in path:
+            node = node[p]
+        old = node[leaf]
+        node[leaf] = (val == "true" if isinstance(old, bool) else
+                      val.split(",") if isinstance(old, list) else type(old)(val))
+    if name.startswith("regular"):
+        jcfg.dvc.use_deformable_detr = False
+    recompute_losses(jcfg)
+
+    class Words(list):
+        pad_idx, bos_idx, eos_idx = 1, 2, 3
+
+    jmodel, _, _ = jax_build(jcfg, Words(range(6563)))
+    anet = jcfg.dataset.activity_net
+    G, Lc, T = anet.max_gt_target_segments, anet.max_caption_len_all, anet.video_rescale_len
+    spec = jax.ShapeDtypeStruct
+    video = (spec((1, T, 128, 128, 3), np.uint8) if jcfg.use_raw_videos
+             else spec((1, T, jcfg.dvc.detr.feature_dim), np.float32))
+    batch = {"video_tensor": video, "video_mask": spec((1, T), bool),
+             "audio_tensor": spec((1, anet.audio_target_length, anet.num_mel_bins), np.float32),
+             "audio_mask": spec((1, anet.audio_target_length), bool),
+             "durations": spec((1,), np.float32), "gt_segments": spec((1, G, 2), np.float32),
+             "gt_mask": spec((1, G), bool), "cap_tokens": spec((1, G, Lc), np.int32)}
+    shapes = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0), batch)
+    n_jax = sum(int(np.prod(leaf.shape)) for leaf in jax.tree_util.tree_leaves(shapes))
+
+    tcfg = apply_overrides(port_load_config(), overrides)
+    if name.startswith("regular"):
+        tcfg.dvc.use_deformable_detr = False
+    cls = RawMultimodalDVC if name == "raw" else RegularDVC
+    with torch.device("meta"):
+        model = cls(tcfg, 6563)
+    assert sum(p.numel() for p in model.parameters()) == n_jax == FULL_WIDTH_PARAMS[name]
