@@ -49,12 +49,15 @@ Phases, each printing one line with its wall seconds:
 10. train: 1 + 5 training steps of the full-width model from conv_e79
    through train_one_epoch (batch 16, dropout 0.1, synthetic batches from
    seed 0), with the launch counts of every kernel read over exactly those
-   steps, the step time, the matcher's host time, peak memory, and the
-   device busy share and largest kernels of one profiled step;
+   steps (the matcher kernel K6 once a step), the step time, peak memory,
+   and the device busy share, largest kernels and K6's device time of one
+   profiled step;
 11. train_check: one step of batch 2 with dropout off, from the same weights,
-   on the card and on the port's CPU path: equal matchings, losses and
-   gradient norm within their tolerances; and, for each encoder MSDA call of
-   that step, K2 against the plain backward on the CPU step's own inputs;
+   on the card and on the port's CPU path: equal matchings (and K6's on
+   the card equal to the numpy matcher's on the card's own costs), losses
+   and gradient norm within their tolerances; and, for each encoder MSDA
+   call of that step, K2 against the plain backward on the CPU step's own
+   inputs;
 12. eval (run after breakdown, on the served model): make_eval_step on one
    synthetic batch of 16 in every val_mode (one_by_one with the plain-op
    and the fused decode, teacher_forcing, beam 4, serve, one_by_one with
@@ -98,8 +101,10 @@ Phases, each printing one line with its wall seconds:
    checkpoints every epoch, then --resume for a third, then inference.main
    --resume: three epochs logged with finite losses, the resume at epoch 2,
    K2 launched 12 times a train step and K1 12 times a train step and an
-   eval batch, the checkpoints written; seconds and examples/s an epoch,
-   peak memory;
+   eval batch, K6 once a train step and an eval batch, the checkpoints
+   written; seconds and examples/s an epoch, peak memory; then one epoch
+   from conv_e79 at steps_per_dispatch=4 beside them (finite per-step
+   losses, the same launches a step);
 21. serve_bf16 (after check_fused): conv_e79 built with compute_dtype
    "bfloat16" (f32 masters, a bf16 copy in every forward), the 48 requests
    through DVCServer with the plain-op decode and the fused decode (grid
@@ -178,9 +183,31 @@ Phases, each printing one line with its wall seconds:
    epoch at the raw training batch with eval and scoring, then --mode eval
    --resume: K1 and K2 once per MSDA call of every step and eval batch.
    The kernel lines of phase 3 hold K1 and K2 at the raw family's new call
-   shapes too (tools/msda_device_time.py::RAW_CALLS), f32.
+   shapes too (tools/msda_device_time.py::RAW_CALLS), f32;
+36. matcher (after kernels): the batched Hungarian matcher kernel (K6,
+   csrc/hungarian.cu) against the numpy version on every slot, both on the
+   same costs, at the flagship's training shape (6 decoder layers x batch
+   16 problems of 20 queries x 10 GT slots) with random costs, integer
+   costs full of ties, problems without a valid slot and match_cost's
+   1e5 / -1e5, at each other family's shape where it differs, square
+   (10 x 10) and at 1024 queries; K6's device time, its bound and the numpy
+   version's host time (no PyTorch call solves an LAP: no library time).
+   Every train and eval phase of every family checks K6 once per matching;
+37. train_multistep (after train): the flagship at full width from
+   conv_e79, batch 16, dropout 0.1, 9 synthetic batches through
+   train_one_epoch at chunk_k 4 (make_train_multistep: two chunks of 4 and
+   a tail of 1) and at chunk_k 1: each chunk's steps under
+   torch.cuda.set_sync_debug_mode("error") (no host synchronisation from
+   after its transfer to its last step's dispatch); each chunked step
+   against the single step replayed from the same state: loss terms (rel
+   1e-5), grad norm (rel 1e-4), matchings (equal but at near-ties, listed)
+   and parameters after the step (1.01 lr); free-running, the gaps to the
+   chunk_k 1 run beside those of a second chunk_k 1 run (reported: the
+   runs part chaotically from K2's atomic sums); ms a step of each, each
+   chunk's host dispatch ms, one profiled chunk (device ms, busy share,
+   launches a step, K6's device time), K6 once a step, peak memory.
 
-Then one JSON line of kernel measurements and, as the last line, a JSON
+Then one JSON line of kernel measurements (K1-K6) and, as the last line, a JSON
 object naming the device. Any failure exits non-zero without that line, as
 does a host without CUDA or a directory without the port's package.
 """
@@ -814,11 +841,42 @@ def kernel_counters():
     """Every kernel wrapper of the port with its launch count, by name."""
     from multimodal_feature_learning_tpu_torch.ops import fused_decode as fd
     from multimodal_feature_learning_tpu_torch.ops import msda
+    from multimodal_feature_learning_tpu_torch.ops.hungarian import HUNGARIAN
     from multimodal_feature_learning_tpu_torch.ops.probe_add import PROBE_ADD
 
     return {"msda_fwd": msda.MSDA_FWD, "msda_bwd": msda.MSDA_BWD,
             "fused_decode_video": fd.FUSED_DECODE["video"],
-            "fused_decode_batch": fd.FUSED_DECODE["batch"], "probe_add": PROBE_ADD}
+            "fused_decode_batch": fd.FUSED_DECODE["batch"], "probe_add": PROBE_ADD,
+            "hungarian": HUNGARIAN}
+
+
+class recording_matchings:
+    """Within the block, every Hungarian matching of a model (the
+    ``batched_hungarian_torch`` call of ``models.dvc.match_layers``, through
+    which every family matches) is recorded: a list with one entry a
+    matching, with ``keep`` its (cost, valid, indices) cloned on their
+    device (no host synchronisation), else None. On the card each matching
+    is one K6 launch."""
+
+    def __init__(self, keep: bool = False):
+        self.keep = keep
+
+    def __enter__(self):
+        from multimodal_feature_learning_tpu_torch.models import dvc
+
+        self.module, self.orig, records = dvc, dvc.batched_hungarian_torch, []
+
+        def recording(cost, valid):
+            idx = self.orig(cost, valid)
+            records.append((cost.detach().clone(), valid.clone(), idx.clone())
+                           if self.keep else None)
+            return idx
+
+        dvc.batched_hungarian_torch = recording
+        return records
+
+    def __exit__(self, *exc):
+        self.module.batched_hungarian_torch = self.orig
 
 
 def msda_per_forward(cfg, encoder_only: bool = False) -> int:
@@ -1097,12 +1155,17 @@ def train_cli(world: dict, device="cuda"):
     conv_e79, with dropout: TRAIN_CLI_EPOCHS epochs with eval_rate 1,
     checkpoint_rate 1 and the first TRAIN_CLI_VAL_SUBSET val videos; then
     --resume of its checkpoint for one more epoch; then inference.main
-    --resume of the last checkpoint. Launches are counted over each CLI
+    --resume of the last checkpoint; then, beside them, one epoch from
+    conv_e79 at steps_per_dispatch=4 (the 4 steps of the epoch as one
+    dispatch) into its own directory. Launches are counted over each CLI
     call; each epoch's loader waits and steps are timed (TimedLoader around
-    the CLI's train loader). Checks: train_log.txt holds epochs 0, 1, 2 with finite losses; the
-    resumed run starts at epoch 2; K2 launched 12 times a train step, K1 12
-    times a train step and an eval batch; the rolling and the numbered
-    checkpoints exist; inference scores the checkpoint."""
+    the CLI's train loader) and its per-step logs kept. Checks:
+    train_log.txt holds epochs 0, 1, 2 with finite losses; the resumed run
+    starts at epoch 2; K2 launched 12 times a train step, K1 12 times a
+    train step and an eval batch, K6 once a train step and an eval batch;
+    the rolling and the numbered checkpoints exist; inference scores the
+    checkpoint; the steps_per_dispatch=4 epoch logs 4 finite per-step
+    losses with the same launches a step."""
     import torch
 
     from multimodal_feature_learning_tpu_torch import inference
@@ -1120,14 +1183,17 @@ def train_cli(world: dict, device="cuda"):
     common = ["--weights", SNAPSHOT, "--device", device, "--batch-size", str(BATCH),
               "--output-dir", out, "--config-overrides", *overrides]
     counters = kernel_counters()
-    runs, launches, split = [], [], []
+    runs, launches, split, step_logs = [], [], [], []
     real_epoch = train_main.train_one_epoch
 
     def timed_epoch(train_step, state, loader, epoch, *args, **kwargs):
         timed = TimedLoader(loader)
-        result = real_epoch(train_step, state, timed, epoch, *args, **kwargs)
+        logs = []
+        result = real_epoch(train_step, state, timed, epoch, *args,
+                            step_logger=lambda log, step: logs.append(log), **kwargs)
         split.append({"epoch": epoch, "loader_wait_ms": [1e3 * s for s in timed.wait],
                       "step_ms": [1e3 * s for s in timed.busy]})
+        step_logs.append(logs)
         return result
 
     if device == "cuda":
@@ -1141,6 +1207,14 @@ def train_cli(world: dict, device="cuda"):
                 k.launches = 0
             runs.append(train_main.main([*extra, *common]))
             launches.append({k: c.launches for k, c in counters.items()})
+        for k in counters.values():
+            k.launches = 0
+        multistep_out = os.path.join(out, "steps_per_dispatch_4")
+        multistep = train_main.main([
+            "--epochs", "1", "--weights", SNAPSHOT, "--device", device, "--batch-size",
+            str(BATCH), "--output-dir", multistep_out, "--config-overrides", *overrides,
+            f"steps_per_dispatch={MULTISTEP_K}"])
+        multistep_launches = {k: c.launches for k, c in counters.items()}
     finally:
         train_main.train_one_epoch = real_epoch
     peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
@@ -1167,17 +1241,29 @@ def train_cli(world: dict, device="cuda"):
         epochs = len(run["epochs"])
         steps = epochs * steps_per_epoch
         want = {"msda_bwd": per_forward * steps,
-                "msda_fwd": per_forward * (steps + epochs * eval_batches)}
+                "msda_fwd": per_forward * (steps + epochs * eval_batches),
+                "hungarian": steps + epochs * eval_batches}
         if any(n[k] != v for k, v in want.items()):
             raise AssertionError(f"train_cli: launches {n} over {steps} steps and "
                                  f"{epochs * eval_batches} eval batches, expected {want}")
+    want = {"msda_bwd": per_forward * steps_per_epoch,
+            "msda_fwd": per_forward * (steps_per_epoch + eval_batches),
+            "hungarian": steps_per_epoch + eval_batches}
+    multistep_losses = [log["loss"] for log in step_logs[-1]]
+    if any(multistep_launches[k] != v for k, v in want.items()) or \
+            len(multistep_losses) != steps_per_epoch or \
+            not all(math.isfinite(x) for x in multistep_losses):
+        raise AssertionError(f"train_cli steps_per_dispatch={MULTISTEP_K}: launches "
+                             f"{multistep_launches}, expected {want}; per-step losses "
+                             f"{multistep_losses}")
     names = sorted(os.listdir(out))
     want_files = ["checkpoint"] + [f"checkpoint{e:04d}" for e in range(TRAIN_CLI_EPOCHS + 1)]
     if not set(want_files) <= set(names):
         raise AssertionError(f"train_cli: {names} lacks a checkpoint of {want_files}")
     if len(submission["results"]) != TRAIN_CLI_VAL_SUBSET or not all(
             math.isfinite(v) for v in scores.values()) or \
-            inference_launches["msda_fwd"] != per_forward * eval_batches:
+            inference_launches["msda_fwd"] != per_forward * eval_batches or \
+            inference_launches["hungarian"] != eval_batches:
         raise AssertionError(f"train_cli: inference --resume gave {len(submission['results'])}"
                              f" videos, scores {scores}, launches {inference_launches}")
     seconds = [s for run in runs for s in run["train_seconds"]]
@@ -1187,6 +1273,13 @@ def train_cli(world: dict, device="cuda"):
                        for r in log],
             "train_seconds_per_epoch": seconds,
             "epoch_split": split,
+            "step_losses": [[log["loss"] for log in logs] for logs in step_logs],
+            "steps_per_dispatch_4": {
+                "epoch": {k: v for k, v in multistep["epochs"][0].items()
+                          if k.startswith("train_") or k in ("epoch", "val_loss")},
+                "train_seconds": multistep["train_seconds"][0],
+                "examples_per_s": TRAIN_VIDEOS / multistep["train_seconds"][0],
+                "step_losses": multistep_losses, "launches": multistep_launches},
             "checkpoint_seconds_per_epoch": [s for run in runs
                                              for s in run["checkpoint_seconds"]],
             "eval_seconds_per_epoch": [s for run in runs for s in run["eval_seconds"]],
@@ -1510,7 +1603,8 @@ def evaluate_arms(cfg, model, batch, eval_arms=EVAL_ARMS, beam1_min_share: float
                 k.launches = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            with recording_msda_calls(tensors=False) as calls:
+            with recording_msda_calls(tensors=False) as calls, \
+                    recording_matchings() as matchings:
                 caps, denorm, losses = step(batch)
             torch.cuda.synchronize()
             ms = 1e3 * (time.perf_counter() - t0)
@@ -1528,6 +1622,9 @@ def evaluate_arms(cfg, model, batch, eval_arms=EVAL_ARMS, beam1_min_share: float
         if launches["msda_fwd"] != per_forward:
             raise AssertionError(f"eval {name}: msda_fwd launched {launches['msda_fwd']} "
                                  f"times, the forward has {per_forward} MSDA calls")
+        if launches["hungarian"] != len(matchings) or len(matchings) != 1:
+            raise AssertionError(f"eval {name}: hungarian launched {launches['hungarian']} "
+                                 f"times over {len(matchings)} matchings (one a forward)")
         if impl == "fused" and launches["fused_decode_video"] != steps:
             raise AssertionError(f"eval {name}: fused_decode_video launched "
                                  f"{launches['fused_decode_video']} times over {steps} "
@@ -1982,6 +2079,10 @@ def eval_loop(cfg, model, overrides: dict):
             raise AssertionError(f"eval_loop {name}: msda_fwd launched "
                                  f"{arm['launches']['msda_fwd']} times over {arm['batches']} "
                                  f"batches of {per_forward} MSDA calls")
+        if arm["launches"]["hungarian"] != arm["batches"]:
+            raise AssertionError(f"eval_loop {name}: hungarian launched "
+                                 f"{arm['launches']['hungarian']} times over "
+                                 f"{arm['batches']} batches, one matching each")
         expected = sum(arm["decode_steps"]) if name == "one_by_one_fused" else 0
         if arm["launches"]["fused_decode_video"] != expected or \
                 arm["launches"]["fused_decode_batch"]:
@@ -2158,7 +2259,11 @@ def grads_by_tree(model) -> dict:
 def train(cfg, flat, vocab_size, batches=None, batch_size: int = BATCH):
     """Phase 10: 1 + TRAIN_STEPS steps through train_one_epoch at full width,
     from conv_e79, with dropout. Kernel launch counts are set to 0 just
-    before and read just after; then one more step under torch.profiler.
+    before and read just after (K6 once a step, one matching each); then
+    one more step under torch.profiler. The step logger synchronises before
+    it reads the clock; with the loop's one-step lag of the metric fetch,
+    the interval before step i's record covers step i + 1, so the first
+    interval covers the warm-up step and the first, and the last none.
     ``batches`` (TRAIN_STEPS + 2 numpy batch dicts of ``batch_size``
     videos) replaces the synthetic feature batches (raw ingest)."""
     import torch
@@ -2171,6 +2276,7 @@ def train(cfg, flat, vocab_size, batches=None, batch_size: int = BATCH):
     )
     from multimodal_feature_learning_tpu_torch.models.criterion import build_criterion
     from multimodal_feature_learning_tpu_torch.ops import msda
+    from multimodal_feature_learning_tpu_torch.ops.hungarian import HUNGARIAN
 
     model = build_family(cfg, vocab_size, "cuda", flat)
     criterion, weight_dict = build_criterion(cfg, model.pad_idx)
@@ -2187,12 +2293,13 @@ def train(cfg, flat, vocab_size, batches=None, batch_size: int = BATCH):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    msda.MSDA_FWD.launches = msda.MSDA_BWD.launches = 0
+    msda.MSDA_FWD.launches = msda.MSDA_BWD.launches = HUNGARIAN.launches = 0
     t0 = time.perf_counter()
-    with recording_msda_calls(tensors=False) as calls:
+    with recording_msda_calls(tensors=False) as calls, recording_matchings() as matchings:
         state, stats = train_one_epoch(step, state, batches[:TRAIN_STEPS + 1], epoch=0,
                                        print_freq=0, step_logger=record)
-    launches = {"msda_fwd": msda.MSDA_FWD.launches, "msda_bwd": msda.MSDA_BWD.launches}
+    launches = {"msda_fwd": msda.MSDA_FWD.launches, "msda_bwd": msda.MSDA_BWD.launches,
+                "hungarian": HUNGARIAN.launches}
     peak = torch.cuda.max_memory_allocated()
     times = [t0] + [t for t, _ in records]
     step_ms = [1e3 * (b - a) for a, b in zip(times[:-1], times[1:])]
@@ -2201,10 +2308,14 @@ def train(cfg, flat, vocab_size, batches=None, batch_size: int = BATCH):
         raise AssertionError(f"non-finite training loss: {losses}")
     per_step = msda_per_forward(cfg)
     steps = len(records)
-    for name, n in launches.items():
-        if n < per_step * steps:
-            raise AssertionError(f"{name} launched {n} times over {steps} training steps; "
-                                 f"the training path launches it {per_step} times a step")
+    for name in ("msda_fwd", "msda_bwd"):
+        if launches[name] < per_step * steps:
+            raise AssertionError(f"{name} launched {launches[name]} times over {steps} "
+                                 f"training steps; the training path launches it {per_step} "
+                                 f"times a step")
+    if launches["hungarian"] != len(matchings) or len(matchings) != steps:
+        raise AssertionError(f"hungarian launched {launches['hungarian']} times over "
+                             f"{len(matchings)} matchings in {steps} training steps")
     share, n_msda, msda_missing = param_grad_report(model)
     trees = grads_by_tree(model)
     if msda_missing:
@@ -2220,7 +2331,7 @@ def train(cfg, flat, vocab_size, batches=None, batch_size: int = BATCH):
     kernels = device_kernels(prof)
     device_ms = sum(us for _, us, _ in kernels) / 1e3
     top = sorted(kernels, key=lambda k: -k[1])[:8]
-    measured = sorted(step_ms[1:])
+    measured = sorted(step_ms[1:-1])
     median_ms = measured[len(measured) // 2]
     return {
         "batch": batch_size, "steps": steps, "warmup_steps": 1,
@@ -2229,7 +2340,6 @@ def train(cfg, flat, vocab_size, batches=None, batch_size: int = BATCH):
         "lr": records[-1][1]["lr"],
         "step_ms": step_ms, "median_step_ms": median_ms,
         "examples_per_s": batch_size / (median_ms / 1e3),
-        "matcher_host_ms": [v["matcher_ms"] for _, v in records],
         "launches": launches,
         "launches_per_step": {k: v / steps for k, v in launches.items()},
         "msda_calls_by_shape": calls_by_shape(calls),
@@ -2242,9 +2352,409 @@ def train(cfg, flat, vocab_size, batches=None, batch_size: int = BATCH):
         "profiled_step_kernel_launches": sum(c for _, _, c in kernels),
         "msda_fwd_device_ms": sum(us for k, us, _ in kernels if "msda_fwd" in k) / 1e3,
         "msda_bwd_device_ms": sum(us for k, us, _ in kernels if "msda_bwd" in k) / 1e3,
+        "hungarian_device_us": sum(us for k, us, _ in kernels if "hungarian" in k),
         "top_kernels": [{"name": k[:90], "ms": us / 1e3, "count": c} for k, us, c in top],
         "epoch_stats_loss": stats["loss"],
     }
+
+
+# ---------------------------------------------------------------------------
+# K6, the batched Hungarian matcher, and K train steps a dispatch
+# ---------------------------------------------------------------------------
+
+def matcher_problems(P, Q, G, kind: str, seed: int):
+    """P problems of Q queries x G GT slots (numpy seed ``seed``): "random"
+    normal costs, about 60% of the slots valid (one at least); "ties"
+    integer costs 0-2 with identical query rows in a quarter of the
+    problems; "invalid" a quarter of the problems without a valid slot;
+    "guard" the 1e5 / -1e5 values of match_cost's NaN guard in about 7% of
+    the entries."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    cost = rng.normal(size=(P, Q, G)).astype(np.float32)
+    valid = rng.random((P, G)) < 0.6
+    valid[np.arange(P), rng.integers(0, G, P)] = True
+    if kind == "ties":
+        cost = rng.integers(0, 3, size=(P, Q, G)).astype(np.float32)
+        cost[: P // 4] = cost[: P // 4, :1]
+    elif kind == "invalid":
+        valid[: P // 4] = False
+    elif kind == "guard":
+        u = rng.random((P, Q, G))
+        cost[u < 0.05] = 1e5
+        cost[u > 0.98] = -1e5
+    return cost, valid
+
+
+def hungarian_bound(cost, valid, search_steps):
+    """(bound ms, "bytes" or "operations") of one K6 call: the bytes it must
+    move (the cost and the validity read once, the int64 indices written
+    once) over the memory rate, against the f32 operations this run's costs
+    need (each search step about 5 a query, 2 subtractions, 2 compares and
+    the update, and 10 for the five-level argmin) over the f32 rate."""
+    P, Q, G = cost.shape
+    nbytes = cost.nbytes + valid.nbytes + P * G * 8
+    ops = int(search_steps.sum()) * (5 * Q + 10)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def matching_problems(cfg) -> tuple:
+    """(problems, queries, GT slots) of one training matching of ``cfg``'s
+    family at batch BATCH: every decoder layer's segments against the GT."""
+    regular = not (cfg.dvc.use_sparse_detr or cfg.dvc.use_deformable_detr)
+    layers = cfg.dvc.decoder.depth if regular else cfg.dvc.detr.dec_layers
+    return (layers * BATCH, cfg.dvc.num_queries, cfg.dataset.activity_net.max_gt_target_segments)
+
+
+def matcher(family_problems: dict) -> list:
+    """Phase matcher: K6 against the numpy version on every slot. Both get
+    the same costs, the kernel on the card and numpy on ``cost.cpu()``: the
+    flagship's training and evaluation shape (its 6 decoder layers x batch
+    16 problems of 20 queries x 10 GT slots, ``family_problems["flagship"]``)
+    with random costs, with ties, with problems without a valid slot and
+    with the guard's 1e5 / -1e5; each other family's shape where it
+    differs; a square case (10 x 10); and the largest the kernel takes
+    (1024 queries x 32 slots). The flagship case also gives K6's device
+    time (CUDA events over 50 launches), its bound, and the numpy version's
+    host time (median of 5). No PyTorch call solves an LAP: no library
+    time."""
+    import numpy as np
+    import torch
+
+    from multimodal_feature_learning_tpu_torch.ops.hungarian import (
+        HUNGARIAN, batched_hungarian, batched_hungarian_torch,
+    )
+
+    P, Q, G = family_problems["flagship"]
+    cases = [("flagship", P, Q, G, kind) for kind in ("random", "ties", "invalid", "guard")]
+    cases += [(name, *shape, "random") for name, shape in family_problems.items()
+              if shape != (P, Q, G)]
+    cases += [("square", P, G, G, "random"), ("max_queries", 8, 1024, 32, "random")]
+    lines, bad = [], []
+    for seed, (name, p, q, g, kind) in enumerate(cases):
+        cost, valid = matcher_problems(p, q, g, kind, seed)
+        c, v = torch.from_numpy(cost).cuda(), torch.from_numpy(valid).cuda()
+        got = batched_hungarian_torch(c, v)
+        torch.cuda.synchronize()
+        steps = []
+        ref = batched_hungarian(c.cpu().numpy(), v.cpu().numpy(), search_steps=steps)
+        differ = int((got.cpu().numpy() != ref).sum())
+        line = {"case": name, "kind": kind, "problems": p, "queries": q, "gt_slots": g,
+                "slots": p * g, "slots_differing": differ,
+                "search_steps": int(steps[0].sum()),
+                "longest_problem_search_steps": int(steps[0].max()),
+                "max_abs_err": float(np.abs(got.cpu().numpy() - ref).max())}
+        if (name, kind) == ("flagship", "random"):
+            line["ms"] = time_cuda(lambda: HUNGARIAN(c, v))
+            host = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                batched_hungarian(cost, valid)
+                host.append(1e3 * (time.perf_counter() - t0))
+            line["plain_ms"] = sorted(host)[2]
+            line["bound_ms"], line["bound_by"] = hungarian_bound(cost, valid, steps[0])
+            line["library_ms"] = None
+            line["library"] = "none: no PyTorch call solves a linear-sum assignment"
+        lines.append(line)
+        if differ:
+            bad.append(line)
+    if bad:
+        raise AssertionError(f"K6 and the numpy matcher differ: {bad}")
+    return lines
+
+
+MULTISTEP_BATCHES = 9  # two chunks of MULTISTEP_K and a tail of 1
+MULTISTEP_K = 4
+MULTISTEP_LOSS_REL, MULTISTEP_LOSS_ATOL, MULTISTEP_GRAD_NORM_REL = 1e-5, 1e-6, 1e-4
+MATCH_NEAR_TIE = 1e-4  # assignment cost gap under which two matchings tie
+
+
+def matching_partings(records_a, records_b, max_gt: int) -> list:
+    """Where two runs' matchings of each step differ: for each problem with
+    a differing slot, the cost under run a's costs of run b's matching less
+    that of run a's own (over the valid slots; 0 when only invalid slots
+    differ), and the largest gap of the two runs' costs there."""
+    import torch
+
+    partings = []
+    for step, ((cost_a, valid, idx_a), (cost_b, _, idx_b)) in enumerate(
+            zip(records_a, records_b)):
+        cols = torch.arange(max_gt, device=cost_a.device)
+        for prob in torch.nonzero((idx_a != idx_b).any(dim=1)).flatten().tolist():
+            ok = valid[prob]
+            own = cost_a[prob, idx_a[prob], cols][ok].sum()
+            other = cost_a[prob, idx_b[prob], cols][ok].sum()
+            partings.append({
+                "step": step, "problem": prob,
+                "slots": int((idx_a[prob] != idx_b[prob]).sum()),
+                "assignment_cost_gap": float(other - own),
+                "max_cost_diff": float((cost_a[prob] - cost_b[prob]).abs().max())})
+    return partings
+
+
+def train_state_snapshot(state):
+    """Copies, on the device, of the params and the AdamW state of
+    ``state``, and its step (no host synchronisation)."""
+    adamw = state.optimizer.adamw
+    return {"step": state.step,
+            "params": [p.detach().clone() for p in state.optimizer.params],
+            "adam": [{k: v.clone() for k, v in adamw.state[p].items()}
+                     if p in adamw.state else None for p in state.optimizer.params]}
+
+
+def load_train_state(state, snap):
+    """``state`` set to the snapshot ``train_state_snapshot`` took."""
+    import torch
+
+    adamw = state.optimizer.adamw
+    with torch.no_grad():
+        for p, q, adam in zip(state.optimizer.params, snap["params"], snap["adam"]):
+            p.copy_(q)
+            adamw.state.pop(p, None)
+            if adam is not None:
+                adamw.state[p] = {k: v.clone() for k, v in adam.items()}
+    state.step = snap["step"]
+
+
+def step_gaps(a: dict, b: dict) -> tuple:
+    """(largest relative gap of the loss terms and the loss, relative gap of
+    the grad norm, the terms outside MULTISTEP_LOSS_REL / _ATOL) of two
+    steps' host metrics."""
+    terms = [k for k in b if k.startswith("loss")]
+    worst = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30) for k in terms)
+    bad = [k for k in terms if abs(a[k] - b[k]) > max(MULTISTEP_LOSS_REL * abs(b[k]),
+                                                      MULTISTEP_LOSS_ATOL)]
+    return worst, abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"]), bad
+
+
+def train_multistep(cfg, flat, vocab_size) -> dict:
+    """Phase train_multistep: the flagship at full width from conv_e79,
+    batch 16, dropout 0.1, MULTISTEP_BATCHES synthetic batches through
+    train_one_epoch at chunk_k MULTISTEP_K (make_train_multistep: two
+    chunks and a tail of 1), then twice at chunk_k 1, each from a fresh
+    model.
+    (a) Each chunk's steps run under torch.cuda.set_sync_debug_mode("error"),
+    from after the chunk's one transfer to its last step's dispatch: a call
+    that synchronises the host raises.
+    (b) The runs launch the same kernels in the same order; K2 adds dvalue
+    with atomics, so a step's gradients differ between runs in their last
+    bits, and training from conv_e79 amplifies that: two chunk_k 1 runs
+    part by about 3e-3 in loss at the fourth step and in their matchings at
+    the fifth, and their parameters by more than 1.01 lr a step after nine
+    (Adam moves a parameter by up to about 1.04 lr a step at these betas,
+    either way). So each step of the chunked run is held against the
+    single step replayed from the same state (its params and AdamW
+    moments, copied on the device before the step; the replay runs after
+    the run): every loss term and the loss within rel 1e-5 (atol 1e-6), the
+    grad norm within rel 1e-4, the matchings equal on every slot but where
+    the costs part a near-tie (the other matching within 1e-4 of the own
+    one's cost, listed) and every parameter after the step within 1.01 lr.
+    Free-running, the chunked run's and the second chunk_k 1 run's gaps to
+    the first (loss of each step, slots matched differently, the largest
+    parameter gap after the last step) are reported, not held.
+    (c) On the replay's model, without the snapshots: train_one_epoch over
+    2 x MULTISTEP_K batches at chunk_k MULTISTEP_K and 1 in turns (ABBA),
+    ms a step of each turn (up to a synchronize), the host ms to dispatch
+    each chunk, the peak memory of the turns; then one chunk under
+    torch.profiler (device ms, busy share, launches a step, K6's device
+    us). Also the ms a step of the three checked runs (the chunked one's
+    includes its snapshots' copies) and K6 once a step in each."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from multimodal_feature_learning_tpu_torch.data.anet import synthetic_batches
+    from multimodal_feature_learning_tpu_torch.engine import train as train_mod
+    from multimodal_feature_learning_tpu_torch.engine.state import create_train_state
+    from multimodal_feature_learning_tpu_torch.engine.train import (
+        batch_to_device, make_train_multistep, make_train_step, stack_batches, train_one_epoch,
+    )
+    from multimodal_feature_learning_tpu_torch.models.criterion import build_criterion
+
+    batches = list(synthetic_batches(cfg, BATCH, vocab_size, seed=0,
+                                     num_batches=MULTISTEP_BATCHES))
+    max_gt = cfg.dataset.activity_net.max_gt_target_segments
+    counters = kernel_counters()
+
+    def host_metrics(dispatched):
+        per_step = []
+        for m in dispatched:
+            keys = [k for k in m if k not in ("lr", "grad_leaf_norms")]
+            if isinstance(m["lr"], list):
+                per_step += [{k: float(m[k][i]) for k in keys} for i in range(len(m["lr"]))]
+            else:
+                per_step.append({k: float(m[k]) for k in keys})
+        return per_step
+
+    def new_state():
+        model = build_family(cfg, vocab_size, "cuda", flat)
+        criterion, weight_dict = build_criterion(cfg, model.pad_idx)
+        return create_train_state(cfg, model, steps_per_epoch=1000), criterion, weight_dict
+
+    runs, snapshots = {}, []
+    for name, chunk_k in (("chunked", MULTISTEP_K), ("single", 1), ("single_again", 1)):
+        state, criterion, weight_dict = new_state()
+        step = make_train_step(criterion, weight_dict, seed=cfg.seed)
+        real_factory = train_mod.make_train_step
+
+        def snapshotting_factory(*args, **kwargs):
+            inner = real_factory(*args, **kwargs)
+
+            def snapshotting(state, batch, leaf_norms=False):
+                snapshots.append(train_state_snapshot(state))
+                return inner(state, batch, leaf_norms)
+
+            return snapshotting
+
+        train_mod.make_train_step = snapshotting_factory  # the chunk's inner steps
+        try:
+            multi = make_train_multistep(criterion, weight_dict, seed=cfg.seed)
+        finally:
+            train_mod.make_train_step = real_factory
+        dispatched, dispatch_ms = [], []
+
+        def single_step(state, batch, leaf_norms=False):
+            if name == "chunked":  # the ragged tail
+                snapshots.append(train_state_snapshot(state))
+            out = step(state, batch, leaf_norms)
+            dispatched.append(dict(out))
+            return out
+
+        def guarded_chunk(state, stacked, leaf_norms=False):
+            t0 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = multi(state, stacked, leaf_norms)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            dispatch_ms.append(1e3 * (time.perf_counter() - t0))
+            dispatched.append(dict(out))
+            return out
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in counters.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        with recording_matchings(keep=True) as matchings:
+            state, _ = train_one_epoch(single_step, state, batches, epoch=0, print_freq=0,
+                                       multi_step=guarded_chunk, chunk_k=chunk_k)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        runs[name] = {
+            "ms_per_step": wall_ms / len(batches),
+            "launches": {k: c.launches for k, c in counters.items()},
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "dispatch_host_ms": dispatch_ms, "metrics": host_metrics(dispatched),
+            "matchings": matchings, "lr": state.optimizer.lr_schedule(0),
+            "params": [p.detach().clone() for p in state.optimizer.params]}
+        del state, multi, step
+        torch.cuda.empty_cache()
+
+    chunked, single = runs["chunked"], runs["single"]
+    steps, lr = len(batches), chunked["lr"]
+    bad = []
+    for name, r in runs.items():
+        if r["launches"]["hungarian"] != steps or len(r["matchings"]) != steps:
+            bad.append(f"{name}: K6 launched {r['launches']['hungarian']} times over "
+                       f"{len(r['matchings'])} matchings in {steps} steps")
+    keys = ("msda_fwd", "msda_bwd", "hungarian")
+    if any(chunked["launches"][k] != single["launches"][k] for k in keys):
+        bad.append(f"launches differ: {chunked['launches']} vs {single['launches']}")
+
+    # (b) each chunked step against the single step from the same state
+    state, criterion, weight_dict = new_state()
+    step = make_train_step(criterion, weight_dict, seed=cfg.seed)
+    locked = []
+    for i, snap in enumerate(snapshots):
+        load_train_state(state, snap)
+        with recording_matchings(keep=True) as replayed:
+            m = step(state, batch_to_device(batches[i], "cuda"))
+        got = {k: float(v) for k, v in m.items() if k != "lr"}
+        worst, norm_gap, terms = step_gaps(chunked["metrics"][i], got)
+        after = snapshots[i + 1]["params"] if i + 1 < len(snapshots) else chunked["params"]
+        param_gap = max(float((p.detach() - q).abs().max()) for p, q in zip(state.optimizer.params,
+                                                                    after))
+        partings = matching_partings([chunked["matchings"][i]], replayed, max_gt)
+        locked.append({"step": i, "loss_rel": worst, "grad_norm_rel": norm_gap,
+                       "param_gap": param_gap, "matching_partings": partings})
+        if terms or norm_gap > MULTISTEP_GRAD_NORM_REL or param_gap > 1.01 * lr or any(
+                abs(p["assignment_cost_gap"]) > MATCH_NEAR_TIE for p in partings):
+            bad.append(f"step {i} against its replay: terms {terms}, grad norm rel "
+                       f"{norm_gap}, param gap {param_gap}, partings {partings}")
+    del snapshots
+    torch.cuda.empty_cache()
+
+    # (c) on the replay's model, without snapshots: train_one_epoch over
+    # 2 MULTISTEP_K batches at chunk_k MULTISTEP_K and at 1, in turns ABBA,
+    # then one chunk under torch.profiler
+    multi = make_train_multistep(criterion, weight_dict, seed=cfg.seed)
+    timed_batches = batches[:2 * MULTISTEP_K]
+    turns, chunk_host_ms = [], []
+
+    def timed_chunk(state, stacked, leaf_norms=False):
+        t1 = time.perf_counter()
+        out = multi(state, stacked, leaf_norms)
+        chunk_host_ms.append(1e3 * (time.perf_counter() - t1))
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for chunk_k in (MULTISTEP_K, 1, 1, MULTISTEP_K):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, _ = train_one_epoch(step, state, timed_batches, epoch=0, print_freq=0,
+                                   multi_step=timed_chunk, chunk_k=chunk_k)
+        torch.cuda.synchronize()
+        turns.append({"chunk_k": chunk_k,
+                      "ms_per_step": 1e3 * (time.perf_counter() - t1) / len(timed_batches)})
+    peak = torch.cuda.max_memory_allocated()
+    stacked = batch_to_device(stack_batches(batches[:MULTISTEP_K]), "cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        multi(state, stacked)
+        host_ms = 1e3 * (time.perf_counter() - t1)
+        torch.cuda.synchronize()
+        prof_wall_ms = 1e3 * (time.perf_counter() - t1)
+    kernels = device_kernels(prof)
+    device_ms = sum(us for _, us, _ in kernels) / 1e3
+    profiled = {
+        "steps": MULTISTEP_K, "dispatch_host_ms": host_ms, "wall_ms": prof_wall_ms,
+        "device_kernel_ms": device_ms, "device_busy_share": device_ms / prof_wall_ms,
+        "kernel_launches_per_step": sum(c for _, _, c in kernels) / MULTISTEP_K,
+        "hungarian_device_us_per_step":
+            sum(us for k, us, _ in kernels if "hungarian" in k) / MULTISTEP_K}
+    del state, multi
+    torch.cuda.empty_cache()
+
+    # free-running: the chunked run and a second single run against the first
+    free = {}
+    for name in ("chunked", "single_again"):
+        r = runs[name]
+        free[name] = {
+            "loss_rel_per_step": [step_gaps(a, b)[0]
+                                  for a, b in zip(r["metrics"], single["metrics"])],
+            "slots_differing_per_step": [int((a[2] != b[2]).sum()) for a, b in
+                                         zip(r["matchings"], single["matchings"])],
+            "param_gap": max(float((p - q).abs().max())
+                             for p, q in zip(r["params"], single["params"]))}
+    if bad:
+        raise AssertionError(f"train_multistep: {bad}")
+    return {
+        "batch": BATCH, "steps": steps, "chunk_k": MULTISTEP_K,
+        "sync_free_chunks": len(chunked["dispatch_host_ms"]),
+        "ms_per_step_in_turns": turns,
+        "chunk_dispatch_host_ms_in_turns": chunk_host_ms,
+        "max_memory_allocated_bytes_in_turns": peak,
+        "profiled_chunk": profiled,
+        "ms_per_step_checked_runs": {name: r["ms_per_step"] for name, r in runs.items()},
+        "chunk_dispatch_host_ms_checked_run": chunked["dispatch_host_ms"],
+        "launches": {name: r["launches"] for name, r in runs.items()},
+        "loss_per_step": [m["loss"] for m in chunked["metrics"]],
+        "against_replayed_single_steps": locked,
+        "free_running_against_single": free, "lr": lr}
 
 
 def taps_near_whole_tokens(loc, shapes, tol=1e-4):
@@ -2303,10 +2813,11 @@ def encoder_dloc_gaps(calls, enc_calls: int):
 
 def train_check(cfg, flat, vocab_size, batch=None):
     """Phase 11: one step of batch 2 with dropout off (``dropout_off``), from
-    conv_e79, on the
-    card and on the port's CPU path (plain MSDA core and backward, CPU
-    matmuls). Matchings equal; total loss within rel 1e-4; every loss term
-    within rel 1e-3 (atol 1e-5); gradient norm within rel 1e-3. The card
+    conv_e79, on the card and on the port's CPU path (plain MSDA core and
+    backward, CPU matmuls, the numpy matcher). Matchings equal, and K6's
+    indices on the card equal the numpy matcher's on the card's own costs;
+    total loss within rel 1e-4; every loss term within rel 1e-3 (atol
+    1e-5); gradient norm within rel 1e-3. The card
     adds dvalue with atomics and sums in another order, so the sides differ
     by f32 rounding carried through a full-width forward and backward; the
     parameters whose clipped gradients differ most are reported. ``batch``
@@ -2321,6 +2832,7 @@ def train_check(cfg, flat, vocab_size, batch=None):
         batch_to_device, make_train_step,
     )
     from multimodal_feature_learning_tpu_torch.models.criterion import build_criterion
+    from multimodal_feature_learning_tpu_torch.ops.hungarian import batched_hungarian
 
     cfg = without_dropout(cfg)
     if batch is None:
@@ -2330,8 +2842,13 @@ def train_check(cfg, flat, vocab_size, batch=None):
         model = dropout_off(build_family(cfg, vocab_size, device, flat))
         criterion, weight_dict = build_criterion(cfg, model.pad_idx)
         tb = batch_to_device(batch, device)
-        with torch.no_grad():
+        with torch.no_grad(), recording_matchings(keep=True) as matched:
             out, idx, idx_aux = model._propose_and_match(tb)
+        if device == "cuda":
+            (cost, valid, k6), = matched
+            numpy_idx = batched_hungarian(cost.cpu().numpy(), valid.cpu().numpy())
+            if not (k6.cpu().numpy() == numpy_idx).all():
+                raise AssertionError("K6 and the numpy matcher differ on the card's costs")
         if device == "cuda":
             near = {k: taps_near_whole_tokens(out[f"sampling_locations_{k}"],
                                               out["temporal_shapes"]) for k in ("enc", "dec")
@@ -2340,7 +2857,7 @@ def train_check(cfg, flat, vocab_size, batch=None):
         with recording_msda_calls() as calls[device]:
             metrics = make_train_step(criterion, weight_dict, seed=cfg.seed)(state, tb)
         result[device] = (idx.cpu(), idx_aux.cpu(), {k: float(v) for k, v in metrics.items()
-                                                     if k not in ("lr", "matcher_ms")})
+                                                     if k != "lr"})
         # the gradients after the clip, which scales both sides to norm 0.1
         clipped[device] = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
     enc_dloc = encoder_dloc_gaps(calls, msda_per_forward(cfg, encoder_only=True))
@@ -2356,7 +2873,9 @@ def train_check(cfg, flat, vocab_size, batch=None):
         raise AssertionError(f"card and CPU steps disagree: loss rel {rel['loss']}, "
                              f"grad_norm rel {rel['grad_norm']}, terms {bad}")
     terms = [k for k in cm if k.startswith("loss_")]
-    return {"batch": 2, "indices_equal": True, "loss_card": gm["loss"], "loss_cpu": cm["loss"],
+    return {"batch": 2, "indices_equal": True,
+            "k6_equals_numpy_on_card_costs_slots": int(gi.numel() + ga.numel()),
+            "loss_card": gm["loss"], "loss_cpu": cm["loss"],
             "loss_rel": rel["loss"], "grad_norm_card": gm["grad_norm"],
             "grad_norm_cpu": cm["grad_norm"], "grad_norm_rel": rel["grad_norm"],
             "terms": len(terms), "worst_term": max(terms, key=lambda k: rel[k]),
@@ -2637,7 +3156,8 @@ def family_cli(world: dict, family: str, device="cuda", family_overrides=None, c
     The epoch's loader waits, steps and eval batches are timed
     (TimedLoader around the CLI's train and val loaders). Checks: the epoch
     logged with finite losses and scores; K2 launched once per MSDA call of
-    each train step, K1 once per call of each train step and eval batch;
+    each train step, K1 once per call of each train step and eval batch, K6
+    once a train step and an eval batch;
     the eval run starts at epoch 1 and gives the epoch's val loss (rel
     1e-4). ``family_overrides``, ``cfg`` (the
     family's config, for its MSDA calls), ``train_videos``, ``val_videos``
@@ -2693,8 +3213,8 @@ def family_cli(world: dict, family: str, device="cuda", family_overrides=None, c
     per_forward = msda_per_forward(cfg or family_config(family))
     steps, eval_batches = -(-train_videos // batch), -(-val_videos // batch)
     want = [{"msda_bwd": per_forward * steps,
-             "msda_fwd": per_forward * (steps + eval_batches)},
-            {"msda_bwd": 0, "msda_fwd": per_forward * eval_batches}]
+             "msda_fwd": per_forward * (steps + eval_batches), "hungarian": steps + eval_batches},
+            {"msda_bwd": 0, "msda_fwd": per_forward * eval_batches, "hungarian": eval_batches}]
     for got, w in zip(launches, want):
         if any(got[k] != v for k, v in w.items()):
             raise AssertionError(f"{family}_cli: launches {launches}, expected {want}")
@@ -3105,6 +3625,15 @@ def main() -> int:
     log("kernels", time.monotonic() - t, function_vs_plain_autograd_rel_err=function_err)
 
     t = time.monotonic()
+    matcher_lines = matcher({"flagship": matching_problems(cfg0),
+                             "dense": matching_problems(family_config("dense")),
+                             "mm": matching_problems(family_config("mm")),
+                             "regular": matching_problems(raw_family_config("regular"))})
+    for line in matcher_lines:
+        log("kernel", 0.0, name="hungarian", **line)
+    log("matcher", time.monotonic() - t, cases=len(matcher_lines))
+
+    t = time.monotonic()
     cfg, model, source, flat = build_flagship("cuda")
     n_params = sum(p.numel() for p in model.parameters())
     log("model", time.monotonic() - t, weights=source, params=n_params,
@@ -3201,6 +3730,10 @@ def main() -> int:
     t = time.monotonic()
     trained = train(cfg, flat, vocab_size)
     log("train", time.monotonic() - t, **trained)
+
+    t = time.monotonic()
+    multistepped = train_multistep(cfg, flat, vocab_size)
+    log("train_multistep", time.monotonic() - t, **multistepped)
 
     t = time.monotonic()
     trained16 = train_bf16(cfg, flat, vocab_size, trained)
@@ -3445,6 +3978,35 @@ def main() -> int:
         **{k: probe_case[k] for k in ("ms", "graph_us_per_launch", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms", "library_graph_us_per_launch")},
         "shape": "x (160, 64) bf16, the probe's carry", "cases": probe_cases,
+    })
+    k6 = next(line for line in matcher_lines
+              if line["case"] == "flagship" and line["kind"] == "random")
+    kernels.append({
+        "name": "hungarian", "route": "cuda",
+        "source": os.path.relpath(str(CSRC_DIR / counters["hungarian"].source), ROOT),
+        "replaces": counters["hungarian"].replaces + " (lax loops, no Pallas kernel)",
+        "launches": trained["launches"]["hungarian"],
+        "launches_by_path": {
+            "train": trained["launches"]["hungarian"],
+            "train_multistep": {run: n["hungarian"]
+                                for run, n in multistepped["launches"].items()},
+            "train_bf16": {run: r["launches"]["hungarian"] for run, r in trained16.items()},
+            "train_cli": {"first_run": trained_cli["launches"][0]["hungarian"],
+                          "resumed_run": trained_cli["launches"][1]["hungarian"],
+                          "steps_per_dispatch_4":
+                              trained_cli["steps_per_dispatch_4"]["launches"]["hungarian"],
+                          "inference_resume": trained_cli["inference_launches"]["hungarian"]},
+            "eval": sum(a["launches"]["hungarian"] for a in evaluated["arms"].values()),
+            "eval_loop": {arm: a["launches"]["hungarian"] for arm, a in looped["arms"].items()},
+            "eval_bf16": sum(a["launches"]["hungarian"] for a in evaluated16["arms"].values()),
+            **family_launches("hungarian")},
+        "max_abs_err": max(line["max_abs_err"] for line in matcher_lines),
+        "ms": k6["ms"], "plain_ms": k6["plain_ms"], "bound_ms": k6["bound_ms"],
+        "bound_by": k6["bound_by"], "library_ms": None,
+        "in_train_step_device_us": trained["hungarian_device_us"],
+        "shape": f"{k6['problems']} problems (6 decoder layers x B={BATCH}) of "
+                 f"{k6['queries']} queries x {k6['gt_slots']} GT slots, f32",
+        "cases": matcher_lines,
     })
     log("total", time.monotonic() - t_all)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -208,6 +208,10 @@ class Config:
     # dtype of the features on their way to the card: "bfloat16" halves the
     # bytes, and they are upcast to f32 there
     transfer_dtype: str = "float32"
+    # K optimizer steps per dispatch of the training loop
+    # (engine/train.py::make_train_multistep), the batches of a dispatch
+    # sent in one transfer; 1 runs single steps
+    steps_per_dispatch: int = 1
     dvc: DVCConfig = field(default_factory=DVCConfig)
     dataset: DatasetConfig = field(default_factory=DatasetConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)

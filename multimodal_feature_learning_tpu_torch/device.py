@@ -44,3 +44,14 @@ def to_host(*tensors: torch.Tensor) -> List[np.ndarray]:
     for dev in {t.device for t in tensors if t.is_cuda}:
         torch.cuda.current_stream(dev).synchronize()
     return [h.numpy() for h in host]
+
+
+def host_constant(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """A small tensor of host ``values`` on ``device`` without a host
+    synchronisation: on the card it crosses from pinned memory with an
+    asynchronous copy (a copy from pageable memory waits for the stream),
+    so a train step that builds one can be queued ahead of the device."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.tensor(values, dtype=dtype, pin_memory=True).to(device, non_blocking=True)
+    return torch.tensor(values, dtype=dtype, device=device)

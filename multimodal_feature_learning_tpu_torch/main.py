@@ -14,7 +14,9 @@ log-mel spectrograms through ``data.raw_anet.collate_raw``); the model of
 the config's family and its criterion (``models.build_model_and_criterion``;
 ``--weights``: a flat flax snapshot, loaded strictly; else weights drawn
 from ``cfg.seed``), and the train
-state, its LR schedule counting the train loader's batches; ``--resume``
+state, its LR schedule counting the train loader's batches
+(``steps_per_dispatch`` > 1: that many steps a dispatch, as JAX's
+``make_train_multistep``); ``--resume``
 restores a checkpoint and goes on at its epoch + 1. Each epoch trains, writes
 the rolling ``<output_dir>/checkpoint``, keeps ``checkpoint{epoch:04d}`` on
 ``checkpoint_rate`` or ``lr_drop`` epochs, evaluates and scores on
@@ -46,7 +48,9 @@ from .data.vocab import Vocab
 from .device import resolve_device
 from .engine.evaluate import evaluate, make_eval_step
 from .engine.state import create_train_state, load_checkpoint, save_checkpoint
-from .engine.train import TRANSFER_DTYPES, make_train_step, train_one_epoch
+from .engine.train import (
+    TRANSFER_DTYPES, make_train_multistep, make_train_step, train_one_epoch,
+)
 from .evaluation import run_eval
 from .models import build_model_and_criterion
 from .utils.weights import load_flax_params, load_npz
@@ -195,6 +199,9 @@ def main(argv=None) -> dict:
         return {"start_epoch": start_epoch, "val_stats": stats, "scores": scores}
 
     train_step = make_train_step(criterion, weight_dict, seed=cfg.seed)
+    multi_step = None
+    if cfg.steps_per_dispatch > 1:
+        multi_step = make_train_multistep(criterion, weight_dict, seed=cfg.seed)
     transfer_dtype = TRANSFER_DTYPES[cfg.transfer_dtype]
     run = {"start_epoch": start_epoch, "epochs": [], "train_seconds": [],
            "checkpoint_seconds": [], "eval_seconds": [], "train_examples": len(train_ds)}
@@ -204,7 +211,9 @@ def main(argv=None) -> dict:
         t0 = time.perf_counter()
         train_loader.set_epoch(epoch)
         state, train_stats = train_one_epoch(train_step, state, train_loader, epoch,
-                                             cfg.print_freq, transfer_dtype=transfer_dtype)
+                                             cfg.print_freq, transfer_dtype=transfer_dtype,
+                                             multi_step=multi_step,
+                                             chunk_k=cfg.steps_per_dispatch)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         run["train_seconds"].append(time.perf_counter() - t0)

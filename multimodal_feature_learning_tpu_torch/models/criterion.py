@@ -24,6 +24,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from ..device import host_constant
 from ..ops.dam import attn_map_to_flat_grid, compute_corr, idx_to_flat_grid
 from ..ops.segment_ops import generalized_box_iou, segment_cl_to_xy
 
@@ -89,7 +90,7 @@ def label_smoothing_kl(log_pred, target, pad_idx: int, smoothing: float):
     lp_tgt = log_pred.gather(-1, target[..., None])[..., 0]
     cross = u * (log_pred.sum(-1) - log_pred[..., pad_idx] - lp_tgt) \
         + (1.0 - smoothing) * lp_tgt
-    per = _smoothing_entropy(V, smoothing).to(log_pred.device) - cross
+    per = _smoothing_entropy(V, smoothing) - cross  # a CPU scalar: no host copy
     return torch.where(target != pad_idx, per, torch.zeros_like(per)).sum()
 
 
@@ -110,7 +111,7 @@ def label_smoothing_kl_logits_stack(stack, target, pad_idx: int, smoothing: floa
     wsum = u * x.sum(-1) + ((1.0 - sm) - u) * x_tgt - u * x[..., pad_idx]
     cross = wsum - (u * (V - 2) + (1.0 - sm)) * lse
     ent = _smoothing_entropy(V, sm)
-    per = torch.where(tgt != pad_idx, ent.to(x.device) - cross, torch.zeros_like(cross))
+    per = torch.where(tgt != pad_idx, ent - cross, torch.zeros_like(cross))  # ent: a CPU scalar
     return per.sum(dim=(1, 2))
 
 
@@ -136,8 +137,8 @@ class SetCriterion:
         max_length = pred_count.shape[1] - 1
         counter_target = targets["gt_mask"].sum(dim=1).clamp(max=max_length)
         onehot = F.one_hot(counter_target.long(), pred_count.shape[1]).to(pred_count.dtype)
-        weight = torch.tensor(COUNTER_CLASS_RATE[:max_length + 1], dtype=torch.float32,
-                              device=pred_count.device)
+        weight = host_constant(COUNTER_CLASS_RATE[:max_length + 1], torch.float32,
+                               pred_count.device)
         loss = cross_entropy_with_gaussian_mask(
             pred_count, onehot, weight, self.lloss_gau_mask, self.lloss_beta,
             row_valid=targets.get("batch_valid"))

@@ -11,8 +11,8 @@ class head, ``rank="class"``: 1 - p(no-object)), k* from the count head ->
 per-event crop mask (and the differentiable context mask when configured)
 -> KV-cached greedy caption decode over the shared per-video memory.
 Training: Hungarian matching of the final and auxiliary decoder layers to
-the ground truth (on the host) -> crop mask of the matched queries ->
-teacher-forced caption pass; ``models/criterion.py`` takes it from there.
+the ground truth (on the model's device: K6 on the card) -> crop mask of
+the matched queries -> teacher-forced caption pass; ``models/criterion.py`` takes it from there.
 Evaluation: the same matching, then the greedy decode, the beam search or
 the teacher-forced pass's argmax as the captions, and the teacher-forced
 log-probabilities for the losses.
@@ -26,16 +26,14 @@ from __future__ import annotations
 
 import functools
 import math
-import time
 from typing import Dict
 
-import numpy as np
 import torch
 from torch import nn
 
 from ..config import check_decode_options
 from ..device import resolve_device, set_f32_numerics
-from ..ops.hungarian import batched_hungarian
+from ..ops.hungarian import batched_hungarian_torch
 from ..ops.segment_ops import denormalize_segments, inverse_sigmoid
 from ..utils.precision import cast_floating, params_in, resolve_dtype
 from .base_encoder import BaseEncoder, pyramid_shapes
@@ -120,22 +118,18 @@ def check_family(cfg) -> None:
 
 def match_layers(model, seg_all, batch, with_aux: bool):
     """Hungarian matching of the final decoder layer's segments and, with
-    ``with_aux``, of every auxiliary layer's to the ground truth, on the host
-    (``model`` gives num_queries, max_gt and the cost weights, and keeps the
-    matching's host milliseconds, after the costs arrived there, in
-    ``matcher_ms``). seg_all (layers, B, Q, 2) -> (indices (B, G),
+    ``with_aux``, of every auxiliary layer's to the ground truth, all
+    layers' problems in one solve on the model's device (K6 on the card,
+    no host synchronisation; ``model`` gives num_queries, max_gt and the
+    cost weights). seg_all (layers, B, Q, 2) -> (indices (B, G),
     indices_aux (layers-1, B, G) or None)."""
     seg_all = seg_all.detach()
     n_layers = seg_all.shape[0] if with_aux else 1
     gt, gt_mask = batch["gt_segments"], batch["gt_mask"]
     flat = seg_all[-n_layers:].roll(1, dims=0)  # final layer first, then aux
     cost = match_cost(flat.reshape(-1, model.num_queries, 2), gt.float().repeat(n_layers, 1, 1),
-                      model.cost_segment, model.cost_giou).cpu().numpy()
-    valid = gt_mask.repeat(n_layers, 1).cpu().numpy()
-    t0 = time.perf_counter()
-    idx = batched_hungarian(cost, valid)
-    model.matcher_ms = 1e3 * (time.perf_counter() - t0)
-    idx = torch.from_numpy(idx.astype(np.int64)).to(seg_all.device)
+                      model.cost_segment, model.cost_giou)
+    idx = batched_hungarian_torch(cost, gt_mask.bool().repeat(n_layers, 1))
     idx = idx.reshape(n_layers, -1, model.max_gt)
     return idx[0], (idx[1:] if with_aux else None)
 
@@ -297,7 +291,6 @@ class UnimodalDVC(nn.Module):
             float(cap.mlp_ratio), cap.qkv_bias, cap.positional_embedding_dropout,
             cap.attention_dropout, cap.projection_dropout, cap.mlp_dropout_1,
             cap.mlp_dropout_2)
-        self.matcher_ms = 0.0  # host milliseconds of the last training matching
         if self.use_differentiable_mask:
             self.context_mask = ContextMaskModel(dvc.d_model + 2, self.num_tokens)
 
@@ -339,9 +332,7 @@ class UnimodalDVC(nn.Module):
         decoder layer and, with ``with_aux``, of every auxiliary layer to the
         ground truth. Returns (out, indices (B,G), indices_aux (layers-1,B,G)
         or None). Without ``with_aux`` the encoder's auxiliary heads are not
-        run either, since their losses reuse the auxiliary matchings. The
-        matching runs on the host; ``self.matcher_ms`` keeps its time after
-        the costs arrived there."""
+        run either, since their losses reuse the auxiliary matchings."""
         out = self._propose(batch["video_tensor"], batch["video_mask"], batch["durations"],
                             with_enc_aux=with_aux)
         return (out, *match_layers(self, out["outputs_segment_all"], batch,

@@ -1,13 +1,12 @@
 """Set matcher: DETR-style Hungarian assignment; counterpart of the JAX
-``models/matcher.py``. The cost is built on the model's device, the
-assignment is solved on the host (``ops/hungarian.py``)."""
+``models/matcher.py``. The cost is built and the assignment solved on the
+predictions' device (``ops/hungarian.py``: K6 on the card)."""
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-from ..ops.hungarian import batched_hungarian
+from ..ops.hungarian import batched_hungarian_torch
 from ..ops.segment_ops import generalized_box_iou, segment_cl_to_xy
 
 
@@ -28,5 +27,4 @@ def hungarian_match(pred_segments, gt_segments, gt_mask, cost_segment: float = 5
     query. Entries at invalid GT slots are arbitrary (mask with gt_mask)."""
     cost = match_cost(pred_segments.detach().float(), gt_segments.float(),
                       cost_segment, cost_giou)
-    idx = batched_hungarian(cost.cpu().numpy(), gt_mask.cpu().numpy())
-    return torch.from_numpy(idx.astype(np.int64)).to(pred_segments.device)
+    return batched_hungarian_torch(cost, gt_mask.bool())

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..device import host_constant
 from ..ops.msda import ms_deform_attn
 from .layers import Linear
 
@@ -69,8 +70,8 @@ class MSDeformAttn(nn.Module):
 
         ref_c = reference_points[:, :, None, :, 0:1]  # (B, Q, 1, L, 1)
         if reference_points.shape[-1] == 1:
-            shapes = torch.tensor(temporal_shapes, dtype=torch.float32,
-                                  device=query.device)
+            shapes = host_constant([float(t) for t in temporal_shapes], torch.float32,
+                                   query.device)
             loc = ref_c + offsets / shapes[None, None, None, :, None]
         elif reference_points.shape[-1] == 2:
             ref_l = reference_points[:, :, None, :, 1:2]

@@ -465,7 +465,6 @@ class MultimodalDVC(nn.Module):
         self.audio_rescale_len = anet.audio_rescale_len
         self.num_feature_levels = det.num_feature_levels
         self.use_differentiable_mask = cfg.use_differentiable_mask
-        self.matcher_ms = 0.0  # host milliseconds of the last matching
         if dvc.use_bimodal_encoder:
             self.bimodal = BiModalEncoder(det.feature_dim, dvc.bimodal_depth, det.num_heads)
         self.proposal = MultimodalProposalNet(

@@ -4,9 +4,9 @@
 A vanilla query decoder (self-attention, cross-attention into the frame
 memory, MLP; post-norm) straight over single-scale frame features, optionally
 fed by its own ViViT over raw frames (``use_raw_videos``), then class,
-segment and count heads, the host Hungarian matching, each matched event's
-materialised crop of the memory and the caption decoder, as the other
-families. JAX's ``RegularDVC`` takes no ``decode_impl`` and no
+segment and count heads, the Hungarian matching (K6 on the card), each
+matched event's materialised crop of the memory and the caption decoder,
+as the other families. JAX's ``RegularDVC`` takes no ``decode_impl`` and no
 ``compute_dtype``: its decode is the plain-op greedy decode or beam search
 and it computes in f32, and so does this one.
 """
@@ -122,7 +122,6 @@ class RegularDVC(nn.Module):
         self.seq_len = anet.max_caption_len_all
         self.video_rescale_len = anet.video_rescale_len
         self.use_differentiable_mask = cfg.use_differentiable_mask
-        self.matcher_ms = 0.0  # host milliseconds of the last matching
         self.proposal = RegularProposalNet(
             d_model=dvc.d_model, feature_dim=dvc.detr.feature_dim,
             num_queries=dvc.num_queries, depth=dvc.decoder.depth,

@@ -27,7 +27,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNEL_SOURCES = ("msda_fwd.cu", "msda_bwd.cu", "fused_decode.cu", "probe_add.cu")
+KERNEL_SOURCES = ("msda_fwd.cu", "msda_bwd.cu", "fused_decode.cu", "probe_add.cu",
+                  "hungarian.cu")
 
 
 def find_nvcc() -> str:

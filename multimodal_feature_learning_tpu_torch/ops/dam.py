@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from ..device import host_constant
+
 
 def idx_to_flat_grid(total_tokens: int, idx: torch.Tensor) -> torch.Tensor:
     """One-hot scatter of token indices: (B, K) -> (B, total_tokens) f32."""
@@ -25,8 +27,8 @@ def attn_map_to_flat_grid(temporal_shapes, level_start_index, sampling_locations
     (B, layers, H, S) with S = sum(temporal_shapes)."""
     B, num_layers, Q, H, L, P = sampling_locations.shape
     dev = sampling_locations.device
-    shapes = torch.tensor([int(t) for t in temporal_shapes], dtype=torch.float32, device=dev)
-    starts = torch.tensor([int(s) for s in level_start_index], dtype=torch.long, device=dev)
+    shapes = host_constant([float(t) for t in temporal_shapes], torch.float32, dev)
+    starts = host_constant([int(s) for s in level_start_index], torch.long, dev)
     S = int(sum(int(t) for t in temporal_shapes))
 
     loc = sampling_locations.permute(0, 1, 3, 2, 5, 4).reshape(-1, Q * P, L)

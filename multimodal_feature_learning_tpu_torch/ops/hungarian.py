@@ -1,30 +1,44 @@
-"""Exact linear-sum assignment on the host, in numpy; counterpart of the JAX
-``ops/hungarian.py``.
+"""Exact linear-sum assignment: the batched matcher kernel (K6,
+``csrc/hungarian.cu``) and its plain version in numpy; counterpart of the
+JAX ``ops/hungarian.py``.
 
-The same algorithm as the JAX package's: the e-maxx formulation of the
-O(n^3) potentials and shortest-augmenting-path method, in f32, solved
-transposed (the GT slots are the rows), with invalid GT slots as
-zero-cost rows and the same argmax inversion. ``jax.vmap`` runs the
-problems of a batch in lockstep; here they run together as rows of numpy
-arrays, each problem's loops stepping only while that problem is still
-searching, so every problem takes the same steps as it would alone and the
-indices equal the JAX package's on every slot, ties and invalid slots
-included. (``scipy.optimize.linear_sum_assignment`` is another algorithm: on
-tied costs it may pick another optimal matching.)
+``batched_hungarian_torch`` takes the cost where it lies: a CUDA tensor goes
+to K6 (one launch for every problem, no host synchronisation) or raises, a
+CPU tensor to the numpy version. Both follow the JAX package's algorithm:
+the e-maxx formulation of the O(n^3) potentials and shortest-augmenting-path
+method, in f32, solved transposed (the GT slots are the rows), with
+invalid GT slots as zero-cost rows and the same argmax inversion.
+``jax.vmap`` runs the problems of a batch in lockstep; the numpy version
+runs them together as rows of numpy arrays, each problem's loops stepping
+only while that problem is still searching, so every problem takes the same
+steps as it would alone and the indices equal the JAX package's on every
+slot, ties and invalid slots included; K6 gives each problem a warp of its
+own and repeats numpy's arithmetic, so its indices equal numpy's.
+(``scipy.optimize.linear_sum_assignment`` is another algorithm: on tied
+costs it may pick another optimal matching.)
 """
 
 from __future__ import annotations
 
+import ctypes
+from typing import Optional
+
 import numpy as np
+import torch
+
+from .build import KernelBinding
 
 _INF = np.float32(1e18)
+MAX_COLS = 1024  # K6 takes up to this many queries (columns of the solve)
 
 
-def hungarian(cost: np.ndarray) -> np.ndarray:
+def hungarian(cost: np.ndarray, search_steps: Optional[list] = None) -> np.ndarray:
     """Solve LSAP for a batch of problems, cost (P, n, m) with n <= m.
     Returns col_to_row (P, m) int32: the row matched to each column, -1 for
     an unmatched column. Minimises the sum of cost[row, col] over a full
-    matching of all n rows."""
+    matching of all n rows. With ``search_steps`` (a list), the number of
+    search steps each problem took, (P,) int64, is appended to it: the
+    work of the solve, which depends on the data."""
     cost = np.asarray(cost, dtype=np.float32)
     nP, n, m = cost.shape
     if n > m:
@@ -39,6 +53,7 @@ def hungarian(cost: np.ndarray) -> np.ndarray:
     v = np.zeros((nP, m + 1), np.float32)
     p = np.zeros((nP, m + 1), np.int64)
     zero = np.float32(0.0)
+    steps = np.zeros(nP, np.int64)
     for i in range(n):
         p[:, 0] = i + 1
         minv = np.full((nP, m + 1), _INF, np.float32)
@@ -50,6 +65,7 @@ def hungarian(cost: np.ndarray) -> np.ndarray:
             act = i0 != 0
             if not act.any():
                 break
+            steps += act
             used[ar, j0] |= act
             cur = cost[ar, np.maximum(i0 - 1, 0)] - u[ar, i0][:, None] - v[:, 1:]
             upd = (cur < minv[:, 1:]) & ~used[:, 1:] & act[:, None]
@@ -75,22 +91,78 @@ def hungarian(cost: np.ndarray) -> np.ndarray:
             j1 = np.where(act, way[ar, j0], 0)
             p[ar, j0] = np.where(act, p[ar, j1], p[ar, j0])
             j0 = j1
+    if search_steps is not None:
+        search_steps.append(steps)
     return (p[:, 1:] - 1).astype(np.int32)
 
 
-def batched_hungarian(cost: np.ndarray, col_valid: np.ndarray) -> np.ndarray:
+def batched_hungarian(cost: np.ndarray, col_valid: np.ndarray,
+                      search_steps: Optional[list] = None) -> np.ndarray:
     """Batched rectangular LSAP with column validity.
 
     cost (B, n_rows, n_cols), n_cols <= n_rows (queries x padded GT);
     col_valid (B, n_cols) bool. Returns (B, n_cols) int32: for each column
     (GT slot) the matched row (query). Entries of invalid columns are what
-    the JAX package gives there; mask them with col_valid."""
+    the JAX package gives there; mask them with col_valid. ``search_steps``
+    as in ``hungarian``."""
     cost = np.asarray(cost, dtype=np.float32)
     B, n_rows, n_cols = cost.shape
     if n_cols > n_rows:
         raise ValueError("batched_hungarian expects n_cols <= n_rows")
     cost_t = np.swapaxes(cost, 1, 2)
     cost_t = np.where(np.asarray(col_valid, bool)[:, :, None], cost_t, np.float32(0.0))
-    p = hungarian(cost_t)  # (B, n_rows): query j -> GT slot or -1
+    p = hungarian(cost_t, search_steps)  # (B, n_rows): query j -> GT slot or -1
     match = p[:, None, :] == np.arange(n_cols)[None, :, None]  # (B, G, Q)
     return np.argmax(match, axis=-1).astype(np.int32)
+
+
+class HungarianKernel(KernelBinding):
+    """``hungarian_launch`` (K6): cost (P, Q, G) f32 and col_valid (P, G)
+    bool, contiguous on the card, 1 <= G <= Q <= ``MAX_COLS``; returns the
+    (P, G) int64 matched queries."""
+
+    source, symbol = "hungarian.cu", "hungarian_launch"
+    replaces = "multimodal_feature_learning_tpu/ops/hungarian.py:26"  # lax loops, no Pallas
+    # hungarian_launch(cost, valid, out, P, Q, G, stream)
+    argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+    def __call__(self, cost: torch.Tensor, col_valid: torch.Tensor) -> torch.Tensor:
+        if cost.device.type != "cuda":
+            raise ValueError(f"the hungarian kernel takes CUDA tensors, got {cost.device}")
+        if cost.dim() != 3 or cost.dtype != torch.float32 or not cost.is_contiguous():
+            raise ValueError(f"cost must be a contiguous float32 (P, Q, G) tensor, got "
+                             f"{cost.dtype} {tuple(cost.shape)}")
+        P, Q, G = cost.shape
+        if col_valid.shape != (P, G) or col_valid.dtype != torch.bool \
+                or col_valid.device != cost.device or not col_valid.is_contiguous():
+            raise ValueError(f"col_valid must be a contiguous bool ({P}, {G}) tensor on "
+                             f"{cost.device}, got {col_valid.dtype} "
+                             f"{tuple(col_valid.shape)} on {col_valid.device}")
+        if G > Q or Q > MAX_COLS:
+            raise ValueError(f"the hungarian kernel takes G <= Q <= {MAX_COLS} "
+                             f"(GT slots <= queries), got Q={Q} G={G}")
+        out = torch.empty((P, G), dtype=torch.int64, device=cost.device)
+        if out.numel() == 0:
+            return out
+        fn = self._launcher()
+        with torch.cuda.device(cost.device):
+            stream = torch.cuda.current_stream(cost.device).cuda_stream
+            rc = fn(cost.data_ptr(), col_valid.data_ptr(), out.data_ptr(), P, Q, G, stream)
+        if rc != 0:
+            raise RuntimeError(f"hungarian_launch failed with CUDA error {rc} "
+                               f"(P={P} Q={Q} G={G})")
+        self.launches += 1
+        return out
+
+
+HUNGARIAN = HungarianKernel()
+
+
+def batched_hungarian_torch(cost: torch.Tensor, col_valid: torch.Tensor) -> torch.Tensor:
+    """``batched_hungarian`` on tensors: cost (B, n_rows, n_cols) (queries x
+    padded GT), col_valid (B, n_cols) -> (B, n_cols) int64 on the cost's
+    device. A CUDA cost goes to K6, a CPU cost to the numpy version."""
+    if cost.device.type == "cpu":
+        idx = batched_hungarian(cost.detach().float().numpy(), col_valid.numpy())
+        return torch.from_numpy(idx.astype(np.int64))
+    return HUNGARIAN(cost.detach().float().contiguous(), col_valid.bool().contiguous())

@@ -31,6 +31,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 
 import jax
 import numpy as np
@@ -177,8 +178,37 @@ def test_resume_equals_the_straight_run(world, snapshot, straight):
     assert [r["epoch"] for r in resumed] == [0, 1]
     for got, want in zip(resumed, ref):
         for k in want:
-            if k != "train_matcher_ms" and (k.startswith("train_") or got["epoch"] == 1):
+            if k.startswith("train_") or got["epoch"] == 1:
                 assert got[k] == want[k], (got["epoch"], k)
+
+
+def test_steps_per_dispatch_equals_single_steps(world, snapshot, straight, capsys):
+    """``steps_per_dispatch=2`` (JAX's multi-step dispatch; 2 steps an
+    epoch here, one dispatch each) from the same weights: the same train
+    log and checkpoint params as the straight run's single steps, exactly,
+    and one progress line a step."""
+    out = str(world[0] / "multistep")
+    capsys.readouterr()
+    run = port_main.main(["--device", "cpu", "--weights", snapshot, "--epochs", str(EPOCHS),
+                          "--batch-size", str(BATCH), "--output-dir", out,
+                          *overrides(world, "steps_per_dispatch=2", "print_freq=1")])
+    steps = run["train_examples"] // BATCH
+    lines = re.findall(r"^Epoch: \[(\d+)\] \[ ?(\d+)/(\d+)\]", capsys.readouterr().out,
+                       re.MULTILINE)
+    assert steps == 2 and [(int(e), int(i)) for e, i, _ in lines] == \
+        [(e, i) for e in range(EPOCHS) for i in range(steps)]
+    got, want = read_log(os.path.join(out, "train_log.txt")), \
+        read_log(os.path.join(straight[0], "train_log.txt"))
+    assert [r["epoch"] for r in got] == list(range(EPOCHS))
+    for g, w in zip(got, want):
+        assert {k: v for k, v in g.items() if k.startswith("train_")} == \
+            {k: v for k, v in w.items() if k.startswith("train_")}
+    a = torch.load(os.path.join(out, "checkpoint"), weights_only=True)
+    b = torch.load(os.path.join(straight[0], "checkpoint"), weights_only=True)
+    assert a["step"] == b["step"] == EPOCHS * steps
+    assert a["model"].keys() == b["model"].keys()
+    for k, v in b["model"].items():
+        assert torch.equal(a["model"][k], v), k
 
 
 @pytest.mark.parametrize("rates, numbered, val_epochs", [
@@ -384,8 +414,8 @@ def test_cli_config_fields_match_jax():
     from multimodal_feature_learning_tpu.config import load_config
 
     fields = ("checkpoint_rate", "eval_rate", "start_epoch", "resume", "transfer_dtype",
-              "dataset.activity_net.train_subset")
-    values = ("3", "0", "5", "runs/x/checkpoint", "bfloat16", "16")
+              "steps_per_dispatch", "dataset.activity_net.train_subset")
+    values = ("3", "0", "5", "runs/x/checkpoint", "bfloat16", "4", "16")
 
     def get(cfg, name):
         for part in name.split("."):

@@ -6,7 +6,10 @@ slots and ties included (identical query rows are common early in
 training). scipy's ``linear_sum_assignment`` is the optimality oracle only:
 on tied costs it may pick another optimal matching. ``models/matcher.py``
 builds the cost 5 L1 - 2 gIoU on the model's device; its indices must equal
-JAX's ``hungarian_match``."""
+JAX's ``hungarian_match``. ``batched_hungarian_torch``, the tensor-facing
+wrapper that sends a CUDA cost to the K6 kernel, takes the numpy version
+for a CPU cost: its indices must equal JAX's too, as int64 on the cost's
+device; the kernel's binding refuses what it does not take.""" 
 
 from __future__ import annotations
 
@@ -20,7 +23,10 @@ from multimodal_feature_learning_tpu.models.matcher import hungarian_match as ja
 from multimodal_feature_learning_tpu.ops.hungarian import batched_hungarian as jax_lsap
 from multimodal_feature_learning_tpu.ops.segment_ops import generalized_box_iou as jax_giou
 from multimodal_feature_learning_tpu_torch.models.matcher import hungarian_match, match_cost
-from multimodal_feature_learning_tpu_torch.ops.hungarian import batched_hungarian, hungarian
+from multimodal_feature_learning_tpu_torch.ops import build
+from multimodal_feature_learning_tpu_torch.ops.hungarian import (
+    HUNGARIAN, MAX_COLS, batched_hungarian, batched_hungarian_torch, hungarian,
+)
 from multimodal_feature_learning_tpu_torch.ops.segment_ops import box_iou, generalized_box_iou
 
 
@@ -108,3 +114,48 @@ def test_cost_and_giou_match_jax():
     assert ((iou >= 0) & (iou <= 1)).all()
     cost = match_cost(ta, tb)
     assert cost.shape == (3, 7, 5) and torch.isfinite(cost).all()
+
+
+def flagship_problems(seed=6):
+    """96 problems (6 decoder layers x batch 16) of 20 queries x 10 GT
+    slots, the flagship's train and eval shape: random costs, integer
+    costs full of ties, identical query rows, the 1e5 / -1e5 values of
+    ``match_cost``'s guard, and problems with one valid slot only."""
+    cost, valid = random_problems(96, seed=seed)
+    rng = np.random.default_rng(seed)
+    cost[10:20] = rng.integers(0, 3, size=(10, 20, 10))
+    cost[20:24] = cost[20:24, :1]
+    cost[24, 3], cost[25, :, 2], cost[26, 5, 5] = 1e5, -1e5, 1e5
+    valid[30:34] = False
+    valid[30:34, 0] = True
+    return cost, valid
+
+
+def test_torch_wrapper_on_cpu_equals_jax():
+    cost, valid = flagship_problems()
+    got = batched_hungarian_torch(torch.from_numpy(cost), torch.from_numpy(valid))
+    ref = np.asarray(jax_lsap(jnp.asarray(cost), jnp.asarray(valid)))
+    assert got.dtype == torch.int64 and got.device.type == "cpu" and got.shape == (96, 10)
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def test_search_steps_count_the_work():
+    """``search_steps`` gets each problem's search steps: n for a problem
+    whose rows all find a free column at once, at most n (n + 1) / 2."""
+    cost, valid = flagship_problems()
+    steps = []
+    batched_hungarian(cost, valid, search_steps=steps)
+    (per_problem,) = steps
+    assert per_problem.shape == (96,) and (per_problem >= 10).all()
+    assert (per_problem <= 55).all()
+    diagonal = -np.eye(10, 20, dtype=np.float32)[None]
+    steps = []
+    hungarian(diagonal, search_steps=steps)
+    assert steps[0].tolist() == [10]
+
+
+def test_kernel_binding_refuses_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        HUNGARIAN(torch.zeros(2, 20, 10), torch.ones(2, 10, dtype=torch.bool))
+    assert HUNGARIAN.launches == 0
+    assert "hungarian.cu" in build.KERNEL_SOURCES and MAX_COLS >= 1024

@@ -26,6 +26,11 @@ mask. Held to:
   as the gradient's sign;
 - params after the second step: within 1.01 lr per step.
 
+The port's ``make_train_multistep`` takes the same two steps as one
+dispatch of K = 2 over the batch stacked twice, from the same params: its
+matchings of each step equal JAX's, its loss terms of each step and its
+params after the two steps held as above.
+
 Then, on the port alone: with dropout on, one seed gives one loss and
 another seed another; a step after torch.save -> torch.load equals the
 uninterrupted step; ``train_one_epoch`` runs over the synthetic batches."""
@@ -54,7 +59,8 @@ from multimodal_feature_learning_tpu_torch.engine.state import (
     create_train_state, load_checkpoint, save_checkpoint,
 )
 from multimodal_feature_learning_tpu_torch.engine.train import (
-    batch_to_device, forward_loss, make_train_step, train_one_epoch,
+    batch_to_device, forward_loss, make_train_multistep, make_train_step, stack_batches,
+    train_one_epoch,
 )
 from multimodal_feature_learning_tpu_torch.models.criterion import build_criterion
 from multimodal_feature_learning_tpu_torch.utils.weights import export_flax_params
@@ -88,6 +94,7 @@ def jax_run(jcfg, params, batch):
         grads, (indices, indices_aux) = grad_fn(state.params, batch)
         if not run["grads"]:
             run["indices"] = (np.asarray(indices), np.asarray(indices_aux))
+        run.setdefault("step_indices", []).append((np.asarray(indices), np.asarray(indices_aux)))
         run["grads"].append(flatten_params(grads))
         state, metrics, _ = step(state, batch, rng)
         run["metrics"].append({k: float(v) for k, v in jax.device_get(metrics).items()})
@@ -117,7 +124,33 @@ def port_run(jcfg, params, batch):
         run["metrics"].append({k: float(v) for k, v in step(state, tb).items()})
         run["params"].append(export_flax_params(model))
     run["lr"] = tcfg.lr
+    run["multistep"] = port_multistep_run(jcfg, params, batch)
     return run
+
+
+def port_multistep_run(jcfg, params, batch):
+    """The STEPS steps as one ``make_train_multistep`` dispatch over the
+    batch stacked STEPS times: each step's matchings and metrics, and the
+    params after the last."""
+    tcfg = torch_cfg_like(jcfg)
+    model = build_port_model(jcfg, params)
+    criterion, weight_dict = build_criterion(tcfg, PAD)
+    state = create_train_state(tcfg, model, STEPS_PER_EPOCH)
+    indices = []
+    forward_train = model.forward_train
+
+    def recording(tb):
+        out = forward_train(tb)
+        indices.append((out[1].numpy().copy(), out[2].numpy().copy()))
+        return out
+
+    model.forward_train = recording
+    stacked = batch_to_device(stack_batches([batch] * STEPS), "cpu")
+    metrics = make_train_multistep(criterion, weight_dict, seed=0)(state, stacked)
+    return {"indices": indices,
+            "metrics": [{k: float(v[i]) for k, v in metrics.items() if k != "lr"}
+                        for i in range(STEPS)],
+            "params": export_flax_params(model)}
 
 
 @pytest.fixture(scope="module", params=[True, False], ids=["ctxmask", "cropmask"])
@@ -183,6 +216,24 @@ def test_updated_params_match_jax(runs):
     r, g = ref["params"][1], got["params"][1]
     for k in r:
         assert float(np.abs(g[k] - r[k]).max()) <= 2 * 1.01 * lr, k
+
+
+def test_multistep_matches_jax_step_by_step(runs):
+    ref, got = runs
+    multi = got["multistep"]
+    assert len(multi["indices"]) == len(ref["step_indices"]) == STEPS
+    for (r, ra), (g, ga) in zip(ref["step_indices"], multi["indices"]):
+        np.testing.assert_array_equal(g, r)
+        np.testing.assert_array_equal(ga, ra)
+    for step, (r, g) in enumerate(zip(ref["metrics"], multi["metrics"])):
+        terms = [k for k in r if k.startswith("loss")]
+        assert len(terms) > 10 and set(terms) <= set(g)
+        for k in terms:
+            assert abs(g[k] - r[k]) <= max(1e-5 * abs(r[k]), 1e-6), (step, k, g[k], r[k])
+    r, g = ref["params"][-1], multi["params"]
+    assert set(r) == set(g)
+    for k in r:
+        assert float(np.abs(g[k] - r[k]).max()) <= STEPS * 1.01 * got["lr"], k
 
 
 # -- the port alone ----------------------------------------------------------
