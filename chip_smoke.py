@@ -6,9 +6,11 @@
 Phases, each printing one line with its wall seconds:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: compile every CUDA kernel of the port with nvcc (sm_90a), one
-   nvcc per source, all started together, and print what -Xptxas -v says
-   of the MSDA and fused decode kernels (registers, shared memory, spills);
+2. build: compile every CUDA kernel of the port with nvcc (sm_90a), and
+   its native collate with g++, one compiler per source, all started
+   together (with a variant build of the fused decode for its stage
+   timing), and print what -Xptxas -v says of the MSDA and
+   fused decode kernels (registers, shared memory, spills);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the serving and training paths give it, with its time, the
    plain version's time and the least time the card could take (its
@@ -196,16 +198,45 @@ Phases, each printing one line with its wall seconds:
 37. train_multistep (after train): the flagship at full width from
    conv_e79, batch 16, dropout 0.1, 9 synthetic batches through
    train_one_epoch at chunk_k 4 (make_train_multistep: two chunks of 4 and
-   a tail of 1) and at chunk_k 1: each chunk's steps under
-   torch.cuda.set_sync_debug_mode("error") (no host synchronisation from
-   after its transfer to its last step's dispatch); each chunked step
-   against the single step replayed from the same state: loss terms (rel
-   1e-5), grad norm (rel 1e-4), matchings (equal but at near-ties, listed)
-   and parameters after the step (1.01 lr); free-running, the gaps to the
-   chunk_k 1 run beside those of a second chunk_k 1 run (reported: the
-   runs part chaotically from K2's atomic sums); ms a step of each, each
-   chunk's host dispatch ms, one profiled chunk (device ms, busy share,
-   launches a step, K6's device time), K6 once a step, peak memory.
+   a tail of 1), twice at chunk_k 1 and once more at chunk_k 4: each
+   chunk's steps under torch.cuda.set_sync_debug_mode("error") (no host
+   synchronisation from after its transfer to its last step's dispatch);
+   the two runs at each chunk_k equal bit for bit (every step's losses and
+   matchings, the parameters after the last); each chunked step against
+   the single step replayed from the same state: loss terms (rel 1e-5),
+   grad norm (rel 1e-4), matchings (equal but at near-ties, listed) and
+   parameters after the step (1.01 lr); ms a step of each, each chunk's
+   host dispatch ms, one profiled chunk (device ms, busy share, launches a
+   step, K6's device time), K6 once a step, peak memory;
+38. determinism (after train_multistep): K2 twice on the same inputs at the
+   encoder's, the decoder's, the long pyramid's and the dense encoder's
+   calls, f32 and bf16: bit for bit, and within its tolerance of the plain
+   backward, and its device ms (two CUDA graphs of 50) beside the bound;
+   the DAM splat twice, bit for bit, and against the CPU's; one flagship
+   train step from conv_e79 replayed twice: losses, matchings, gradients
+   and parameters bit for bit; the same with K2 swapped for the plain backward, and so under
+   torch.use_deterministic_algorithms(True, warn_only=True) with its
+   warnings (reported); and train_multistep's free-running repeats;
+39. observability: one flagship train step inside
+   utils/observability.py::profile_section with a log directory: the
+   Chrome trace holds its CUDA kernels (K1, K2, K6 among them);
+   device_memory_stats: a non-zero peak equal to
+   torch.cuda.max_memory_allocated; save_grad_flow of its gradients;
+40. glove: a GloVe file (300 values a word, every 97th word left out) for
+   the evaluation world's vocabulary, the flagship at full width built from
+   it through build_model_and_criterion (the embedding the matrix, then the
+   projection to 512 and a ReLU), weights from seed 0: eval_check, 3 train
+   steps of batch 2 each against its CPU replay from the card's state, and
+   check_fused (the fused decode's tokens against the plain-op decode's);
+41. native_collate: the native collate (csrc/collate.cpp, built with g++ in
+   the build phase) against numpy on the evaluation world's features, bit
+   for bit, with host ms; the loader's wait a batch with the library and
+   under MFL_DISABLE_NATIVE, its batches equal;
+42. vivit_transplant (after raw_cli): a seeded ViT npz for config #5's
+   ViViT (512 wide, 16 x 16 patches) transplanted in every ViViT mode on
+   the card and on the CPU, bit for bit; then the raw family with it
+   transplanted, eval_check of 2 raw val videos at 32 frames, card against
+   CPU.
 
 Then one JSON line of kernel measurements (K1-K6) and, as the last line, a JSON
 object naming the device. Any failure exits non-zero without that line, as
@@ -371,7 +402,7 @@ def msda_calls(model_dims):
 
 
 # K2's tolerance, x max |ref| of each output: f32 sums in another order
-# (a row's entries are summed in an order that changes from run to run);
+# (a row's entries are summed in their key order, not the plain version's);
 # in bf16 dvalue is rounded once from those f32 sums, which may round to
 # either neighbour: one bf16 step at its largest magnitude
 BWD_TOL = {"float32": {"dvalue": 1e-5, "dloc": 1e-5, "daw": 1e-5},
@@ -454,6 +485,99 @@ def check_msda_bwd(model_dims):
         raise AssertionError(f"MSDeformAttnFunction's gradients are off by {function_err} "
                              f"of autograd through the plain core")
     return cases, function_err
+
+
+def bitwise_equal(a, b) -> bool:
+    """Two tensors (or sequences of them) equal bit for bit: same dtypes and
+    shapes, NaN only where the other has the same NaN."""
+    import torch
+
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(bitwise_equal(x, y) for x, y in zip(a, b))
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        return torch.equal(a.contiguous().view(bits), b.contiguous().view(bits))
+    return torch.equal(a, b)
+
+
+def k2_determinism(model_dims):
+    """Phase determinism, the kernel part: at each call of PERF.md's K2 row
+    (the encoder's, the decoder's, the long pyramid's and the dense
+    encoder's), in f32 and bf16, K2 called twice on the same inputs gives
+    dvalue, dloc and daw equal bit for bit, and agrees with the plain
+    backward to BWD_TOL. Device ms from two CUDA graphs of 50 calls, beside
+    the bound."""
+    import torch
+
+    from multimodal_feature_learning_tpu_torch.ops import msda
+    from multimodal_feature_learning_tpu_torch.ops.ms_deform_attn import (
+        ms_deform_attn_core_backward)
+    from multimodal_feature_learning_tpu_torch.tools.msda_device_time import (
+        FAMILY_CALLS, graph_call_ms)
+
+    B, H, Dh, shapes, P, q_enc, q_dec, q_long, long_shapes = model_dims
+    dense = [c for c in FAMILY_CALLS if c[0] == "dense_encoder"][0]
+    calls = (("encoder", B, q_enc, shapes), ("decoder", B, q_dec, shapes),
+             ("long_pyramid", 2, q_long, long_shapes), dense)
+    dev = torch.device("cuda")
+    lines = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        for where, b, q, s in calls:
+            value, loc, aw = msda_inputs(b, q, H, Dh, s, P, dtype, seed=q + 1)
+            g = torch.randn((b, q, H * Dh),
+                            generator=torch.Generator(device="cuda").manual_seed(q),
+                            device="cuda").to(dtype)
+            first, second = (msda.MSDA_BWD(value, s, loc, aw, g) for _ in range(2))
+            ref = ms_deform_attn_core_backward(value, s, loc, aw, g)
+            torch.cuda.synchronize()
+            if not bitwise_equal(first, second):
+                raise AssertionError(f"K2 gave two results on the same inputs ({where}, {dname})")
+            errs = {}
+            for name, a, r in zip(("dvalue", "dloc", "daw"), first, ref):
+                tol = BWD_TOL[dname][name]
+                err = (a.float() - r.float()).abs().max().item()
+                scale = r.float().abs().max().item()
+                if not err <= tol * scale:
+                    raise AssertionError(f"K2 disagrees with the plain backward ({where}, "
+                                         f"{dname}, {name}): {err} > {tol} x {scale}")
+                errs[name] = err / scale if scale else err
+            times = [graph_call_ms(lambda: msda.MSDA_BWD(value, s, loc, aw, g), dev)
+                     for _ in range(2)]
+            bound_ms, bound_by, _ = msda_bwd_bound_ms(value, s, loc, aw, g)
+            lines.append({
+                "call": where, "B": b, "Q": q, "dtype": dname, "repeat_bitwise": True,
+                "rel_err_vs_plain": errs, "ms": times, "bound_ms": bound_ms,
+                "bound_by": bound_by,
+                "plan": vars(msda.msda_bwd_plan(s, b, H, Dh, q, P,
+                                                itemsize=value.element_size()))})
+            del value, loc, aw, g, first, second, ref
+    return lines
+
+
+def dam_determinism(seed: int = 0):
+    """The DAM splat (``ops/dam.py``) twice on the decoder's sampling
+    locations and attention weights at the flagship's training shapes:
+    equal bit for bit, and equal to the CPU's splat of the same inputs to
+    1e-6 of its largest value (the CPU sums each token's weights in index
+    order, the card in its own fixed order)."""
+    import torch
+
+    from multimodal_feature_learning_tpu_torch.ops.dam import attn_map_to_flat_grid
+
+    shapes, starts = (300, 150, 75, 38), (0, 300, 450, 525)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    loc = torch.rand((BATCH, 6, 20, 8, 4, 4), generator=gen, device="cuda") * 1.4 - 0.2
+    aw = torch.rand(loc.shape, generator=gen, device="cuda")
+    a, b = (attn_map_to_flat_grid(shapes, starts, loc, aw) for _ in range(2))
+    cpu = attn_map_to_flat_grid(shapes, starts, loc.cpu(), aw.cpu())
+    err = (a.cpu() - cpu).abs().max().item() / cpu.abs().max().item()
+    if not bitwise_equal(a, b) or not err <= 1e-6:
+        raise AssertionError(f"the DAM splat is not repeatable (bitwise {bitwise_equal(a, b)}) "
+                             f"or parts from the CPU's by {err}")
+    return {"repeat_bitwise": True, "rel_err_vs_cpu": err}
 
 
 def check_msda(model_dims):
@@ -904,12 +1028,13 @@ def without_dropout(cfg):
     return cfg
 
 
-def build_family(cfg, vocab_size: int, device, flat=None):
+def build_family(cfg, vocab_size: int, device, flat=None, embedding_matrix=None):
     """The model of ``cfg``'s family (the unimodal ``models.dvc`` model, the
     multimodal one for two input modalities, raw with ``use_raw_videos``, or
     the regular one with both family flags off) on ``device``, carrying the
     flat flax params ``flat`` (loaded strictly) or, without them, weights
-    drawn from ``cfg.seed``."""
+    drawn from ``cfg.seed``; with ``embedding_matrix`` (GloVe's) its caption
+    embedding is the pretrained embedder."""
     from multimodal_feature_learning_tpu_torch.models.dvc import build_model
     from multimodal_feature_learning_tpu_torch.models.multimodal import build_multimodal_model
     from multimodal_feature_learning_tpu_torch.models.regular_dvc import build_regular_model
@@ -919,7 +1044,8 @@ def build_family(cfg, vocab_size: int, device, flat=None):
         build = build_regular_model
     else:
         build = build_multimodal_model if len(cfg.dvc.input_modalities) == 2 else build_model
-    model = build(cfg, vocab_size, device=device, seed=cfg.seed)
+    model = build(cfg, vocab_size, device=device, seed=cfg.seed,
+                  embedding_matrix=embedding_matrix)
     if flat is not None:
         load_flax_params(model, flat)
     return model
@@ -1768,7 +1894,8 @@ def dropout_off(model):
     return model
 
 
-def eval_check(cfg, flat, vocab_size, batch=None, partings: bool = False):
+def eval_check(cfg, flat, vocab_size, batch=None, partings: bool = False,
+               embedding_matrix=None):
     """Phase 15: one batch of 2 with dropout off, from conv_e79, through
     forward_eval on the card and on the port's CPU path: matched indices
     (final and auxiliary) equal; the teacher-forced log-probabilities of
@@ -1781,7 +1908,8 @@ def eval_check(cfg, flat, vocab_size, batch=None, partings: bool = False):
     part at a near-tie: at its first differing position the CPU's two
     largest logits lie within twice the largest gap between the two
     devices' logits there (``device_partings``); and the backbones' features
-    (``backbone_fns``) agree within 1e-4 of their largest."""
+    (``backbone_fns``) agree within 1e-4 of their largest. ``embedding_matrix``
+    as ``build_family``'s."""
     import dataclasses
 
     import torch
@@ -1795,7 +1923,7 @@ def eval_check(cfg, flat, vocab_size, batch=None, partings: bool = False):
         batch = next(synthetic_batches(cfg, 2, vocab_size, seed=0))
     res, step_logits, features = {}, {}, {}
     for device in ("cuda", "cpu"):
-        model = build_family(cfg, vocab_size, device, flat)
+        model = build_family(cfg, vocab_size, device, flat, embedding_matrix)
         criterion, weight_dict = build_criterion(cfg, model.pad_idx)
         tb = batch_to_device(batch, device)
         with recording_decode_logits(model) as step_logits[device]:
@@ -2533,34 +2661,32 @@ def train_multistep(cfg, flat, vocab_size) -> dict:
     """Phase train_multistep: the flagship at full width from conv_e79,
     batch 16, dropout 0.1, MULTISTEP_BATCHES synthetic batches through
     train_one_epoch at chunk_k MULTISTEP_K (make_train_multistep: two
-    chunks and a tail of 1), then twice at chunk_k 1, each from a fresh
-    model.
+    chunks and a tail of 1), twice at chunk_k 1, then once more at chunk_k
+    MULTISTEP_K, each from a fresh model.
     (a) Each chunk's steps run under torch.cuda.set_sync_debug_mode("error"),
     from after the chunk's one transfer to its last step's dispatch: a call
     that synchronises the host raises.
-    (b) The runs launch the same kernels in the same order; K2 adds dvalue
-    with atomics, so a step's gradients differ between runs in their last
-    bits, and training from conv_e79 amplifies that: two chunk_k 1 runs
-    part by about 3e-3 in loss at the fourth step and in their matchings at
-    the fifth, and their parameters by more than 1.01 lr a step after nine
-    (Adam moves a parameter by up to about 1.04 lr a step at these betas,
-    either way). So each step of the chunked run is held against the
-    single step replayed from the same state (its params and AdamW
-    moments, copied on the device before the step; the replay runs after
-    the run): every loss term and the loss within rel 1e-5 (atol 1e-6), the
-    grad norm within rel 1e-4, the matchings equal on every slot but where
-    the costs part a near-tie (the other matching within 1e-4 of the own
-    one's cost, listed) and every parameter after the step within 1.01 lr.
-    Free-running, the chunked run's and the second chunk_k 1 run's gaps to
-    the first (loss of each step, slots matched differently, the largest
-    parameter gap after the last step) are reported, not held.
+    (b) The runs launch the same kernels in the same order, and every one
+    sums in a fixed order (K2 since its ordered sort, the DAM splat), so
+    the two chunk_k 1 runs, and the two chunked ones, are equal bit for
+    bit: every step's losses and matchings and the parameters after the
+    last step. Each step of the chunked run is held against the single
+    step replayed from the same state (its params and AdamW moments, copied
+    on the device before the step; the replay runs after the run): every
+    loss term and the loss within rel 1e-5 (atol 1e-6), the grad norm within
+    rel 1e-4, the matchings equal on every slot but where the costs part a
+    near-tie (the other matching within 1e-4 of the own one's cost, listed)
+    and every parameter after the step within 1.01 lr. Free-running, the
+    gaps of the chunked runs and of the second chunk_k 1 run to the first
+    (loss of each step, slots matched differently, the largest parameter
+    gap after the last step) are reported.
     (c) On the replay's model, without the snapshots: train_one_epoch over
     2 x MULTISTEP_K batches at chunk_k MULTISTEP_K and 1 in turns (ABBA),
     ms a step of each turn (up to a synchronize), the host ms to dispatch
     each chunk, the peak memory of the turns; then one chunk under
     torch.profiler (device ms, busy share, launches a step, K6's device
-    us). Also the ms a step of the three checked runs (the chunked one's
-    includes its snapshots' copies) and K6 once a step in each."""
+    us). Also the ms a step of the four checked runs (the first chunked
+    one's includes its snapshots' copies) and K6 once a step in each."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2593,7 +2719,8 @@ def train_multistep(cfg, flat, vocab_size) -> dict:
         return create_train_state(cfg, model, steps_per_epoch=1000), criterion, weight_dict
 
     runs, snapshots = {}, []
-    for name, chunk_k in (("chunked", MULTISTEP_K), ("single", 1), ("single_again", 1)):
+    for name, chunk_k in (("chunked", MULTISTEP_K), ("single", 1), ("single_again", 1),
+                          ("chunked_again", MULTISTEP_K)):
         state, criterion, weight_dict = new_state()
         step = make_train_step(criterion, weight_dict, seed=cfg.seed)
         real_factory = train_mod.make_train_step
@@ -2607,7 +2734,8 @@ def train_multistep(cfg, flat, vocab_size) -> dict:
 
             return snapshotting
 
-        train_mod.make_train_step = snapshotting_factory  # the chunk's inner steps
+        if name == "chunked":
+            train_mod.make_train_step = snapshotting_factory  # the chunk's inner steps
         try:
             multi = make_train_multistep(criterion, weight_dict, seed=cfg.seed)
         finally:
@@ -2662,6 +2790,21 @@ def train_multistep(cfg, flat, vocab_size) -> dict:
     keys = ("msda_fwd", "msda_bwd", "hungarian")
     if any(chunked["launches"][k] != single["launches"][k] for k in keys):
         bad.append(f"launches differ: {chunked['launches']} vs {single['launches']}")
+    # free-running, two runs at one chunk_k repeat bit for bit: every step's
+    # losses and matchings, and the parameters after the last step
+    repeats = {}
+    for a, b in (("single", "single_again"), ("chunked", "chunked_again")):
+        ra, rb = runs[a], runs[b]
+        repeats[f"{a}_vs_{b}"] = rep = {
+            "steps_with_other_metrics": [i for i, (x, y) in
+                                         enumerate(zip(ra["metrics"], rb["metrics"])) if x != y],
+            "steps_with_other_matchings": [i for i, (x, y) in
+                                           enumerate(zip(ra["matchings"], rb["matchings"]))
+                                           if not bitwise_equal(x[2], y[2])],
+            "params_not_bitwise_equal": sum(not bitwise_equal(p, q)
+                                            for p, q in zip(ra["params"], rb["params"]))}
+        if len(ra["metrics"]) != steps or any(rep.values()):
+            bad.append(f"{a} and {b} part: {rep}")
 
     # (b) each chunked step against the single step from the same state
     state, criterion, weight_dict = new_state()
@@ -2729,9 +2872,9 @@ def train_multistep(cfg, flat, vocab_size) -> dict:
     del state, multi
     torch.cuda.empty_cache()
 
-    # free-running: the chunked run and a second single run against the first
+    # free-running: the chunked runs and a second single run against the first
     free = {}
-    for name in ("chunked", "single_again"):
+    for name in ("chunked", "chunked_again", "single_again"):
         r = runs[name]
         free[name] = {
             "loss_rel_per_step": [step_gaps(a, b)[0]
@@ -2753,7 +2896,7 @@ def train_multistep(cfg, flat, vocab_size) -> dict:
         "chunk_dispatch_host_ms_checked_run": chunked["dispatch_host_ms"],
         "launches": {name: r["launches"] for name, r in runs.items()},
         "loss_per_step": [m["loss"] for m in chunked["metrics"]],
-        "against_replayed_single_steps": locked,
+        "against_replayed_single_steps": locked, "free_running_repeats": repeats,
         "free_running_against_single": free, "lr": lr}
 
 
@@ -2811,6 +2954,86 @@ def encoder_dloc_gaps(calls, enc_calls: int):
     return layers
 
 
+def step_determinism(cfg, flat, vocab_size) -> dict:
+    """Phase determinism, the train step: the flagship at full width from
+    conv_e79, batch 16, dropout 0.1. One train step replayed twice from the
+    same state (params, AdamW moments, step) on the same batch must give the
+    same losses, matchings, gradients and updated parameters bit for bit.
+    The same two replays with K2 swapped for the plain backward on the card
+    (its scatter_add_ adds with atomics), and once more so under
+    torch.use_deterministic_algorithms(True, warn_only=True), whose
+    warnings name the ops that have no deterministic form: reported, not
+    held (they find the sources of run-to-run variation outside K2)."""
+    import warnings
+
+    import torch
+
+    from multimodal_feature_learning_tpu_torch.data.anet import synthetic_batches
+    from multimodal_feature_learning_tpu_torch.engine.state import create_train_state
+    from multimodal_feature_learning_tpu_torch.engine.train import (
+        batch_to_device, make_train_step)
+    from multimodal_feature_learning_tpu_torch.models.criterion import build_criterion
+    from multimodal_feature_learning_tpu_torch.ops import msda
+    from multimodal_feature_learning_tpu_torch.ops.ms_deform_attn import (
+        ms_deform_attn_core_backward)
+
+    model = build_family(cfg, vocab_size, "cuda", flat)
+    criterion, weight_dict = build_criterion(cfg, model.pad_idx)
+    state = create_train_state(cfg, model, steps_per_epoch=1000)
+    step = make_train_step(criterion, weight_dict, seed=cfg.seed)
+    batch = batch_to_device(next(synthetic_batches(cfg, BATCH, vocab_size, seed=0)), "cuda")
+    snap = train_state_snapshot(state)
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+
+    def replay():
+        load_train_state(state, snap)
+        with recording_matchings(keep=True) as matchings:
+            metrics = step(state, batch)
+        torch.cuda.synchronize()
+        return {"metrics": {k: v.clone() for k, v in metrics.items() if k != "lr"},
+                "matchings": [idx for _, _, idx in matchings],
+                "grads": [p.grad.detach().clone() if p.grad is not None else torch.zeros(0)
+                          for p in state.optimizer.params],
+                "params": [p.detach().clone() for p in state.optimizer.params]}
+
+    def differing(a, b) -> dict:
+        return {
+            "metrics": [k for k in a["metrics"] if not bitwise_equal(a["metrics"][k],
+                                                                     b["metrics"][k])],
+            "matchings": [i for i, (x, y) in enumerate(zip(a["matchings"], b["matchings"]))
+                          if not bitwise_equal(x, y)],
+            "grads": [n for n, x, y in zip(names, a["grads"], b["grads"])
+                      if not bitwise_equal(x, y)],
+            "params": [n for n, x, y in zip(names, a["params"], b["params"])
+                       if not bitwise_equal(x, y)]}
+
+    def summary(diff: dict) -> dict:
+        return {k: {"count": len(v), "first": v[:6]} for k, v in diff.items()}
+
+    k2_diff = differing(replay(), replay())
+    if any(k2_diff.values()):
+        raise AssertionError(f"two replays of a train step differ: {summary(k2_diff)}")
+
+    kernel_k2 = msda.MSDA_BWD
+    msda.MSDA_BWD = ms_deform_attn_core_backward  # the wrapper's signature
+    try:
+        plain_diff = differing(replay(), replay())
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            flagged_diff = differing(replay(), replay())
+    finally:
+        torch.use_deterministic_algorithms(False)
+        msda.MSDA_BWD = kernel_k2
+    flagged_warnings = sorted({str(w.message)[:240] for w in caught})
+    del state, model, snap
+    torch.cuda.empty_cache()
+    return {"batch": BATCH, "replays_bitwise_equal": True,
+            "plain_backward_replays_differing": summary(plain_diff),
+            "plain_backward_deterministic_algorithms_differing": summary(flagged_diff),
+            "deterministic_algorithms_warnings": flagged_warnings}
+
+
 def train_check(cfg, flat, vocab_size, batch=None):
     """Phase 11: one step of batch 2 with dropout off (``dropout_off``), from
     conv_e79, on the card and on the port's CPU path (plain MSDA core and
@@ -2818,7 +3041,7 @@ def train_check(cfg, flat, vocab_size, batch=None):
     indices on the card equal the numpy matcher's on the card's own costs;
     total loss within rel 1e-4; every loss term within rel 1e-3 (atol
     1e-5); gradient norm within rel 1e-3. The card
-    adds dvalue with atomics and sums in another order, so the sides differ
+    sums in another order than the CPU, so the sides differ
     by f32 rounding carried through a full-width forward and backward; the
     parameters whose clipped gradients differ most are reported. ``batch``
     (a numpy batch of 2) replaces the synthetic one."""
@@ -3554,6 +3777,374 @@ def raw_family_phases(name: str, vocab_size: int, raw_world: dict, val_samples,
     return reports
 
 
+# ---------------------------------------------------------------------------
+# GloVe embeddings, the ViT transplant, the native collate, observability
+# ---------------------------------------------------------------------------
+
+GLOVE_DIR = os.path.join(ROOT, "build", "glove")
+GLOVE_DIM = 300  # GloVe's width, not d_model's 512: the embedder's projection runs
+GLOVE_LEFT_OUT = 97  # every 97th word of the vocabulary has no vector: a random row
+GLOVE_STEPS = 3
+
+
+def write_glove(vocab, path: str, dim: int = GLOVE_DIM, seed: int = 0) -> int:
+    """A GloVe text file for the vocabulary's words but every
+    GLOVE_LEFT_OUT-th (those rows of the matrix stay random): a word, then
+    ``dim`` values from numpy seed ``seed``, spaces between. Returns the
+    number of words written."""
+    import numpy as np
+
+    words = [w for i, w in enumerate(vocab.get_itos()) if i % GLOVE_LEFT_OUT]
+    vecs = np.random.default_rng(seed).normal(0, 0.4, (len(words), dim)).astype(np.float32)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        for w, v in zip(words, vecs):
+            f.write(w + " " + " ".join(f"{x:.5f}" for x in v) + "\n")
+    return len(words)
+
+
+def replayed_steps(cfg, flat, vocab_size, steps: int, embedding_matrix=None) -> list:
+    """``steps`` train steps of batch 2 with dropout off on the card, each
+    replayed on the port's CPU path from the card's state before it (params
+    and AdamW moments copied over), so that the two paths do not drift
+    apart: per step the matchings equal, the loss within rel 1e-4, every
+    term within rel 1e-3 (atol 1e-5) and the grad norm within rel 1e-3, as
+    train_check holds one step; and the card's launches of K1, K2 and K6,
+    which must reach msda_per_forward(cfg) a step each for K1 and K2 and one
+    a step for K6."""
+    import torch
+
+    from multimodal_feature_learning_tpu_torch.data.anet import synthetic_batches
+    from multimodal_feature_learning_tpu_torch.engine.state import create_train_state
+    from multimodal_feature_learning_tpu_torch.engine.train import (
+        batch_to_device, make_train_step)
+    from multimodal_feature_learning_tpu_torch.models.criterion import build_criterion
+    from multimodal_feature_learning_tpu_torch.ops import msda
+    from multimodal_feature_learning_tpu_torch.ops.hungarian import HUNGARIAN
+
+    cfg = without_dropout(cfg)
+    per_step = msda_per_forward(cfg)
+    batches = list(synthetic_batches(cfg, 2, vocab_size, seed=1, num_batches=steps))
+    parts = {}
+    for device in ("cuda", "cpu"):
+        model = dropout_off(build_family(cfg, vocab_size, device, flat, embedding_matrix))
+        criterion, weight_dict = build_criterion(cfg, model.pad_idx)
+        parts[device] = (create_train_state(cfg, model, steps_per_epoch=1000),
+                         make_train_step(criterion, weight_dict, seed=cfg.seed))
+    lines = []
+    for i, batch in enumerate(batches):
+        snap = train_state_snapshot(parts["cuda"][0])
+        load_train_state(parts["cpu"][0], {
+            "step": snap["step"], "params": [p.cpu() for p in snap["params"]],
+            "adam": [None if a is None else {k: v.cpu() for k, v in a.items()}
+                     for a in snap["adam"]]})
+        got = {}
+        for device in ("cuda", "cpu"):
+            state, step = parts[device]
+            msda.MSDA_FWD.launches = msda.MSDA_BWD.launches = HUNGARIAN.launches = 0
+            with recording_matchings(keep=True) as matched:
+                metrics = step(state, batch_to_device(batch, device))
+            got[device] = ({k: float(v) for k, v in metrics.items() if k != "lr"},
+                           [idx.cpu() for _, _, idx in matched],
+                           {"msda_fwd": msda.MSDA_FWD.launches,
+                            "msda_bwd": msda.MSDA_BWD.launches,
+                            "hungarian": HUNGARIAN.launches})
+        (gm, gi, launched), (cm, ci, _) = got["cuda"], got["cpu"]
+        if (launched["msda_fwd"] < per_step or launched["msda_bwd"] < per_step
+                or launched["hungarian"] != 1):
+            raise AssertionError(f"step {i} on the card did not go through the kernels: "
+                                 f"{launched}, K1 and K2 {per_step} a step, K6 one")
+        rel = {k: abs(gm[k] - cm[k]) / max(abs(cm[k]), 1e-12) for k in cm}
+        bad = [k for k in cm if k.startswith("loss_")
+               and abs(gm[k] - cm[k]) > max(1e-3 * abs(cm[k]), 1e-5)]
+        if (not all(torch.equal(a, b) for a, b in zip(gi, ci)) or rel["loss"] > 1e-4
+                or rel["grad_norm"] > 1e-3 or bad or not math.isfinite(gm["loss"])):
+            raise AssertionError(f"step {i}: card and CPU disagree: loss rel {rel['loss']}, "
+                                 f"grad norm rel {rel['grad_norm']}, terms {bad}")
+        lines.append({"step": i, "loss_card": gm["loss"], "loss_cpu": cm["loss"],
+                      "loss_rel": rel["loss"], "grad_norm_rel": rel["grad_norm"],
+                      "worst_term_rel": max(rel[k] for k in cm if k.startswith("loss_")),
+                      "launches": launched})
+    del parts
+    return lines
+
+
+def glove(cfg, world: dict, requests) -> dict:
+    """Phase glove: a GloVe file for the evaluation world's vocabulary
+    (write_glove: GLOVE_DIM values a word, some words left out), the
+    flagship at full width built from it through build_model_and_criterion
+    (its caption embedding the GloVe matrix, then the Dense_0 projection to
+    d_model and a ReLU), weights otherwise drawn from seed 0: the embedding
+    equal to the matrix (its cache written); eval_check of a batch of 2 on
+    the card against the CPU path; GLOVE_STEPS train steps, each against its
+    CPU replay (replayed_steps); and check_fused on the 48 requests' first
+    batch: the fused decode's tokens against the plain-op decode's, K3
+    launched once per decode step."""
+    import copy
+
+    import torch
+
+    from multimodal_feature_learning_tpu_torch.data.vocab import Vocab
+    from multimodal_feature_learning_tpu_torch.models import build_model_and_criterion
+    from multimodal_feature_learning_tpu_torch.models.load_weights import (
+        build_word_embedding_matrix)
+    from multimodal_feature_learning_tpu_torch.ops import fused_decode as fd
+    from multimodal_feature_learning_tpu_torch.utils.weights import export_flax_params
+
+    vocab = Vocab.load(world["dataset.activity_net.vocab_file_path"])
+    path, cache = os.path.join(GLOVE_DIR, "glove.txt"), os.path.join(GLOVE_DIR, "matrix.pkl")
+    t0 = time.perf_counter()
+    words = write_glove(vocab, path)
+    write_s = time.perf_counter() - t0
+    if os.path.exists(cache):
+        os.remove(cache)
+    gcfg = copy.deepcopy(cfg)
+    gcfg.dvc.caption.glove_file_path = path
+    gcfg.dvc.caption.pretrained_word_embed_dim = GLOVE_DIM
+    gcfg.dvc.caption.embedding_matrix_file_path = cache
+    t0 = time.perf_counter()
+    model, _, _ = build_model_and_criterion(gcfg, vocab, device="cuda", seed=0)
+    build_s = time.perf_counter() - t0
+    matrix = build_word_embedding_matrix(path, vocab, GLOVE_DIM, cache_path=cache)
+    embedder = model.caption.target_embedding
+    if not (torch.equal(embedder.embed.weight.detach().cpu(), torch.from_numpy(matrix))
+            and hasattr(embedder, "Dense_0") and os.path.exists(cache)):
+        raise AssertionError("the GloVe model's embedding is not the GloVe matrix")
+    flat = export_flax_params(model)
+    eval_checked = eval_check(gcfg, flat, len(vocab), embedding_matrix=matrix)
+    steps = replayed_steps(gcfg, flat, len(vocab), GLOVE_STEPS, embedding_matrix=matrix)
+    for k in fd.FUSED_DECODE.values():
+        k.launches = 0
+    fused = check_fused(gcfg, model, requests, compare_cpu=False)
+    fused["fused_launches"] = {grid: k.launches for grid, k in fd.FUSED_DECODE.items()}
+    if not all(fused["fused_launches"].values()):
+        raise AssertionError(f"the fused decode did not launch: {fused['fused_launches']}")
+    del model
+    torch.cuda.empty_cache()
+    return {"vocab": len(vocab), "glove_words": words, "unknown_rows": len(vocab) - words,
+            "dim": GLOVE_DIM, "d_model": gcfg.dvc.d_model, "glove_write_s": write_s,
+            "build_s": build_s, "eval_check": eval_checked, "train_steps_vs_cpu": steps,
+            "check_fused": fused}
+
+
+def vivit_transplant(vocab_size: int, raw_world: dict) -> dict:
+    """Phase vivit_transplant: a ViT checkpoint drawn from numpy seed 0 in
+    the layout of a timm export, shaped for config #5's ViViT (d_model 512,
+    16 x 16 patches, 64 a 128 x 128 frame, and the class slot), carried by
+    models/load_weights.py::transplant_vit_to_vivit into a one-layer ViViT
+    of that width in each mode (model_name x tubelet depth and method), on
+    the card and on the CPU: equal bit for bit, the patch kernel and bias
+    and the positional rows as the npz gives them. Then the raw family
+    (config #5 at RAW_CHECK_FRAMES frames, seeded weights) with the ViT
+    transplanted into its ViViT: eval_check of the raw world's first 2 val
+    videos on the card against the CPU path (partings and backbone
+    features as raw_check holds them)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from multimodal_feature_learning_tpu_torch.models.backbones import (
+        VIVIT_MODES, VideoVisionTransformer)
+    from multimodal_feature_learning_tpu_torch.models.load_weights import (
+        inflate_patch_kernel_to_tubelet, transplant_vit_to_vivit)
+    from multimodal_feature_learning_tpu_torch.utils.weights import export_flax_params
+
+    cfg = raw_family_config("raw", frames=RAW_CHECK_FRAMES)
+    viv, D = cfg.dvc.vivit, cfg.dvc.d_model
+    patch, per_frame = viv.spatial_patch_size, (128 // viv.spatial_patch_size) ** 2
+    rng = np.random.default_rng(0)
+    vit = {"patch_embed.proj.weight": rng.normal(0, 0.02, (D, 3, patch, patch)).astype(np.float32),
+           "patch_embed.proj.bias": rng.normal(0, 0.02, (D,)).astype(np.float32),
+           "pos_embed": rng.normal(0, 0.02, (1, per_frame + 1, D)).astype(np.float32)}
+    modes = []
+    for mode in VIVIT_MODES:
+        for pt, method in ((viv.temporal_patch_size, "central frame"), (2, "filter inflation"),
+                           (3, "central frame")):
+            torch.manual_seed(len(modes))
+            cpu = VideoVisionTransformer(model_name=mode, d_model=D, depth=1, temporal_depth=1,
+                                         num_heads=viv.num_heads, spatial_patch_size=patch,
+                                         temporal_patch_size=pt)
+            card = copy.deepcopy(cpu).cuda()
+            for m in (cpu, card):
+                transplant_vit_to_vivit(vit, m, num_frames=4, temporal_patch_size=pt,
+                                        tokenization_method=method, model_name=mode)
+            got, ref = card.state_dict(), cpu.state_dict()
+            equal = all(bitwise_equal(got[k].cpu(), ref[k]) for k in ref)
+            kernel = torch.from_numpy(inflate_patch_kernel_to_tubelet(
+                vit["patch_embed.proj.weight"], pt, method).transpose(4, 3, 0, 1, 2).copy())
+            took = torch.equal(ref["token_embeddings_layer.project_to_patch.weight"], kernel)
+            if not (equal and took):
+                raise AssertionError(f"ViT transplant ({mode}, {pt}, {method}): card and CPU "
+                                     f"equal {equal}, kernel as inflated {took}")
+            modes.append({"model_name": mode, "temporal_patch_size": pt, "method": method})
+            del card
+    model, _ = family_model(cfg, vocab_size)
+    transplant_vit_to_vivit(vit, model.video_backbone,
+                            num_frames=cfg.dataset.activity_net.video_rescale_len,
+                            temporal_patch_size=viv.temporal_patch_size,
+                            model_name=viv.model_name)
+    flat = export_flax_params(model)
+    del model
+    torch.cuda.empty_cache()
+    batch = raw_batch(cfg, raw_samples(cfg, raw_world, "val", 2))
+    checked = eval_check(cfg, flat, vocab_size, batch, partings=True)
+    return {"modes_card_equal_cpu": modes, "raw_model_name": viv.model_name,
+            "video_rescale_len": cfg.dataset.activity_net.video_rescale_len,
+            "eval_check": checked}
+
+
+COLLATE_TURNS = 21  # calls of the native collate and of numpy, in turns
+
+
+def native_collate(cfg, world: dict) -> dict:
+    """Phase native_collate: the native collate (csrc/collate.cpp, built
+    with the card host's g++ in the build phase, native.py) against numpy on
+    the evaluation world's first BATCH val features: resize_nearest of the
+    zero-padded f32 batch and of its mask to video_rescale_len, and
+    pad_resize_batch (against numpy's zero-pad of the features, then its
+    resize), bit for bit, with the host ms of each beside numpy's (medians
+    of COLLATE_TURNS calls, the two in turns); then the loader over the world's val split (batch
+    BATCH): its wait a batch with the library and under MFL_DISABLE_NATIVE,
+    the batches equal."""
+    import numpy as np
+
+    from multimodal_feature_learning_tpu_torch import native
+    from multimodal_feature_learning_tpu_torch.data.anet import build_dataset, nearest_resize
+    from multimodal_feature_learning_tpu_torch.data.loader import DataLoader
+
+    feat_dir = world["dataset.activity_net.video_features_file"]
+    names = sorted(f for f in os.listdir(feat_dir) if f.startswith("v_eval"))[:BATCH]
+    feats = [np.load(os.path.join(feat_dir, f)) for f in names]
+    T = cfg.dataset.activity_net.video_rescale_len
+
+    def numpy_pad():
+        padded = np.zeros((len(feats), max(len(f) for f in feats), feats[0].shape[1]),
+                          np.float32)
+        mask = np.ones(padded.shape[:2], bool)
+        for i, f in enumerate(feats):
+            padded[i, :len(f)], mask[i, :len(f)] = f, False
+        return padded, mask
+
+    padded, mask = numpy_pad()
+
+    def median_ms(*fns):
+        """The last result of each of fns, and the median ms of its calls,
+        called in turns COLLATE_TURNS times."""
+        outs, times = [None] * len(fns), [[] for _ in fns]
+        for _ in range(COLLATE_TURNS):
+            for k, fn in enumerate(fns):
+                t0 = time.perf_counter()
+                outs[k] = fn()
+                times[k].append(1e3 * (time.perf_counter() - t0))
+        return [(o, sorted(t)[COLLATE_TURNS // 2]) for o, t in zip(outs, times)]
+
+    if not native.available():
+        raise AssertionError("MFL_DISABLE_NATIVE is set: the native collate does not run")
+    report = {}
+    for name, lib_fn, plain_fn in (
+            ("resize_nearest_f32", lambda: native.resize_nearest(padded, T),
+             lambda: nearest_resize(padded, T, axis=1)),
+            ("resize_nearest_mask", lambda: native.resize_nearest(mask, T),
+             lambda: nearest_resize(mask, T, axis=1)),
+            ("pad_resize_batch", lambda: native.pad_resize_batch(feats, T),
+             lambda: tuple(nearest_resize(a, T, axis=1) for a in numpy_pad()))):
+        (got, lib_ms), (ref, numpy_ms) = median_ms(lib_fn, plain_fn)
+        equal = all(np.array_equal(a, b) and a.dtype == b.dtype for a, b in
+                    zip(got if isinstance(got, tuple) else (got,),
+                        ref if isinstance(ref, tuple) else (ref,)))
+        if not equal:
+            raise AssertionError(f"native {name} differs from numpy")
+        report[name] = {"bitwise_equal": True, "native_ms": lib_ms, "numpy_ms": numpy_ms}
+
+    anet = cfg.dataset.activity_net
+    val_ds, vocab = build_dataset("val", cfg)
+    waits, batches = {}, {}
+    for arm, disabled in (("native", False), ("numpy", True), ("native_again", False)):
+        old = os.environ.pop("MFL_DISABLE_NATIVE", None)
+        if disabled:
+            os.environ["MFL_DISABLE_NATIVE"] = "1"
+        try:
+            timed = TimedLoader(DataLoader(val_ds, BATCH, vocab.pad_idx, anet.video_rescale_len,
+                                           anet.max_gt_target_segments,
+                                           anet.max_caption_len_all, shuffle=False,
+                                           seed=cfg.seed))
+            batches[arm] = list(timed)
+        finally:
+            os.environ.pop("MFL_DISABLE_NATIVE", None)
+            if old is not None:
+                os.environ["MFL_DISABLE_NATIVE"] = old
+        waits[arm] = [1e3 * w for w in timed.wait]
+    for a, b in zip(batches["native"], batches["numpy"]):
+        for k, v in a.items():
+            if isinstance(v, np.ndarray) and not np.array_equal(v, b[k]):
+                raise AssertionError(f"loader batches differ with and without the library: {k}")
+    return {"videos": len(feats), "rescale_len": T, **report,
+            "loader_batches": len(batches["native"]), "loader_wait_ms": waits}
+
+
+def observability(cfg, flat, vocab_size) -> dict:
+    """Phase observability: one flagship train step (conv_e79, batch 16,
+    dropout 0.1) inside utils/observability.py::profile_section with a log
+    directory: the Chrome trace it writes holds the step's CUDA kernels, K1
+    and K2 among them; device_memory_stats after it: a non-zero peak, equal
+    to torch.cuda.max_memory_allocated (the same allocator counter), and the
+    card's memory as bytes_limit; save_grad_flow of the step's gradients
+    (its JSON; the card's machine has no matplotlib, so no plot)."""
+    import contextlib
+    import io
+    import shutil
+
+    import torch
+
+    from multimodal_feature_learning_tpu_torch.data.anet import synthetic_batches
+    from multimodal_feature_learning_tpu_torch.engine.state import create_train_state
+    from multimodal_feature_learning_tpu_torch.engine.train import (
+        batch_to_device, make_train_step)
+    from multimodal_feature_learning_tpu_torch.models.criterion import build_criterion
+    from multimodal_feature_learning_tpu_torch.utils.observability import (
+        device_memory_stats, profile_section, save_grad_flow)
+
+    log_dir = os.path.join(ROOT, "build", "observability")
+    shutil.rmtree(log_dir, ignore_errors=True)
+    model = build_family(cfg, vocab_size, "cuda", flat)
+    criterion, weight_dict = build_criterion(cfg, model.pad_idx)
+    state = create_train_state(cfg, model, steps_per_epoch=1000)
+    step = make_train_step(criterion, weight_dict, seed=cfg.seed)
+    batch = batch_to_device(next(synthetic_batches(cfg, BATCH, vocab_size, seed=0)), "cuda")
+    step(state, batch)  # warm: kernels loaded, allocator filled
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        with profile_section("train_step", log_dir, device="cuda"):
+            step(state, batch)
+    trace_path = os.path.join(log_dir, "train_step.pt.trace.json")
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    names = {n: sum(n in e.get("name", "") for e in kernels) for n in ("msda_fwd", "msda_bwd",
+                                                                        "hungarian")}
+    mem = device_memory_stats()
+    card = mem["cuda:0"]
+    torch_peak = torch.cuda.max_memory_allocated()
+    if not (kernels and all(names.values()) and card["peak_bytes_in_use"] > 0
+            and card["peak_bytes_in_use"] == torch_peak):
+        raise AssertionError(f"observability: {len(kernels)} kernels in the trace, {names}, "
+                             f"peak {card['peak_bytes_in_use']} against {torch_peak}")
+    grads = {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+    stats = save_grad_flow(grads, log_dir, step=1)
+    if not all(math.isfinite(v["norm"]) for v in stats.values()):
+        raise AssertionError("observability: non-finite grad-flow norms")
+    del state, model
+    torch.cuda.empty_cache()
+    return {"printed": printed.getvalue().strip(), "trace_mb": os.path.getsize(trace_path) / 1e6,
+            "trace_cuda_kernels": len(kernels), "trace_kernels_by_name": names,
+            "device_memory_stats": mem, "max_memory_allocated_bytes": torch_peak,
+            "grad_flow_params": len(stats),
+            "grad_flow_files": sorted(f for f in os.listdir(log_dir) if f.startswith("grad"))}
+
+
 def main() -> int:
     import torch
 
@@ -3590,8 +4181,8 @@ def main() -> int:
 
     t = time.monotonic()
     built = build.build(variants=[("fused_decode.cu", STAGE_TIMING_FLAGS)])
-    log("build", time.monotonic() - t, nvcc_seconds=built,
-        sources=sorted(p.name for p in CSRC_DIR.glob("*.cu")))
+    log("build", time.monotonic() - t, compiler_seconds=built,
+        sources=sorted(p.name for p in CSRC_DIR.glob("*.c*")))
     # registers, shared memory and spills of the MSDA and fused decode kernels
     for source in ("msda_fwd.cu", "msda_bwd.cu", "fused_decode.cu"):
         print(f"ptxas {source}: " + " | ".join(build.ptxas_report(source)), flush=True)
@@ -3736,6 +4327,24 @@ def main() -> int:
     log("train_multistep", time.monotonic() - t, **multistepped)
 
     t = time.monotonic()
+    determined = {"k2": k2_determinism(dims), "dam": dam_determinism(),
+                  "train_step": step_determinism(cfg, flat, vocab_size),
+                  "free_running": multistepped["free_running_repeats"]}
+    log("determinism", time.monotonic() - t, **determined)
+
+    t = time.monotonic()
+    observed = observability(cfg, flat, vocab_size)
+    log("observability", time.monotonic() - t, **observed)
+
+    t = time.monotonic()
+    gloved = glove(cfg, world, requests)
+    log("glove", time.monotonic() - t, **gloved)
+
+    t = time.monotonic()
+    collated = native_collate(world_cfg(cfg, world), world)
+    log("native_collate", time.monotonic() - t, **collated)
+
+    t = time.monotonic()
     trained16 = train_bf16(cfg, flat, vocab_size, trained)
     log("train_bf16", time.monotonic() - t, **trained16)
 
@@ -3839,6 +4448,10 @@ def main() -> int:
                                  batch=raw_runs["raw"]["train"]["batch"])
     log("raw_cli", time.monotonic() - t, **cli_runs["raw"])
 
+    t = time.monotonic()
+    transplanted = vivit_transplant(vocab_size, raw_world)
+    log("vivit_transplant", time.monotonic() - t, **transplanted)
+
     enc = next(c for c in cases if c["call"] == "encoder" and c["dtype"] == "float32")
     enc_bwd = next(c for c in bwd_cases if c["call"] == "encoder" and c["dtype"] == "float32")
     bf16_of = {  # the encoder call's bf16 case of each MSDA kernel
@@ -3927,6 +4540,7 @@ def main() -> int:
             "cold_kernel_ms": case["cold_kernel_ms"], "plain_ms": case["plain_ms"],
             "bound_ms": case["bound_ms"], "bound_by": case["bound_by"], "library_ms": None,
             "schedule": case["schedule"], "shape": shape,
+            **({"ordered_sum": {"repeat_bitwise": True}} if name == "msda_bwd" else {}),
             "schedules": {f"{c['call']} {c['dtype']}": c["schedule"] for c in all_cases},
             "cases": all_cases,
         })

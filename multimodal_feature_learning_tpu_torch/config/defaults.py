@@ -42,8 +42,12 @@ class CaptionConfig:
     bridge_dropout: float = 0.1  # the multimodal caption layers' concat bridge
     mlp_dropout_1: float = 0.1
     mlp_dropout_2: float = 0.1
-    # a GloVe file for the word embeddings; the port raises on one (not ported)
+    # GloVe word embeddings (models/load_weights.py): the vectors' width, the
+    # GloVe text file ("" or a missing file: a plain embedding), and the
+    # pickle cache of the vocabulary's matrix
+    pretrained_word_embed_dim: int = 300
     glove_file_path: str = ""
+    embedding_matrix_file_path: str = "embedding_matrix.pkl"
 
 
 @dataclass

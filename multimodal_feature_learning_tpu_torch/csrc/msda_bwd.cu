@@ -23,10 +23,17 @@
 // encoder's shapes) the block
 //   1. copies the round's g rows of its (b, h) into shared memory (16-byte
 //      cp.async) and computes each tap's rows and weights (four taps a
-//      thread, their loads together), counting its two entries (tap, side)
-//      per row it touches;
-//   2. sorts the entries by row (a counting sort in shared memory, with
-//      integer atomics on the row cursors);
+//      thread, their loads together);
+//   2. sorts the entries (tap, side) by row, and within a row by their key
+//      2 * tap + side: a stable counting sort in shared memory. Warp w
+//      takes a contiguous range of taps, sixteen a turn with lane 2i + side
+//      holding entry side of the turn's tap i, so the lanes of a turn are
+//      in key order; __match_any_sync groups the lanes of one row, and the
+//      first of them adds the group's size to the (row, warp) count. A
+//      scan over the rows, then over the warps of each row, gives every
+//      (row, warp) its first slot, and the warps place their entries in the
+//      same turns, each at its slot plus the lanes of its row below it.
+//      So every row is summed in the same order on every launch;
 //   3. gives each row to a group of 8 lanes (four rows a warp, in step; a
 //      row of more than 16 entries to the whole warp), which holds the
 //      value row in registers (16-byte loads), walks the row's entries up to
@@ -42,13 +49,16 @@
 //
 // Why not a dvalue slab in shared memory summed with float atomicAdd: on
 // sm_90a a shared-memory f32 atomicAdd compiles to a compare-and-swap loop
-// (ATOMS.CAST.SPIN), for 2 * 64 adds per tap. The counting sort needs two
-// integer atomics a tap, and its per-row sums are registers. Why g in
-// shared memory: a row's entries come from any query, so without it each
-// entry would read a 256-byte g row from L2 (296 MB in all at the
-// encoder's shapes, for 9.2 MB of g), and that traffic would set the pace.
-// The order in which a row's entries are summed follows the integer
-// atomics, so it changes from run to run.
+// (ATOMS.CAST.SPIN), for 2 * 64 adds per tap. The counting sort needs no
+// float atomics, and its per-row sums are registers. Why g in shared
+// memory: a row's entries come from any query, so without it each entry
+// would read a 256-byte g row from L2 (296 MB in all at the encoder's
+// shapes, for 9.2 MB of g), and that traffic would set the pace. Why a
+// stable sort: with integer atomicAdd on the row cursors a row's entries
+// would land in the order the threads reach its cursor, so the f32 sums of
+// dvalue would change from launch to launch, and training runs would part. The counts
+// take the round's dot-product slots as scratch (two bytes a (row, warp);
+// step 3 writes the dot products after the sort).
 //
 // bf16. The JAX package's bf16 train step hands the kernel a bf16 value and
 // a bf16 output gradient; the Pallas kernel widens both to f32, sums in f32
@@ -101,6 +111,54 @@ struct __align__(8) Entry {
   int q_slot;
   float coef;
 };
+
+// The row (block-local) of entry `side` (0 left, 1 right) of a tap, or -1
+// where the block keeps no such entry: the left one where the block owns
+// the tap's left row; the right one where it owns the right row, or where
+// that row is the halo of an own tap; never the right one of a clamped tap
+// (w1 = 0 and not strictly inside), which adds nothing to dvalue and whose
+// g1 neither daw nor dloc reads.
+__device__ __forceinline__ int entry_row(const TapRec& r, int side, int T, int c0, int nr) {
+  const int i0 = r.i0_inside & 0x7fffffff;
+  const bool own = i0 >= c0 && i0 < c0 + nr;
+  if (side == 0) return own ? i0 - c0 : -1;
+  const int i1 = min(i0 + 1, T - 1);
+  const bool keep = (r.w1 != 0.f || r.i0_inside < 0) &&
+                    ((i1 >= c0 && i1 < c0 + nr) || (own && i1 == c0 + nr));
+  return keep ? i1 - c0 : -1;
+}
+
+// Entry `side` of tap t (a row kept by entry_row): the right one of a tap
+// whose left row the block does not own carries no dot-product slot.
+__device__ __forceinline__ Entry make_entry(const TapRec& r, int t, int side, int P, int c0,
+                                            int nr) {
+  const int q16 = (t / P) << 16;
+  if (side == 0) return Entry{q16 | (2 * t), r.a * (1.f - r.w1)};
+  const int i0 = r.i0_inside & 0x7fffffff;
+  const bool own = i0 >= c0 && i0 < c0 + nr;
+  return Entry{q16 | (own ? 2 * t + 1 : MSDA_NO_DOT), r.a * r.w1};
+}
+
+// Row counts cur[0 .. n) to their inclusive running sums (each row's end),
+// by the first warp.
+__device__ __forceinline__ void scan_rows(int* cur, int n) {
+  if (threadIdx.x >= 32) return;
+  const int per = (n + 31) / 32;
+  const int lo = min(n, (int)threadIdx.x * per), hi = min(n, lo + per);
+  int s = 0;
+  for (int k = lo; k < hi; ++k) s += cur[k];
+  int x = s;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, off);
+    if (threadIdx.x >= off) x += y;
+  }
+  int run = x - s;
+  for (int k = lo; k < hi; ++k) {
+    run += cur[k];
+    cur[k] = run;
+  }
+}
 
 // VEC elements at p as f32 (one 16-byte access when VEC == 4 of f32, one
 // 8-byte access of bf16), or zeros where !pred
@@ -240,17 +298,18 @@ __device__ __forceinline__ void row_batch_any(const Entry* ent, int e, int n, co
 // `chunks` ranges of ceil(T_l / chunks) rows; a range past the level's end is
 // empty and its block exits. Lane gl of a row group holds channels
 // VEC * (gl + MSDA_LANES * j) .. + VEC - 1 for j < nv. Shared memory a round
-// of q_round queries: their g rows (f32), then a TapRec, a float2 (the dot
-// products g0, g1) and two Entry a tap, then the row cursors. E is the
-// element type of value, g (and its rows in shared memory) and dvalue;
-// dacc holds a row's f32 sums between rounds (dvalue itself when E is f32).
+// of q_round queries: their g rows (f32), then `scratch` bytes (a float2 a
+// tap, the dot products g0, g1; the sort's counts before them), two Entry
+// and a TapRec a tap, then the row cursors. E is the element type of value,
+// g (and its rows in shared memory) and dvalue; dacc holds a row's f32 sums
+// between rounds (dvalue itself when E is f32).
 template <typename E, int VEC, int MAXNV, bool FULL>
 __global__ void __launch_bounds__(512, 2)
 msda_bwd_kernel(const E* __restrict__ value, const float* __restrict__ loc,
                 const float* __restrict__ aw, const E* __restrict__ g,
                 E* dvalue, float* dacc, float* __restrict__ dloc,
                 float* __restrict__ daw, int S, int H, int Dh, int Q, int L, int P,
-                MsdaLevels lv, int chunks, int q_round) {
+                MsdaLevels lv, int chunks, int q_round, int scratch) {
   extern __shared__ __align__(16) unsigned char smem[];
 
   int blk = blockIdx.x;
@@ -276,9 +335,9 @@ msda_bwd_kernel(const E* __restrict__ value, const float* __restrict__ loc,
 
   const int cap = q_round * P;
   E* gs = reinterpret_cast<E*>(smem);
-  float2* dots =
-      reinterpret_cast<float2*>(smem + (((size_t)q_round * Dh * sizeof(E) + 15) & ~(size_t)15));
-  Entry* ent = reinterpret_cast<Entry*>(dots + cap);
+  unsigned char* scr = smem + (((size_t)q_round * Dh * sizeof(E) + 15) & ~(size_t)15);
+  float2* dots = reinterpret_cast<float2*>(scr);
+  Entry* ent = reinterpret_cast<Entry*>(scr + scratch);
   TapRec* rec = reinterpret_cast<TapRec*>(ent + 2 * cap);
   int* cur = reinterpret_cast<int*>(rec + cap);  // nrows row cursors
 
@@ -289,11 +348,16 @@ msda_bwd_kernel(const E* __restrict__ value, const float* __restrict__ loc,
   const int LP = L * P;
   const float Tf = (float)T;
   const int gl = threadIdx.x % MSDA_LANES;
-  const int wgroup = (threadIdx.x & 31) / MSDA_LANES;  // the row group in its warp
+  const int lane = threadIdx.x & 31;
+  const int wgroup = lane / MSDA_LANES;  // the row group in its warp
   const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   const int nv = (Dh + VEC * MSDA_LANES - 1) / (VEC * MSDA_LANES);
   constexpr int LINE = 128 / sizeof(E);  // elements of a 128-byte line
   const int vlines = (Dh + LINE - 1) / LINE;  // 128-byte lines of a value row
+  // the sort: `segs` warps, each over a contiguous range of taps, and a
+  // two-byte count (then first slot) of each (row, warp) in the scratch
+  const int segs = min(nwarps, scratch / (2 * nrows));
+  unsigned short* cnt = reinterpret_cast<unsigned short*>(scr);
 
   for (int qa = 0; qa < Q; qa += q_round) {
     const int nq = min(q_round, Q - qa), ntap = nq * P;
@@ -315,7 +379,7 @@ msda_bwd_kernel(const E* __restrict__ value, const float* __restrict__ loc,
         *dst = __ldg(src);
       }
     }
-    for (int k = threadIdx.x; k < nrows; k += blockDim.x) cur[k] = 0;
+    for (int k = threadIdx.x; k < nrows * segs; k += blockDim.x) cnt[k] = 0;
     __syncthreads();
     // four taps a thread at a time, their loc and aw loads issued together
     for (int t0 = threadIdx.x; t0 < ntap; t0 += 4 * blockDim.x) {
@@ -337,66 +401,62 @@ msda_bwd_kernel(const E* __restrict__ value, const float* __restrict__ loc,
         const int inside = (xr > 0.f) && (xr < (float)(T - 1));
         const float x = fminf(fmaxf(xr, 0.f), (float)(T - 1));
         const float x0 = floorf(x);
-        const float w1 = x - x0;
         const int i0 = (int)x0;
-        const int i1 = min(i0 + 1, T - 1);
-        const bool own = i0 >= c0 && i0 < c0 + nr;
-        // the right entry: a row of the block, or the halo row for g1 of an
-        // own tap; none where w1 = 0 and the tap is not strictly inside (a
-        // clamped tap), which adds nothing to dvalue and whose g1 neither daw
-        // nor dloc reads
-        const bool right = (w1 != 0.f || inside) &&
-                           ((i1 >= c0 && i1 < c0 + nr) || (own && i1 == c0 + nr));
-        rec[t] = TapRec{inside ? (i0 | (int)0x80000000u) : i0, w1, av[k]};
-        if (own) atomicAdd(&cur[i0 - c0], 1);
-        if (right) atomicAdd(&cur[i1 - c0], 1);
+        const TapRec r{inside ? (i0 | (int)0x80000000u) : i0, x - x0, av[k]};
+        rec[t] = r;
       }
     }
     asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
     __syncthreads();
-    // the value rows that have entries start towards L2 while the entries are
-    // sorted: the row pass reads each once, and would otherwise wait for
-    // device memory row after row
-    for (int i = threadIdx.x; i < nrows * vlines; i += blockDim.x) {
-      const int k = i / vlines;
-      if (cur[k] > 0)
-        asm volatile("prefetch.global.L2 [%0];" ::"l"(vl + (size_t)(c0 + k) * row + (i - k * vlines) * LINE));
+
+    // 2. stable counting sort of the entries by row; after it cur[k] is the
+    // end of row k (the start of row k + 1). First the counts of each
+    // (row, warp): a turn's sixteen taps, lane 2i + side
+    const int seg = (ntap + segs - 1) / segs;
+    const int tlo = warp * seg, thi = min(ntap, tlo + seg);
+    const unsigned below = (1u << lane) - 1;
+    if (warp < segs) {
+      for (int tb = tlo; tb < thi; tb += 16) {
+        const int t = tb + (lane >> 1);
+        const int k = t < thi ? entry_row(rec[t], lane & 1, T, c0, nr) : -1;
+        const unsigned peers = __match_any_sync(0xffffffffu, k >= 0 ? k : -1 - lane);
+        if (k >= 0 && (peers & below) == 0) cnt[k * segs + warp] += __popc(peers);
+        __syncwarp();
+      }
     }
     __syncthreads();
-
-    // 2. counting sort of the entries by row: cur[k] counts row k; after the
-    // prefix it is the start of row k, and after the scatter the end of row k
-    // (the start of row k + 1)
-    if (threadIdx.x < 32) {
-      const int per = (nrows + 31) / 32;
-      const int lo = min(nrows, threadIdx.x * per), hi = min(nrows, lo + per);
-      int s = 0;
-      for (int k = lo; k < hi; ++k) s += cur[k];
-      int x = s;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, x, off);
-        if (threadIdx.x >= off) x += y;
-      }
-      int run = x - s;
-      for (int k = lo; k < hi; ++k) {
-        const int c = cur[k];
-        cur[k] = run;
+    // each row's count, its warps' first slots within it, and its value row
+    // towards L2 (the row pass reads each once, and would otherwise wait for
+    // device memory row after row)
+    for (int k = threadIdx.x; k < nrows; k += blockDim.x) {
+      int run = 0;
+      for (int w = 0; w < segs; ++w) {
+        const int c = cnt[k * segs + w];
+        cnt[k * segs + w] = (unsigned short)run;
         run += c;
       }
+      cur[k] = run;
+      for (int i = 0; run > 0 && i < vlines; ++i)
+        asm volatile("prefetch.global.L2 [%0];" ::"l"(vl + (size_t)(c0 + k) * row + i * LINE));
     }
     __syncthreads();
-    for (int t = threadIdx.x; t < ntap; t += blockDim.x) {
-      const TapRec r = rec[t];
-      const int i0 = r.i0_inside & 0x7fffffff;
-      const int i1 = min(i0 + 1, T - 1);
-      const bool own = i0 >= c0 && i0 < c0 + nr;
-      const int q16 = (t / P) << 16;
-      if (own) ent[atomicAdd(&cur[i0 - c0], 1)] = Entry{q16 | (2 * t), r.a * (1.f - r.w1)};
-      if (r.w1 == 0.f && r.i0_inside >= 0) {
-        if (own) dots[t].y = 0.f;  // the right entry that step 1 left out
-      } else if ((i1 >= c0 && i1 < c0 + nr) || (own && i1 == c0 + nr)) {
-        ent[atomicAdd(&cur[i1 - c0], 1)] = Entry{q16 | (own ? 2 * t + 1 : MSDA_NO_DOT), r.a * r.w1};
+    scan_rows(cur, nrows);
+    __syncthreads();
+    // the entries, each at its (row, warp) slot plus its row's lanes below it
+    if (warp < segs) {
+      for (int tb = tlo; tb < thi; tb += 16) {
+        const int t = tb + (lane >> 1), side = lane & 1;
+        const TapRec r = rec[min(t, thi - 1)];
+        const int k = t < thi ? entry_row(r, side, T, c0, nr) : -1;
+        const unsigned peers = __match_any_sync(0xffffffffu, k >= 0 ? k : -1 - lane);
+        int pos = 0;
+        if (k >= 0) pos = (k > 0 ? cur[k - 1] : 0) + cnt[k * segs + warp] + __popc(peers & below);
+        __syncwarp();
+        if (k >= 0) {
+          ent[pos] = make_entry(r, t, side, P, c0, nr);
+          if ((peers & below) == 0) cnt[k * segs + warp] += __popc(peers);
+        }
+        __syncwarp();
       }
     }
     __syncthreads();
@@ -475,12 +535,22 @@ msda_bwd_kernel(const E* __restrict__ value, const float* __restrict__ loc,
       const int i0 = r.i0_inside & 0x7fffffff;
       if (i0 < c0 || i0 >= c0 + nr) continue;
       const float2 d = dots[t];
+      // a clamped tap has no right entry, and no g1 in its slot
+      const float g1 = (r.w1 == 0.f && r.i0_inside >= 0) ? 0.f : d.y;
       const int q = t / P;
       const size_t off = (((size_t)b * Q + qa + q) * H + h) * LP + l * P + (t - q * P);
-      daw[off] = d.x * (1.f - r.w1) + d.y * r.w1;
-      dloc[off] = (r.i0_inside < 0) ? (d.y - d.x) * r.a * Tf : 0.f;
+      daw[off] = d.x * (1.f - r.w1) + g1 * r.w1;
+      dloc[off] = (r.i0_inside < 0) ? (g1 - d.x) * r.a * Tf : 0.f;
     }
   }
+}
+
+// The scratch of a round: its taps' dot products (a float2 each), and at
+// least the sort's two-byte count of each of `rows` rows for one warp.
+static int msda_bwd_scratch(int q_round, int P, int rows) {
+  const int dots = q_round * P * (int)sizeof(float2);
+  const int counts = (2 * rows + 7) & ~7;
+  return dots > counts ? dots : counts;
 }
 
 // Shared memory of a block: a round of q_round queries (g rows of `esize`
@@ -488,7 +558,8 @@ msda_bwd_kernel(const E* __restrict__ value, const float* __restrict__ loc,
 // wrapper's plan computes the same.
 static size_t msda_bwd_smem(int Dh, int esize, int q_round, int P, int rows) {
   return (((size_t)q_round * Dh * esize + 15) & ~(size_t)15) +
-         (size_t)q_round * P * (sizeof(float2) + 2 * sizeof(Entry) + sizeof(TapRec)) +
+         (size_t)msda_bwd_scratch(q_round, P, rows) +
+         (size_t)q_round * P * (2 * sizeof(Entry) + sizeof(TapRec)) +
          (size_t)rows * sizeof(int);
 }
 
@@ -496,7 +567,7 @@ template <typename E, int VEC, int MAXNV, bool FULL>
 static int msda_bwd_run(const void* value, const void* loc, const void* aw, const void* g,
                         void* dvalue, void* dacc, void* dloc, void* daw, int B, int S, int H,
                         int Dh, int Q, int L, int P, const MsdaLevels& lv, int chunks,
-                        int q_round, int threads, size_t smem, cudaStream_t st) {
+                        int q_round, int scratch, int threads, size_t smem, cudaStream_t st) {
   static size_t smem_set = 48 * 1024;
   if (smem > smem_set) {
     cudaError_t err = cudaFuncSetAttribute(msda_bwd_kernel<E, VEC, MAXNV, FULL>,
@@ -509,7 +580,7 @@ static int msda_bwd_run(const void* value, const void* loc, const void* aw, cons
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   msda_bwd_kernel<E, VEC, MAXNV, FULL><<<(unsigned)blocks, threads, smem, st>>>(
       (const E*)value, (const float*)loc, (const float*)aw, (const E*)g, (E*)dvalue,
-      (float*)dacc, (float*)dloc, (float*)daw, S, H, Dh, Q, L, P, lv, chunks, q_round);
+      (float*)dacc, (float*)dloc, (float*)daw, S, H, Dh, Q, L, P, lv, chunks, q_round, scratch);
   return (int)cudaGetLastError();
 }
 
@@ -517,19 +588,19 @@ template <typename E>
 static int msda_bwd_dispatch(const void* value, const void* loc, const void* aw, const void* g,
                              void* dvalue, void* dacc, void* dloc, void* daw, int B, int S,
                              int H, int Dh, int Q, int L, int P, const MsdaLevels& lv,
-                             int vec, int chunks, int q_round, int threads, size_t smem,
-                             cudaStream_t st) {
+                             int vec, int chunks, int q_round, int scratch, int threads,
+                             size_t smem, cudaStream_t st) {
   if (vec == 4 && Dh == 8 * MSDA_LANES)  // Dh = 64, every configuration of the model
     return msda_bwd_run<E, 4, 2, true>(value, loc, aw, g, dvalue, dacc, dloc, daw, B, S, H, Dh,
-                                       Q, L, P, lv, chunks, q_round, threads, smem, st);
+                                       Q, L, P, lv, chunks, q_round, scratch, threads, smem, st);
   if (vec == 4 && Dh <= 8 * MSDA_LANES)
     return msda_bwd_run<E, 4, 2, false>(value, loc, aw, g, dvalue, dacc, dloc, daw, B, S, H, Dh,
-                                        Q, L, P, lv, chunks, q_round, threads, smem, st);
+                                        Q, L, P, lv, chunks, q_round, scratch, threads, smem, st);
   if (vec == 4)
     return msda_bwd_run<E, 4, 8, false>(value, loc, aw, g, dvalue, dacc, dloc, daw, B, S, H, Dh,
-                                        Q, L, P, lv, chunks, q_round, threads, smem, st);
+                                        Q, L, P, lv, chunks, q_round, scratch, threads, smem, st);
   return msda_bwd_run<E, 1, 32, false>(value, loc, aw, g, dvalue, dacc, dloc, daw, B, S, H, Dh,
-                                       Q, L, P, lv, chunks, q_round, threads, smem, st);
+                                       Q, L, P, lv, chunks, q_round, scratch, threads, smem, st);
 }
 
 // Plain C entry point, bound from Python with ctypes. value, g and dvalue
@@ -568,11 +639,12 @@ extern "C" int msda_bwd_launch(const void* value, const void* loc,
   const int esize = value_is_bf16 ? 2 : 4;
   const size_t smem = msda_bwd_smem(Dh, esize, q_round, P, max_rows + 1);  // the halo row
   if (smem > MSDA_SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  const int scratch = msda_bwd_scratch(q_round, P, max_rows + 1);
   cudaStream_t st = (cudaStream_t)stream;
   if (value_is_bf16)
     return msda_bwd_dispatch<__nv_bfloat16>(value, loc, aw, g, dvalue, dacc, dloc, daw, B, S, H,
-                                            Dh, Q, L, P, lv, vec, chunks, q_round, threads, smem,
-                                            st);
+                                            Dh, Q, L, P, lv, vec, chunks, q_round, scratch,
+                                            threads, smem, st);
   return msda_bwd_dispatch<float>(value, loc, aw, g, dvalue, dvalue, dloc, daw, B, S, H, Dh, Q,
-                                  L, P, lv, vec, chunks, q_round, threads, smem, st);
+                                  L, P, lv, vec, chunks, q_round, scratch, threads, smem, st);
 }

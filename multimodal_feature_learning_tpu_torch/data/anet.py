@@ -13,7 +13,8 @@ synthetic world (``__graft_entry__._synth_batch``).
   training, a subset fixed per key in evaluation), tokenize captions to
   ``<bos> ... <eos>``, keep the raw captions.
 * ``collate_fixed``: zero-pad to the batch's longest video, mask, normalise
-  the events to (centre, length), nearest-resize to ``video_rescale_len``,
+  the events to (centre, length), nearest-resize to ``video_rescale_len``
+  (in the native collate, ``native.py``, unless ``MFL_DISABLE_NATIVE``),
   and optionally pad the batch with dummy rows; the audio features, when the
   samples have them, likewise to ``audio_rescale_len``.
 """
@@ -27,6 +28,7 @@ from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
+from .. import native
 from .vocab import Vocab, build_vocab, word_tokenize
 
 
@@ -54,7 +56,8 @@ class FeatureBackend:
             if features_path.endswith(".h5"):
                 raise ValueError(
                     f"{features_path}: h5 feature files are not read by the port (it has "
-                    "no h5py); give a directory of <video key>.npy arrays instead")
+                    "no h5py); give a directory of <video key>.npy arrays instead, which "
+                    "tools/h5_to_npy.py makes of the h5 file where h5py is installed")
             self.keys = {f[:-4] for f in os.listdir(features_path) if f.endswith(".npy")}
 
     def __contains__(self, key: str) -> bool:
@@ -171,7 +174,8 @@ def _pad_and_resize(feats: List[np.ndarray], B: int, n_real: int, rescale_len: i
     for i, f in enumerate(feats):
         x[i, :f.shape[0]] = f
         mask[i, :f.shape[0]] = False
-    return nearest_resize(x, rescale_len, axis=1), nearest_resize(mask, rescale_len, axis=1)
+    # the native collate where JAX's collate takes it (unless MFL_DISABLE_NATIVE)
+    return native.resize_nearest(x, rescale_len), native.resize_nearest(mask, rescale_len)
 
 
 def collate_fixed(samples: List[Optional[Dict]], pad_idx: int, video_rescale_len: int = 300,

@@ -23,7 +23,8 @@ import numpy as np
 import torch
 
 from ..models.layers import dropout_generator
-from ..utils.weights import SEP, flax_key
+from ..utils.observability import flax_path
+from ..utils.weights import flax_key
 from .logging import MetricLogger, SmoothedValue
 from .state import TrainState
 
@@ -155,7 +156,7 @@ def dump_grad_flow(grad_flow_dir: str, norms: Dict[str, torch.Tensor], epoch: in
     ``grads_e{epoch:03d}_s{step:05d}.json``, the JAX package's grad-flow
     file, its keys the flax params paths joined by "/"."""
     values = to_host_floats(list(norms.values()))
-    stats = {key.replace(SEP, "/"): v for key, v in zip(norms, values)}
+    stats = {flax_path(key): v for key, v in zip(norms, values)}
     os.makedirs(grad_flow_dir, exist_ok=True)
     path = os.path.join(grad_flow_dir, f"grads_e{epoch:03d}_s{step_in_epoch:05d}.json")
     with open(path, "w") as f:
@@ -164,9 +165,10 @@ def dump_grad_flow(grad_flow_dir: str, norms: Dict[str, torch.Tensor], epoch: in
 
 
 def _is_aux(key: str) -> bool:
-    """An auxiliary-layer metric (``_0`` .. ``_9``, ``_enc_``), which the
-    epoch computes but does not log."""
-    return any(f"_{i}" in key for i in range(10)) or "_enc_" in key
+    """An auxiliary-layer metric, which the epoch computes but does not log:
+    JAX's filter, a key holding ``_0`` .. ``_4`` or ``_enc_`` (so with 7 or
+    more decoder or caption layers the terms of layer 5 on are logged)."""
+    return any(f"_{i}" in key for i in range(5)) or "_enc_" in key
 
 
 def train_one_epoch(train_step, state: TrainState, batches: Iterable[Dict], epoch: int,
@@ -175,8 +177,8 @@ def train_one_epoch(train_step, state: TrainState, batches: Iterable[Dict], epoc
                     chunk_k: int = 1):
     """One pass over ``batches`` (any iterable of batch dicts, numpy or
     tensors), the JAX package's ``train_one_epoch``. Returns (state,
-    {metric: global average}) over the final-layer metrics (the auxiliary
-    ``_0`` .. ``_enc_`` terms are not logged); the same filtered metrics go
+    {metric: global average}) over the metrics that JAX's loop logs (not the
+    auxiliary terms, ``_is_aux``); the same filtered metrics go
     to ``step_logger(log, global_step)`` for every step, in step order.
 
     With ``multi_step`` (``make_train_multistep``) and ``chunk_k`` > 1,

@@ -27,11 +27,11 @@ class UnimodalCaptionDecoder(nn.Module):
                  num_heads: int = 8, mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  positional_embedding_dropout: float = 0.0, attention_dropout: float = 0.0,
                  projection_dropout: float = 0.0, mlp_dropout_1: float = 0.0,
-                 mlp_dropout_2: float = 0.0):
+                 mlp_dropout_2: float = 0.0, embedding_matrix=None):
         super().__init__()
         self.depth = depth
         self.num_heads = num_heads
-        self.target_embedding = VocabularyEmbedder(vocab_size, d_model)
+        self.target_embedding = VocabularyEmbedder(vocab_size, d_model, embedding_matrix)
         self.register_buffer("pos_table", caption_positional_encoding(d_model),
                              persistent=False)
         self.pos_dropout = Dropout(positional_embedding_dropout)

@@ -244,7 +244,7 @@ class UnimodalDVC(nn.Module):
     ``forward_eval`` add the matching to the ground truth."""
 
     def __init__(self, cfg, vocab_size: int, pad_idx: int = 1, bos_idx: int = 2,
-                 eos_idx: int = 3):
+                 eos_idx: int = 3, embedding_matrix=None):
         super().__init__()
         dvc, det = cfg.dvc, cfg.dvc.detr
         anet = cfg.dataset.activity_net
@@ -290,7 +290,7 @@ class UnimodalDVC(nn.Module):
             vocab_size, cap.d_model, cap.depth, cap.num_heads,
             float(cap.mlp_ratio), cap.qkv_bias, cap.positional_embedding_dropout,
             cap.attention_dropout, cap.projection_dropout, cap.mlp_dropout_1,
-            cap.mlp_dropout_2)
+            cap.mlp_dropout_2, embedding_matrix)
         if self.use_differentiable_mask:
             self.context_mask = ContextMaskModel(dvc.d_model + 2, self.num_tokens)
 
@@ -569,13 +569,15 @@ class UnimodalDVC(nn.Module):
 
 
 def build_model(cfg, vocab_size: int, pad_idx: int = 1, bos_idx: int = 2,
-                eos_idx: int = 3, device="cuda", seed: int = 0) -> UnimodalDVC:
+                eos_idx: int = 3, device="cuda", seed: int = 0,
+                embedding_matrix=None) -> UnimodalDVC:
     """The model in eval mode on ``device``, its weights drawn from ``seed``
-    (load trained weights with ``utils.weights``); ``model.train()`` turns
-    dropout on for training."""
+    (load trained weights with ``utils.weights``), the caption embedding
+    from ``embedding_matrix`` (GloVe's, ``models/load_weights.py``) when one
+    is given; ``model.train()`` turns dropout on for training."""
     dev = resolve_device(device)
     set_f32_numerics(dev)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        model = UnimodalDVC(cfg, vocab_size, pad_idx, bos_idx, eos_idx)
+        model = UnimodalDVC(cfg, vocab_size, pad_idx, bos_idx, eos_idx, embedding_matrix)
     return model.to(dev).eval()

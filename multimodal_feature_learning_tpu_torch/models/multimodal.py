@@ -345,10 +345,10 @@ class MultimodalCaptionDecoder(nn.Module):
                  num_heads: int = 8, mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  positional_embedding_dropout: float = 0.0, attention_dropout: float = 0.0,
                  projection_dropout: float = 0.0, bridge_dropout: float = 0.0,
-                 mlp_dropout_1: float = 0.0, mlp_dropout_2: float = 0.0):
+                 mlp_dropout_1: float = 0.0, mlp_dropout_2: float = 0.0, embedding_matrix=None):
         super().__init__()
         self.depth = depth
-        self.target_embedding = VocabularyEmbedder(vocab_size, d_model)
+        self.target_embedding = VocabularyEmbedder(vocab_size, d_model, embedding_matrix)
         self.register_buffer("pos_table", caption_positional_encoding(d_model),
                              persistent=False)
         self.pos_dropout = Dropout(positional_embedding_dropout)
@@ -448,9 +448,10 @@ class MultimodalDVC(nn.Module):
     ``video_context_mask``, ``audio_context_mask``)."""
 
     def __init__(self, cfg, vocab_size: int, pad_idx: int = 1, bos_idx: int = 2,
-                 eos_idx: int = 3, feature_dim: int = 0):
+                 eos_idx: int = 3, feature_dim: int = 0, embedding_matrix=None):
         """``feature_dim``: the width of the features the proposal stack
-        reads (0: ``dvc.detr.feature_dim``)."""
+        reads (0: ``dvc.detr.feature_dim``); ``embedding_matrix``: GloVe's
+        (vocab, dim) for the caption decoder's embedding, or None."""
         super().__init__()
         dvc, det = cfg.dvc, cfg.dvc.detr
         anet = cfg.dataset.activity_net
@@ -480,7 +481,8 @@ class MultimodalDVC(nn.Module):
         self.caption = MultimodalCaptionDecoder(
             vocab_size, cap.d_model, cap.depth, cap.num_heads, float(cap.mlp_ratio),
             cap.qkv_bias, cap.positional_embedding_dropout, cap.attention_dropout,
-            cap.projection_dropout, cap.bridge_dropout, cap.mlp_dropout_1, cap.mlp_dropout_2)
+            cap.projection_dropout, cap.bridge_dropout, cap.mlp_dropout_1, cap.mlp_dropout_2,
+            embedding_matrix)
         if self.use_differentiable_mask:
             shapes = (det.video_rescale_len, anet.audio_rescale_len)
             n_video, n_audio = (sum(pyramid_shapes(t, det.num_feature_levels)) for t in shapes)
@@ -601,9 +603,9 @@ class RawMultimodalDVC(MultimodalDVC):
     should make them equal."""
 
     def __init__(self, cfg, vocab_size: int, pad_idx: int = 1, bos_idx: int = 2,
-                 eos_idx: int = 3):
+                 eos_idx: int = 3, embedding_matrix=None):
         super().__init__(cfg, vocab_size, pad_idx, bos_idx, eos_idx,
-                         feature_dim=cfg.dvc.d_model)
+                         feature_dim=cfg.dvc.d_model, embedding_matrix=embedding_matrix)
         viv, ast = cfg.dvc.vivit, cfg.dvc.ast
         self.video_backbone = VideoVisionTransformer(
             model_name=viv.model_name, d_model=cfg.dvc.d_model, depth=viv.depth,
@@ -635,14 +637,16 @@ class RawMultimodalDVC(MultimodalDVC):
 
 
 def build_multimodal_model(cfg, vocab_size: int, pad_idx: int = 1, bos_idx: int = 2,
-                           eos_idx: int = 3, device="cuda", seed: int = 0) -> MultimodalDVC:
+                           eos_idx: int = 3, device="cuda", seed: int = 0,
+                           embedding_matrix=None) -> MultimodalDVC:
     """The multimodal model in eval mode on ``device``, its weights drawn
-    from ``seed``: ``RawMultimodalDVC`` with ``use_raw_videos``, else
+    from ``seed`` (the caption embedding from ``embedding_matrix`` when one
+    is given): ``RawMultimodalDVC`` with ``use_raw_videos``, else
     ``MultimodalDVC``."""
     cls = RawMultimodalDVC if cfg.use_raw_videos else MultimodalDVC
     dev = resolve_device(device)
     set_f32_numerics(dev)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        model = cls(cfg, vocab_size, pad_idx, bos_idx, eos_idx)
+        model = cls(cfg, vocab_size, pad_idx, bos_idx, eos_idx, embedding_matrix=embedding_matrix)
     return model.to(dev).eval()

@@ -109,7 +109,7 @@ class RegularDVC(nn.Module):
     tree (``proposal``, ``caption``, ``context_mask``)."""
 
     def __init__(self, cfg, vocab_size: int, pad_idx: int = 1, bos_idx: int = 2,
-                 eos_idx: int = 3):
+                 eos_idx: int = 3, embedding_matrix=None):
         super().__init__()
         dvc = cfg.dvc
         anet = cfg.dataset.activity_net
@@ -130,7 +130,8 @@ class RegularDVC(nn.Module):
         cap = dvc.caption
         # no dropout in the caption decoder: JAX's RegularDVC passes none
         self.caption = UnimodalCaptionDecoder(vocab_size, cap.d_model, cap.depth,
-                                              cap.num_heads, float(cap.mlp_ratio), cap.qkv_bias)
+                                              cap.num_heads, float(cap.mlp_ratio), cap.qkv_bias,
+                                              embedding_matrix=embedding_matrix)
         if self.use_differentiable_mask:
             self.context_mask = ContextMaskModel(dvc.d_model + 2, anet.video_rescale_len)
 
@@ -215,12 +216,14 @@ class RegularDVC(nn.Module):
 
 
 def build_regular_model(cfg, vocab_size: int, pad_idx: int = 1, bos_idx: int = 2,
-                        eos_idx: int = 3, device="cuda", seed: int = 0) -> RegularDVC:
+                        eos_idx: int = 3, device="cuda", seed: int = 0,
+                        embedding_matrix=None) -> RegularDVC:
     """The regular family in eval mode on ``device``, its weights drawn
-    from ``seed``."""
+    from ``seed`` (the caption embedding from ``embedding_matrix`` when one
+    is given)."""
     dev = resolve_device(device)
     set_f32_numerics(dev)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        model = RegularDVC(cfg, vocab_size, pad_idx, bos_idx, eos_idx)
+        model = RegularDVC(cfg, vocab_size, pad_idx, bos_idx, eos_idx, embedding_matrix)
     return model.to(dev).eval()

@@ -1,6 +1,8 @@
-"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+"""Build the port's CUDA kernels with ``nvcc``, and its host library (the
+native collate, ``csrc/collate.cpp``) with the host's C++ compiler, and load
+them with ``ctypes``.
 
-Each source under ``csrc/`` exposes a plain ``extern "C"`` launcher, so it
+Each source under ``csrc/`` exposes a plain ``extern "C"`` interface, so it
 compiles in seconds without PyTorch's headers. Libraries go to
 ``build/kernels/`` at the root of the checkout (listed in ``.gitignore``),
 named by a hash of the source and the flags, so an unchanged source is built
@@ -29,6 +31,9 @@ NVCC_FLAGS = (
 )
 KERNEL_SOURCES = ("msda_fwd.cu", "msda_bwd.cu", "fused_decode.cu", "probe_add.cu",
                   "hungarian.cu")
+# C++ for the host (``*.cpp``): built with g++, no CUDA
+CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
+HOST_SOURCES = ("collate.cpp",)
 
 
 def find_nvcc() -> str:
@@ -41,17 +46,26 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin and PATH)")
 
 
+def _compiler(source: str) -> Tuple[str, ...]:
+    """The compiler and its flags for ``source``: ``nvcc`` for CUDA, g++
+    (``$CXX``) for host C++."""
+    if source.endswith(".cpp"):
+        return (os.environ.get("CXX") or "g++",) + CXX_FLAGS
+    return (find_nvcc(),) + NVCC_FLAGS
+
+
 def library_path(source: str, flags: Tuple[str, ...] = ()) -> Path:
     src = (CSRC_DIR / source).read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS + tuple(flags)).encode()).hexdigest()[:12]
+    base = CXX_FLAGS if source.endswith(".cpp") else NVCC_FLAGS
+    digest = hashlib.sha1(src + " ".join(base + tuple(flags)).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
 
 
-def build(sources: Iterable[str] = KERNEL_SOURCES,
+def build(sources: Iterable[str] = KERNEL_SOURCES + HOST_SOURCES,
           variants: Iterable[Tuple[str, Tuple[str, ...]]] = ()) -> Dict[str, float]:
-    """Compile every source, and every (source, extra nvcc flags) variant,
-    that has no library yet: one ``nvcc`` each, all started together.
-    Returns {name: seconds} of the builds it ran; raises with the
+    """Compile every source, and every (source, extra compiler flags)
+    variant, that has no library yet: one compiler process each, all started
+    together. Returns {name: seconds} of the builds it ran; raises with the
     compiler's output if one fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     running = []
@@ -60,7 +74,7 @@ def build(sources: Iterable[str] = KERNEL_SOURCES,
         if lib.exists():
             continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp), str(CSRC_DIR / source)]
+        cmd = [*_compiler(source), *flags, "-o", str(tmp), str(CSRC_DIR / source)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                 text=True)
         running.append((" ".join((source,) + tuple(flags)), lib, tmp, proc, time.monotonic()))

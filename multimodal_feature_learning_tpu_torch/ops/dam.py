@@ -4,8 +4,15 @@ counterpart of the JAX ``ops/dam.py``.
 ``attn_map_to_flat_grid`` splats each decoder sampling location's attention
 weight onto the two nearest tokens of the flattened multi-level grid. It
 keeps the reference's margin formula as executed: the "start" tap's margin
-is ``frac - 1`` (negative), not ``1 - frac``. The scatter-add is
-``index_add_``.
+is ``frac - 1`` (negative), not ``1 - frac``. The scatter-add sums each
+token's weights in a fixed order, so the splat, a target of the token loss,
+is the same on every run: ``index_add_`` on the CPU (in index order), and on
+a CUDA device ``index_put_`` with ``accumulate=True`` (PyTorch's sorted,
+segmented sum, its deterministic form of ``index_add_``; ``index_add_``
+itself adds with atomics there, in an order that changes from run to run).
+One call does not serve both devices: on the CPU, ``index_put_`` with
+``accumulate=True`` leaves index order past about 1e5 entries, and its sums
+then change from run to run (PyTorch 2 on an 8-thread host).
 """
 
 from __future__ import annotations
@@ -46,7 +53,11 @@ def attn_map_to_flat_grid(temporal_shapes, level_start_index, sampling_locations
         valid = (tid >= 0) & (tid < shapes.long())
         idx = (tid + starts) * valid
         weights = (w * valid * margin).reshape(N, -1)
-        flat.index_add_(0, (rows + idx.reshape(N, -1)).reshape(-1), weights.reshape(-1))
+        flat_idx = (rows + idx.reshape(N, -1)).reshape(-1)
+        if flat.is_cuda:
+            flat.index_put_((flat_idx,), weights.reshape(-1), accumulate=True)
+        else:
+            flat.index_add_(0, flat_idx, weights.reshape(-1))
     return flat.reshape(B, num_layers, H, S)
 
 

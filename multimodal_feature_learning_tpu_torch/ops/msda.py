@@ -127,12 +127,16 @@ def msda_bwd_plan(shapes: Sequence[int], B: int, H: int, Dh: int, Q: int, P: int
     vec = 4 if (Dh % 4 == 0 and aligned) else 1
     chunks = max(-(-longest // BWD_MAX_ROWS), -(-BWD_BLOCKS_PER_SM * num_sms // (B * H * L)))
     chunks = min(chunks, longest)
-    cursors = (-(-longest // chunks) + 1) * 4  # the rows a block owns, and its halo row
+    rows = -(-longest // chunks) + 1  # the rows a block owns, and its halo row
+    cursors = rows * 4
     # a query's g row, and per tap its two dot products (8 bytes), two
     # entries (16) and a TapRec (12); at most 32767 taps a round (16-bit slots)
     per_query = Dh * itemsize + P * 36
     q_round = max(1, min(Q, 32767 // P, (BWD_SMEM_TARGET - cursors - 16) // per_query))
-    smem = _round16(q_round * Dh * itemsize) + q_round * P * 36 + cursors
+    # the dot products' room also holds the sort's two-byte count of each row
+    # for at least one warp
+    scratch = max(q_round * P * 8, -(-2 * rows // 8) * 8)
+    smem = _round16(q_round * Dh * itemsize) + scratch + q_round * P * 28 + cursors
     # at 64 registers a thread an SM holds 1024 threads: two 512-thread
     # blocks, or four 256-thread ones where shared memory lets four share it
     threads = 256 if SMEM_PER_SM // (smem + 1024) >= 4 else 512

@@ -2,12 +2,14 @@
 for this checkout and, in turns, for another one.
 
     python3 -m multimodal_feature_learning_tpu_torch.tools.msda_device_time \
-        [--against DIR] [--turns 2] [--in-step] [--out FILE]
+        [--against DIR] [--turns 2] [--in-step] [--cases NAME,...] [--out FILE]
 
 For each case (the flagship's encoder call Q=282 and decoder call Q=20 at
 B=16, S=563, H=8, Dh=64, L=P=4; and a long pyramid (1200, 600, 300, 150)
 with the sparse encoder's Q=1126 at B=2, which takes the kernels' chunked
-route) and each kernel, four times in milliseconds:
+route; ``--cases`` picks others by name from CASES, FAMILY_CALLS and
+RAW_CALLS) and each kernel, K1 and K2 in f32 and bf16, four times in
+milliseconds:
 - ``graph_ms``: one wrapper call replayed from a CUDA graph of 50, the
   kernel's device time with the host out of the way (for K2 of a checkout
   whose wrapper zeroes dvalue first, that memset is in it);
@@ -23,8 +25,9 @@ another name (each checkout builds its own kernels into its own
 for two turns. ``--in-step`` adds, per checkout and turn, K1's device time
 in one profiled ``forward_serve`` and K1's and K2's in one profiled train
 step of the full-width flagship with the weights of
-``snapshots/conv_e79.npz``. One JSON line per row; ``--out`` also writes
-them to a file.
+``snapshots/conv_e79.npz``, and the wall ms a step of STEP_TIMES train
+steps after it (B=16, dropout on). One JSON line per row; ``--out`` also
+writes them to a file.
 """
 
 from __future__ import annotations
@@ -75,6 +78,7 @@ RAW_CALLS = (
     ("raw_decoder_audio", 16, 20, RAW_AUDIO),  # the decoder's queries over the audio
 )
 FLUSH_BYTES = 64 << 20  # more than the H100's 50 MB L2
+STEP_TIMES = 6  # train steps timed a checkout and turn by --in-step
 
 
 def load_checkout(root: Path, alias: str):
@@ -114,7 +118,10 @@ def kernel_rows(msda, dev, cases=CASES, H: int = 8, Dh: int = 64, P: int = 4) ->
         calls = [("msda_fwd", "float32", lambda v=value: msda.MSDA_FWD(v, shapes, loc, aw)),
                  ("msda_fwd", "bfloat16",
                   lambda v=value.to(torch.bfloat16): msda.MSDA_FWD(v, shapes, loc, aw)),
-                 ("msda_bwd", "float32", lambda: msda.MSDA_BWD(value, shapes, loc, aw, g))]
+                 ("msda_bwd", "float32", lambda: msda.MSDA_BWD(value, shapes, loc, aw, g)),
+                 ("msda_bwd", "bfloat16",
+                  lambda v=value.to(torch.bfloat16), gb=g.to(torch.bfloat16):
+                  msda.MSDA_BWD(v, shapes, loc, aw, gb))]
         for name, dtype, fn in calls:
             rows.append({"kernel": name, "case": case, "B": B, "Q": Q, "shapes": list(shapes),
                          "dtype": dtype, **call_times(fn, name, dev)})
@@ -125,7 +132,10 @@ def kernel_rows(msda, dev, cases=CASES, H: int = 8, Dh: int = 64, P: int = 4) ->
 def in_step_rows(pkg, dev, batch: int = 16) -> Dict:
     """K1's device ms in one profiled forward_serve of a batch, and K1's and
     K2's in one profiled train step, of the flagship built by ``pkg`` (a
-    checkout's package) with the conv_e79 weights."""
+    checkout's package) with the conv_e79 weights; then the wall ms a step
+    of STEP_TIMES train steps, each on its own batch."""
+    import time
+
     import numpy as np
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -166,13 +176,19 @@ def in_step_rows(pkg, dev, batch: int = 16) -> Dict:
     criterion, weight_dict = criterion_mod.build_criterion(cfg, model.pad_idx)
     state = state_mod.create_train_state(cfg, model, steps_per_epoch=1000)
     step = train_mod.make_train_step(criterion, weight_dict, seed=cfg.seed)
-    tb = train_mod.batch_to_device(next(anet.synthetic_batches(cfg, batch, vocab_size, seed=0)),
-                                   dev)
-    train = profiled(lambda: step(state, tb))
-    del model, state
+    batches = [train_mod.batch_to_device(b, dev) for b in anet.synthetic_batches(
+        cfg, batch, vocab_size, seed=0, num_batches=STEP_TIMES + 1)]
+    train = profiled(lambda: step(state, batches[0]))
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for tb in batches[1:]:
+        step(state, tb)
+    torch.cuda.synchronize(dev)
+    step_ms = 1e3 * (time.perf_counter() - t0) / STEP_TIMES
+    del model, state, batches
     torch.cuda.empty_cache()
     return {"serve_msda_fwd_ms": serve["msda_fwd"], "train_msda_fwd_ms": train["msda_fwd"],
-            "train_msda_bwd_ms": train["msda_bwd"]}
+            "train_msda_bwd_ms": train["msda_bwd"], "train_step_ms": step_ms}
 
 
 def run(against=None, turns: int = 2, in_step: bool = False, cases=CASES, emit=print) -> List[Dict]:
@@ -201,8 +217,14 @@ def main() -> None:
     ap.add_argument("--against", default=None, help="root of another checkout")
     ap.add_argument("--turns", type=int, default=2)
     ap.add_argument("--in-step", action="store_true")
+    ap.add_argument("--cases", default=None,
+                    help="comma-separated case names (default: those of CASES)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
+    cases = CASES
+    if args.cases:
+        known = {c[0]: c for c in CASES + FAMILY_CALLS + RAW_CALLS}
+        cases = tuple(known[name] for name in args.cases.split(","))
     print(torch.cuda.get_device_name(0), flush=True)
     lines = []
 
@@ -210,7 +232,7 @@ def main() -> None:
         print(line, flush=True)
         lines.append(line)
 
-    run(args.against, args.turns, args.in_step, emit=emit)
+    run(args.against, args.turns, args.in_step, cases, emit=emit)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text("\n".join(lines) + "\n")

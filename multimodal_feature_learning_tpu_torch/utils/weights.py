@@ -15,8 +15,8 @@ family's ``video_backbone``, ``audio_backbone``); list members
 ``decoder_3``, and the backbones' ``encoder_3``, ``spatial_encoder_3``,
 ``temporal_encoder_3``) become ``enc_layers.3``; the BiModalEncoder's
 ``layer_0`` and flax's automatic names inside a module (``LayerNorm_0``,
-``MLP_0``) stay names, as the port's modules are named; ``Embed_0`` becomes
-``embed``. Leaves: a Dense ``kernel`` (in, out) becomes ``weight`` (out,
+``MLP_0``, the GloVe embedder's projection ``Dense_0``) stay names, as the
+port's modules are named; ``Embed_0`` becomes ``embed``. Leaves: a Dense ``kernel`` (in, out) becomes ``weight`` (out,
 in), a Conv ``kernel`` (k..., in, out) of rank 3, 4 or 5 becomes ``weight``
 (out, in, k...), a norm ``scale`` and an ``embedding`` become ``weight``;
 other params (``pos_embedding``, ``cls``, ``query_embedding``) keep their

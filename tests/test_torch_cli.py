@@ -357,23 +357,43 @@ FAMILIES = {
             "dvc.ast.num_heads=2", "dataset.activity_net.audio_rescale_len=16"],
     "regular": ["dvc.use_sparse_detr=False", "dvc.decoder.depth=2"],
     "regular_raw": [*RAW, "dvc.use_sparse_detr=False", "dvc.decoder.depth=2"],
+    # the sparse family on a GloVe file narrower than d_model (written per test)
+    "glove": ["dvc.caption.pretrained_word_embed_dim=12"],
 }
+
+
+def glove_overrides(world, tmp_path) -> list:
+    """A GloVe file of 12 values a word for every other word of the world's
+    vocabulary, and the overrides that point the caption embedding at it."""
+    _, vocab = build_dataset("train", apply_overrides(Config(), DIMS + world[1]))
+    rng = np.random.default_rng(0)
+    path = tmp_path / "glove.txt"
+    with open(path, "w") as f:
+        for w in vocab.get_itos()[::2]:
+            f.write(" ".join([w] + [f"{v:.4f}" for v in rng.normal(size=12)]) + "\n")
+    return [f"dvc.caption.glove_file_path={path}",
+            f"dvc.caption.embedding_matrix_file_path={tmp_path / 'matrix.pkl'}"]
 
 
 @pytest.mark.parametrize("family", list(FAMILIES))
 def test_other_families_train_resume_and_evaluate(world, family, tmp_path):
     """The dense, the multimodal, the raw multimodal and the regular family
-    (on features and on raw frames) through the training CLI: an epoch from
-    a flat snapshot (``--weights``, loaded strictly) with eval
-    and scoring and a numbered checkpoint, ``--resume`` for a second, then
-    ``--mode eval --resume``, which gives the second epoch's evaluation."""
+    (on features and on raw frames), and the sparse one on GloVe embeddings,
+    through the training CLI: an epoch from a flat snapshot (``--weights``,
+    loaded strictly) with eval and scoring and a numbered checkpoint,
+    ``--resume`` for a second, then ``--mode eval --resume``, which gives
+    the second epoch's evaluation."""
     from multimodal_feature_learning_tpu_torch.models import build_model_and_criterion
     from multimodal_feature_learning_tpu_torch.utils.weights import export_flax_params
 
     extra = [*FAMILIES[family], "checkpoint_rate=1"]
+    if family == "glove":
+        extra += glove_overrides(world, tmp_path)
     cfg = apply_overrides(Config(), DIMS + extra + world[1])
     _, vocab = build_dataset("train", cfg)
     model, _, _ = build_model_and_criterion(cfg, vocab, device="cpu", seed=5)
+    # the GloVe embedder (a projection to d_model) is what --weights must carry
+    assert hasattr(model.caption.target_embedding, "Dense_0") == (family == "glove")
     snapshot = str(tmp_path / "init.npz")
     np.savez(snapshot, **export_flax_params(model))
     out = str(tmp_path / "run")
@@ -382,7 +402,7 @@ def test_other_families_train_resume_and_evaluate(world, family, tmp_path):
                             *overrides(world, *extra)])
     rec = first["epochs"][0]
     assert rec["epoch"] == 0 and np.isfinite(rec["train_loss"]) and "score_F1_score" in rec
-    assert ("train_loss_mask_prediction" in rec) == (family in ("multimodal", "raw"))
+    assert ("train_loss_mask_prediction" in rec) == (family in ("multimodal", "raw", "glove"))
     assert os.path.exists(os.path.join(out, "checkpoint0000"))
     ckpt = os.path.join(out, "checkpoint")
     second = port_main.main(["--resume", ckpt, "--epochs", "2", *common,

@@ -27,6 +27,8 @@ JAX's side runs compiled (``jax.jit``), as its train and eval steps do.
 
 from __future__ import annotations
 
+import os
+
 import jax
 import numpy as np
 import pytest
@@ -259,8 +261,9 @@ def test_dense_bf16_runs_like_the_sparse_family(dense):
 def test_regular_family_and_glove_raise():
     """The regular family (both family flags off) is built by the family
     builder, not as a UnimodalDVC, which points it to ``main.py --mode
-    eval``; a GloVe file is not ported (the builder names ROADMAP Queue 1
-    item 9); a model with two input modalities is not a UnimodalDVC."""
+    eval``; a GloVe path that names no file leaves the plain embedding, as
+    JAX's builder does (``tests/test_torch_load_weights.py`` holds a GloVe
+    file's); a model with two input modalities is not a UnimodalDVC."""
     from multimodal_feature_learning_tpu_torch.models.dvc import build_model
     from multimodal_feature_learning_tpu_torch.models.regular_dvc import RegularDVC
 
@@ -272,8 +275,11 @@ def test_regular_family_and_glove_raise():
         build_model(tcfg, VOCAB_SIZE, device="cpu")
     tcfg = torch_cfg_like(family_cfg("dense"))
     tcfg.dvc.caption.glove_file_path = "glove.840B.300d.txt"
-    with pytest.raises(NotImplementedError, match="item 9"):
-        build_model_and_criterion(tcfg, small_vocab(), device="cpu")
+    assert not os.path.exists(tcfg.dvc.caption.glove_file_path)
+    model, _, _ = build_model_and_criterion(tcfg, small_vocab(), device="cpu")
+    embedder = model.caption.target_embedding
+    assert not hasattr(embedder, "Dense_0") and embedder.embed.weight.shape[1] == \
+        tcfg.dvc.caption.d_model
     tcfg = torch_cfg_like(family_cfg("mm"))
     with pytest.raises(ValueError, match="--mode eval"):
         build_model(tcfg, VOCAB_SIZE, device="cpu")

@@ -88,6 +88,38 @@ def test_multistep_equals_single_steps(port_parts):
         assert torch.equal(p, q), n
 
 
+def test_train_step_replays_bit_for_bit(port_parts):
+    """One train step from the same state on the same batch, twice: equal
+    metrics, matchings, gradients and updated parameters, bit for bit (the
+    step's sources of run-to-run variation outside the kernels: the DAM
+    splat, the top-k selection's backward, the matcher, dropout)."""
+    from multimodal_feature_learning_tpu_torch.models import dvc
+
+    tcfg, model, criterion, weight_dict = port_parts
+    batch = batch_to_device(array_batch(tcfg, 4, seed=11), "cpu")
+    step = make_train_step(criterion, weight_dict, seed=5)
+    replays = []
+    real = dvc.batched_hungarian_torch
+    for _ in range(2):
+        state = create_train_state(tcfg, copy.deepcopy(model), STEPS_PER_EPOCH)
+        matchings = []
+        dvc.batched_hungarian_torch = lambda c, v: matchings.append(real(c, v)) or matchings[-1]
+        try:
+            metrics = step(state, batch)
+        finally:
+            dvc.batched_hungarian_torch = real
+        replays.append((metrics, matchings,
+                        [p.grad.clone() for p in state.optimizer.params if p.grad is not None],
+                        [p.detach().clone() for p in state.optimizer.params]))
+    (m1, idx1, g1, p1), (m2, idx2, g2, p2) = replays
+    assert m1.keys() == m2.keys() and len(idx1) == len(idx2) == 1
+    for k in m1:
+        assert (m1[k] == m2[k]) if k == "lr" else torch.equal(m1[k], m2[k]), k
+    assert torch.equal(idx1[0], idx2[0])
+    assert len(g1) == len(g2) > 0 and all(torch.equal(a, b) for a, b in zip(g1, g2))
+    assert all(torch.equal(a, b) for a, b in zip(p1, p2))
+
+
 def test_chunked_epoch_equals_single_steps(port_parts):
     """5 batches at chunk_k 2 (two chunks of 2, a tail of 1) and at
     chunk_k 1: the same steps, logs, stats and params, bit for bit."""
@@ -119,10 +151,11 @@ JaxState = namedtuple("JaxState", "step")
 
 def scripted(step: int, nan_at) -> dict:
     """The metrics of global step ``step`` (0-based): two logged terms, two
-    auxiliary ones, a loss that is NaN at ``nan_at``."""
+    auxiliary ones, the term of a sixth layer (logged at depth 7 and more),
+    a loss that is NaN at ``nan_at``."""
     loss = float("nan") if step == nan_at else 1.0 + 0.25 * step
     return {"loss": loss, "loss_bbox": 0.5 * step, "loss_bbox_0": 9.0,
-            "loss_giou_enc_0": 3.0, "grad_norm": 0.125 * step}
+            "loss_giou_enc_0": 3.0, "loss_bbox_5": 0.75 * step, "grad_norm": 0.125 * step}
 
 
 def run_jax_loop(chunk_k, nan_at, grad_dir, capsys):
@@ -207,7 +240,8 @@ def test_loop_host_side_follows_jax(chunk_k, nan_at, tmp_path, capsys):
     else:
         assert got_stop == (nan_at, nan_at + 1)
     assert got_logs == ref_logs
-    assert all(set(log) == {"loss", "loss_bbox", "grad_norm", "lr"} for _, log in got_logs)
+    assert all(set(log) == {"loss", "loss_bbox", "loss_bbox_5", "grad_norm", "lr"}
+               for _, log in got_logs)
     files = grad_files(tmp_path / "port")
     assert files == grad_files(tmp_path / "jax")
     if nan_at is None:
