@@ -236,7 +236,23 @@ Phases, each printing one line with its wall seconds:
    ViViT (512 wide, 16 x 16 patches) transplanted in every ViViT mode on
    the card and on the CPU, bit for bit; then the raw family with it
    transplanted, eval_check of 2 raw val videos at 32 frames, card against
-   CPU.
+   CPU;
+43. parallel (after vivit_transplant): parallel/ over torch.distributed,
+   the flagship from conv_e79 at full width, batch 16, dropout 0.1, 3
+   steps: (a) the train step in this process under an NCCL group of world
+   1 through the parallel path (make_mesh, replicate_params, the step's
+   data_parallel, sync_grads, reduce_metrics) against the plain step:
+   losses, matchings and every parameter bit for bit, K1 / K2 / K6 12 / 12
+   / 1 a step; (b) two processes of this script (--parallel-rank) on the
+   one card over gloo (NCCL refuses two ranks on one device), DP 2 at 8 +
+   8 rows, each step against the one-process step at 16 rows that rank 0
+   replays from the same state: matchings equal, loss within rel 1e-4,
+   terms 1e-3, grad norm 1e-3 (train_check's tolerances), K1 / K2 / K6
+   12 / 12 / 1 a step on each rank, each rank's backend, step ms and peak
+   memory, and the loss beside this process's plain run (reported); (c)
+   the same two processes at TP 2 (parallel/tp.py with the decoder's
+   value tokens split over the model axis, every rank on the 16 rows),
+   held the same way.
 
 Then one JSON line of kernel measurements (K1-K6) and, as the last line, a JSON
 object naming the device. Any failure exits non-zero without that line, as
@@ -3110,6 +3126,314 @@ def train_check(cfg, flat, vocab_size, batch=None):
 
 
 # ---------------------------------------------------------------------------
+# parallel/ over torch.distributed
+# ---------------------------------------------------------------------------
+
+PARALLEL_STEPS = 3
+PARALLEL_RANKS = 2  # processes on the one card, over gloo
+PARALLEL_LAYOUTS = {"dp": (2, 1), "tp": (1, 2)}  # (data ranks, model ranks)
+
+
+def parallel_run(cfg, flat, vocab_size, batches, mesh, tp: bool = False,
+                 before_step=None) -> dict:
+    """PARALLEL_STEPS flagship train steps from conv_e79 over ``batches``
+    (this rank's rows of each, ``shard_batch``) through the parallel path
+    with a ``mesh`` (``tp``: the parameters tensor-parallel and the
+    decoder's value tokens split over "model"), else the plain step.
+    ``before_step(state, i)`` runs ahead of step i, outside its counts and
+    its clock. K1, K2 and K6 are counted over the steps alone. Returns the
+    global metrics of each step, its matchings (layers, rows, slots), host
+    ms of each step, the launches, the peak memory over the steps and the
+    unsharded parameters after the last step."""
+    import torch
+
+    from multimodal_feature_learning_tpu_torch.engine.state import (
+        create_train_state, full_state_dicts, shard_state)
+    from multimodal_feature_learning_tpu_torch.engine.train import (
+        batch_to_device, make_train_step, reduce_metrics)
+    from multimodal_feature_learning_tpu_torch.models.criterion import build_criterion
+    from multimodal_feature_learning_tpu_torch.ops import msda
+    from multimodal_feature_learning_tpu_torch.ops.hungarian import HUNGARIAN
+    from multimodal_feature_learning_tpu_torch.parallel.mesh import replicate_params, shard_batch
+
+    model = replicate_params(build_family(cfg, vocab_size, "cuda", flat), mesh)
+    criterion, weight_dict = build_criterion(cfg, model.pad_idx)
+    state = create_train_state(cfg, model, steps_per_epoch=1000)
+    if tp:
+        shard_state(state, mesh, tp_axis="model")
+        model.shard_tokens_axis(mesh)
+    step = make_train_step(criterion, weight_dict, seed=cfg.seed, mesh=mesh)
+    local = [batch_to_device(shard_batch(b, mesh), "cuda") for b in batches]
+    counters = (msda.MSDA_FWD, msda.MSDA_BWD, HUNGARIAN)
+    launches = dict.fromkeys(("msda_fwd", "msda_bwd", "hungarian"), 0)
+    metrics, step_ms, matchings, peak = [], [], [], 0
+    for i, b in enumerate(local):
+        if before_step is not None:
+            before_step(state, i)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        with recording_matchings(keep=True) as matched:
+            m = reduce_metrics(step(state, b), mesh)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        for name, c in zip(launches, counters):
+            launches[name] += c.launches
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        metrics.append({k: v.detach().clone() for k, v in m.items() if k != "lr"})
+        (_, _, idx), = matched
+        matchings.append(idx.reshape(-1, b["gt_mask"].shape[0], idx.shape[-1]))
+    out = {"metrics": metrics, "step_ms": step_ms, "launches": launches, "peak_bytes": peak,
+           "matchings": matchings,
+           "params": {k: v.detach().clone() for k, v in full_state_dicts(state)[0].items()}}
+    del state, model, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def parallel_flagship():
+    """(cfg, flat conv_e79 params, vocab size) of the flagship as
+    ``build_flagship`` builds it, and the phase's PARALLEL_STEPS synthetic
+    batches of BATCH (numpy seed 0)."""
+    from multimodal_feature_learning_tpu_torch.config import load_config, recompute_losses
+    from multimodal_feature_learning_tpu_torch.data.anet import synthetic_batches
+    from multimodal_feature_learning_tpu_torch.utils.weights import load_npz
+
+    cfg = load_config()
+    cfg.use_differentiable_mask = False
+    recompute_losses(cfg)
+    flat = load_npz(SNAPSHOT)
+    vocab_size = int(flat["BF16||caption||params||head||bias"].shape[0])
+    batches = [{k: v for k, v in b.items() if not isinstance(v, list)} for b in
+               synthetic_batches(cfg, BATCH, vocab_size, seed=0, num_batches=PARALLEL_STEPS)]
+    return cfg, flat, vocab_size, batches
+
+
+def parallel_rank(workdir: str) -> int:
+    """``chip_smoke.py --parallel-rank <workdir>``: one of PARALLEL_RANKS
+    processes (RANK / WORLD_SIZE / LOCAL_RANK / LOCAL_WORLD_SIZE /
+    MASTER_ADDR / MASTER_PORT from the environment) on the one card. Joins
+    the group (gloo: the ranks share the device) and runs ``parallel_run``
+    in each of PARALLEL_LAYOUTS. Ahead of each step rank 0 replays it in
+    one process over the whole batch from the same state (the unsharded
+    parameters and AdamW moments, loaded into a plain model): the step each
+    parallel step is held to. Writes its results to
+    ``<workdir>/rank<r>.pt``."""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from multimodal_feature_learning_tpu_torch.engine.state import (
+        create_train_state, full_state_dicts)
+    from multimodal_feature_learning_tpu_torch.engine.train import (
+        batch_to_device, make_train_step)
+    from multimodal_feature_learning_tpu_torch.models.criterion import build_criterion
+    from multimodal_feature_learning_tpu_torch.parallel.mesh import (
+        make_mesh, maybe_initialize_distributed)
+
+    maybe_initialize_distributed("cuda")
+    rank = dist.get_rank()
+    cfg, flat, vocab_size, batches = parallel_flagship()
+    res = {"backend": dist.get_backend(), "device": torch.cuda.current_device()}
+    ref_state = ref_step = None
+    if rank == 0:
+        ref_model = build_family(cfg, vocab_size, "cuda", flat)
+        ref_state = create_train_state(cfg, ref_model, steps_per_epoch=1000)
+        ref_step = make_train_step(*build_criterion(cfg, ref_model.pad_idx), seed=cfg.seed)
+        whole = [batch_to_device(b, "cuda") for b in batches]
+    for layout, (n_data, n_model) in PARALLEL_LAYOUTS.items():
+        replays = []
+
+        def replay(state, i):
+            model_sd, opt_sd = full_state_dicts(state)  # a collective under TP
+            if rank != 0:
+                return
+            ref_state.model.load_state_dict(model_sd)
+            # a copy: load_state_dict keeps tensors already on their device,
+            # and the replay's update must not reach the parallel run's moments
+            ref_state.optimizer.load_state_dict(copy.deepcopy(opt_sd))
+            ref_state.step = state.step
+            with recording_matchings(keep=True) as matched:
+                m = ref_step(ref_state, whole[i])
+            (_, _, idx), = matched
+            replays.append({"metrics": {k: float(v) for k, v in m.items() if k != "lr"},
+                            "matchings": idx.reshape(-1, BATCH, idx.shape[-1]).cpu()})
+
+        run = parallel_run(cfg, flat, vocab_size, batches, make_mesh(n_data, n_model),
+                           tp=n_model > 1, before_step=replay)
+        res[layout] = {
+            "metrics": [{k: float(v) for k, v in m.items()} for m in run["metrics"]],
+            "matchings": [m.cpu() for m in run["matchings"]],
+            "params": ({k: v.cpu() for k, v in run["params"].items()} if rank == 0
+                       else None),
+            "replays": replays,
+            **{k: run[k] for k in ("step_ms", "launches", "peak_bytes")}}
+    torch.save(res, os.path.join(workdir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def parallel_gaps(runs: list, n_data: int) -> dict:
+    """Each parallel step of ``runs`` (the ranks' results of one layout)
+    against rank 0's replay of it in one process from the same state, to
+    train_check's tolerances: matchings equal (the data ranks' rows joined
+    in rank order), loss within rel 1e-4, every loss term 1e-3 (atol 1e-5),
+    grad norm 1e-3. The ranks' global metrics must agree bit for bit, and
+    the ranks of one data index their matchings."""
+    import torch
+
+    for run in runs[1:]:
+        if run["metrics"] != runs[0]["metrics"]:
+            raise AssertionError("the ranks' global metrics differ")
+    per = PARALLEL_RANKS // n_data
+    out = {"loss_rel": [], "grad_norm_rel": [], "worst_term_rel": []}
+    for i, ref in enumerate(runs[0]["replays"]):
+        a, b = ref["metrics"], runs[0]["metrics"][i]
+        rel = {k: abs(b[k] - a[k]) / max(abs(a[k]), 1e-12) for k in a}
+        bad = [k for k in a if k.startswith("loss_")
+               and abs(b[k] - a[k]) > max(1e-3 * abs(a[k]), 1e-5)]
+        if rel["loss"] > 1e-4 or rel["grad_norm"] > 1e-3 or bad:
+            raise AssertionError(f"step {i}: loss rel {rel['loss']}, grad_norm rel "
+                                 f"{rel['grad_norm']}, terms {bad}")
+        for r in range(0, PARALLEL_RANKS, per):
+            if not all(torch.equal(runs[r]["matchings"][i], runs[q]["matchings"][i])
+                       for q in range(r, r + per)):
+                raise AssertionError(f"step {i}: ranks of one data index match apart")
+        joined = torch.cat([runs[r]["matchings"][i] for r in range(0, PARALLEL_RANKS, per)],
+                           dim=1)
+        if not torch.equal(joined, ref["matchings"]):
+            raise AssertionError(f"step {i}: matchings differ from the one-process step")
+        out["loss_rel"].append(rel["loss"])
+        out["grad_norm_rel"].append(rel["grad_norm"])
+        out["worst_term_rel"].append(max(rel[k] for k in a if k.startswith("loss_")))
+    return out
+
+
+def parallel() -> dict:
+    """Phase parallel (see the module docstring): (a) NCCL world 1 in this
+    process, bit for bit against the plain step; (b) DP 2 and (c) TP 2 in
+    two processes on the card over gloo, each step against the one-process
+    step at 16 rows from the same state."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from multimodal_feature_learning_tpu_torch.parallel.mesh import (
+        make_mesh, maybe_initialize_distributed)
+
+    cfg, flat, vocab_size, batches = parallel_flagship()
+    per_step = {"msda_fwd": msda_per_forward(cfg), "msda_bwd": msda_per_forward(cfg),
+                "hungarian": 1}
+    plain = parallel_run(cfg, flat, vocab_size, batches, None)
+
+    def check_launches(what: str, launches: dict):
+        want = {k: n * PARALLEL_STEPS for k, n in per_step.items()}
+        if launches != want:
+            raise AssertionError(f"{what}: launches {launches}, expected {want}")
+
+    check_launches("plain", plain["launches"])
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        maybe_initialize_distributed("cuda")
+        backend = dist.get_backend()
+        world1 = parallel_run(cfg, flat, vocab_size, batches, make_mesh(1, 1))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if backend != "nccl":
+        raise AssertionError(f"world 1 on the card took {backend}, not nccl")
+    check_launches("nccl world 1", world1["launches"])
+    differing = {
+        "metrics": [f"{i}:{k}" for i, (a, b) in enumerate(zip(plain["metrics"],
+                                                               world1["metrics"]))
+                    for k in a if not bitwise_equal(a[k], b[k])],
+        "matchings": [i for i, (a, b) in enumerate(zip(plain["matchings"],
+                                                        world1["matchings"]))
+                      if not bitwise_equal(a, b)],
+        "params": [k for k in plain["params"]
+                   if not bitwise_equal(plain["params"][k], world1["params"][k])]}
+    if any(differing.values()):
+        raise AssertionError(f"the NCCL world-1 steps differ from the plain steps: "
+                             f"{ {k: v[:6] for k, v in differing.items()} }")
+    world1_ms, world1_launches = world1["step_ms"], world1["launches"]
+    del world1
+    torch.cuda.empty_cache()
+
+    workdir = tempfile.mkdtemp(prefix="parallel_", dir=os.path.join(ROOT, "build"))
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-u", os.path.abspath(__file__), "--parallel-rank", workdir],
+        env=dict(os.environ, RANK=str(r), WORLD_SIZE=str(PARALLEL_RANKS), LOCAL_RANK=str(r),
+                 LOCAL_WORLD_SIZE=str(PARALLEL_RANKS), MASTER_ADDR="127.0.0.1",
+                 MASTER_PORT=str(port)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(PARALLEL_RANKS)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log_text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"parallel rank {r} exited {p.returncode}:\n"
+                                 f"{log_text[-4000:]}")
+    ranks = [torch.load(os.path.join(workdir, f"rank{r}.pt"), weights_only=False)
+             for r in range(PARALLEL_RANKS)]
+    out = {"steps": PARALLEL_STEPS, "batch": BATCH,
+           "plain": {"step_ms": plain["step_ms"], "peak_bytes": plain["peak_bytes"],
+                     "launches": plain["launches"],
+                     "loss_per_step": [float(m["loss"]) for m in plain["metrics"]]},
+           "nccl_world1": {"backend": backend, "bitwise_equal": True,
+                           "step_ms": world1_ms, "launches": world1_launches},
+           "backends": [r["backend"] for r in ranks]}
+    if any(b != "gloo" for b in out["backends"]):
+        raise AssertionError(f"two ranks on one card took {out['backends']}, not gloo")
+    for layout, (n_data, n_model) in PARALLEL_LAYOUTS.items():
+        runs = [r[layout] for r in ranks]
+        for r, run in enumerate(runs):
+            check_launches(f"{layout} rank {r}", run["launches"])
+        free = [abs(m["loss"] - float(p["loss"])) / abs(float(p["loss"]))
+                for m, p in zip(runs[0]["metrics"], plain["metrics"])]
+        out[layout] = {
+            "data_ranks": n_data, "model_ranks": n_model, "rows_a_rank": BATCH // n_data,
+            **parallel_gaps(runs, n_data),
+            # beside the plain run of this process, steps compounding: reported
+            "free_running_loss_rel": free,
+            "free_running_max_param_gap": max(
+                float((plain["params"][k].cpu() - v).abs().max())
+                for k, v in runs[0]["params"].items()),
+            "step_ms": [run["step_ms"] for run in runs],
+            "peak_bytes": [run["peak_bytes"] for run in runs],
+            "launches_per_step_and_rank": [{k: n / PARALLEL_STEPS
+                                            for k, n in run["launches"].items()}
+                                           for run in runs]}
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+# ---------------------------------------------------------------------------
 # bf16: the JAX package's mixed-precision policy (compute_dtype "bfloat16")
 # ---------------------------------------------------------------------------
 
@@ -4452,6 +4776,10 @@ def main() -> int:
     transplanted = vivit_transplant(vocab_size, raw_world)
     log("vivit_transplant", time.monotonic() - t, **transplanted)
 
+    t = time.monotonic()
+    paralleled = parallel()
+    log("parallel", time.monotonic() - t, **paralleled)
+
     enc = next(c for c in cases if c["call"] == "encoder" and c["dtype"] == "float32")
     enc_bwd = next(c for c in bwd_cases if c["call"] == "encoder" and c["dtype"] == "float32")
     bf16_of = {  # the encoder call's bf16 case of each MSDA kernel
@@ -4464,8 +4792,14 @@ def main() -> int:
 
     def family_launches(name):
         """The launches of kernel ``name`` in each phase of the dense, the
-        multimodal, the raw multimodal and the regular families."""
+        multimodal, the raw multimodal and the regular families, and in the
+        parallel phase (each rank's)."""
         return {
+            "parallel": {"plain": paralleled["plain"]["launches"][name],
+                         "nccl_world1": paralleled["nccl_world1"]["launches"][name],
+                         **{f"{layout}_rank{r}": n[name] * PARALLEL_STEPS for layout in
+                            PARALLEL_LAYOUTS for r, n in enumerate(
+                                paralleled[layout]["launches_per_step_and_rank"])}},
             "dense_serve": {arm: a["launches"][name]
                             for arm, a in dense_served["arms"].items()},
             "dense_eval": sum(a["launches"][name] for a in dense_evaluated["arms"].values()),
@@ -4631,4 +4965,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--parallel-rank":
+        sys.exit(parallel_rank(sys.argv[2]))
     sys.exit(main())

@@ -179,6 +179,18 @@ class EvalConfig:
 
 
 @dataclass
+class MeshConfig:
+    """The process mesh (``parallel/mesh.py``), JAX ``cfg.mesh``: the data
+    axis splits the batch; ``num_model`` > 1 places the parameters
+    tensor-parallel and splits the decoder's value tokens over the model
+    axis (``parallel/tp.py``, ``models/dvc.py::shard_tokens_axis``)."""
+    data_axis: str = "data"
+    model_axis: str = "model"
+    num_data: int = -1  # -1: every process over num_model
+    num_model: int = 1
+
+
+@dataclass
 class Config:
     seed: int = 0
     batch_size: int = 16
@@ -219,6 +231,7 @@ class Config:
     dvc: DVCConfig = field(default_factory=DVCConfig)
     dataset: DatasetConfig = field(default_factory=DatasetConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
 
 
 DECODE_CHOICES = {

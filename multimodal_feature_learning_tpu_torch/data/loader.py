@@ -1,8 +1,15 @@
 """Host-side batch iterator with a prefetching thread; the port's copy of the
-JAX package's ``data/loader.py`` for one process (shard 0 of 1).
+JAX package's ``data/loader.py``.
 
 An epoch's order is ``np.random.default_rng(seed + epoch).permutation`` when
-shuffling, else the dataset's order; batches are fixed-shape dicts of numpy
+shuffling, else the dataset's order, and a data rank reads its strided part
+of it, ``order[rank::world]`` (JAX's ``process_index``-strided shard; world
+1 is the whole order). Every rank yields the same number of batches: a
+rank whose part is one video short pads it with one dummy row, so the
+ranks' collectives stay in step. The dummy row is the row ``collate_fixed``
+pads a batch with (no key, ``batch_valid`` and ``gt_mask`` False, zero
+features, no ground truth, ``<pad>`` captions), so it adds nothing to a
+loss or a normaliser. Batches are fixed-shape dicts of numpy
 arrays (``data.anet.collate_fixed``), padded to ``batch_size`` rows unless
 ``pad_batches`` is off, or what the caller's ``collate_fn`` makes of the
 samples (raw batches: uint8 frames, kept uint8 to the card). The worker
@@ -33,6 +40,27 @@ def split_batch(batch):
     return arrays, meta
 
 
+# the values of collate_fixed's padding rows; cap_tokens takes <pad>
+_DUMMY_FILL = {
+    "video_tensor": 0, "video_mask": False, "audio_tensor": 0, "audio_mask": False,
+    "durations": 1, "batch_valid": False, "gt_segments": 0, "gt_mask": False,
+    "gt_labels": 0,
+}
+
+
+def _dummy_tail(batch: dict, n_real: int, pad_idx: int) -> dict:
+    """``batch`` with its rows from ``n_real`` on made dummy rows, as
+    ``collate_fixed`` pads a batch."""
+    for k, v in (*_DUMMY_FILL.items(), ("cap_tokens", pad_idx)):
+        if k in batch:
+            batch[k] = batch[k].copy()
+            batch[k][n_real:] = v
+    for k in ("keys", "raw_captions", "gt_timestamps"):
+        if k in batch:
+            batch[k] = batch[k][:n_real]
+    return batch
+
+
 class DataLoader:
     def __init__(
         self,
@@ -49,11 +77,15 @@ class DataLoader:
         num_prefetch: int = 2,
         audio_rescale_len: int = 0,
         collate_fn=None,
+        rank: int = 0,
+        world: int = 1,
     ):
         """``audio_rescale_len`` > 0 collates the samples' audio features
         too (the multimodal family). ``collate_fn`` (a list of samples -> a
         batch dict or None) replaces ``collate_fixed``: raw batches go
-        through ``data.raw_anet.collate_raw``, which pads no batch."""
+        through ``data.raw_anet.collate_raw``, which pads no batch.
+        ``rank`` / ``world``: this data rank's strided shard of the epoch
+        (``parallel.mesh.axis_rank_size(mesh, "data")``)."""
         self.dataset = dataset
         self.batch_size = batch_size
         self.pad_idx = pad_idx
@@ -67,38 +99,54 @@ class DataLoader:
         self.num_prefetch = num_prefetch
         self.audio_rescale_len = audio_rescale_len
         self.collate_fn = collate_fn
+        self.rank, self.world = rank, world
         self.epoch = 0
 
     def set_epoch(self, epoch: int):
         self.epoch = epoch
 
     def _indices(self) -> np.ndarray:
+        """This rank's part of the epoch's order, without its padding."""
         n = len(self.dataset)
+        order = np.arange(n)
         if self.shuffle:
-            return np.random.default_rng(self.seed + self.epoch).permutation(n)
-        return np.arange(n)
+            order = np.random.default_rng(self.seed + self.epoch).permutation(n)
+        return order[self.rank::self.world]
+
+    def _shard_len(self) -> int:
+        """Length of every rank's part, the padded ones included."""
+        return -(-len(self.dataset) // self.world)
 
     def __len__(self):
-        n = len(self.dataset)
+        n = self._shard_len()
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
     def _produce(self) -> Iterator[dict]:
-        idxs = self._indices()
-        for start in range(0, len(idxs), self.batch_size):
+        real = self._indices()
+        n, n_real = self._shard_len(), len(real)
+        # a part one video short takes a dummy row; its sample (video 0)
+        # only gives a batch of dummy rows its shapes
+        idxs = np.concatenate([real, np.zeros(n - n_real, real.dtype)])
+        for start in range(0, n, self.batch_size):
             chunk = idxs[start: start + self.batch_size]
             if self.drop_last and len(chunk) < self.batch_size:
                 break
             samples = [self.dataset[int(i)] for i in chunk]
+            here = min(max(n_real - start, 0), len(chunk))  # real rows of the chunk
             if self.collate_fn is not None:
                 batch = self.collate_fn(samples)
             else:
+                # collate_fixed pads past the real rows itself, with the
+                # features of the real rows alone deciding their resize
                 batch = collate_fixed(
-                    samples, self.pad_idx, self.video_rescale_len, self.max_gt,
-                    self.max_caption_len,
-                    pad_to_batch=self.batch_size if self.pad_batches else 0,
+                    samples[:here] or samples, self.pad_idx, self.video_rescale_len,
+                    self.max_gt, self.max_caption_len,
+                    pad_to_batch=self.batch_size if self.pad_batches else len(chunk),
                     audio_rescale_len=self.audio_rescale_len)
+            if batch is not None and here < len(chunk):
+                batch = _dummy_tail(batch, here, self.pad_idx)
             if batch is not None:
                 yield batch
 

@@ -6,7 +6,11 @@ A step is forward_eval (matching on the host, then the captions of
 the matched segments in seconds. ``evaluate`` runs the step over a loader's
 batches, gathers the submission (an event for every ground-truth slot of
 every real video), averages the loss terms, scores the submission and
-saves it.
+saves it. With a ``mesh`` each rank evaluates its shard of the loader (the
+loader strides the epoch over the data ranks): the criterion's normalisers
+are the global batch's, a batch's loss terms are summed over the data axis,
+and the submission rows are gathered to every rank; rank 0 alone scores and
+writes.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from ..config import check_decode_options
 from ..data.loader import split_batch
 from ..device import resolve_device, to_host
 from ..ops.segment_ops import denormalize_segments
+from ..parallel.mesh import all_reduce_sum, data_parallel, gather_objects, is_main_process
 from ..utils.postprocess import (captions_to_string, get_sample_submission,
                                  pprint_eval_scores, save_submission)
 from .logging import MetricLogger
@@ -30,7 +35,7 @@ from .train import batch_to_device
 
 def make_eval_step(model, criterion, weight_dict: Dict[str, float],
                    val_mode: str = "one_by_one", faster_eval: bool = False,
-                   beam_size: int = 0, length_penalty: float = 0.0):
+                   beam_size: int = 0, length_penalty: float = 0.0, mesh=None):
     """Returns eval_step(batch) -> (captions, denormalized matched segments
     (B, G, 2) seconds, losses). ``batch`` holds tensors on the model's
     device, ground truth included. ``losses`` has every loss term and
@@ -38,7 +43,9 @@ def make_eval_step(model, criterion, weight_dict: Dict[str, float],
     step runs in eval mode without gradients; it is a plain function, with
     nothing compiled. ``serve`` runs no teacher-forced pass and matches the
     final decoder layer only, so its losses are the final layer's without
-    the caption loss."""
+    the caption loss. With a ``mesh``, ``batch`` is this rank's rows of
+    the global batch and the losses are its shares of the global batch's
+    (summed over the data axis by ``evaluate``)."""
     check_decode_options(val_mode=val_mode)
     if val_mode == "serve":
         criterion = copy.copy(criterion)
@@ -47,10 +54,11 @@ def make_eval_step(model, criterion, weight_dict: Dict[str, float],
     @torch.no_grad()
     def eval_step(batch: Dict[str, torch.Tensor]):
         model.eval()
-        out, captions, indices, indices_aux, memory_mask = model.forward_eval(
-            batch, val_mode, faster_eval=faster_eval, beam_size=beam_size,
-            length_penalty=length_penalty)
-        losses = criterion(out, batch, indices, indices_aux, memory_mask)
+        with data_parallel(mesh):
+            out, captions, indices, indices_aux, memory_mask = model.forward_eval(
+                batch, val_mode, faster_eval=faster_eval, beam_size=beam_size,
+                length_penalty=length_penalty)
+            losses = criterion(out, batch, indices, indices_aux, memory_mask)
         losses["loss"] = sum(losses[k] * weight_dict[k] for k in losses if k in weight_dict)
         rows = torch.arange(indices.shape[0], device=indices.device)[:, None]
         denorm = denormalize_segments(out["pred_segments"][rows, indices],
@@ -61,7 +69,7 @@ def make_eval_step(model, criterion, weight_dict: Dict[str, float],
 
 
 def evaluate(eval_step, loader, vocab, cfg, epoch: int = 0, score_fn=None,
-             max_batches: Optional[int] = None, device="cuda"):
+             max_batches: Optional[int] = None, device="cuda", mesh=None):
     """Runs ``eval_step`` (from ``make_eval_step``, on a model on ``device``)
     over ``loader``'s batches; returns (val_stats, submission, scores).
 
@@ -74,7 +82,10 @@ def evaluate(eval_step, loader, vocab, cfg, epoch: int = 0, score_fn=None,
     (submission -> the evaluator's scores) is followed by
     ``pprint_eval_scores``; ``scores`` is None without it. With
     ``cfg.save_submission`` the submission is written under
-    ``cfg.submission_dir``."""
+    ``cfg.submission_dir``. With the step's ``mesh`` every rank runs this
+    over its shard, in step (each batch's loss terms are summed over the
+    data axis); the submission returned is every rank's rows merged, and
+    rank 0 alone scores and writes it (``scores`` None on the others)."""
     dev = resolve_device(device)
     metric_logger = MetricLogger()
     submission = get_sample_submission()
@@ -86,7 +97,8 @@ def evaluate(eval_step, loader, vocab, cfg, epoch: int = 0, score_fn=None,
         captions, denorm, losses = eval_step(batch_to_device(arrays, dev))
         names = [k for k in losses if not any(ch.isdigit() for ch in k)]
         captions, denorm, values = to_host(
-            captions, denorm, torch.stack([losses[k].float() for k in names]))
+            captions, denorm,
+            all_reduce_sum(torch.stack([losses[k].float() for k in names]), mesh))
         gt_mask = np.asarray(arrays["gt_mask"])
         strings = captions_to_string(captions, vocab)
 
@@ -102,8 +114,13 @@ def evaluate(eval_step, loader, vocab, cfg, epoch: int = 0, score_fn=None,
             break
 
     stats = {k: meter.global_avg for k, meter in metric_logger.meters.items()}
+    if mesh is not None:
+        for part in gather_objects(submission["results"], mesh):
+            submission["results"].update(part)
 
     scores = None
+    if not is_main_process():
+        return stats, submission, scores
     if score_fn is not None:
         scores = pprint_eval_scores(score_fn(submission), debug=cfg.eval.verbose)
         print("Eval scores:", scores)

@@ -10,6 +10,14 @@ owns, seeded from (seed, step), the counterpart of the JAX package's
 ``make_train_multistep`` runs K such steps over a stacked batch, and
 ``train_one_epoch`` reads each dispatch's metrics only after the next one
 is queued, as the JAX package's pipelined fetch does.
+
+With a ``mesh`` (``parallel.mesh.make_mesh``) each process steps on its rows
+of the global batch: the forward and the criterion run under
+``parallel.mesh.data_parallel`` (global normalisers, the global dropout
+mask's rows), the gradients are summed over the data axis before the clip,
+so every rank takes the global step, and the loss terms a rank returns are
+its rows' shares, summed over the ranks by ``reduce_metrics`` (once a
+dispatch, in ``train_one_epoch``'s fetch).
 """
 
 from __future__ import annotations
@@ -23,6 +31,8 @@ import numpy as np
 import torch
 
 from ..models.layers import dropout_generator
+from ..parallel.mesh import all_reduce_sum, data_parallel, sync_grads
+from ..parallel.tp import sharded_sq_norm, tp_shard_info
 from ..utils.observability import flax_path
 from ..utils.weights import flax_key
 from .logging import MetricLogger, SmoothedValue
@@ -65,7 +75,28 @@ def forward_loss(model, criterion, weight_dict: Dict[str, float], batch):
     return total, losses
 
 
-def make_train_step(criterion, weight_dict: Dict[str, float], seed: int = 0):
+def _leaf_norm(p: torch.Tensor) -> torch.Tensor:
+    """Norm of ``p``'s gradient, over every slice of a tensor-parallel
+    parameter."""
+    if tp_shard_info(p) is None:
+        return p.grad.norm()
+    return sharded_sq_norm([(p.grad, p)]).sqrt()
+
+
+def reduce_metrics(metrics: Dict, mesh) -> Dict:
+    """The global batch's metrics from a rank's: every loss term (a rank's
+    share) summed over the data axis in one collective; ``grad_norm`` (of
+    the summed gradients already) and ``lr`` as they are. Without a mesh,
+    ``metrics`` itself."""
+    if mesh is None:
+        return metrics
+    keys = [k for k, v in metrics.items()
+            if isinstance(v, torch.Tensor) and k != "grad_norm"]
+    summed = all_reduce_sum(torch.stack([metrics[k].float() for k in keys]), mesh)
+    return dict(metrics, **dict(zip(keys, summed.unbind(0))))
+
+
+def make_train_step(criterion, weight_dict: Dict[str, float], seed: int = 0, mesh=None):
     """Returns train_step(state, batch, leaf_norms=False) -> metrics.
     ``batch`` holds tensors on the model's device; the step updates
     ``state`` in place (model, optimizer, step + 1). metrics: every loss
@@ -85,12 +116,13 @@ def make_train_step(criterion, weight_dict: Dict[str, float], seed: int = 0):
         gen = generators[dev].manual_seed(step_seed(seed, state.step))
         model.train()
         state.optimizer.zero_grad()
-        with dropout_generator(gen):
+        with dropout_generator(gen), data_parallel(mesh):
             total, losses = forward_loss(model, criterion, weight_dict, batch)
         total.backward()
+        sync_grads(model.parameters(), mesh)
         if leaf_norms:
             norms = {flax_key(n, p.dim()):
-                     p.grad.norm() if p.grad is not None else torch.zeros((), device=dev)
+                     _leaf_norm(p) if p.grad is not None else torch.zeros((), device=dev)
                      for n, p in model.named_parameters()}
         grad_norm, lr = state.optimizer.step(state.step)
         state.step += 1
@@ -103,7 +135,8 @@ def make_train_step(criterion, weight_dict: Dict[str, float], seed: int = 0):
     return train_step
 
 
-def make_train_multistep(criterion, weight_dict: Dict[str, float], seed: int = 0):
+def make_train_multistep(criterion, weight_dict: Dict[str, float], seed: int = 0,
+                         mesh=None):
     """K train steps per call, the counterpart of JAX's
     ``make_train_multistep`` (a ``lax.scan`` of the step). Returns
     multi_step(state, stacked_batch, leaf_norms=False) -> metrics:
@@ -114,8 +147,9 @@ def make_train_multistep(criterion, weight_dict: Dict[str, float], seed: int = 0
     ``leaf_norms`` also ``grad_leaf_norms`` of the last step. Each step is
     ``make_train_step``'s, with its dropout generator seeded from (seed,
     step), so K calls of one equal one call of the other. An eager loop has
-    nothing to unroll: JAX's ``unroll`` has no counterpart."""
-    train_step = make_train_step(criterion, weight_dict, seed)
+    nothing to unroll: JAX's ``unroll`` has no counterpart. ``mesh`` as in
+    ``make_train_step``."""
+    train_step = make_train_step(criterion, weight_dict, seed, mesh)
 
     def multi_step(state: TrainState, stacked_batch: Dict[str, torch.Tensor],
                    leaf_norms: bool = False):
@@ -174,7 +208,7 @@ def _is_aux(key: str) -> bool:
 def train_one_epoch(train_step, state: TrainState, batches: Iterable[Dict], epoch: int,
                     print_freq: int = 10, step_logger=None, grad_flow_dir: str = "",
                     grad_flow_freq: int = 100, transfer_dtype=None, multi_step=None,
-                    chunk_k: int = 1):
+                    chunk_k: int = 1, mesh=None):
     """One pass over ``batches`` (any iterable of batch dicts, numpy or
     tensors), the JAX package's ``train_one_epoch``. Returns (state,
     {metric: global average}) over the metrics that JAX's loop logs (not the
@@ -197,7 +231,9 @@ def train_one_epoch(train_step, state: TrainState, batches: Iterable[Dict], epoc
     there (``dump_grad_flow``); a dispatch of K steps gives the norms of
     its last step only, dumped under that step when the dispatch spans a
     multiple of ``grad_flow_freq``, as JAX's ``consume_many`` does.
-    ``transfer_dtype`` as in ``batch_to_device``."""
+    ``transfer_dtype`` as in ``batch_to_device``. With the steps' ``mesh``,
+    each dispatch's loss terms are summed over the data axis in the fetch
+    (``reduce_metrics``), so every rank logs the global batch's."""
     metric_logger = MetricLogger()
     metric_logger.add_meter("lr", SmoothedValue(window_size=1, fmt="{value:.6f}"))
     dev = next(state.model.parameters()).device
@@ -207,6 +243,7 @@ def train_one_epoch(train_step, state: TrainState, batches: Iterable[Dict], epoc
         a multi-step dispatch) fetched in one transfer, then per step in
         order the grad-flow dump, the NaN guard and the logs."""
         norms = metrics.pop("grad_leaf_norms", None)
+        metrics = reduce_metrics(metrics, mesh)
         lrs = metrics.pop("lr")
         lrs = lrs if isinstance(lrs, list) else [lrs]
         keys = list(metrics)

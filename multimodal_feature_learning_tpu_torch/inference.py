@@ -14,7 +14,10 @@ training CLI (``main.py``), and the submission is saved under its epoch;
 without either the weights are drawn from ``cfg.seed``.
 ``--synthetic`` first writes a small synthetic world (annotations,
 ``.npy`` features) under ``./synthetic_anet`` and reads it. The
-ground truth scored against is the val split's annotation file.
+ground truth scored against is the val split's annotation file. Under
+torchrun each data rank of ``cfg.mesh`` evaluates its strided shard of the
+split (``main.py``'s placement on the mesh), and rank 0 alone scores and
+writes the merged submission.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ from __future__ import annotations
 import argparse
 import os
 import random
+
+import torch.distributed as dist
 
 from .config import apply_overrides, load_config, recompute_losses
 from .data.anet import SPLIT_FILES, build_dataset
@@ -33,6 +38,9 @@ from .evaluation import run_eval
 from .main import make_synthetic_world
 from .models.criterion import build_criterion
 from .models.dvc import build_model
+from .parallel.mesh import (DATA, MODEL, axis_rank_size, is_main_process, main_process_first,
+                            make_mesh, maybe_initialize_distributed, replicate_params)
+from .parallel.tp import shard_params_tp
 from .utils.weights import load_flax_params, load_npz
 
 
@@ -56,17 +64,24 @@ def parse_args(argv=None):
 def main(argv=None):
     """Runs the evaluation; returns (val_stats, submission, scores)."""
     args = parse_args(argv)
+    owns_group = not dist.is_initialized()
+    distributed = maybe_initialize_distributed(args.device)
     dev = resolve_device(args.device)
     cfg = apply_overrides(load_config(), args.config_overrides)
     if args.synthetic:
         # after the overrides: the features are written at their feature_dim
-        cfg = make_synthetic_world(cfg)
+        with main_process_first():
+            cfg = make_synthetic_world(cfg, write=is_main_process())
     recompute_losses(cfg)
     if args.batch_size is not None:
         cfg.batch_size = args.batch_size
+    mesh = make_mesh(cfg.mesh.num_data, cfg.mesh.num_model,
+                     (cfg.mesh.data_axis, cfg.mesh.model_axis))
+    data_rank, data_world = axis_rank_size(mesh, DATA)
 
     anet = cfg.dataset.activity_net
-    val_ds, vocab = build_dataset("val", cfg)
+    with main_process_first():  # the vocab is written once
+        val_ds, vocab = build_dataset("val", cfg)
     if anet.val_subset:
         val_ds.keys = sorted(val_ds.keys)[: anet.val_subset]
     val_loader = DataLoader(
@@ -74,7 +89,7 @@ def main(argv=None):
         video_rescale_len=anet.video_rescale_len,
         max_gt=anet.max_gt_target_segments,
         max_caption_len=anet.max_caption_len_all,
-        shuffle=False, seed=cfg.seed)
+        shuffle=False, seed=cfg.seed, rank=data_rank, world=data_world)
 
     model = build_model(cfg, len(vocab), vocab.pad_idx, vocab.bos_idx, vocab.eos_idx,
                         device=dev, seed=cfg.seed)
@@ -83,16 +98,22 @@ def main(argv=None):
         epoch = load_model_weights(args.resume, model)
     elif args.weights:
         load_flax_params(model, load_npz(args.weights))
+    replicate_params(model, mesh)
+    if mesh is not None and cfg.mesh.num_model > 1:
+        shard_params_tp(model, mesh, MODEL)
+        model.shard_tokens_axis(mesh, MODEL)
     criterion, weight_dict = build_criterion(cfg, vocab.pad_idx)
     eval_step = make_eval_step(
         model, criterion, weight_dict, args.val_mode, faster_eval=cfg.eval.faster_eval,
-        beam_size=cfg.eval.beam_size, length_penalty=cfg.eval.length_penalty)
+        beam_size=cfg.eval.beam_size, length_penalty=cfg.eval.length_penalty, mesh=mesh)
 
     gt_path = os.path.join(anet.anet_path, SPLIT_FILES["val"])
     score_fn = lambda sub: run_eval(cfg.eval, sub, gt_path, rng=random.Random(cfg.seed))  # noqa: E731
     stats, submission, scores = evaluate(eval_step, val_loader, vocab, cfg, epoch=epoch,
-                                         score_fn=score_fn, device=dev)
+                                         score_fn=score_fn, device=dev, mesh=mesh)
     print("val stats:", {k: round(float(v), 4) for k, v in stats.items()})
+    if owns_group and distributed:
+        dist.destroy_process_group()
     return stats, submission, scores
 
 

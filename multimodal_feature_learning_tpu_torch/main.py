@@ -25,6 +25,17 @@ the rolling ``<output_dir>/checkpoint``, keeps ``checkpoint{epoch:04d}`` on
 eval epochs, ``val_log.txt``. ``--mode eval`` evaluates once and returns.
 ``--synthetic`` first writes a small synthetic world under
 ``./synthetic_anet`` and reads it.
+
+Under torchrun (``torchrun --nproc-per-node N -m
+multimodal_feature_learning_tpu_torch.main ...``) the processes form a
+group (``parallel.mesh.maybe_initialize_distributed``) laid out as
+``cfg.mesh``: each data rank reads its strided shard of every epoch at
+``--batch-size`` rows a step (the global batch is that times the data
+ranks), rank 0's weights are broadcast, and with ``mesh.num_model`` > 1 the
+parameters are placed tensor-parallel and the decoder's value tokens split
+over the model axis. Rank 0 alone writes the logs, the checkpoints and the
+submission; checkpoints are unsharded, so a run resumes on any mesh or in
+one process.
 """
 
 from __future__ import annotations
@@ -39,6 +50,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .config import apply_overrides, load_config, recompute_losses
 from .data.anet import SPLIT_FILES, FeatureBackend, audio_rescale_len, build_dataset
@@ -47,12 +59,14 @@ from .data.raw_anet import build_raw_dataset, collate_raw
 from .data.vocab import Vocab
 from .device import resolve_device
 from .engine.evaluate import evaluate, make_eval_step
-from .engine.state import create_train_state, load_checkpoint, save_checkpoint
+from .engine.state import create_train_state, load_checkpoint, save_checkpoint, shard_state
 from .engine.train import (
     TRANSFER_DTYPES, make_train_multistep, make_train_step, train_one_epoch,
 )
 from .evaluation import run_eval
 from .models import build_model_and_criterion
+from .parallel.mesh import (DATA, MODEL, axis_rank_size, is_main_process, main_process_first,
+                            make_mesh, maybe_initialize_distributed, replicate_params)
 from .utils.weights import load_flax_params, load_npz
 
 SYNTHETIC_WORDS = ["a", "man", "is", "playing", "guitar", "the", "dog", "runs",
@@ -60,16 +74,23 @@ SYNTHETIC_WORDS = ["a", "man", "is", "playing", "guitar", "the", "dog", "runs",
 
 
 def make_synthetic_world(cfg, tmpdir: str = "./synthetic_anet",
-                         vocab: Optional[Vocab] = None):
+                         vocab: Optional[Vocab] = None, write: bool = True):
     """Writes a small synthetic world and points ``cfg`` at it: the JAX
     package's ``main.py::make_synthetic_world`` annotations (64 train and 32
     val videos, numpy seed ``cfg.seed``, sentences of 4-8 of 15 words), the
     JAX package's synthetic features of every video as ``features/<key>.npy``
     ((64, feature_dim), seeded by the key's crc32), and, when ``vocab`` is
     given, that vocabulary as the world's vocab file (else the vocab is
-    built from the train split on first use). Returns ``cfg``."""
-    os.makedirs(tmpdir, exist_ok=True)
+    built from the train split on first use). ``write`` False only points
+    ``cfg`` at the world (the ranks of a group but the first). Returns
+    ``cfg``."""
+    anet = cfg.dataset.activity_net
     feat_dir = os.path.join(tmpdir, "features")
+    anet.anet_path = tmpdir
+    anet.video_features_file = feat_dir
+    anet.vocab_file_path = os.path.join(tmpdir, "vocab.pkl")
+    if not write:
+        return cfg
     os.makedirs(feat_dir, exist_ok=True)
     synthetic = FeatureBackend("", feature_dim=cfg.dvc.detr.feature_dim)
     rng = np.random.default_rng(cfg.seed)
@@ -89,10 +110,6 @@ def make_synthetic_world(cfg, tmpdir: str = "./synthetic_anet",
             np.save(os.path.join(feat_dir, key + ".npy"), synthetic.get(key))
         with open(os.path.join(tmpdir, split), "w") as f:
             json.dump(ann, f)
-    anet = cfg.dataset.activity_net
-    anet.anet_path = tmpdir
-    anet.video_features_file = feat_dir
-    anet.vocab_file_path = os.path.join(tmpdir, "vocab.pkl")
     if vocab is not None:
         vocab.save(anet.vocab_file_path)
     return cfg
@@ -115,6 +132,17 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def place_on_mesh(state, mesh, cfg) -> None:
+    """Place a (loaded) train state on the mesh: replicated, or with
+    ``mesh.num_model`` > 1 tensor-parallel over the model axis, with the
+    sparse and dense families' decoder value tokens split over it too."""
+    if mesh is None or cfg.mesh.num_model == 1:
+        return
+    shard_state(state, mesh, tp_axis=MODEL)
+    if hasattr(state.model, "shard_tokens_axis"):
+        state.model.shard_tokens_axis(mesh, MODEL)
+
+
 def _append_json(path: str, record: dict) -> None:
     with open(path, "a") as f:
         f.write(json.dumps(record) + "\n")
@@ -127,11 +155,14 @@ def main(argv=None) -> dict:
     "train_examples" an epoch}; in eval mode {"start_epoch", "val_stats",
     "scores"}."""
     args = parse_args(argv)
+    owns_group = not dist.is_initialized()
+    distributed = maybe_initialize_distributed(args.device)
     dev = resolve_device(args.device)
     cfg = apply_overrides(load_config(), args.config_overrides)
     if args.synthetic:
         # after the overrides: the features are written at their feature_dim
-        cfg = make_synthetic_world(cfg)
+        with main_process_first():
+            cfg = make_synthetic_world(cfg, write=is_main_process())
     recompute_losses(cfg)  # the losses follow the mask and family flags
     if args.epochs is not None:
         cfg.epochs = args.epochs
@@ -142,20 +173,25 @@ def main(argv=None) -> dict:
         cfg.submission_dir = os.path.join(cfg.output_dir, "submission")
     if args.resume is not None:
         cfg.resume = args.resume
-    os.makedirs(cfg.output_dir, exist_ok=True)
+    if is_main_process():
+        os.makedirs(cfg.output_dir, exist_ok=True)
     np.random.seed(cfg.seed)
+    mesh = make_mesh(cfg.mesh.num_data, cfg.mesh.num_model,
+                     (cfg.mesh.data_axis, cfg.mesh.model_axis))
+    data_rank, data_world = axis_rank_size(mesh, DATA)
 
     anet = cfg.dataset.activity_net
     collate_fn = None
-    if cfg.use_raw_videos:
-        train_ds, vocab = build_raw_dataset("train", cfg)
-        val_ds, _ = build_raw_dataset("val", cfg, vocab)
-        collate_fn = functools.partial(collate_raw, pad_idx=vocab.pad_idx,
-                                       max_gt=anet.max_gt_target_segments,
-                                       max_caption_len=anet.max_caption_len_all)
-    else:
-        train_ds, vocab = build_dataset("train", cfg)
-        val_ds, _ = build_dataset("val", cfg, vocab)
+    with main_process_first():  # the vocab is written once
+        if cfg.use_raw_videos:
+            train_ds, vocab = build_raw_dataset("train", cfg)
+            val_ds, _ = build_raw_dataset("val", cfg, vocab)
+            collate_fn = functools.partial(collate_raw, pad_idx=vocab.pad_idx,
+                                           max_gt=anet.max_gt_target_segments,
+                                           max_caption_len=anet.max_caption_len_all)
+        else:
+            train_ds, vocab = build_dataset("train", cfg)
+            val_ds, _ = build_dataset("val", cfg, vocab)
     if anet.val_subset:
         val_ds.keys = sorted(val_ds.keys)[: anet.val_subset]
     if anet.train_subset:
@@ -168,7 +204,8 @@ def main(argv=None) -> dict:
                           max_gt=anet.max_gt_target_segments,
                           max_caption_len=anet.max_caption_len_all,
                           shuffle=shuffle, seed=cfg.seed,
-                          audio_rescale_len=audio_rescale_len(cfg), collate_fn=collate_fn)
+                          audio_rescale_len=audio_rescale_len(cfg), collate_fn=collate_fn,
+                          rank=data_rank, world=data_world)
 
     train_loader, val_loader = make_loader(train_ds, True), make_loader(val_ds, False)
     print(f"train videos: {len(train_ds)}  val videos: {len(val_ds)}  vocab: {len(vocab)}")
@@ -177,12 +214,14 @@ def main(argv=None) -> dict:
                                                               seed=cfg.seed)
     if args.weights:
         load_flax_params(model, load_npz(args.weights))
+    replicate_params(model, mesh)
     print(f"params: {sum(p.numel() for p in model.parameters()) / 1e6:.2f} M")
     state = create_train_state(cfg, model, steps_per_epoch=max(len(train_loader), 1))
     start_epoch = cfg.start_epoch
     if cfg.resume:
         start_epoch = load_checkpoint(cfg.resume, state) + 1
         print(f"resumed from {cfg.resume} at epoch {start_epoch}")
+    place_on_mesh(state, mesh, cfg)
 
     gt_path = os.path.join(anet.anet_path, SPLIT_FILES["val"])
 
@@ -191,17 +230,19 @@ def main(argv=None) -> dict:
 
     eval_step = make_eval_step(
         model, criterion, weight_dict, cfg.eval.val_mode, faster_eval=cfg.eval.faster_eval,
-        beam_size=cfg.eval.beam_size, length_penalty=cfg.eval.length_penalty)
+        beam_size=cfg.eval.beam_size, length_penalty=cfg.eval.length_penalty, mesh=mesh)
     if args.mode == "eval":
         stats, _, scores = evaluate(eval_step, val_loader, vocab, cfg, epoch=start_epoch,
-                                    score_fn=score_fn, device=dev)
+                                    score_fn=score_fn, device=dev, mesh=mesh)
         print("val stats:", {k: round(float(v), 4) for k, v in stats.items()})
+        if owns_group and distributed:
+            dist.destroy_process_group()
         return {"start_epoch": start_epoch, "val_stats": stats, "scores": scores}
 
-    train_step = make_train_step(criterion, weight_dict, seed=cfg.seed)
+    train_step = make_train_step(criterion, weight_dict, seed=cfg.seed, mesh=mesh)
     multi_step = None
     if cfg.steps_per_dispatch > 1:
-        multi_step = make_train_multistep(criterion, weight_dict, seed=cfg.seed)
+        multi_step = make_train_multistep(criterion, weight_dict, seed=cfg.seed, mesh=mesh)
     transfer_dtype = TRANSFER_DTYPES[cfg.transfer_dtype]
     run = {"start_epoch": start_epoch, "epochs": [], "train_seconds": [],
            "checkpoint_seconds": [], "eval_seconds": [], "train_examples": len(train_ds)}
@@ -213,7 +254,7 @@ def main(argv=None) -> dict:
         state, train_stats = train_one_epoch(train_step, state, train_loader, epoch,
                                              cfg.print_freq, transfer_dtype=transfer_dtype,
                                              multi_step=multi_step,
-                                             chunk_k=cfg.steps_per_dispatch)
+                                             chunk_k=cfg.steps_per_dispatch, mesh=mesh)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         run["train_seconds"].append(time.perf_counter() - t0)
@@ -230,7 +271,7 @@ def main(argv=None) -> dict:
         t0 = time.perf_counter()
         if (cfg.eval_rate and (epoch + 1) % cfg.eval_rate == 0) or epoch == cfg.epochs - 1:
             val_stats, _, scores = evaluate(eval_step, val_loader, vocab, cfg, epoch=epoch,
-                                            score_fn=score_fn, device=dev)
+                                            score_fn=score_fn, device=dev, mesh=mesh)
             log_stats.update({f"val_{k}": v for k, v in val_stats.items()})
             if scores:
                 log_stats.update({f"score_{k}": v for k, v in scores.items()})
@@ -238,13 +279,16 @@ def main(argv=None) -> dict:
         else:
             run["eval_seconds"].append(0.0)
 
-        _append_json(os.path.join(cfg.output_dir, "train_log.txt"), log_stats)
         val_items = {k: v for k, v in log_stats.items()
                      if k.startswith(("val_", "score_")) or k == "epoch"}
-        if len(val_items) > 1:
-            _append_json(os.path.join(cfg.output_dir, "val_log.txt"), val_items)
+        if is_main_process():
+            _append_json(os.path.join(cfg.output_dir, "train_log.txt"), log_stats)
+            if len(val_items) > 1:
+                _append_json(os.path.join(cfg.output_dir, "val_log.txt"), val_items)
         run["epochs"].append(log_stats)
     print(f"Training done in {time.time() - t_start:.1f}s")
+    if owns_group and distributed:
+        dist.destroy_process_group()
     return run
 
 

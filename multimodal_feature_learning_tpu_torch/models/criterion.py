@@ -15,6 +15,14 @@ the tokens the encoder kept, averaged over the valid videos). The auxiliary
 decoder layers and the encoder's auxiliary heads repeat ``labels`` and
 ``segments``; the encoder's reuse the decoder's auxiliary matchings, as the
 reference does. Each caption layer but the last adds ``loss_caption_{i}``.
+
+Every normaliser is the global batch's: JAX's criterion runs inside jit
+over the whole (sharded) batch. Under ``parallel.mesh.data_parallel`` the
+counts (``num_segments``, ``num_tokens``, the valid rows of a row mean, the
+caption rows of the context BCE) are summed over the data axis in one
+collective, so each rank's loss is its rows' share of the global loss and
+the ranks' gradients sum to the global gradient. Outside it the counts are
+this process's, the one-process loss.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import torch.nn.functional as F
 from ..device import host_constant
 from ..ops.dam import attn_map_to_flat_grid, compute_corr, idx_to_flat_grid
 from ..ops.segment_ops import generalized_box_iou, segment_cl_to_xy
+from ..parallel.mesh import global_sum
 
 # Event-count prior rates over ActivityNet train; a dataset statistics table
 # the counter loss weighting needs.
@@ -47,16 +56,20 @@ def _bce_with_logits(x, y, weight=None):
     return loss if weight is None else loss * weight
 
 
-def _masked_row_mean(per_row, row_valid):
-    """Mean over the batch axis restricted to valid rows (None: all)."""
-    if row_valid is None:
-        return per_row.mean()
-    n = row_valid.sum().to(per_row.dtype).clamp(min=1.0)
-    return torch.where(row_valid, per_row, torch.zeros_like(per_row)).sum() / n
+def _masked_row_mean(per_row, row_valid, n_rows=None):
+    """Sum over the batch axis of the valid rows (None: all) over
+    ``n_rows``, the count of valid rows of the global batch (None: of this
+    batch)."""
+    if n_rows is None:
+        n_rows = (row_valid.sum() if row_valid is not None
+                  else torch.full((), per_row.shape[0], device=per_row.device)).clamp(min=1)
+    if row_valid is not None:
+        per_row = torch.where(row_valid, per_row, torch.zeros_like(per_row))
+    return per_row.sum() / n_rows.to(per_row.dtype)
 
 
 def cross_entropy_with_gaussian_mask(inputs, targets, weight, lloss_gau_mask: int = 1,
-                                     lloss_beta: float = 1.0, row_valid=None):
+                                     lloss_beta: float = 1.0, row_valid=None, n_rows=None):
     """Counter loss: BCE per count class, weighted by 1 - the class prior,
     with the wrong classes near the true count scaled down by a Gaussian
     (sigma 2)."""
@@ -69,7 +82,7 @@ def cross_entropy_with_gaussian_mask(inputs, targets, weight, lloss_gau_mask: in
         coef = targets + ((1.0 - mask) ** lloss_beta) * (1.0 - targets)
     else:
         coef = torch.ones_like(targets)
-    return _masked_row_mean((loss * coef).mean(dim=1), row_valid)
+    return _masked_row_mean((loss * coef).mean(dim=1), row_valid, n_rows)
 
 
 def _smoothing_entropy(V: int, smoothing: float) -> torch.Tensor:
@@ -115,10 +128,10 @@ def label_smoothing_kl_logits_stack(stack, target, pad_idx: int, smoothing: floa
     return per.sum(dim=(1, 2))
 
 
-def multilabel_soft_margin_loss(x, y, row_valid=None):
+def multilabel_soft_margin_loss(x, y, row_valid=None, n_rows=None):
     """``F.multilabel_soft_margin_loss`` (mean), restricted to valid rows."""
     loss = -(y * F.logsigmoid(x) + (1 - y) * F.logsigmoid(-x))
-    return _masked_row_mean(loss.mean(dim=-1), row_valid)
+    return _masked_row_mean(loss.mean(dim=-1), row_valid, n_rows)
 
 
 class SetCriterion:
@@ -141,7 +154,7 @@ class SetCriterion:
                                pred_count.device)
         loss = cross_entropy_with_gaussian_mask(
             pred_count, onehot, weight, self.lloss_gau_mask, self.lloss_beta,
-            row_valid=targets.get("batch_valid"))
+            row_valid=targets.get("batch_valid"), n_rows=targets.get("num_valid_rows"))
         return {"loss_counter": loss}
 
     def loss_segments(self, outputs, targets, indices, num_segments, num_tokens):
@@ -171,22 +184,26 @@ class SetCriterion:
         return {"loss_caption": loss / num_tokens}
 
     @staticmethod
-    def _masked_bce(pred, target, row_valid):
-        """BCE of (N, S) logits against the crop mask, over the valid rows."""
+    def _masked_bce(pred, target, row_valid, n_rows=None):
+        """BCE of (N, S) logits against the crop mask, over the valid rows,
+        ``n_rows`` of them in the global batch (None: in this one)."""
+        if n_rows is None:
+            n_rows = row_valid.sum()
         loss = _bce_with_logits(pred, target)
         loss = torch.where(row_valid[:, None], loss, torch.zeros_like(loss))
-        return loss.sum() / (row_valid.sum() * pred.shape[1]).clamp(min=1)
+        return loss.sum() / (n_rows * pred.shape[1]).clamp(min=1)
 
     def loss_contexts(self, outputs, targets, indices, num_segments, num_tokens,
                       memory_mask):
         row_valid = targets["gt_mask"].reshape(-1)
+        n = targets.get("num_caption_rows")
         if isinstance(memory_mask, tuple):
             # multimodal: the mean of the video and the audio BCE
-            v = self._masked_bce(outputs["video_pred_memory_mask"], memory_mask[0], row_valid)
-            a = self._masked_bce(outputs["audio_pred_memory_mask"], memory_mask[1], row_valid)
+            v = self._masked_bce(outputs["video_pred_memory_mask"], memory_mask[0], row_valid, n)
+            a = self._masked_bce(outputs["audio_pred_memory_mask"], memory_mask[1], row_valid, n)
             return {"loss_context": (v + a) / 2}
         return {"loss_context": self._masked_bce(outputs["pred_memory_mask"], memory_mask,
-                                                 row_valid)}
+                                                 row_valid, n)}
 
     def loss_mask_prediction(self, outputs, targets, indices, num_segments, num_tokens):
         mask_prediction = outputs["backbone_mask_prediction"]  # (B, S)
@@ -213,7 +230,8 @@ class SetCriterion:
                 1, torch.where(keep, topk_idx, torch.full_like(topk_idx, S - 1)),
                 keep.to(target.dtype), reduce="amax")
         return {"loss_mask_prediction": multilabel_soft_margin_loss(
-            mask_prediction, target, row_valid=targets.get("batch_valid"))}
+            mask_prediction, target, row_valid=targets.get("batch_valid"),
+            n_rows=targets.get("num_valid_rows"))}
 
     @torch.no_grad()
     def corr(self, outputs, targets, indices, num_segments, num_tokens):
@@ -227,7 +245,8 @@ class SetCriterion:
             outputs["sampling_locations_dec"], outputs["attn_weights_dec"],
         ).sum(dim=(1, 2))
         corr = compute_corr(flat_topk, flat_map, shapes)
-        return {"loss_corr": _masked_row_mean(corr[0], targets.get("batch_valid"))}
+        return {"loss_corr": _masked_row_mean(corr[0], targets.get("batch_valid"),
+                                              targets.get("num_valid_rows"))}
 
     def get_loss(self, loss, outputs, targets, indices, num_segments, num_tokens,
                  memory_mask=None):
@@ -250,9 +269,19 @@ class SetCriterion:
     def __call__(self, outputs: Dict, targets: Dict, indices: torch.Tensor,
                  indices_aux: Optional[torch.Tensor],
                  memory_mask: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
-        num_segments = targets["gt_mask"].sum().float().clamp(min=1.0)
         cap = targets["cap_tokens"].reshape(-1, targets["cap_tokens"].shape[-1])
-        num_tokens = (cap[:, 1:] != self.pad_idx).sum().float().clamp(min=1.0)
+        valid = targets.get("batch_valid")
+        # the four counts of the global batch, in one collective
+        counts = global_sum(torch.stack([
+            targets["gt_mask"].sum().float(),
+            (cap[:, 1:] != self.pad_idx).sum().float(),
+            valid.sum().float() if valid is not None
+            else torch.full((), float(targets["gt_mask"].shape[0]), device=cap.device),
+            targets["gt_mask"].reshape(-1).sum().float(),
+        ]))
+        num_segments, num_tokens = counts[0].clamp(min=1.0), counts[1].clamp(min=1.0)
+        targets = dict(targets, num_valid_rows=counts[2].clamp(min=1.0),
+                       num_caption_rows=counts[3])
         stacked_captions = outputs.get("pred_captions_all")
 
         losses: Dict[str, torch.Tensor] = {}

@@ -35,6 +35,7 @@ from ..config import check_decode_options
 from ..device import resolve_device, set_f32_numerics
 from ..ops.hungarian import batched_hungarian_torch
 from ..ops.segment_ops import denormalize_segments, inverse_sigmoid
+from ..parallel.mesh import axis_group, mark_model_partial
 from ..utils.precision import cast_floating, params_in, resolve_dtype
 from .base_encoder import BaseEncoder, pyramid_shapes
 from .caption_decoder import (
@@ -293,6 +294,20 @@ class UnimodalDVC(nn.Module):
             cap.mlp_dropout_2, embedding_matrix)
         if self.use_differentiable_mask:
             self.context_mask = ContextMaskModel(dvc.d_model + 2, self.num_tokens)
+
+    def shard_tokens_axis(self, mesh, axis: str = "model"):
+        """Split the encoder memory's tokens over the mesh's ``axis`` in
+        the decoder (JAX's ``shard_tokens_axis``, a layout constraint
+        ``P(None, axis, None)`` on the memory, made explicit): each rank of
+        the axis projects its slice of the memory's S tokens in every
+        decoder layer's ``value_proj``, and the projections are gathered
+        along the tokens before K1. The projection's gradient is then a
+        part on each rank, summed by ``parallel.mesh.sync_grads``."""
+        group = axis_group(mesh, axis)
+        for layer in self.proposal.transformer.dec_layers:
+            layer.cross_attn.token_group = group
+            mark_model_partial(layer.cross_attn.value_proj.parameters(), group)
+        return self
 
     def _propose(self, video, video_mask, durations, with_enc_aux: bool = False):
         """The proposal forward on the features in the compute dtype. Its

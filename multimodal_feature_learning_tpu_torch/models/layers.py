@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import batch_shard
 from ..utils.precision import linear_promoted
 
 NEG_MASK = -1e20  # masked_fill value, applied before the scale
@@ -60,17 +61,41 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 class Dropout(nn.Module):
     """Inverted dropout, as flax's: in training mode each element is kept
     with probability 1 - p and scaled by 1 / (1 - p); identity in eval mode
-    or at p = 0. Masks come from the generator of ``dropout_generator``."""
+    or at p = 0. Masks come from the generator of ``dropout_generator``.
+
+    Under ``parallel.mesh.data_parallel`` the mask is drawn for the global
+    batch (dim 0 times the data ranks) and the rank keeps its block of
+    rows, so a rank's mask is its rows of the one-process mask and every
+    rank's generator stays in step. Every site's dim 0 is batch-major: B,
+    or the caption rows N = B * G (G events of a video in a row), and the
+    folded bias column of the crop, (B, H, G * Tq, 1).
+
+    ``feature_split`` (offset, full width), set by ``parallel.tp`` on the
+    hidden dropout of a tensor-parallel feed-forward block: ``x`` holds the
+    features ``offset:offset + x.shape[-1]`` of ``full width``, and the mask
+    is drawn for the full width and sliced alike."""
 
     def __init__(self, p: float = 0.0):
         super().__init__()
         self.p = float(p)
+        self.feature_split = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
-        keep = torch.rand(x.shape, generator=_DROPOUT_GENERATOR.get(),
-                          device=x.device) >= self.p
+        shape = list(x.shape)
+        shard = batch_shard()
+        if shard is not None:
+            shape[0] *= shard[1]
+        if self.feature_split is not None:
+            shape[-1] = self.feature_split[1]
+        u = torch.rand(shape, generator=_DROPOUT_GENERATOR.get(), device=x.device)
+        if shard is not None:
+            n = x.shape[0]
+            u = u[shard[0] * n:(shard[0] + 1) * n]
+        if self.feature_split is not None:
+            u = u.narrow(-1, self.feature_split[0], x.shape[-1])
+        keep = u >= self.p
         return torch.where(keep, x / (1.0 - self.p), torch.zeros((), dtype=x.dtype,
                                                                  device=x.device))
 
@@ -190,6 +215,8 @@ class CrossAttention(nn.Module):
 
 class MLP(nn.Module):
     """Two-layer MLP with exact GELU and a dropout after each layer."""
+
+    tp_ffn = ("fully_connected_1", "drop_1", "fully_connected_2")  # parallel.tp's pairing
 
     def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
                  dropout_1: float = 0.0, dropout_2: float = 0.0):

@@ -9,10 +9,12 @@ import math
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..device import host_constant
 from ..ops.msda import ms_deform_attn
+from ..parallel.mesh import gather_from_group, split_sizes, split_to_group
 from .layers import Linear
 
 
@@ -29,6 +31,11 @@ def _offset_bias_init(n_heads: int, n_levels: int, n_points: int) -> np.ndarray:
 
 
 class MSDeformAttn(nn.Module):
+    """``token_group`` (set by ``models.dvc.UnimodalDVC.shard_tokens_axis``):
+    each rank of that process group projects its slice of the value tokens,
+    and the projected values are gathered along the tokens before the
+    core."""
+
     def __init__(self, d_model: int, n_levels: int = 4, n_heads: int = 8,
                  n_points: int = 4):
         super().__init__()
@@ -44,6 +51,7 @@ class MSDeformAttn(nn.Module):
             self.sampling_offsets.bias.copy_(
                 torch.from_numpy(_offset_bias_init(n_heads, n_levels, n_points)))
             self.attention_weights.bias.zero_()
+        self.token_group = None
 
     def forward(
         self,
@@ -59,7 +67,13 @@ class MSDeformAttn(nn.Module):
         H, L, P = self.n_heads, self.n_levels, self.n_points
         Dh = self.d_model // H
 
-        value = self.value_proj(value_input)
+        if self.token_group is None:
+            value = self.value_proj(value_input)
+        else:
+            sizes = split_sizes(value_input.shape[1], dist.get_world_size(self.token_group))
+            value = gather_from_group(
+                self.value_proj(split_to_group(value_input, self.token_group, 1, sizes)),
+                self.token_group, 1, sizes)
         if padding_mask is not None:
             value = value.masked_fill(padding_mask[..., None], 0.0)
         value = value.reshape(B, -1, H, Dh)

@@ -50,6 +50,8 @@ class CrossModalEncoderLayer(nn.Module):
     """Deformable self-attention per modality + deformable cross-modal
     attention + the FFN, which both streams share."""
 
+    tp_ffn = ("linear1", "dropout2", "linear2")  # parallel.tp's pairing
+
     def __init__(self, d_model, d_ffn, n_levels, n_heads, n_points, dropout=0.0):
         super().__init__()
         self.self_attn_video = MSDeformAttn(d_model, n_levels, n_heads, n_points)
@@ -96,6 +98,8 @@ class CrossModalEncoderLayer(nn.Module):
 class MultimodalDecoderLayer(nn.Module):
     """Query self-attention + a deformable cross-attention into each memory +
     the concat bridge LN(2D) -> Linear -> dropout -> ReLU + FFN."""
+
+    tp_ffn = ("linear1", "dropout3", "linear2")  # parallel.tp's pairing
 
     def __init__(self, d_model, d_ffn, n_levels, n_heads, n_points, dropout=0.0):
         super().__init__()

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import global_min
 from .layers import CrossAttention, Dropout, Linear, MaskPredictor
 from .msda_module import MSDeformAttn
 
@@ -80,6 +81,8 @@ def predict_event_num(counter: nn.Module, query_features: torch.Tensor) -> torch
 class DeformableTransformerEncoderLayer(nn.Module):
     """MSDA self-attention (sparse queries over the dense memory) + FFN."""
 
+    tp_ffn = ("linear1", "dropout2", "linear2")  # parallel.tp's pairing
+
     def __init__(self, d_model, d_ffn, n_levels, n_heads, n_points, dropout=0.0):
         super().__init__()
         self.self_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points)
@@ -105,6 +108,8 @@ class DeformableTransformerEncoderLayer(nn.Module):
 
 class DeformableTransformerDecoderLayer(nn.Module):
     """Self-attention over queries + MSDA cross-attention + FFN."""
+
+    tp_ffn = ("linear1", "dropout3", "linear2")  # parallel.tp's pairing
 
     def __init__(self, d_model, d_ffn, n_levels, n_heads, n_points, dropout=0.0):
         super().__init__()
@@ -209,8 +214,9 @@ class SparseDeformableTransformer(nn.Module):
         # are those of the rows it replaces.
         first = zeroed.int().argmax(dim=1, keepdim=True)
         saliency = torch.where(zeroed, saliency.gather(1, first), saliency)
-        # pad area takes the global minimum over the batch
-        saliency = torch.where(mask_flatten, saliency.min(), saliency)
+        # pad area takes the global minimum over the batch (over every data
+        # rank's rows under parallel.mesh.data_parallel)
+        saliency = torch.where(mask_flatten, global_min(saliency), saliency)
         topk = torch.sort(saliency, dim=1, descending=True, stable=True).indices[:, :K]
         out.update(proposals=proposals_unact, saliency=saliency, topk=topk,
                    sparse_token_nums=sparse_token_nums)
