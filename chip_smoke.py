@@ -21,7 +21,7 @@ Phases, each printing one line with its wall seconds:
    flushed) beside the eager time, the autograd
    Function that joins them against autograd through the plain core, and
    the fused decode step (K3/K4) in both grids, dense and int8 memory K/V,
-   with and without the bias column, at decode steps 0, 9 and 18, against
+   with and without the bias column, at decode steps 0 and 9, against
    the bound of its route (3xTF32 tensor cores against the bytes), and the
    device time of each of its stages (a build that times its barriers, the
    phases of one cross-attention unit and of four GEMM tiles); and the
@@ -95,7 +95,7 @@ Phases, each printing one line with its wall seconds:
    launched 12 times a prefill; videos/s, latency, prefills, chunks and the
    device busy share of one profiled chunk;
 19. serve_cli (after eval_loop_check): the serving CLI (serve.main) over the
-   evaluation world with conv_e79, 128 requests at 50 rps Poisson, static
+   evaluation world with conv_e79, 64 requests at 50 rps Poisson, static
    and continuous, then static with --max-queue 4 at 1000 rps, which must
    shed; each CLI's JSON row;
 20. train_cli (after train): the training CLI (main.main) from conv_e79 over
@@ -252,7 +252,25 @@ Phases, each printing one line with its wall seconds:
    memory, and the loss beside this process's plain run (reported); (c)
    the same two processes at TP 2 (parallel/tp.py with the decoder's
    value tokens split over the model axis, every rank on the 16 rows),
-   held the same way.
+   held the same way;
+44. fused_widths (in the kernels phase, after the fused decode's lines):
+   K3/K4 at every shape of FUSED_WIDTHS (JAX's kernel test's widths, the
+   long-video flagship, D 480, 768 and 1024, Dh 16, 80 and 128, mlp_ratio
+   2, G 24 and 32, depth 24, Sp 4096, a caption of 200 tokens), one step in f32 and
+   bf16, dense and int8, both grids, the bias column on, each against the
+   plain version: errors, committed and untouched rows, two launches bit
+   for bit, ms, plain ms, bound, the schedule the library chose (the
+   flagship's or the general one) and its shared memory;
+45. serve_long (after serve_continuous_bf16): conv_e79 at a rescale length
+   of 1200 (pyramid (1200, 600, 300, 150): S 2250, Sp 2304), f32 and bf16,
+   the 48 requests through DVCServer with the plain-op decode and the fused
+   decode in both grids, dense and int8: launches, videos/s, and each fused
+   arm against the plain-op arm (k, segments within 1e-3 x duration, 90% of
+   caption rows in f32, of tokens in bf16);
+46. serve_narrow: the tests' narrow model (d_model 64, 2 heads, caption
+   depth 2, 4 events; weights from seed 0, the context mask on) the same
+   way, then check_fused on it (fused against plain-op on the card, and
+   against the port's CPU path).
 
 Then one JSON line of kernel measurements (K1-K6) and, as the last line, a JSON
 object naming the device. Any failure exits non-zero without that line, as
@@ -640,7 +658,7 @@ def check_msda(model_dims):
     return cases
 
 
-FUSED_STEPS = (0, 9, 18)  # decode steps at which the fused kernel is checked
+FUSED_STEPS = (0, 9)  # decode steps at which the fused kernel is checked
 # relative to max |ref| of x_out and of the committed rows. f32: 3xTF32
 # against f32 products, sums in another order. bf16: the kernel and the
 # plain version round to bf16 (8 significant bits, 2^-8 relative) at the
@@ -747,70 +765,85 @@ def fused_decode_bound_ms(inp, dims, valid_len: int):
             nbytes, flops, f32_simt_ms)
 
 
-def check_fused_decode(dims, steps_at=FUSED_STEPS):
-    """Phase 3: the fused decode kernel (K3/K4) against its plain version on
-    the card, at the serving path's shapes: grids "video" and "batch" x memory
-    K/V dense and int8 x bias column on and off, at steps 0, 9 and 18, in
-    f32 and in bf16. The kernel and the plain version start from the same
-    caches; x_out and the committed cache rows must agree within FUSED_TOL
-    x max |ref|, and every other cache row must be left exactly as it was."""
+def fused_step_case(inp, dims, step: int, grid: str, bias_col: bool, tol: float,
+                    iters: int = 50, plain_iters: int = 10) -> dict:
+    """One fused decode step (K3/K4) on ``inp`` against its plain version on
+    the card, both from the same caches: x_out and the committed cache rows
+    within ``tol`` x max |ref|, every other cache row exactly as it was, and
+    a second launch from the same caches equal to the first bit for bit;
+    then the kernel's and the plain version's ms and the bound."""
     import torch
 
     from multimodal_feature_learning_tpu_torch.ops import fused_decode as fd
 
-    B, G, D, H, depth, Tc, S, F = dims
+    G, H = dims[1], dims[3]
+    dtype = inp["x"].dtype
+    dname = str(dtype).replace("torch.", "")
+    kw = dict(G=G, num_heads=H, has_bias_col=bias_col)
+
+    def args(kc, vc):
+        return (inp["x"], kc, vc, step, step + 1, inp["mem_k"], inp["mem_v"],
+                inp["k_scales"], inp["v_scales"], inp["mask_i8"], inp["log_m"], inp["weights"])
+
+    kc0, vc0 = inp["k_caches"], inp["v_caches"]
+    ref, rkc, rvc = fd.fused_decode_step_plain(*args(kc0.clone(), vc0.clone()), **kw)
+    got, gkc, gvc = fd.FUSED_DECODE[grid](*args(kc0.clone(), vc0.clone()), **kw)
+    again = fd.FUSED_DECODE[grid](*args(kc0.clone(), vc0.clone()), **kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip((got, gkc, gvc), again)):
+        raise AssertionError(f"two launches of the fused decode kernel differ ({dname}, {grid}, "
+                             f"dims {dims}, step {step})")
+    rows = slice(step * G, (step + 1) * G)
+    errs = {}
+    for name, a, b in (("x_out", got, ref),
+                       ("k_commit", gkc[:, :, rows], rkc[:, :, rows]),
+                       ("v_commit", gvc[:, :, rows], rvc[:, :, rows])):
+        err = (a.float() - b.float()).abs().max().item()
+        scale = b.float().abs().max().item()
+        if not (a.dtype == b.dtype == dtype and torch.isfinite(a).all() and err <= tol * scale):
+            raise AssertionError(
+                f"fused decode kernel disagrees with the plain version ({dname}, {grid}, "
+                f"dims {dims}, bias {bias_col}, step {step}, {name}): max abs err {err} > "
+                f"{tol} x {scale}, {a.dtype}")
+        errs[name] = {"max_abs_err": err, "max_abs_ref": scale}
+    for name, a, b in (("k_caches", gkc, kc0), ("v_caches", gvc, vc0)):
+        a, b = a.clone(), b.clone()
+        a[:, :, rows] = b[:, :, rows] = 0
+        if not torch.equal(a, b):
+            raise AssertionError(f"the fused decode kernel wrote {name} rows outside the "
+                                 f"commit rows of step {step} (dims {dims})")
+    kc, vc = kc0.clone(), vc0.clone()
+    ms = time_cuda(lambda: fd.FUSED_DECODE[grid](*args(kc, vc), **kw), iters=iters)
+    plain_ms = time_cuda(lambda: fd.fused_decode_step_plain(*args(kc, vc), **kw),
+                         iters=plain_iters)
+    bound_ms, bound_by, nbytes, flops, simt_ms = fused_decode_bound_ms(inp, dims, step + 1)
+    return {"step": step, "errors": errs,
+            "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+            "tolerance": tol * errs["x_out"]["max_abs_ref"], "repeat_bitwise": True,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_f32_simt_ms": simt_ms, "bytes": nbytes, "flops": flops}
+
+
+def check_fused_decode(dims, steps_at=FUSED_STEPS):
+    """Phase 3: the fused decode kernel (K3/K4) against its plain version on
+    the card, at the serving path's shapes: grids "video" and "batch" x memory
+    K/V dense and int8 x bias column on and off, at each step of
+    ``steps_at``, in f32 and in bf16 (``fused_step_case``)."""
+    import torch
+
+    from multimodal_feature_learning_tpu_torch.ops import fused_decode as fd
+
+    B = dims[0]
     lines = []
     seed = 0
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
-        tol = FUSED_TOL[dname]
         for grid, kv_mode, bias_col in ((g, kv, bias) for g in ("video", "batch")
                                         for kv in ("dense", "int8") for bias in (False, True)):
             seed += 1
             inp = fused_decode_inputs(dims, bias_col, kv_mode, seed, dtype)
-            steps = []
-            for step in steps_at:
-                kw = dict(G=G, num_heads=H, has_bias_col=bias_col)
-                args = lambda kc, vc: (inp["x"], kc, vc, step, step + 1, inp["mem_k"],  # noqa: E731
-                                       inp["mem_v"], inp["k_scales"], inp["v_scales"],
-                                       inp["mask_i8"], inp["log_m"], inp["weights"])
-                kc0, vc0 = inp["k_caches"], inp["v_caches"]
-                ref, rkc, rvc = fd.fused_decode_step_plain(*args(kc0.clone(), vc0.clone()), **kw)
-                got, gkc, gvc = fd.FUSED_DECODE[grid](*args(kc0.clone(), vc0.clone()), **kw)
-                torch.cuda.synchronize()
-                rows = slice(step * G, (step + 1) * G)
-                errs = {}
-                for name, a, b in (("x_out", got, ref),
-                                   ("k_commit", gkc[:, :, rows], rkc[:, :, rows]),
-                                   ("v_commit", gvc[:, :, rows], rvc[:, :, rows])):
-                    err = (a.float() - b.float()).abs().max().item()
-                    scale = b.float().abs().max().item()
-                    if not (a.dtype == b.dtype == dtype and torch.isfinite(a).all()
-                            and err <= tol * scale):
-                        raise AssertionError(
-                            f"fused decode kernel disagrees with the plain version "
-                            f"({dname}, {grid}, {kv_mode}, bias {bias_col}, step {step}, "
-                            f"{name}): max abs err {err} > {tol} x {scale}, {a.dtype}")
-                    errs[name] = {"max_abs_err": err, "max_abs_ref": scale}
-                for name, a, b in (("k_caches", gkc, kc0), ("v_caches", gvc, vc0)):
-                    a, b = a.clone(), b.clone()
-                    a[:, :, rows] = b[:, :, rows] = 0
-                    if not torch.equal(a, b):
-                        raise AssertionError(f"the fused decode kernel wrote {name} rows "
-                                             f"outside the commit rows of step {step}")
-                kc, vc = kc0.clone(), vc0.clone()
-                ms = time_cuda(lambda: fd.FUSED_DECODE[grid](*args(kc, vc), **kw))
-                plain_ms = time_cuda(lambda: fd.fused_decode_step_plain(*args(kc, vc), **kw),
-                                     iters=10)
-                bound_ms, bound_by, nbytes, flops, simt_ms = fused_decode_bound_ms(
-                    inp, dims, step + 1)
-                steps.append({
-                    "step": step, "errors": errs,
-                    "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
-                    "tolerance": tol * errs["x_out"]["max_abs_ref"],
-                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by, "bound_f32_simt_ms": simt_ms,
-                    "bytes": nbytes, "flops": flops})
+            steps = [fused_step_case(inp, dims, step, grid, bias_col, FUSED_TOL[dname])
+                     for step in steps_at]
             mid = steps[len(steps) // 2]
             lines.append({
                 "dtype": dname, "grid": grid, "kv": kv_mode, "bias_col": bias_col,
@@ -820,6 +853,74 @@ def check_fused_decode(dims, steps_at=FUSED_STEPS):
                 "bound_by": mid["bound_by"], "bound_f32_simt_ms": mid["bound_f32_simt_ms"],
                 "library_ms": None,  # no single PyTorch call computes a decode step
                 "steps": steps})
+            del inp
+    return lines
+
+
+# The widths and shapes beyond the flagship's that the fused decode kernel
+# is held at (name, (B, G, D, H, depth, Tc, S, F), step): JAX's own kernel
+# test (tests/test_fused_decode.py: D 64, 2 heads, depth 2, G 4, Sp 128), the
+# long-video flagship (pyramid (1200, 600, 300, 150): S 2250, Sp 2304),
+# D 768 / 12 heads, D 1024 / 16 heads (F 4096: the f32 GEMM tiles read W in
+# chunks), D 1024 / 8 heads (Dh 128), mlp_ratio 2, G 24 (48 rows: two row
+# tiles), D 480 / 6 heads (Dh 80; a width no multiple of 64, so a column
+# block is part masked), depth 24, and three corners: G 32 with Sp 4096 at Dh 128 (the f32
+# cross-attention in one buffer, q from L2), Dh 16 (64 heads: the combine a
+# chunk a group), and a caption of 200 tokens (the self-attention in
+# position tiles).
+FUSED_WIDTHS = (
+    ("jax_test", (2, 4, 64, 2, 2, 8, 40, 256), 4),
+    ("long_flagship", (BATCH, 10, 512, 8, 6, 20, 2250, 2048), 9),
+    ("d768_h12", (BATCH, 10, 768, 12, 6, 20, 563, 3072), 9),
+    ("d1024_h16", (BATCH, 10, 1024, 16, 6, 20, 563, 4096), 9),
+    ("d1024_h8", (BATCH, 10, 1024, 8, 6, 20, 563, 4096), 9),
+    ("mlp_ratio2", (BATCH, 10, 512, 8, 6, 20, 563, 1024), 9),
+    ("g24", (BATCH, 24, 512, 8, 6, 20, 563, 2048), 9),
+    ("d480_dh80", (4, 10, 480, 6, 2, 20, 563, 1920), 9),
+    ("depth24", (BATCH, 10, 512, 8, 24, 20, 563, 2048), 9),
+    ("g32_sp4096_dh128", (2, 32, 1024, 8, 2, 20, 4000, 4096), 9),
+    ("dh16", (2, 32, 1024, 64, 2, 20, 4000, 4096), 9),
+    ("caption200", (2, 32, 1024, 8, 1, 200, 4000, 4096), 199),
+)
+# each shape's cases: (dtype, K/V, grid), the bias column on
+FUSED_WIDTH_CASES = (("float32", "dense", "video"), ("float32", "int8", "batch"),
+                     ("bfloat16", "dense", "batch"), ("bfloat16", "int8", "video"))
+
+
+def fused_widths():
+    """Phase fused_widths: K3/K4 at every shape of FUSED_WIDTHS, one step in
+    each case of FUSED_WIDTH_CASES, against the plain version on the card
+    (``fused_step_case``: errors, committed and untouched rows, two launches
+    bit for bit, ms, plain ms, bound), with the schedule the library chose
+    (the flagship's or the general one) and its shared memory, which must
+    equal the wrapper's plan (``smem_plan``) where the schedule is general."""
+    import torch
+
+    from multimodal_feature_learning_tpu_torch.ops import fused_decode as fd
+
+    lines = []
+    seed = 100
+    for name, dims, step in FUSED_WIDTHS:
+        B, G, D, H, depth, Tc, S, F = dims
+        for dname, kv_mode, grid in FUSED_WIDTH_CASES:
+            seed += 1
+            dtype = getattr(torch, dname)
+            inp = fused_decode_inputs(dims, True, kv_mode, seed, dtype)
+            case = fused_step_case(inp, dims, step, grid, True, FUSED_TOL[dname],
+                                   iters=20, plain_iters=3)
+            Sp = inp["mem_k"].shape[2]
+            smem, schedule = fd.FUSED_DECODE[grid].plan(B, G, D, H, Tc * G, Sp, F,
+                                                         kv_mode == "int8", dname == "bfloat16")
+            mirror = fd.smem_plan(D, D // H, G, Tc, Sp, dname == "bfloat16", kv_mode == "int8")
+            if schedule == "general" and smem != mirror["bytes"]:
+                raise AssertionError(f"fused_widths {name}: the library plans {smem} bytes, "
+                                     f"smem_plan {mirror['bytes']}")
+            lines.append({"shape": name, "dims": dict(zip("B G D H depth Tc S F".split(), dims)),
+                          "Sp": Sp, "dtype": dname, "kv": kv_mode, "grid": grid,
+                          "bias_col": True, "schedule": schedule, "smem_bytes": smem,
+                          "plan": mirror, "library_ms": None,
+                          **{k: v for k, v in case.items() if k != "errors"},
+                          "errors": case["errors"]})
             del inp
     return lines
 
@@ -940,19 +1041,23 @@ def check_probe_add():
     return cases
 
 
-def build_flagship(device, compute_dtype: str = "float32"):
+def build_flagship(device, compute_dtype: str = "float32", video_rescale_len: int = 0):
     """Full-width flagship model on ``device`` with the trained weights of
     snapshots/conv_e79.npz, loaded strictly, in ``compute_dtype`` (the
-    config's: f32 masters, bf16 copies in every forward). conv_e79 was
-    trained without the differentiable context mask (the snapshot holds no
-    context_mask parameters), so it runs without it and without the
-    contexts loss."""
+    config's: f32 masters, bf16 copies in every forward), at the config's
+    rescale length or ``video_rescale_len`` (no weight depends on it).
+    conv_e79 was trained without the differentiable context mask (the
+    snapshot holds no context_mask parameters), so it runs without it and
+    without the contexts loss."""
     from multimodal_feature_learning_tpu_torch.config import load_config, recompute_losses
     from multimodal_feature_learning_tpu_torch.models.dvc import build_model
     from multimodal_feature_learning_tpu_torch.utils.weights import load_flax_params, load_npz
 
     cfg = load_config()
     cfg.compute_dtype = compute_dtype
+    if video_rescale_len:
+        cfg.dvc.detr.video_rescale_len = video_rescale_len
+        cfg.dataset.activity_net.video_rescale_len = video_rescale_len
     cfg.use_differentiable_mask = False
     recompute_losses(cfg)  # labels, segments, captions, mask_prediction
     flat = load_npz(SNAPSHOT)
@@ -1174,14 +1279,18 @@ def drive(server, requests):
 CONTINUOUS_CHUNK = 4  # decode tokens a dispatch of the continuous server
 
 
-def compare_results(requests, results, reference, what: str) -> dict:
+def compare_results(requests, results, reference, what: str,
+                    min_token_agreement: float = 0.0) -> dict:
     """``results`` against ``reference`` (both lists of events per request):
     k equal, segments within 1e-3 x the duration, at least 90% of caption
     rows identical (f32 sums in another order can flip a near-tie argmax,
-    which changes the rest of that caption)."""
+    which changes the rest of that caption). With ``min_token_agreement``
+    (two bf16 decodes, which round at other places, as ``check_fused``
+    holds them) at least that share of caption tokens equal instead of
+    rows."""
     import numpy as np
 
-    rows = rows_equal = 0
+    rows = rows_equal = tokens = tokens_equal = 0
     worst_seg = 0.0
     for (_, dur), got, ref in zip(requests, results, reference):
         if len(got) != len(ref):
@@ -1191,11 +1300,15 @@ def compare_results(requests, results, reference, what: str) -> dict:
                                                                        b["segment"])))) / dur)
             rows += 1
             rows_equal += a["caption"] == b["caption"]
-    if worst_seg > 1e-3 or rows_equal < 0.9 * rows:
+            tokens += len(a["caption"])
+            tokens_equal += sum(x == y for x, y in zip(a["caption"], b["caption"]))
+    agree = tokens_equal / max(tokens, 1)
+    if worst_seg > 1e-3 or ((agree < min_token_agreement) if min_token_agreement
+                            else rows_equal < 0.9 * rows):
         raise AssertionError(f"{what}: segment err {worst_seg} of the duration, "
-                             f"{rows_equal}/{rows} caption rows equal")
+                             f"{rows_equal}/{rows} caption rows and {agree:.4f} of tokens equal")
     return {"max_segment_err_of_duration": worst_seg, "caption_rows_equal": rows_equal,
-            "caption_rows": rows}
+            "caption_rows": rows, "token_agreement": agree}
 
 
 def serve_continuous(cfg, model, requests, static_results, device="cuda"):
@@ -1250,7 +1363,7 @@ def serve_continuous(cfg, model, requests, static_results, device="cuda"):
             "chunk_device_busy_share": device_ms / wall_ms}
 
 
-SERVE_CLI_REQUESTS, SERVE_CLI_RPS, SHED_RPS, SHED_QUEUE = 128, 50, 1000, 4
+SERVE_CLI_REQUESTS, SERVE_CLI_RPS, SHED_RPS, SHED_QUEUE = 64, 50, 1000, 4
 
 
 def serve_cli(world: dict, device="cuda"):
@@ -3486,19 +3599,14 @@ def against(requests, results, reference) -> dict:
 def serve_bf16(cfg, model, requests, f32_results: dict):
     """Phase serve_bf16: the N_REQUESTS requests through DVCServer on the
     bf16 model (``compute_dtype="bfloat16"``, conv_e79), once per arm of
-    BF16_ARMS. Launches are counted over each arm's requests: K1 twelve
-    times a dispatch, the arm's fused kernel at least once a decode step and no other grid's.
-    K1's calls are recorded: both the encoder's and the decoder's take the
-    kernel's bf16-value route, with the schedule their plans chose. Each
-    arm's videos/s, latency and peak memory, and its agreement with
-    the f32 answers of the same arm (``against``; int8 against the f32
-    plain-op answers)."""
-    import torch
-
+    BF16_ARMS (``serve_arms``: K1 twelve times a dispatch, the arm's fused
+    kernel at least once a decode step and no other grid's, videos/s,
+    latency, peak memory). K1's calls are recorded: both the encoder's and
+    the decoder's take the kernel's bf16-value route, with the schedule
+    their plans chose. Each arm's agreement with the f32 answers of the
+    same arm (``against``; int8 against the f32 plain-op answers)."""
     from multimodal_feature_learning_tpu_torch.ops import msda
 
-    per_forward = cfg.dvc.detr.enc_layers + cfg.dvc.detr.dec_layers
-    out, served = {}, {}
     plan_fn, plans = msda.msda_fwd_plan, {}
 
     def recording_plan(shapes, B, H, Dh, Q, P, itemsize, *a, **kw):
@@ -3506,39 +3614,14 @@ def serve_bf16(cfg, model, requests, f32_results: dict):
         plans.setdefault((Q, itemsize), plan.schedule)
         return plan
 
-    for name, impl, kv, grid in BF16_ARMS:
-        model.decode_impl, model.decode_kv, model.decode_fused_grid = impl, kv, grid
-        msda.msda_fwd_plan = recording_plan
-        torch.cuda.reset_peak_memory_stats()
-        try:
-            results, latencies, wall, launches, stats, steps = serve(model, requests)
-        finally:
-            msda.msda_fwd_plan = plan_fn
-            model.decode_impl, model.decode_kv, model.decode_fused_grid = "xla", "dense", "video"
-        peak = torch.cuda.max_memory_allocated()
-        check_results(cfg, model, requests, results, compare_cpu=False)
-        dispatches = stats["dispatches"]
-        if len(results) != len(requests) or launches["msda_fwd"] != per_forward * dispatches:
-            raise AssertionError(f"serve_bf16 {name}: {len(results)} answers, msda_fwd "
-                                 f"launched {launches['msda_fwd']} times over {dispatches} "
-                                 f"dispatches")
-        if impl == "fused":
-            mine, other = f"fused_decode_{grid}", \
-                f"fused_decode_{'batch' if grid == 'video' else 'video'}"
-            if launches[mine] < sum(steps) or launches[other]:
-                raise AssertionError(f"serve_bf16 {name}: {launches} over {steps} decode steps")
-        elif launches["fused_decode_video"] or launches["fused_decode_batch"]:
-            raise AssertionError(f"serve_bf16 {name}: the plain-op decode launched {launches}")
-        lat = sorted(latencies)
-        served[name] = results
-        out[name] = {
-            "decode": [impl, kv, grid], "answered": len(results), "dispatches": dispatches,
-            "videos_per_s": len(requests) / wall, "p50_latency_s": lat[len(lat) // 2],
-            "max_latency_s": lat[-1], "step_s": stats["step_s"],
-            "max_memory_allocated_bytes": peak, "launches": launches,
-            "decode_steps_per_dispatch": steps,
-            "against_f32": against(requests, results,
-                                   f32_results.get(name, f32_results["plain"]))}
+    msda.msda_fwd_plan = recording_plan
+    try:
+        out, served = serve_arms(cfg, model, requests, BF16_ARMS, "serve_bf16")
+    finally:
+        msda.msda_fwd_plan = plan_fn
+    for name, arm in out.items():
+        arm["against_f32"] = against(requests, served[name],
+                                     f32_results.get(name, f32_results["plain"]))
     q_enc = min(int(model.num_tokens * cfg.dvc.detr.rho) + 1, model.num_tokens)
     if {i for _, i in plans} != {2} or {q for q, _ in plans} != {q_enc, model.num_queries}:
         raise AssertionError(f"serve_bf16: K1 ran with plans {plans}; the encoder (Q={q_enc}) "
@@ -3547,6 +3630,131 @@ def serve_bf16(cfg, model, requests, f32_results: dict):
     out["msda_fwd_plans"] = [{"Q": q, "value_itemsize": i, "schedule": v}
                              for (q, i), v in sorted(plans.items())]
     return out, served
+
+
+def serve_arms(cfg, model, requests, arms, what: str):
+    """The requests through DVCServer once per arm of ``arms`` (name,
+    decode_impl, decode_kv, decode_fused_grid), launches counted over each:
+    K1 twelve times a dispatch, a fused arm's kernel at least once a decode
+    step and the other grid's never, the plain-op arm's neither; every event
+    well formed; videos/s, latency and peak memory. Returns ({arm: stats},
+    {arm: results})."""
+    per_forward = cfg.dvc.detr.enc_layers + cfg.dvc.detr.dec_layers
+    out, served = {}, {}
+    import torch
+
+    for name, impl, kv, grid in arms:
+        model.decode_impl, model.decode_kv, model.decode_fused_grid = impl, kv, grid
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            results, latencies, wall, launches, stats, steps = serve(model, requests)
+        finally:
+            model.decode_impl, model.decode_kv, model.decode_fused_grid = "xla", "dense", "video"
+        peak = torch.cuda.max_memory_allocated()
+        check_results(cfg, model, requests, results, compare_cpu=False)
+        dispatches = stats["dispatches"]
+        if len(results) != len(requests) or launches["msda_fwd"] != per_forward * dispatches:
+            raise AssertionError(f"{what} {name}: {len(results)} answers, msda_fwd launched "
+                                 f"{launches['msda_fwd']} times over {dispatches} dispatches")
+        fused = {g: launches[f"fused_decode_{g}"] for g in ("video", "batch")}
+        if impl == "fused":
+            if fused[grid] < sum(steps) or any(n for g, n in fused.items() if g != grid):
+                raise AssertionError(f"{what} {name}: {launches} over {steps} decode steps")
+        elif any(fused.values()):
+            raise AssertionError(f"{what} {name}: the plain-op decode launched {launches}")
+        lat = sorted(latencies)
+        served[name] = results
+        out[name] = {
+            "decode": [impl, kv, grid], "answered": len(results), "dispatches": dispatches,
+            "videos_per_s": len(requests) / wall, "p50_latency_s": lat[len(lat) // 2],
+            "max_latency_s": lat[-1], "step_s": stats["step_s"],
+            "max_memory_allocated_bytes": peak, "launches": launches,
+            "decode_steps_per_dispatch": steps}
+    return out, served
+
+
+# the long-video flagship: conv_e79 at a rescale length of 1200 (pyramid
+# (1200, 600, 300, 150): S 2250, Sp 2304, 18 chunks of the fused kernel's
+# cross-attention), f32 and bf16, the plain-op decode and the fused one in
+# both grids with dense and int8 memory K/V
+LONG_RESCALE_LEN = 1200
+LONG_ARMS = (  # (name, decode_impl, decode_kv, decode_fused_grid)
+    ("plain", "xla", "dense", "video"),
+    ("fused_video", "fused", "dense", "video"),
+    ("fused_batch", "fused", "dense", "batch"),
+    ("fused_video_int8", "fused", "int8", "video"),
+    ("fused_batch_int8", "fused", "int8", "batch"),
+)
+
+
+def serve_long(requests):
+    """Phase serve_long: the N_REQUESTS requests (resized to 1200 tokens)
+    through DVCServer on the long-video flagship, f32 and bf16, once per arm
+    of LONG_ARMS (``serve_arms``), each fused arm held against the plain-op
+    arm of the same model by ``compare_results``, as ``check_fused`` holds
+    the flagship: k equal, segments within 1e-3 x duration, and at least 90%
+    of caption rows equal in f32, of caption tokens in bf16."""
+    import torch
+
+    out = {}
+    for dname in ("float32", "bfloat16"):
+        cfg, model, source, _ = build_flagship("cuda", dname, LONG_RESCALE_LEN)
+        arms, served = serve_arms(cfg, model, requests, LONG_ARMS, f"serve_long {dname}")
+        for name, *_ in LONG_ARMS[1:]:
+            arms[name]["against_plain"] = compare_results(
+                requests, served[name], served["plain"],
+                f"serve_long {dname} {name} against the plain-op decode",
+                min_token_agreement=0.9 if dname == "bfloat16" else 0.0)
+        out[dname] = {"weights": source, "num_tokens": model.num_tokens,
+                      "Sp": -(-model.num_tokens // 128) * 128, "arms": arms}
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+# the tests' narrow model (__graft_entry__._small_cfg's dims: d_model 64, 2
+# heads, 2 + 2 transformer layers, 3 levels of 24 tokens, caption depth 2,
+# 4 events, 8 caption tokens), weights from seed 0, the context mask on (the
+# fused step's bias column)
+NARROW_OVERRIDES = [
+    "dvc.d_model=64", "dvc.num_queries=6", "dvc.detr.feature_dim=64", "dvc.detr.d_model=64",
+    "dvc.detr.num_heads=2", "dvc.detr.enc_layers=2", "dvc.detr.dec_layers=2",
+    "dvc.detr.transformer_ff_dim=128", "dvc.detr.video_rescale_len=24",
+    "dvc.detr.num_feature_levels=3", "dvc.caption.d_model=64", "dvc.caption.depth=2",
+    "dvc.caption.num_heads=2", "dataset.activity_net.video_rescale_len=24",
+    "dataset.activity_net.max_caption_len_all=8",
+    "dataset.activity_net.max_gt_target_segments=4",
+]
+NARROW_ARMS = LONG_ARMS
+
+
+def serve_narrow(vocab_size: int):
+    """Phase serve_narrow: the narrow model (NARROW_OVERRIDES) on the card,
+    N_REQUESTS requests of its feature width through DVCServer once per arm
+    of NARROW_ARMS, each fused arm held against the plain-op arm
+    (``compare_results``); then ``check_fused``: one batch with the fused
+    decode (both grids) against the plain-op decode on the card, and the
+    fused decode on the card against the port's CPU path on N_CHECK
+    videos."""
+    from multimodal_feature_learning_tpu_torch.config import (
+        apply_overrides, load_config, recompute_losses,
+    )
+
+    cfg = apply_overrides(load_config(), NARROW_OVERRIDES)
+    recompute_losses(cfg)
+    model = build_family(cfg, vocab_size, "cuda")
+    requests = make_requests(cfg)
+    arms, served = serve_arms(cfg, model, requests, NARROW_ARMS, "serve_narrow")
+    for name, *_ in NARROW_ARMS[1:]:
+        arms[name]["against_plain"] = compare_results(
+            requests, served[name], served["plain"],
+            f"serve_narrow {name} against the plain-op decode")
+    checked = check_fused(cfg, model, requests)
+    return {"d_model": cfg.dvc.caption.d_model, "heads": cfg.dvc.caption.num_heads,
+            "caption_depth": cfg.dvc.caption.depth, "num_tokens": model.num_tokens,
+            "context_mask": cfg.use_differentiable_mask,
+            "params": sum(p.numel() for p in model.parameters()), "arms": arms,
+            "check_fused": checked}
 
 
 def eval_bf16(cfg, model, batch, f32_arms: dict, world: dict):
@@ -4487,7 +4695,9 @@ def main() -> int:
     from multimodal_feature_learning_tpu_torch.models.base_encoder import pyramid_shapes
     from multimodal_feature_learning_tpu_torch.ops import build
     from multimodal_feature_learning_tpu_torch.ops.build import CSRC_DIR
-    from multimodal_feature_learning_tpu_torch.ops.fused_decode import STAGE_TIMING_FLAGS
+    from multimodal_feature_learning_tpu_torch.ops.fused_decode import (
+        STAGE_TIMING_FLAGS, width_flags,
+    )
     from multimodal_feature_learning_tpu_torch.tools.msda_device_time import LONG_PYRAMID
 
     t_all = time.monotonic()
@@ -4504,12 +4714,19 @@ def main() -> int:
         cuda=torch.version.cuda)
 
     t = time.monotonic()
-    built = build.build(variants=[("fused_decode.cu", STAGE_TIMING_FLAGS)])
+    # the fused decode's other widths (FUSED_WIDTHS and the narrow model), a
+    # library each, built with the rest
+    widths = sorted({width_flags(d[2], d[2] // d[3]) for _, d, _ in FUSED_WIDTHS} - {()})
+    built = build.build(variants=[("fused_decode.cu", STAGE_TIMING_FLAGS)]
+                        + [("fused_decode.cu", flags) for flags in widths])
     log("build", time.monotonic() - t, compiler_seconds=built,
         sources=sorted(p.name for p in CSRC_DIR.glob("*.c*")))
     # registers, shared memory and spills of the MSDA and fused decode kernels
     for source in ("msda_fwd.cu", "msda_bwd.cu", "fused_decode.cu"):
         print(f"ptxas {source}: " + " | ".join(build.ptxas_report(source)), flush=True)
+    for flags in widths:
+        print(f"ptxas fused_decode.cu {' '.join(flags)}: "
+              + " | ".join(build.ptxas_report("fused_decode.cu", flags)), flush=True)
 
     t = time.monotonic()
     cfg0 = load_config()
@@ -4534,6 +4751,12 @@ def main() -> int:
     for line in fused_lines:
         log("kernel", 0.0, name=f"fused_decode_{line['grid']}", **line)
     log("fused_stages", 0.0, **fused_stage_breakdown(fused_dims))
+    t_widths = time.monotonic()
+    width_lines = fused_widths()
+    for line in width_lines:
+        log("fused_widths", 0.0, **line)
+    log("fused_widths", time.monotonic() - t_widths, shapes=len(FUSED_WIDTHS),
+        cases=len(width_lines))
     probe_cases = check_probe_add()
     for c in probe_cases:
         log("kernel", 0.0, name="probe_add", **c)
@@ -4608,6 +4831,14 @@ def main() -> int:
     t = time.monotonic()
     continuous16 = serve_continuous(cfg16, model16, requests, results16["plain"])
     log("serve_continuous_bf16", time.monotonic() - t, **continuous16)
+
+    t = time.monotonic()
+    long_served = serve_long(requests)
+    log("serve_long", time.monotonic() - t, **long_served)
+
+    t = time.monotonic()
+    narrow_served = serve_narrow(model.caption.head.out_features)
+    log("serve_narrow", time.monotonic() - t, **narrow_served)
 
     t = time.monotonic()
     where_time_goes = breakdown(model, requests)
@@ -4900,7 +5131,11 @@ def main() -> int:
                 "dense_serve": {arm: a["launches"][name]
                                 for arm, a in dense_served["arms"].items()},
                 "dense_eval": sum(a["launches"][name]
-                                  for a in dense_evaluated["arms"].values())},
+                                  for a in dense_evaluated["arms"].values()),
+                "serve_long": {dt: {arm: a["launches"][name] for arm, a in r["arms"].items()}
+                               for dt, r in long_served.items()},
+                "serve_narrow": {arm: a["launches"][name]
+                                 for arm, a in narrow_served["arms"].items()}},
             "max_abs_err": max(line["max_abs_err"] for line in f32_lines),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
@@ -4913,6 +5148,10 @@ def main() -> int:
                      **{k: bf16_case[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
                      "launches_serve_bf16": served16[f"fused_{grid}"]["launches"][name]},
             "cases": [{k: v for k, v in line.items() if k != "steps"} for line in lines],
+            "widths": [{k: line[k] for k in (
+                "shape", "dims", "Sp", "dtype", "kv", "schedule", "smem_bytes", "max_abs_err",
+                "tolerance", "repeat_bitwise", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")} for line in width_lines if line["grid"] == grid],
         })
     probe_case = next(c for c in probe_cases
                       if c["shape"] == list(PROBE_SHAPES[0]) and c["dtype"] == "bfloat16")

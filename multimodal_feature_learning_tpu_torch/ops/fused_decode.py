@@ -10,6 +10,11 @@ tensor cores in 3xTF32 (``split_tf32`` is the split's plain counterpart).
 The two grids run one schedule on the card and compute the same numbers;
 ``batch_tile`` is still validated, so the config knobs behave as before.
 
+Widths: each (D, Dh) pair has a library of its own, ``-DFD_D`` and
+``-DFD_DH`` (``width_flags``; the flagship's 512 and 64 are the default
+build), built under ``build/kernels/`` at its first launch; everything else
+is taken at run time within the limits ``check_kernel_shape`` states.
+
 The step runs in x's dtype ``ct``, f32 or bf16, as the TPU kernels run in
 theirs: in bf16 the weights, caches and dense memory K/V are bf16, each
 product accumulates in f32 and is rounded to bf16 (on bf16 tensor cores
@@ -42,9 +47,7 @@ from .build import KernelBinding, load_library
 NEG_MASK = -1e20  # masked logit, applied before the scale
 LN_EPS = 1e-6
 KV_PAD = 128      # S is padded to a multiple of this
-SPLIT_2 = 4       # the kernel splits the W2 reduction in four (csrc/fused_decode.cu)
 CHUNK = 128       # memory columns per cross-attention unit of the kernel
-KERNEL_D, KERNEL_DH = 512, 64  # the widths the kernel is built for
 
 _ATT_KEYS = ("q_linear", "k_linear", "v_linear", "projection_layer")
 
@@ -303,9 +306,128 @@ def batch_tile_for(B: int, batch_tile: int = 0) -> int:
     return bt
 
 
+# The kernel's stated limits. Dh is a multiple of 16 up to 128 (the tensor
+# cores' k step of 16 in bf16, and the cross-attention's K and V chunks of
+# 128 x Dh f32 in one block's shared memory); F is a multiple of 16 (whole
+# k steps and 16-byte rows); and a shape's shared-memory plan (``smem_plan``)
+# fits one block: SMEM_MAX bytes on an H100. Within these, every D = H Dh up
+# to 1024, any B, depth, G (rows 2G), caption length, Sp = round_up(S, 128)
+# and F, f32 and bf16, dense and int8 K/V, with or without the bias column,
+# in both grids: at D <= 1024 and G <= 32 the plan always fits
+# (tests/test_torch_fused_decode.py checks the corners).
+DH_STEP, DH_MAX = 16, 128
+F_STEP = 16
+SMEM_MAX = 232_448
+FLAGSHIP_WIDTHS = (512, 64)  # (D, Dh) of the build without -D flags
+
+
+def width_flags(D: int, Dh: int) -> Tuple[str, ...]:
+    """The nvcc flags of the library built for widths (D, Dh): none for the
+    flagship's, else ``-DFD_D`` and ``-DFD_DH``; each set is its own library
+    under ``build/kernels/``, built at its first launch."""
+    if (D, Dh) == FLAGSHIP_WIDTHS:
+        return ()
+    return (f"-DFD_D={D}", f"-DFD_DH={Dh}")
+
+
+# the constants of csrc/fused_decode.cu that size a block's shared memory
+_BM, _BN, _NWARPS, _RT, _MAX_CG = 32, 64, 16, 32, 5
+_WS = _RS = _BN + 8
+_PS, _PSB = CHUNK + 4, CHUNK + 8
+_RED_BYTES = (_NWARPS // 2) * _BM * _RS * 4
+
+
+def smem_plan(D: int, Dh: int, G: int, Tc: int, Sp: int, bf16: bool,
+              kv_int8: bool) -> Dict[str, int]:
+    """The plan of the kernel's general schedule (``plan_smem`` of
+    ``csrc/fused_decode.cu``, line for line): the GEMM tile's W chunk rows
+    ``kc`` (D where the whole slab fits), the combine's chunks a group
+    ``cg``, the cross-attention's buffers and whether they hold the q rows,
+    the self-attention's events a unit and positions a tile, and ``bytes``,
+    the block's need. Where the flagship's schedule fits (``plan_fixed``:
+    Dh 64, at most 32 rows and five chunks, F = 4D, the whole W slab) the
+    kernel runs that one instead; the wrapper's check needs only this plan,
+    since the general schedule takes every shape the other does."""
+    H, R, NC = D // Dh, 2 * G, Sp // CHUNK
+    es = 2 if bf16 else 4
+    QS = Dh + 4
+
+    def w_region(kc, nb):
+        return max(nb * kc * _WS * es, _RED_BYTES)
+
+    a_bytes, coef_min = _BM * (D + 4) * 4, _BM * H * 3 * 4
+    if a_bytes + w_region(D, 1) + coef_min <= SMEM_MAX:
+        kc, nb = D, 1
+    else:
+        kc, nb = 64, 2
+        while kc + 64 < D and a_bytes + w_region(kc + 64, 2) + coef_min <= SMEM_MAX:
+            kc += 64
+    base = a_bytes + w_region(kc, nb)
+    cg = min(NC, _MAX_CG)
+    while cg > 1 and base + _BM * H * (cg + 2) * 4 > SMEM_MAX:
+        cg -= 1
+    gemm = base + _BM * H * (cg + 2) * 4
+    if bf16:
+        krow = Dh + 16 if kv_int8 else (Dh + 8) * 2
+        fixed, kv = _RT * _PS * 4 + _RT * _PSB * 2 + _RT * (Dh // 2 + 4) * 4, 2 * CHUNK * krow
+    else:
+        krow, vrow = (Dh + 16, Dh + 16) if kv_int8 else (QS * 4, (Dh + 8) * 4)
+        fixed, kv = (2 * _RT * _PS + 2 * _RT * QS) * 4, CHUNK * (krow + vrow)
+    tail = R * CHUNK + (2 * CHUNK * 4 if kv_int8 else 0)
+    for nbuf, q_ring in ((2, 1), (1, 1), (1, 0)):
+        cross = fixed + nbuf * (kv + q_ring * R * QS * 4 + tail)
+        if cross <= SMEM_MAX:
+            break
+    smem = max(gemm, cross)
+
+    def self_bytes(eg, pt):
+        return (2 * eg * QS + 2 * pt * eg * QS + 2 * eg * Tc + (2 * eg * Dh if pt < Tc else 0)) * 4
+
+    eg, pt = G, Tc
+    while eg > 1 and self_bytes(eg, Tc) > smem:
+        eg -= 1
+    while pt > 1 and self_bytes(eg, pt) > smem:
+        pt -= 1
+    return {"kc": kc, "cg": cg, "ca_nbuf": nbuf, "ca_q_ring": q_ring, "sa_eg": eg,
+            "sa_pt": pt, "gemm": gemm, "cross": cross, "bytes": max(smem, self_bytes(eg, pt))}
+
+
+def check_kernel_shape(D: int, H: int, F: int, G: int, Tc: int, Sp: int, bf16: bool,
+                       kv_int8: bool) -> None:
+    """Raise ValueError, naming the limit, for a shape the kernel does not
+    take (the module's stated limits); nothing is launched."""
+    if H < 1 or D % H:
+        raise ValueError(f"D={D} is not a multiple of the {H} heads")
+    Dh = D // H
+    if Dh % DH_STEP or not DH_STEP <= Dh <= DH_MAX:
+        raise ValueError(f"the fused decode kernel takes a head width Dh that is a multiple "
+                         f"of {DH_STEP} up to {DH_MAX}; D={D}, H={H} gives Dh={Dh}")
+    if F < F_STEP or F % F_STEP:
+        raise ValueError(f"the fused decode kernel takes an MLP width F that is a multiple "
+                         f"of {F_STEP}; got F={F}")
+    if Sp < CHUNK or Sp % CHUNK:
+        raise ValueError(f"Sp={Sp} must be a positive multiple of {CHUNK}")
+    plan = smem_plan(D, Dh, G, Tc, Sp, bf16, kv_int8)
+    if plan["bytes"] > SMEM_MAX:
+        raise ValueError(f"the fused decode kernel's shared-memory plan needs "
+                         f"{plan['bytes']} bytes a block at D={D}, Dh={Dh}, G={G}, "
+                         f"caption length {Tc}, {'bf16' if bf16 else 'f32'}"
+                         f"{', int8 K/V' if kv_int8 else ''}: more than the {SMEM_MAX} "
+                         f"of an H100 block")
+
+
 class FusedDecodeKernel(KernelBinding):
     """``fused_decode_launch`` of ``csrc/fused_decode.cu`` under one grid
-    mode; each mode keeps its own launch count."""
+    mode; each mode keeps its own launch count. Each (D, Dh) runs the
+    library built for it (``width_flags``), built at its first launch.
+
+    Takes every shape within the stated limits (``check_kernel_shape``):
+    Dh a multiple of 16 from 16 to 128, F a multiple of 16, and a
+    shared-memory plan within one block's 232,448 bytes, which holds at
+    every D <= 1024 and G <= 32 (rows 64); any B, depth, caption length
+    and Sp (a multiple of 128); f32 and bf16; dense and int8 K/V; with and
+    without the bias column. A shape outside them raises ValueError before
+    any launch."""
 
     source, symbol = "fused_decode.cu", "fused_decode_launch"
     # fused_decode_launch(x, x_out, x_scratch, y_buf, k_cache, v_cache, mem_k,
@@ -314,12 +436,28 @@ class FusedDecodeKernel(KernelBinding):
     #   valid_len, has_bias, kv_int8, is_bf16, stream)
     argtypes = [ctypes.c_void_p] * 12 + [ctypes.POINTER(ctypes.c_void_p)] \
         + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+    errors = {1001: "the library was built for other widths",
+              1002: "the shape's shared-memory plan exceeds a block's",
+              1003: "an argument is out of range"}
 
     def __init__(self, grid_mode: str, replaces: str, flags: Tuple[str, ...] = ()):
         super().__init__()
         self.grid_mode = grid_mode
         self.replaces = replaces
         self.flags = tuple(flags)
+        self._fns = {}
+        self._last_flags = self.flags
+
+    def library_flags(self, D: int, Dh: int) -> Tuple[str, ...]:
+        return width_flags(D, Dh) + self.flags
+
+    def _launcher_for(self, flags: Tuple[str, ...]):
+        if flags not in self._fns:
+            fn = getattr(load_library(self.source, flags), self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fns[flags] = fn
+        return self._fns[flags]
 
     def __call__(self, x, k_caches, v_caches, step: int, valid_len: int, mem_k, mem_v,
                  k_scales, v_scales, mask_i8, log_m, weights, *, G: int, num_heads: int,
@@ -345,17 +483,12 @@ class FusedDecodeKernel(KernelBinding):
             for name, t in group:
                 if t.dtype != want:
                     raise TypeError(f"{name} must be {want} (x is {ct}), got {t.dtype}")
-        if dev.type != "cuda":
-            raise ValueError(f"the fused decode kernel takes CUDA tensors, got {dev}")
         if R != 2 * G or x.shape != (B, R, D) or C % G or v_caches.shape != k_caches.shape:
             raise ValueError(f"x {tuple(x.shape)} and caches {tuple(k_caches.shape)} do not "
                              f"match G={G}")
-        if D != KERNEL_D or D != num_heads * KERNEL_DH or F != SPLIT_2 * D or Sp % CHUNK \
-                or Sp > 5 * CHUNK or R > 32 or depth > 16:
-            raise ValueError(f"unsupported widths D={D}, H={num_heads}, F={F}, R={R}, "
-                             f"Sp={Sp}, depth={depth}: the kernel takes D={KERNEL_D}, "
-                             f"Dh={KERNEL_DH}, F={SPLIT_2}D, Sp a multiple of {CHUNK} up "
-                             f"to {5 * CHUNK}, R <= 32, depth <= 16")
+        check_kernel_shape(D, num_heads, F, G, C // G, Sp, ct == torch.bfloat16, kv_int8)
+        if dev.type != "cuda":
+            raise ValueError(f"the fused decode kernel takes CUDA tensors, got {dev}")
         if not 0 <= step < C // G or not step < valid_len <= C // G:
             raise ValueError(f"step {step} / valid_len {valid_len} outside Tc={C // G}")
         if kv_int8 and (k_scales.shape != (depth, B, 1, Sp) or v_scales.shape != k_scales.shape):
@@ -379,13 +512,14 @@ class FusedDecodeKernel(KernelBinding):
 
         x_out, x_scratch, y_buf = torch.empty_like(x), scratch(2, M, D), scratch(M, D)
         q_buf, attn_buf, h_buf = scratch(M, D), scratch(M, D), scratch(M, F)
-        part_buf = scratch(SPLIT_2, M, D)
+        part_buf = scratch(-(-F // D), M, D)  # the W2 product's ceil(F / D) partials
         ca_o, ca_ml = scratch(B, H, NC, R, D // H), scratch(B, H, NC, R, 2)
         ca_bl = scratch(B, H, R)
         w_ptrs = (ctypes.c_void_p * len(W_ORDER))(*[weights[n].data_ptr() for n in W_ORDER])
         ks = k_scales.data_ptr() if kv_int8 else 0
         vs = v_scales.data_ptr() if kv_int8 else 0
-        fn = self._launcher()
+        flags = self.library_flags(D, D // H)
+        fn = self._launcher_for(flags)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = fn(x.data_ptr(), x_out.data_ptr(), x_scratch.data_ptr(), y_buf.data_ptr(),
@@ -396,9 +530,27 @@ class FusedDecodeKernel(KernelBinding):
                     B, G, D, num_heads, depth, C, Sp, F, int(step), int(valid_len),
                     int(has_bias_col), int(kv_int8), int(ct == torch.bfloat16), stream)
         if rc != 0:
-            raise RuntimeError(f"fused_decode_launch failed with CUDA error {rc}")
+            raise RuntimeError(f"fused_decode_launch failed with error {rc}: "
+                               f"{self.errors.get(rc, 'a CUDA error')}")
         self.launches += 1
+        self._last_flags = flags
         return x_out, k_caches, v_caches
+
+    def plan(self, B: int, G: int, D: int, H: int, C: int, Sp: int, F: int, kv_int8: bool,
+             bf16: bool) -> Tuple[int, str]:
+        """(bytes of shared memory a block takes, schedule) of a launch at
+        this shape, from the library built for its widths: "flagship" where
+        the flagship's schedule fits (every loop and layout fixed at compile
+        time), else "general" (``smem_plan``)."""
+        lib = load_library(self.source, self.library_flags(D, D // H))
+        fn = lib.fused_decode_plan
+        fn.argtypes = [ctypes.c_int] * 9 + [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_longlong
+        general = ctypes.c_int(1)
+        smem = fn(B, G, D, H, C, Sp, F, int(kv_int8), int(bf16), ctypes.byref(general))
+        if smem < 0:
+            raise ValueError(f"the library for D={D}, Dh={D // H} does not take this shape")
+        return int(smem), "general" if general.value else "flagship"
 
     def stage_us(self, depth: int) -> Dict[str, object]:
         """Device microseconds of each stage of the last launch, averaged over
@@ -409,9 +561,11 @@ class FusedDecodeKernel(KernelBinding):
         four); only for a binding built with ``STAGE_TIMING_FLAGS``."""
         if "-DFD_STAGE_TIMING" not in self.flags:
             raise RuntimeError("stage times need a build with STAGE_TIMING_FLAGS")
-        lib = load_library(self.source, self.flags)
+        if depth > MAX_TIMED_DEPTH:
+            raise ValueError(f"the timing build records the first {MAX_TIMED_DEPTH} layers")
+        lib = load_library(self.source, self._last_flags)
         k = len(STAGES)
-        n = 2 + k * 16
+        n = 2 + k * MAX_TIMED_DEPTH
         marks = (ctypes.c_ulonglong * n)()
         sub = (ctypes.c_ulonglong * 8)()
         bar = (ctypes.c_ulonglong * 5)()
@@ -444,6 +598,7 @@ class FusedDecodeKernel(KernelBinding):
 STAGES = ("q_kv_ln3", "self_attention", "o_proj", "cq_proj_ln1", "cross_attention_chunks",
           "co_proj_combine", "mlp1_ln2", "mlp2")
 STAGE_TIMING_FLAGS = ("-DFD_STAGE_TIMING",)  # a build that records each barrier's time
+MAX_TIMED_DEPTH = 16  # layers whose stage times the timing build records
 # the GEMM tiles whose phases the timing build records (block 0's first
 # tile of each), and the phases: the A rows prepared (LayerNorm or combine;
 # the W slab in flight), the wait for the slab, the 3xTF32 products, the sum

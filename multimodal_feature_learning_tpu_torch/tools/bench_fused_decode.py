@@ -24,7 +24,7 @@ import json
 import time
 from typing import Dict, Sequence
 
-from ..config import load_config
+from ..config import apply_overrides, load_config
 from ..data.anet import synthetic_batches
 from ..device import resolve_device
 from ..engine.train import batch_to_device
@@ -96,9 +96,11 @@ def main() -> None:
     ap.add_argument("--iters", type=int, default=24)
     ap.add_argument("--configs", default=",".join(ARMS), help="xla | fused[b][_int8]")
     ap.add_argument("--dtype", default="float32")
+    ap.add_argument("--config-overrides", nargs="*", default=[], help="key=value overrides of the config, e.g. dvc.caption.d_model=768 dvc.caption.num_heads=12 dvc.caption.mlp_ratio=2 (the fused decode at other widths: each (D, Dh) is built at its first launch)")
     args = ap.parse_args()
     print(json.dumps(run(args.device, args.configs.split(","), args.batch, args.iters,
-                         dtype=args.dtype)))
+                         dtype=args.dtype,
+                         cfg=apply_overrides(load_config(), args.config_overrides))))
 
 
 if __name__ == "__main__":

@@ -32,13 +32,13 @@ import time
 from pathlib import Path
 from typing import Dict, Sequence
 
-from ..config import load_config, recompute_losses
+from ..config import apply_overrides, load_config, recompute_losses
 from ..data.anet import synthetic_batches
 from ..device import resolve_device
 from ..engine.train import batch_to_device
 from ..models.dvc import build_model
 from ..utils.weights import load_flax_params, load_npz
-from .bench_fused_decode import arm_settings
+from .bench_fused_decode import VOCAB_SIZE, arm_settings
 from .timing import device_label, sync
 
 SNAPSHOT = str(Path(__file__).resolve().parents[2] / "snapshots" / "conv_e79.npz")
@@ -110,10 +110,13 @@ def main() -> None:
     ap.add_argument("--n-videos", type=int, default=128)
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--configs", default=",".join(ARMS), help="fused[b][_int8]")
-    ap.add_argument("--snapshot", default=SNAPSHOT)
+    ap.add_argument("--snapshot", default=SNAPSHOT,
+                    help="'' for random weights from seed 0 (at any widths)")
+    ap.add_argument("--config-overrides", nargs="*", default=[], help="key=value overrides of the config, e.g. dvc.caption.d_model=768 dvc.caption.num_heads=12 dvc.caption.mlp_ratio=2 (the fused decode at other widths: each (D, Dh) is built at its first launch)")
     args = ap.parse_args()
     print(json.dumps(run(args.device, args.configs.split(","), args.n_videos, args.batch,
-                         args.snapshot)))
+                         args.snapshot or None,
+                         apply_overrides(load_config(), args.config_overrides), VOCAB_SIZE)))
 
 
 if __name__ == "__main__":

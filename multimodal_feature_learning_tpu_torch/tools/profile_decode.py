@@ -31,7 +31,7 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
-from ..config import load_config
+from ..config import apply_overrides, load_config
 from ..device import resolve_device
 from ..models.dvc import build_model
 from .timing import device_label, host_ms
@@ -107,8 +107,10 @@ def main() -> None:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--decode-impl", default=None, help="xla | fused (default: the config's)")
     ap.add_argument("--n", type=int, default=20)
+    ap.add_argument("--config-overrides", nargs="*", default=[], help="key=value overrides of the config, e.g. dvc.caption.d_model=768 dvc.caption.num_heads=12 dvc.caption.mlp_ratio=2 (the fused decode at other widths: each (D, Dh) is built at its first launch)")
     args = ap.parse_args()
-    result = run(args.device, n=args.n, decode_impl=args.decode_impl)
+    result = run(args.device, apply_overrides(load_config(), args.config_overrides), n=args.n,
+                 decode_impl=args.decode_impl)
     print(f"device: {result['device']}, decode_impl {result['decode_impl']}, "
           f"decode steps {result['decode_steps']}")
     for k, v in result["rows"].items():

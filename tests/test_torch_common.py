@@ -8,9 +8,21 @@ inputs (made with numpy). The port runs with ``device="cpu"``."""
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
+import torch
 
 from multimodal_feature_learning_tpu_torch.config import Config
+
+# The tier-1 command runs the tests in six processes on the machine's cores
+# (every process imports this module when it collects the port's tests).
+# torch's default of a thread per core in each of them oversubscribes the
+# cores, and its spinning thread pools then run the port's many small
+# operations tens of times slower than one thread does: one thread a
+# process, and for the processes the tests start.
+torch.set_num_threads(1)
+os.environ.setdefault("OMP_NUM_THREADS", "1")
 
 VOCAB_SIZE = 40
 PAD, BOS, EOS = 1, 2, 3

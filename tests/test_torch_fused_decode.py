@@ -13,6 +13,8 @@ through two layers), greedy tokens exact in f32."""
 
 from __future__ import annotations
 
+import itertools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -521,3 +523,163 @@ def test_chunked_combine_matches_plain_cross_attention(bias_col, kv_mode):
         for r in (0, Gc):
             assert (got[0, :, r:r + 1] - mean_v).abs().max().item() <= tol
 
+
+
+# --------------------------------------------------------------------------
+# the kernel's contract beyond the flagship's widths: other shapes against
+# JAX's Pallas kernel in interpret mode, and the wrapper's stated limits
+# --------------------------------------------------------------------------
+
+# (G, S, D, depth, H, mlp_ratio) of each narrow shape, B = 2, LC_OTHER
+# caption tokens: Sp 768 (S 700, six chunks of the kernel's cross-attention
+# where the flagship has five), G 20 (40 rows: two row tiles), mlp_ratio 2
+# (two partials of the W2 product), Dh 16 (4 heads of 16) and depth 3
+OTHER_SHAPES = {
+    "sp768": (4, 700, 64, 2, 2, 4.0),
+    "g20": (20, 40, 64, 2, 2, 4.0),
+    "mlp_ratio2": (4, 40, 64, 2, 2, 2.0),
+    "dh16": (4, 40, 64, 2, 4, 4.0),
+    "depth3": (4, 40, 64, 3, 2, 4.0),
+}
+LC_OTHER = 4
+
+
+def other_shape_setup(name):
+    """(flax module, params, port module, memory, pad, zeroed) at
+    OTHER_SHAPES[name]: weights drawn with numpy (kernels N(0, 1/fan_in),
+    biases and embeddings N(0, 0.05^2) and 1, LayerNorm scales 1 + N(0,
+    0.05^2)) into the tree JAX's init would make, so no JAX init runs; the
+    memory N(0, 9), so that attention over a long one is not flat."""
+    G, S, D, depth, H, ratio = OTHER_SHAPES[name]
+    jmod = jcd.UnimodalCaptionDecoder(vocab_size=VOCAB, seq_len=LC_OTHER, d_model=D,
+                                      depth=depth, num_heads=H, mlp_ratio=ratio)
+    tree = jax.eval_shape(jmod.init, jax.random.PRNGKey(0),
+                          jnp.zeros((B * G, LC_OTHER), jnp.int32), jnp.zeros((B * G, S, D)))
+    rng = np.random.default_rng(sum(map(ord, name)))
+
+    def draw(path, leaf):
+        key = str(path[-1].key)
+        if key == "kernel":
+            return rng.normal(0, leaf.shape[0] ** -0.5, leaf.shape).astype(np.float32)
+        if key == "scale":
+            return (1 + rng.normal(0, 0.05, leaf.shape)).astype(np.float32)
+        scale = 1.0 if key == "embedding" else 0.05
+        return rng.normal(0, scale, leaf.shape).astype(np.float32)
+
+    params = jax.tree_util.tree_map_with_path(draw, tree)
+    tmod = tcd.UnimodalCaptionDecoder(VOCAB, D, depth, H, mlp_ratio=ratio)
+    load_flax_params(tmod, flatten_params(params))
+    memory = rng.normal(0, 3, size=(B, S, D)).astype(np.float32)
+    pad = rng.random((B * G, S)) < 0.3
+    zeroed = rng.random((B * G, S)) < 0.4
+    return jmod, jax.tree_util.tree_map(jnp.asarray, params), tmod.eval(), memory, pad, zeroed
+
+
+@pytest.mark.parametrize("name, grid, kv_mode", [
+    ("sp768", "video", "dense"), ("g20", "batch", "dense"), ("mlp_ratio2", "video", "int8"),
+    ("dh16", "batch", "int8"), ("depth3", "video", "dense")])
+def test_other_shapes_step_matches_jax(name, grid, kv_mode):
+    """At each shape of OTHER_SHAPES, with the bias column: one fused step
+    (step 2) of the port's plain version against JAX's Pallas kernel in
+    interpret mode, within the step's 1e-5."""
+    _, params, tmod, memory, pad, zeroed = other_shape_setup(name)
+    G, S, D, depth, H, _ = OTHER_SHAPES[name]
+    Sp, step = tfd.padded_len(S), 2
+    rng = np.random.default_rng(1)
+    w = jfd.extract_decoder_weights(params)
+    mem_k, mem_v = jfd.stack_memory_kv(w, jnp.asarray(memory), Sp)
+    ks = vs = None
+    if kv_mode == "int8":
+        mem_k, ks = jfd.quantize_kv_int8(mem_k)
+        mem_v, vs = jfd.quantize_kv_int8(mem_v)
+    mask, log_m = tfd.decode_masks(t(pad), t(zeroed), B, G, Sp)
+    kc = np.zeros((depth, B, LC_OTHER * G, D), np.float32)
+    kc[:, :, :step * G] = rng.normal(size=(depth, B, step * G, D))
+    vc = np.zeros_like(kc)
+    vc[:, :, :step * G] = rng.normal(size=(depth, B, step * G, D))
+    x = rng.normal(size=(B, 2 * G, D)).astype(np.float32)
+    ref = jfd.fused_decode_step(
+        jnp.asarray(x), jnp.asarray(kc), jnp.asarray(vc), jnp.int32(step), jnp.int32(step + 1),
+        mem_k, mem_v, ks, vs, jnp.asarray(mask.numpy()), jnp.asarray(log_m.numpy()), w, G=G,
+        num_heads=H, has_bias_col=True, grid_mode=grid, interpret=True)
+    got = tfd.fused_decode_step(
+        t(x), t(kc), t(vc), step, step + 1, t(mem_k), t(mem_v),
+        None if ks is None else t(ks), None if vs is None else t(vs), mask, log_m,
+        tfd.extract_decoder_weights(tmod), G=G, num_heads=H, has_bias_col=True, grid_mode=grid)
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["sp768", "g20"])
+def test_other_shapes_greedy_decode_matches_jax(name):
+    """The greedy fused decode (bias column on) at the shapes that take the
+    kernel's new paths in the decode loop itself, more than five chunks and
+    more than 32 rows, equal to JAX's in interpret mode token for token;
+    the decode is not degenerate."""
+    jmod, params, tmod, memory, pad, zeroed = other_shape_setup(name)
+    G = OTHER_SHAPES[name][0]
+    jtok = jcd.greedy_decode(
+        jmod, params, jnp.asarray(memory), jnp.asarray(pad), LC_OTHER, BOS, EOS, PAD, groups=G,
+        zeroed_mask=jnp.asarray(zeroed), decode_impl="fused", fused_grid="video",
+        fused_interpret=True)
+    with torch.no_grad():
+        ttok = tcd.greedy_decode(tmod, t(memory), t(pad), LC_OTHER, BOS, EOS, PAD, groups=G,
+                                 zeroed_mask=t(zeroed), decode_impl="fused", fused_grid="video")
+    np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))
+    assert len({tuple(r) for r in ttok.tolist()}) > 1
+
+
+def kernel_args(D=64, H=2, F=256, G=4, Tc=8, S=40, depth=1):
+    """Inputs of one kernel call on the CPU at these widths (zeros)."""
+    Sp = tfd.padded_len(S)
+    w = {}
+    for n in tfd.W_ORDER:
+        rows = F if n == "mlp_w2" else D
+        cols = F if n in ("mlp_w1", "mlp_b1") else D
+        w[n] = torch.zeros((depth, rows, cols) if "_w" in n else (depth, 1, cols))
+    kc = torch.zeros((depth, 1, Tc * G, D))
+    mask, log_m = tfd.decode_masks(torch.zeros((G, S), dtype=torch.bool), None, 1, G, Sp)
+    mem = torch.zeros((depth, 1, Sp, D))
+    return (torch.zeros((1, 2 * G, D)), kc, kc.clone(), 0, 1, mem, mem.clone(), None, None,
+            mask, log_m, w), dict(G=G, num_heads=H, has_bias_col=False)
+
+
+@pytest.mark.parametrize("widths, limit", [
+    (dict(D=64, H=8), "multiple of 16 up to 128"),                # Dh 8
+    (dict(D=144, H=1, F=576), "multiple of 16 up to 128"),        # Dh 144
+    (dict(D=96, H=2, F=200), "MLP width F that is a multiple of 16"),
+    (dict(D=1024, H=8, F=4096, G=200), "shared-memory plan needs"),  # 400 rows at Dh 128
+])
+def test_kernel_raises_beyond_its_stated_limits(widths, limit):
+    """A shape beyond the wrapper's stated limits raises ValueError naming
+    the limit before any launch, on any device; the wrapper computes
+    nothing in its place (no fallback to the plain version)."""
+    args, kw = kernel_args(**widths)
+    for kernel in tfd.FUSED_DECODE.values():
+        before = kernel.launches
+        with pytest.raises(ValueError, match=limit):
+            kernel(*args, **kw)
+        assert kernel.launches == before
+
+
+def test_shared_memory_plan_fits_the_stated_shapes():
+    """The general schedule's plan (``smem_plan``, the mirror of the
+    kernel's) fits one H100 block at every D = H Dh up to 1024 with Dh 16 to
+    128, G up to 32, Sp up to 4096, captions of 8 to 200 tokens, f32 and
+    bf16, dense and int8 K/V; at the flagship's widths the GEMM tiles read
+    the whole W slab and the combine keeps every chunk in one group, and at
+    f32 D = 1024 they read it in chunks."""
+    for Dh in range(16, 129, 16):
+        for D in range(Dh, 1025, Dh):
+            if D % 64 and D > 128:
+                continue  # a sample of the widths: every multiple of 64, and the narrow ones
+            for G, Sp, Tc, bf16, int8 in itertools.product(
+                    (1, 10, 32), (128, 640, 4096), (8, 200), (False, True), (False, True)):
+                plan = tfd.smem_plan(D, Dh, G, Tc, Sp, bf16, int8)
+                assert plan["bytes"] <= tfd.SMEM_MAX, (D, Dh, G, Sp, Tc, bf16, int8, plan)
+    flagship = tfd.smem_plan(512, 64, 10, 20, 640, False, False)
+    assert (flagship["kc"], flagship["cg"], flagship["ca_nbuf"], flagship["sa_eg"]) \
+        == (512, 5, 2, 10)
+    assert tfd.smem_plan(1024, 64, 10, 20, 640, False, False)["kc"] < 1024
+    assert tfd.width_flags(512, 64) == ()
+    assert tfd.width_flags(768, 64) == ("-DFD_D=768", "-DFD_DH=64")
