@@ -192,9 +192,14 @@ Phases, each printing one line with its wall seconds:
    16 problems of 20 queries x 10 GT slots) with random costs, integer
    costs full of ties, problems without a valid slot and match_cost's
    1e5 / -1e5, at each other family's shape where it differs, square
-   (10 x 10) and at 1024 queries; K6's device time, its bound and the numpy
-   version's host time (no PyTorch call solves an LAP: no library time).
-   Every train and eval phase of every family checks K6 once per matching;
+   (10 x 10), the widest of route "warp" (31 x 31, ties) and at 1024
+   queries (route "global"), each with its plan; K6's device time from
+   eager calls (CUDA events, ``ms`` as since PR 15), from a CUDA graph
+   (``graph_ms``) and from the profiler, the wrapper's host µs a call, its
+   bound, the chain floor (the chain probe's step latency x the longest
+   problem's steps) and the numpy version's host time (no PyTorch call
+   solves an LAP: no library time). Every train and eval phase of every
+   family checks K6 once per matching;
 37. train_multistep (after train): the flagship at full width from
    conv_e79, batch 16, dropout 0.1, 9 synthetic batches through
    train_one_epoch at chunk_k 4 (make_train_multistep: two chunks of 4 and
@@ -2649,7 +2654,7 @@ def hungarian_bound(cost, valid, search_steps):
     move (the cost and the validity read once, the int64 indices written
     once) over the memory rate, against the f32 operations this run's costs
     need (each search step about 5 a query, 2 subtractions, 2 compares and
-    the update, and 10 for the five-level argmin) over the f32 rate."""
+    the update, and 10 for the argmin) over the f32 rate."""
     P, Q, G = cost.shape
     nbytes = cost.nbytes + valid.nbytes + P * G * 8
     ops = int(search_steps.sum()) * (5 * Q + 10)
@@ -2665,6 +2670,64 @@ def matching_problems(cfg) -> tuple:
     return (layers * BATCH, cfg.dvc.num_queries, cfg.dataset.activity_net.max_gt_target_segments)
 
 
+def chain_step_ns(dev) -> float:
+    """Latency (ns) of one search step's dependent chain of K6's route
+    "warp" on this card: the chain probe (``hungarian_chain_launch``, the
+    step's shuffles, cost load, subtractions, key and warp argmin and
+    nothing else) at two step counts, CUDA events, the difference over the
+    difference of steps."""
+    import torch
+
+    from multimodal_feature_learning_tpu_torch.ops.hungarian import HUNGARIAN_CHAIN
+
+    sink = torch.zeros(32, device=dev)
+    few, many = 1 << 12, 1 << 16
+    HUNGARIAN_CHAIN(sink, few)  # built and loaded
+    ms = {n: time_cuda(lambda n=n: HUNGARIAN_CHAIN(sink, n), iters=5, warmup=1)
+          for n in (few, many)}
+    if not torch.isfinite(sink).all():
+        raise AssertionError("the chain probe wrote non-finite values")
+    return 1e6 * (ms[many] - ms[few]) / (many - few)
+
+
+def profiled_launch_ms(fn, dev, match: str, n: int = 20) -> tuple:
+    """Device ms of one launch of the kernels whose name holds ``match``,
+    from torch.profiler over ``n`` calls of ``fn``: their time over the
+    launches the profiler recorded, and that count (a short kernel's events
+    may be dropped; the count shows it)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize(dev)
+    seen = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and match in e.key]
+    count = sum(e.count for e in seen)
+    return sum(e.self_device_time_total for e in seen) / 1e3 / max(count, 1), count
+
+
+def wrapper_host_us(fn, calls: int = 200) -> float:
+    """Median host microseconds of one call of ``fn`` (perf_counter, no
+    synchronise: what a caller's thread spends to queue it)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e6 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    return sorted(times)[calls // 2]
+
+
 def matcher(family_problems: dict) -> list:
     """Phase matcher: K6 against the numpy version on every slot. Both get
     the same costs, the kernel on the card and numpy on ``cost.cpu()``: the
@@ -2672,23 +2735,33 @@ def matcher(family_problems: dict) -> list:
     16 problems of 20 queries x 10 GT slots, ``family_problems["flagship"]``)
     with random costs, with ties, with problems without a valid slot and
     with the guard's 1e5 / -1e5; each other family's shape where it
-    differs; a square case (10 x 10); and the largest the kernel takes
-    (1024 queries x 32 slots). The flagship case also gives K6's device
-    time (CUDA events over 50 launches), its bound, and the numpy version's
-    host time (median of 5). No PyTorch call solves an LAP: no library
-    time."""
+    differs; a square case (10 x 10); the widest of route "warp" (31 x 31);
+    and 1024 queries x 32 slots (route "global"). Each case names its plan
+    (route, shared bytes). The flagship case also gives K6's device time
+    from CUDA events over 50 eager calls (``ms``, host-paced where the
+    kernel is shorter than a launch), from a CUDA graph of 50 calls
+    (``graph_ms``) and from torch.profiler (``kernel_ms``, over the
+    launches it recorded, ``kernel_events``), the wrapper's host µs a call,
+    its bound, the chain floor (the longest problem's search steps x one
+    step's chain latency from the chain probe), and the numpy version's host
+    time (median of 5). No PyTorch call solves an LAP: no library time."""
+    import dataclasses
+
     import numpy as np
     import torch
 
     from multimodal_feature_learning_tpu_torch.ops.hungarian import (
-        HUNGARIAN, batched_hungarian, batched_hungarian_torch,
+        HUNGARIAN, batched_hungarian, batched_hungarian_torch, hungarian_plan,
     )
+    from multimodal_feature_learning_tpu_torch.tools.timing import graph_call_ms
 
+    dev = torch.device("cuda")
     P, Q, G = family_problems["flagship"]
     cases = [("flagship", P, Q, G, kind) for kind in ("random", "ties", "invalid", "guard")]
     cases += [(name, *shape, "random") for name, shape in family_problems.items()
               if shape != (P, Q, G)]
-    cases += [("square", P, G, G, "random"), ("max_queries", 8, 1024, 32, "random")]
+    cases += [("square", P, G, G, "random"), ("widest_warp_route", P, 31, 31, "ties"),
+              ("max_queries", 8, 1024, 32, "random")]
     lines, bad = [], []
     for seed, (name, p, q, g, kind) in enumerate(cases):
         cost, valid = matcher_problems(p, q, g, kind, seed)
@@ -2699,12 +2772,17 @@ def matcher(family_problems: dict) -> list:
         ref = batched_hungarian(c.cpu().numpy(), v.cpu().numpy(), search_steps=steps)
         differ = int((got.cpu().numpy() != ref).sum())
         line = {"case": name, "kind": kind, "problems": p, "queries": q, "gt_slots": g,
+                "plan": dataclasses.asdict(hungarian_plan(q, g)),
                 "slots": p * g, "slots_differing": differ,
                 "search_steps": int(steps[0].sum()),
                 "longest_problem_search_steps": int(steps[0].max()),
                 "max_abs_err": float(np.abs(got.cpu().numpy() - ref).max())}
         if (name, kind) == ("flagship", "random"):
-            line["ms"] = time_cuda(lambda: HUNGARIAN(c, v))
+            call = lambda: HUNGARIAN(c, v)  # noqa: E731
+            line["ms"] = time_cuda(call)
+            line["graph_ms"] = graph_call_ms(call, dev)
+            line["kernel_ms"], line["kernel_events"] = profiled_launch_ms(call, dev, "hungarian")
+            line["wrapper_host_us"] = wrapper_host_us(lambda: batched_hungarian_torch(c, v))
             host = []
             for _ in range(5):
                 t0 = time.perf_counter()
@@ -2712,6 +2790,9 @@ def matcher(family_problems: dict) -> list:
                 host.append(1e3 * (time.perf_counter() - t0))
             line["plain_ms"] = sorted(host)[2]
             line["bound_ms"], line["bound_by"] = hungarian_bound(cost, valid, steps[0])
+            line["chain_step_ns"] = chain_step_ns(dev)
+            line["chain_floor_ms"] = (line["longest_problem_search_steps"]
+                                      * line["chain_step_ns"] * 1e-6)
             line["library_ms"] = None
             line["library"] = "none: no PyTorch call solves a linear-sum assignment"
         lines.append(line)
@@ -5188,8 +5269,9 @@ def main() -> int:
             "eval_bf16": sum(a["launches"]["hungarian"] for a in evaluated16["arms"].values()),
             **family_launches("hungarian")},
         "max_abs_err": max(line["max_abs_err"] for line in matcher_lines),
-        "ms": k6["ms"], "plain_ms": k6["plain_ms"], "bound_ms": k6["bound_ms"],
-        "bound_by": k6["bound_by"], "library_ms": None,
+        **{k: k6[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                              "graph_ms", "wrapper_host_us", "plan", "chain_step_ns",
+                              "chain_floor_ms")},
         "in_train_step_device_us": trained["hungarian_device_us"],
         "shape": f"{k6['problems']} problems (6 decoder layers x B={BATCH}) of "
                  f"{k6['queries']} queries x {k6['gt_slots']} GT slots, f32",

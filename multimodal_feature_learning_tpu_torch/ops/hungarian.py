@@ -16,11 +16,19 @@ slot, ties and invalid slots included; K6 gives each problem a warp of its
 own and repeats numpy's arithmetic, so its indices equal numpy's.
 (``scipy.optimize.linear_sum_assignment`` is another algorithm: on tied
 costs it may pick another optimal matching.)
+
+K6 runs one of two routes, which ``hungarian_plan`` picks from (Q, G)
+alone: "warp" where Q + 1 <= 32 (the cost staged in shared memory, a lane
+a column, the state in registers) and "global" above that (the state in
+shared memory, the cost read from device memory). ``order_key`` is the
+numpy mirror of the kernel's argmin key.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
@@ -30,6 +38,46 @@ from .build import KernelBinding
 
 _INF = np.float32(1e18)
 MAX_COLS = 1024  # K6 takes up to this many queries (columns of the solve)
+SMEM_NO_OPT_IN = 48 * 1024  # dynamic shared memory a block gets without asking
+ROUTES = ("warp", "global")  # the launcher's route codes 0, 1
+
+
+@dataclass(frozen=True)
+class HungarianPlan:
+    """How K6 runs on Q queries x G GT slots: its ``route`` (one warp and
+    one block a problem on both) and the dynamic shared memory a block asks
+    for."""
+    route: str
+    smem_bytes: int
+
+
+@functools.lru_cache(maxsize=None)
+def hungarian_plan(Q: int, G: int) -> HungarianPlan:
+    """K6's plan for problems of ``Q`` queries x ``G`` GT slots, as the
+    launcher computes it (``csrc/hungarian.cu::plan_route``). Route "warp"
+    where Q + 1 <= 32: the column state in registers, the Q x G cost staged
+    in shared memory. Otherwise route "global": the state in shared memory
+    (u and the rows' validity G + 1 words each, v, minv, p, way and used
+    Q + 1 each), the cost read from device memory. Both stay within
+    SMEM_NO_OPT_IN. Raises ValueError outside K6's contract,
+    1 <= G <= Q <= MAX_COLS."""
+    if not 1 <= G <= Q <= MAX_COLS:
+        raise ValueError(f"the hungarian kernel takes 1 <= G <= Q <= {MAX_COLS} "
+                         f"(GT slots <= queries), got Q={Q} G={G}")
+    if Q + 1 <= 32:
+        return HungarianPlan("warp", Q * G * 4)
+    return HungarianPlan("global", 2 * (G + 1) * 4 + 5 * (Q + 1) * 4)
+
+
+def order_key(x: np.ndarray) -> np.ndarray:
+    """The kernel's argmin key (``csrc/hungarian.cu::order_key``) of f32
+    values, as uint32: ordered as the floats are, -0.0 and +0.0 one key
+    (adding +0.0 makes -0.0 +0.0), every NaN the smallest (np.argmin takes
+    the first NaN). The first index of the smallest key is np.argmin's."""
+    z = np.asarray(x, np.float32) + np.float32(0.0)
+    b = z.view(np.uint32)
+    key = np.where(b & np.uint32(0x80000000), ~b, b | np.uint32(0x80000000))
+    return np.where(np.isnan(z), np.uint32(0), key).astype(np.uint32)
 
 
 def hungarian(cost: np.ndarray, search_steps: Optional[list] = None) -> np.ndarray:
@@ -123,39 +171,59 @@ class HungarianKernel(KernelBinding):
 
     source, symbol = "hungarian.cu", "hungarian_launch"
     replaces = "multimodal_feature_learning_tpu/ops/hungarian.py:26"  # lax loops, no Pallas
-    # hungarian_launch(cost, valid, out, P, Q, G, stream)
-    argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    # hungarian_launch(cost, valid, out, P, Q, G, route, stream)
+    argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
     def __call__(self, cost: torch.Tensor, col_valid: torch.Tensor) -> torch.Tensor:
-        if cost.device.type != "cuda":
-            raise ValueError(f"the hungarian kernel takes CUDA tensors, got {cost.device}")
+        dev = cost.device
+        if dev.type != "cuda":
+            raise ValueError(f"the hungarian kernel takes CUDA tensors, got {dev}")
         if cost.dim() != 3 or cost.dtype != torch.float32 or not cost.is_contiguous():
             raise ValueError(f"cost must be a contiguous float32 (P, Q, G) tensor, got "
                              f"{cost.dtype} {tuple(cost.shape)}")
         P, Q, G = cost.shape
         if col_valid.shape != (P, G) or col_valid.dtype != torch.bool \
-                or col_valid.device != cost.device or not col_valid.is_contiguous():
+                or col_valid.device != dev or not col_valid.is_contiguous():
             raise ValueError(f"col_valid must be a contiguous bool ({P}, {G}) tensor on "
-                             f"{cost.device}, got {col_valid.dtype} "
+                             f"{dev}, got {col_valid.dtype} "
                              f"{tuple(col_valid.shape)} on {col_valid.device}")
-        if G > Q or Q > MAX_COLS:
-            raise ValueError(f"the hungarian kernel takes G <= Q <= {MAX_COLS} "
-                             f"(GT slots <= queries), got Q={Q} G={G}")
-        out = torch.empty((P, G), dtype=torch.int64, device=cost.device)
-        if out.numel() == 0:
-            return out
+        out = torch.empty((P, G), dtype=torch.int64, device=dev)
+        if out.numel() == 0 and G <= Q <= MAX_COLS:
+            return out  # no problems, or no GT slots: nothing to launch
+        plan = hungarian_plan(Q, G)  # raises outside the contract
         fn = self._launcher()
-        with torch.cuda.device(cost.device):
-            stream = torch.cuda.current_stream(cost.device).cuda_stream
-            rc = fn(cost.data_ptr(), col_valid.data_ptr(), out.data_ptr(), P, Q, G, stream)
+        with torch.cuda.device(dev):
+            rc = fn(cost.data_ptr(), col_valid.data_ptr(), out.data_ptr(), P, Q, G,
+                    ROUTES.index(plan.route), torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"hungarian_launch failed with CUDA error {rc} "
-                               f"(P={P} Q={Q} G={G})")
+                               f"(P={P} Q={Q} G={G}, {plan})")
         self.launches += 1
         return out
 
 
+class HungarianChain(KernelBinding):
+    """``hungarian_chain_launch``: one warp through ``steps`` dependent
+    search steps of route "warp"'s chain and nothing else, into ``sink``
+    (32 f32 on the card). Its time over the steps is the latency of one
+    step's chain; the matcher never launches it."""
+
+    source, symbol = "hungarian.cu", "hungarian_chain_launch"
+    argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+
+    def __call__(self, sink: torch.Tensor, steps: int) -> None:
+        if sink.device.type != "cuda" or sink.dtype != torch.float32 or sink.numel() < 32:
+            raise ValueError("the chain probe takes 32 float32 on the card")
+        with torch.cuda.device(sink.device):
+            rc = self._launcher()(sink.data_ptr(), steps,
+                                  torch.cuda.current_stream(sink.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"hungarian_chain_launch failed with CUDA error {rc}")
+        self.launches += 1
+
+
 HUNGARIAN = HungarianKernel()
+HUNGARIAN_CHAIN = HungarianChain()
 
 
 def batched_hungarian_torch(cost: torch.Tensor, col_valid: torch.Tensor) -> torch.Tensor:
@@ -165,4 +233,10 @@ def batched_hungarian_torch(cost: torch.Tensor, col_valid: torch.Tensor) -> torc
     if cost.device.type == "cpu":
         idx = batched_hungarian(cost.detach().float().numpy(), col_valid.numpy())
         return torch.from_numpy(idx.astype(np.int64))
-    return HUNGARIAN(cost.detach().float().contiguous(), col_valid.bool().contiguous())
+    # the kernel only reads the cost: no detach, and no copy where it is
+    # already f32 and contiguous
+    if cost.dtype != torch.float32 or not cost.is_contiguous():
+        cost = cost.float().contiguous()
+    if col_valid.dtype != torch.bool or not col_valid.is_contiguous():
+        col_valid = col_valid.bool().contiguous()
+    return HUNGARIAN(cost, col_valid)

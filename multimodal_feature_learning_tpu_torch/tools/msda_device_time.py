@@ -1,5 +1,6 @@
-"""Device time of the MSDA kernels (K1 forward, K2 backward) on the card,
-for this checkout and, in turns, for another one.
+"""Device time of the MSDA kernels (K1 forward, K2 backward) and of the
+matcher kernel (K6) on the card, for this checkout and, in turns, for
+another one.
 
     python3 -m multimodal_feature_learning_tpu_torch.tools.msda_device_time \
         [--against DIR] [--turns 2] [--in-step] [--cases NAME,...] [--out FILE]
@@ -18,6 +19,11 @@ milliseconds:
   inputs come from device memory;
 - ``eager_ms``: CUDA events around 50 eager wrapper calls (host-paced where
   a launch takes longer to issue than to run).
+The case ``hungarian`` (K6_CASES, by name in ``--cases``) times K6 on the
+flagship's matching (96 problems of 20 queries x 10 GT slots, random costs)
+the same four ways, and adds ``host_us``: the median host microseconds of
+200 calls of ``ops/hungarian.py::batched_hungarian_torch`` without a
+synchronise.
 
 ``--against DIR`` loads the port's package of another checkout under
 another name (each checkout builds its own kernels into its own
@@ -25,8 +31,8 @@ another name (each checkout builds its own kernels into its own
 for two turns. ``--in-step`` adds, per checkout and turn, K1's device time
 in one profiled ``forward_serve`` and K1's and K2's in one profiled train
 step of the full-width flagship with the weights of
-``snapshots/conv_e79.npz``, and the wall ms a step of STEP_TIMES train
-steps after it (B=16, dropout on). One JSON line per row; ``--out`` also
+``snapshots/conv_e79.npz`` (and K6's, in µs), and the wall ms a step of
+STEP_TIMES train steps after it (B=16, dropout on). One JSON line per row; ``--out`` also
 writes them to a file.
 """
 
@@ -77,6 +83,9 @@ RAW_CALLS = (
     ("raw_a2v", 16, 89, FLAGSHIP),             # sparse audio tokens sample the video
     ("raw_decoder_audio", 16, 20, RAW_AUDIO),  # the decoder's queries over the audio
 )
+# (name, problems, queries, GT slots) of K6: the flagship's training
+# matching, 6 decoder layers x B=16
+K6_CASES = (("hungarian", 96, 20, 10),)
 FLUSH_BYTES = 64 << 20  # more than the H100's 50 MB L2
 STEP_TIMES = 6  # train steps timed a checkout and turn by --in-step
 
@@ -129,6 +138,33 @@ def kernel_rows(msda, dev, cases=CASES, H: int = 8, Dh: int = 64, P: int = 4) ->
     return rows
 
 
+def k6_rows(hungarian, dev, cases=K6_CASES) -> List[Dict]:
+    """The four times of K6 and the wrapper's host µs a call on each case,
+    with ``hungarian`` a checkout's ``ops.hungarian`` module: random normal
+    costs, about 60% of the slots valid (one at least; numpy seed 0)."""
+    import time
+
+    import numpy as np
+
+    rows = []
+    for case, P, Q, G in cases:
+        rng = np.random.default_rng(0)
+        valid = rng.random((P, G)) < 0.6
+        valid[np.arange(P), rng.integers(0, G, P)] = True
+        cost = torch.from_numpy(rng.normal(size=(P, Q, G)).astype(np.float32)).to(dev)
+        valid = torch.from_numpy(valid).to(dev)
+        call = lambda: hungarian.HUNGARIAN(cost, valid)  # noqa: E731
+        host = []
+        for _ in range(200):
+            t0 = time.perf_counter()
+            hungarian.batched_hungarian_torch(cost, valid)
+            host.append(1e6 * (time.perf_counter() - t0))
+        torch.cuda.synchronize(dev)
+        rows.append({"kernel": "hungarian", "case": case, "P": P, "Q": Q, "G": G,
+                     **call_times(call, "hungarian", dev), "host_us": sorted(host)[100]})
+    return rows
+
+
 def in_step_rows(pkg, dev, batch: int = 16) -> Dict:
     """K1's device ms in one profiled forward_serve of a batch, and K1's and
     K2's in one profiled train step, of the flagship built by ``pkg`` (a
@@ -164,7 +200,7 @@ def in_step_rows(pkg, dev, batch: int = 16) -> Dict:
             torch.cuda.synchronize(dev)
         ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
         return {k: sum(e.self_device_time_total for e in ev if k in e.key) / 1e3
-                for k in ("msda_fwd", "msda_bwd")}
+                for k in ("msda_fwd", "msda_bwd", "hungarian")}
 
     rng = np.random.default_rng(0)
     video = torch.from_numpy(rng.normal(size=(batch, model.video_rescale_len,
@@ -188,7 +224,8 @@ def in_step_rows(pkg, dev, batch: int = 16) -> Dict:
     del model, state, batches
     torch.cuda.empty_cache()
     return {"serve_msda_fwd_ms": serve["msda_fwd"], "train_msda_fwd_ms": train["msda_fwd"],
-            "train_msda_bwd_ms": train["msda_bwd"], "train_step_ms": step_ms}
+            "train_msda_bwd_ms": train["msda_bwd"],
+            "train_hungarian_us": 1e3 * train["hungarian"], "train_step_ms": step_ms}
 
 
 def run(against=None, turns: int = 2, in_step: bool = False, cases=CASES, emit=print) -> List[Dict]:
@@ -198,11 +235,17 @@ def run(against=None, turns: int = 2, in_step: bool = False, cases=CASES, emit=p
     checkouts = [("this", load_checkout(ROOT, "_msda_this"))]
     if against is not None:
         checkouts.append(("against", load_checkout(Path(against), "_msda_against")))
+    k6_names = {c[0] for c in K6_CASES}
+    msda_cases = [c for c in cases if c[0] not in k6_names]
+    k6_cases = [c for c in cases if c[0] in k6_names]
     rows = []
     for turn in range(turns):
         for label, pkg in (checkouts if turn % 2 == 0 else checkouts[::-1]):
             msda = importlib.import_module(f"{pkg.__name__}.ops.msda")
-            found = kernel_rows(msda, dev, cases)
+            found = kernel_rows(msda, dev, msda_cases)
+            if k6_cases:
+                hungarian = importlib.import_module(f"{pkg.__name__}.ops.hungarian")
+                found += k6_rows(hungarian, dev, k6_cases)
             if in_step:
                 found.append({"kernel": "in_step", **in_step_rows(pkg, dev)})
             for row in found:
@@ -223,7 +266,7 @@ def main() -> None:
     args = ap.parse_args()
     cases = CASES
     if args.cases:
-        known = {c[0]: c for c in CASES + FAMILY_CALLS + RAW_CALLS}
+        known = {c[0]: c for c in CASES + FAMILY_CALLS + RAW_CALLS + K6_CASES}
         cases = tuple(known[name] for name in args.cases.split(","))
     print(torch.cuda.get_device_name(0), flush=True)
     lines = []
