@@ -275,7 +275,21 @@ Phases, each printing one line with its wall seconds:
 46. serve_narrow: the tests' narrow model (d_model 64, 2 heads, caption
    depth 2, 4 events; weights from seed 0, the context mask on) the same
    way, then check_fused on it (fused against plain-op on the card, and
-   against the port's CPU path).
+   against the port's CPU path);
+47. ref_checkpoint (after train_cli): a reference SAGA-DVC checkpoint into
+   the port and out of it through the CLIs (utils/ref_bridge.py), the
+   flagship at full width from conv_e79, the context mask off: conv_e79
+   written as a reference .pth and read back under weights_only (its
+   leftover keys counted; with a pickled object beside it, refused unless
+   trusted), inference.main --from-reference-checkpoint of
+   it equal to --weights conv_e79 on the world's first 16 val videos
+   (submissions, stats, scores); tools/export_to_reference of train_cli's
+   last checkpoint, with its epoch, inferred from equal to train_cli's
+   inference --resume; serve.main from the file, 16 requests with the
+   fused decode (grid "video"): the served weights bit for bit conv_e79's,
+   K1 12 times a forward, the fused kernel once per decode step; main.main
+   from the file, one epoch of one step of 16 and its eval batch: finite
+   losses, K1 / K2 / K6 24 / 12 / 2. Each CLI call's seconds and launches.
 
 Then one JSON line of kernel measurements (K1-K6) and, as the last line, a JSON
 object naming the device. Any failure exits non-zero without that line, as
@@ -284,6 +298,7 @@ does a host without CUDA or a directory without the port's package.
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import os
@@ -1547,7 +1562,177 @@ def train_cli(world: dict, device="cuda"):
             "resumed_start_epoch": runs[1]["start_epoch"], "launches": launches,
             "inference_launches": inference_launches, "inference_val_loss": stats["loss"],
             "inference_scores": score_summary(scores), "max_memory_allocated_bytes": peak,
-            "files": names}
+            "files": names, "inference_run": (stats, submission)}
+
+
+REF_DIR = os.path.join(ROOT, "build", "ref_checkpoint")
+REF_SERVE_REQUESTS = 16
+
+
+def ref_checkpoint(world: dict, resumed: tuple, device="cuda"):
+    """Phase ref_checkpoint (after train_cli): a reference SAGA-DVC .pth
+    into the port and out of it through the CLIs (utils/ref_bridge.py),
+    the flagship at full width from conv_e79, the context mask off, over
+    the evaluation world. (a) conv_e79's model written as a reference .pth
+    (``reference_state_dict``) under build/ref_checkpoint, read back under
+    ``weights_only`` (its leftover keys counted); the same with a pickled
+    ``argparse.Namespace`` beside it refused without trust and loaded
+    with it; inference.main
+    --from-reference-checkpoint and --weights conv_e79 on the first
+    TRAIN_CLI_VAL_SUBSET val videos: submissions, stats and scores equal.
+    (b) tools/export_to_reference of train_cli's last checkpoint, read back
+    under ``weights_only`` with its epoch, then inference.main
+    --from-reference-checkpoint of it: equal to train_cli's inference
+    --resume (``resumed``: its stats and submission). (c) serve.main
+    --from-reference-checkpoint of (a)'s file, static, REF_SERVE_REQUESTS
+    requests, decode_impl "fused" (grid "video"): the served model's
+    state_dict bit for bit conv_e79's, K1 12 times a forward, the fused
+    kernel once per decode step. (d) main.main from (a)'s file for one
+    epoch of one step (train_subset BATCH), eval_rate 0 (the last epoch
+    still evaluates its one batch): finite losses, K2 12 times the step,
+    K1 12 times the step and the eval batch, K6 once each. Launches are
+    counted over each CLI call. Any failed call fails the phase."""
+    import torch
+
+    from multimodal_feature_learning_tpu_torch import inference, serve
+    from multimodal_feature_learning_tpu_torch import main as train_main
+    from multimodal_feature_learning_tpu_torch.tools import export_to_reference
+    from multimodal_feature_learning_tpu_torch.tools.profile_decode import decode_steps_run
+    from multimodal_feature_learning_tpu_torch.utils import ref_bridge
+
+    os.makedirs(REF_DIR, exist_ok=True)
+    counters = kernel_counters()
+    seconds, launches = {}, {}
+
+    def counted(name, fn, *args):
+        for k in counters.values():
+            k.launches = 0
+        t0 = time.monotonic()
+        out = fn(*args)
+        seconds[name] = time.monotonic() - t0
+        launches[name] = {k: c.launches for k, c in counters.items()}
+        return out
+
+    overrides = ["use_differentiable_mask=false", "print_freq=0",
+                 f"dataset.activity_net.val_subset={TRAIN_CLI_VAL_SUBSET}",
+                 *[f"{k}={v}" for k, v in world.items()]]
+    common = ["--device", device, "--batch-size", str(BATCH), "--config-overrides",
+              *overrides]
+
+    # (a) conv_e79 as a reference .pth; inference from it and from --weights
+    t0 = time.monotonic()
+    cfg, model, _, _ = build_flagship(device)
+    pth = os.path.join(REF_DIR, "conv_e79.pth")
+    sd = ref_bridge.reference_state_dict(model, cfg)
+    torch.save({"model": sd, "epoch": 79}, pth)
+    leftover = ref_bridge.import_reference_state_dict(
+        torch.load(pth, map_location="cpu", weights_only=True)["model"], model, cfg)
+    # a file with a pickled object beside the tensors, as the reference's
+    # checkpoints carry their config: refused unless trusted
+    pickled = os.path.join(REF_DIR, "conv_e79_with_args.pth")
+    torch.save({"model": sd, "args": argparse.Namespace(lr=1e-4)}, pickled)
+    try:
+        ref_bridge.load_reference_checkpoint(pickled, model, cfg)
+    except ValueError as e:
+        refused = "--trust-checkpoint" in str(e)
+    else:
+        refused = False
+    if not refused or ref_bridge.load_reference_checkpoint(pickled, model, cfg,
+                                                           trust_pickle=True) != leftover:
+        raise AssertionError("ref_checkpoint (a): a .pth with a pickled object was not "
+                             "refused under weights_only, or did not load when trusted")
+    seconds["write_pth"] = time.monotonic() - t0
+    runs = {}
+    for name, flag, src in (("weights", "--weights", SNAPSHOT),
+                            ("reference", "--from-reference-checkpoint", pth)):
+        runs[name] = counted(f"inference_{name}", inference.main, [
+            flag, src, *common, f"submission_dir={os.path.join(REF_DIR, name)}"])
+    (w_stats, w_sub, w_scores), (r_stats, r_sub, r_scores) = runs["weights"], runs["reference"]
+    if len(r_sub["results"]) != TRAIN_CLI_VAL_SUBSET or r_sub["results"] != w_sub["results"] \
+            or r_stats != w_stats or r_scores != w_scores:
+        raise AssertionError(f"ref_checkpoint (a): --from-reference-checkpoint gave stats "
+                             f"{r_stats}, scores {r_scores}; --weights {w_stats}, {w_scores}; "
+                             f"{len(r_sub['results'])} videos")
+
+    # (b) train_cli's last checkpoint exported, then inferred from
+    exported = os.path.join(REF_DIR, "train_cli.pth")
+    ckpt = os.path.join(EVAL_WORLD, "train_cli", "checkpoint")
+    done = counted("export", export_to_reference.main,
+                   ["--resume", ckpt, "--out", exported, "--device", device,
+                    "--config-overrides", *overrides])
+    epoch = torch.load(exported, map_location="cpu", weights_only=True)["epoch"]
+    e_stats, e_sub, _ = counted("inference_exported", inference.main, [
+        "--from-reference-checkpoint", exported, *common,
+        f"submission_dir={os.path.join(REF_DIR, 'exported')}"])
+    if epoch != TRAIN_CLI_EPOCHS or e_sub["results"] != resumed[1]["results"] \
+            or e_stats != resumed[0]:
+        raise AssertionError(f"ref_checkpoint (b): the export of epoch {epoch} gave stats "
+                             f"{e_stats}; inference --resume {resumed[0]}")
+
+    # (c) the serving CLI from (a)'s file, fused decode
+    served, steps = [], []
+    real_server = serve.DVCServer
+
+    class RecordingServer(real_server):
+        """The CLI's server, keeping its model and each forward's decode
+        steps."""
+
+        def __init__(self, served_model, *args, **kwargs):
+            served.append(served_model)
+            forward = served_model.forward_serve
+
+            def recording_forward(*f_args, **f_kwargs):
+                out = forward(*f_args, **f_kwargs)
+                captions = out["captions"].reshape(-1, out["captions"].shape[-1])
+                steps.append(decode_steps_run(captions, served_model.eos_idx,
+                                              served_model.seq_len))
+                return out
+
+            served_model.forward_serve = recording_forward
+            super().__init__(served_model, *args, **kwargs)
+
+    serve.DVCServer = RecordingServer
+    try:
+        row = counted("serve", serve.main, [
+            "--from-reference-checkpoint", pth, "--n-requests", str(REF_SERVE_REQUESTS),
+            "--rps", str(SERVE_CLI_RPS), *common, "decode_impl=fused",
+            "decode_fused_grid=video"])
+    finally:
+        serve.DVCServer = real_server
+    per_forward = cfg.dvc.detr.enc_layers + cfg.dvc.detr.dec_layers
+    n = launches["serve"]
+    own, got = model.state_dict(), served[0].state_dict()
+    if row["requests"] != REF_SERVE_REQUESTS or row["shed"] or \
+            n["msda_fwd"] != per_forward * len(steps) or \
+            n["fused_decode_video"] < sum(steps) or n["fused_decode_batch"] or \
+            sorted(got) != sorted(own) or not all(torch.equal(got[k], own[k]) for k in own):
+        raise AssertionError(f"ref_checkpoint (c): row {row}, launches {n} over {len(steps)} "
+                             f"forwards of {steps} decode steps, or the served weights "
+                             "differ from conv_e79's")
+    del served[:], model, own, got
+
+    # (d) the training CLI from (a)'s file, one step
+    run = counted("train", train_main.main, [
+        "--from-reference-checkpoint", pth, "--epochs", "1", "--output-dir",
+        os.path.join(REF_DIR, "train"), *common, "eval_rate=0",
+        f"dataset.activity_net.train_subset={BATCH}"])
+    n, record = launches["train"], run["epochs"][0]
+    want = {"msda_bwd": per_forward, "msda_fwd": 2 * per_forward, "hungarian": 2}
+    if any(n[k] != v for k, v in want.items()) or not all(
+            math.isfinite(v) for k, v in record.items()
+            if k.startswith(("train_", "val_")) and isinstance(v, float)):
+        raise AssertionError(f"ref_checkpoint (d): launches {n}, expected {want}; "
+                             f"epoch {record}")
+    return {"reference_keys": len(sd), "reference_params": sum(v.numel() for v in sd.values()),
+            "leftover_keys": len(leftover), "exported": done, "exported_epoch": epoch,
+            "val_loss": {"weights": w_stats["loss"], "reference": r_stats["loss"],
+                         "exported": e_stats["loss"]},
+            "serve_row": {k: row[k] for k in ("requests", "achieved_rps", "latency_p50_ms",
+                                              "dispatches", "mean_step_ms")},
+            "serve_decode_steps": steps,
+            "train_epoch": {k: v for k, v in record.items()
+                            if k.startswith("train_") or k in ("epoch", "val_loss")},
+            "seconds_by_call": seconds, "launches": launches}
 
 
 def serve_fused(model, requests):
@@ -4986,7 +5171,12 @@ def main() -> int:
 
     t = time.monotonic()
     trained_cli = train_cli(world)
+    resumed = trained_cli.pop("inference_run")
     log("train_cli", time.monotonic() - t, **trained_cli)
+
+    t = time.monotonic()
+    referenced = ref_checkpoint(world, resumed)
+    log("ref_checkpoint", time.monotonic() - t, **referenced)
 
     t = time.monotonic()
     checked = train_check(cfg, flat, vocab_size)
@@ -5102,6 +5292,10 @@ def main() -> int:
                  "bound_ms", "bound_by", "schedule")
     counters = kernel_counters()
 
+    def ref_launches(name):
+        """The launches of kernel ``name`` in each CLI call of ref_checkpoint."""
+        return {call: n[name] for call, n in referenced["launches"].items()}
+
     def family_launches(name):
         """The launches of kernel ``name`` in each phase of the dense, the
         multimodal, the raw multimodal and the regular families, and in the
@@ -5164,6 +5358,7 @@ def main() -> int:
                                      "resumed_run": trained_cli["launches"][1][name],
                                      "inference_resume":
                                          trained_cli["inference_launches"][name]},
+                                 "ref_checkpoint": ref_launches(name),
                                  "eval": sum(a["launches"][name]
                                              for a in evaluated["arms"].values()),
                                  "eval_loop": {arm: a["launches"][name]
@@ -5216,7 +5411,8 @@ def main() -> int:
                 "serve_long": {dt: {arm: a["launches"][name] for arm, a in r["arms"].items()}
                                for dt, r in long_served.items()},
                 "serve_narrow": {arm: a["launches"][name]
-                                 for arm, a in narrow_served["arms"].items()}},
+                                 for arm, a in narrow_served["arms"].items()},
+                "ref_checkpoint": ref_launches(name)},
             "max_abs_err": max(line["max_abs_err"] for line in f32_lines),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
@@ -5264,6 +5460,7 @@ def main() -> int:
                           "steps_per_dispatch_4":
                               trained_cli["steps_per_dispatch_4"]["launches"]["hungarian"],
                           "inference_resume": trained_cli["inference_launches"]["hungarian"]},
+            "ref_checkpoint": ref_launches("hungarian"),
             "eval": sum(a["launches"]["hungarian"] for a in evaluated["arms"].values()),
             "eval_loop": {arm: a["launches"]["hungarian"] for arm, a in looped["arms"].items()},
             "eval_bf16": sum(a["launches"]["hungarian"] for a in evaluated16["arms"].values()),

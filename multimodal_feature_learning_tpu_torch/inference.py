@@ -4,14 +4,18 @@ submission JSON -> ActivityNet Captions scores. Counterpart of the JAX
 package's root ``inference.py`` (and of ``main.py --mode eval``).
 
     python -m multimodal_feature_learning_tpu_torch.inference \\
-        [--weights snapshot.npz | --resume checkpoint] [--synthetic] [--batch-size N] \\
+        [--weights snapshot.npz | --from-reference-checkpoint ref.pth [--trust-checkpoint]] \\
+        [--resume checkpoint] [--synthetic] [--batch-size N] \\
         [--val-mode teacher_forcing|one_by_one|beam] [--device cuda|cpu] \\
         [--config-overrides a.b=value ...]
 
 ``--weights`` loads a flat flax snapshot (the ``tools/snapshot_ckpt.py``
-format) strictly, ``--resume`` the model of a checkpoint of the port's
-training CLI (``main.py``), and the submission is saved under its epoch;
-without either the weights are drawn from ``cfg.seed``.
+format) strictly, ``--from-reference-checkpoint`` a reference SAGA-DVC
+``.pth`` of the flagship family (``utils/ref_bridge.py``; refused beside
+``--weights``), ``--resume`` the model of a checkpoint of the port's
+training CLI (``main.py``), which replaces either, as in JAX, and the
+submission is saved under its epoch; without any the weights are drawn
+from ``cfg.seed``. They load before the model is placed on the mesh.
 ``--synthetic`` first writes a small synthetic world (annotations,
 ``.npy`` features) under ``./synthetic_anet`` and reads it. The
 ground truth scored against is the val split's annotation file. Under
@@ -35,7 +39,7 @@ from .device import resolve_device
 from .engine.evaluate import evaluate, make_eval_step
 from .engine.state import load_model_weights
 from .evaluation import run_eval
-from .main import make_synthetic_world
+from .main import add_reference_flags, import_reference, make_synthetic_world, refuse_two_sources
 from .models.criterion import build_criterion
 from .models.dvc import build_model
 from .parallel.mesh import (DATA, MODEL, axis_rank_size, is_main_process, main_process_first,
@@ -50,6 +54,7 @@ def parse_args(argv=None):
                    help="flat flax snapshot (.npz) to load strictly")
     p.add_argument("--resume", default=None,
                    help="a checkpoint of the port's training CLI (its model weights)")
+    add_reference_flags(p)
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--synthetic", action="store_true",
                    help="write and read a small synthetic world (no data needed)")
@@ -64,6 +69,7 @@ def parse_args(argv=None):
 def main(argv=None):
     """Runs the evaluation; returns (val_stats, submission, scores)."""
     args = parse_args(argv)
+    refuse_two_sources(args)
     owns_group = not dist.is_initialized()
     distributed = maybe_initialize_distributed(args.device)
     dev = resolve_device(args.device)
@@ -94,6 +100,8 @@ def main(argv=None):
     model = build_model(cfg, len(vocab), vocab.pad_idx, vocab.bos_idx, vocab.eos_idx,
                         device=dev, seed=cfg.seed)
     epoch = 0
+    if args.from_reference_checkpoint:
+        import_reference(args, model, cfg)
     if args.resume:
         epoch = load_model_weights(args.resume, model)
     elif args.weights:

@@ -3,7 +3,8 @@ repository's root ``main.py``.
 
     python -m multimodal_feature_learning_tpu_torch.main [--mode train|eval] \\
         [--epochs N] [--batch-size N] [--output-dir DIR] [--resume CHECKPOINT] \\
-        [--weights snapshot.npz] [--synthetic] [--device cuda|cpu] \\
+        [--weights snapshot.npz | --from-reference-checkpoint ref.pth \\
+        [--trust-checkpoint]] [--synthetic] [--device cuda|cpu] \\
         [--config-overrides a.b=value ...]
 
 In JAX's order: overrides, then the losses they imply; the train and val
@@ -12,8 +13,10 @@ their loaders (with the audio features when ``dvc.input_modalities`` has
 two entries; with ``use_raw_videos`` the raw datasets, decoded frames and
 log-mel spectrograms through ``data.raw_anet.collate_raw``); the model of
 the config's family and its criterion (``models.build_model_and_criterion``;
-``--weights``: a flat flax snapshot, loaded strictly; else weights drawn
-from ``cfg.seed``), and the train
+``--weights``: a flat flax snapshot, loaded strictly;
+``--from-reference-checkpoint``: a reference SAGA-DVC ``.pth`` of the
+flagship family, ``utils/ref_bridge.py``, refused beside ``--weights``;
+else weights drawn from ``cfg.seed``), and the train
 state, its LR schedule counting the train loader's batches
 (``steps_per_dispatch`` > 1: that many steps a dispatch, as JAX's
 ``make_train_multistep``); ``--resume``
@@ -67,6 +70,7 @@ from .evaluation import run_eval
 from .models import build_model_and_criterion
 from .parallel.mesh import (DATA, MODEL, axis_rank_size, is_main_process, main_process_first,
                             make_mesh, maybe_initialize_distributed, replicate_params)
+from .utils.ref_bridge import load_reference_checkpoint
 from .utils.weights import load_flax_params, load_npz
 
 SYNTHETIC_WORDS = ["a", "man", "is", "playing", "guitar", "the", "dog", "runs",
@@ -124,12 +128,42 @@ def parse_args(argv=None):
     p.add_argument("--resume", default=None, help="a checkpoint written by this CLI")
     p.add_argument("--weights", default=None,
                    help="flat flax snapshot (.npz) to start from, loaded strictly")
+    add_reference_flags(p)
     p.add_argument("--synthetic", action="store_true",
                    help="write and read a small synthetic world (no data needed)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--config-overrides", nargs="*", default=[],
                    help="dotted config overrides, e.g. dvc.d_model=256")
     return p.parse_args(argv)
+
+
+def add_reference_flags(p: argparse.ArgumentParser) -> None:
+    """``--from-reference-checkpoint`` and ``--trust-checkpoint``, with the
+    JAX CLIs' help."""
+    p.add_argument("--from-reference-checkpoint", default=None,
+                   help="migrate a reference-trained .pth (main.py:129-134 "
+                        "format) into the flagship UnimodalSparseDVC params")
+    p.add_argument("--trust-checkpoint", action="store_true",
+                   help="allow the full pickle loader for reference "
+                        ".pth files that weights_only rejects "
+                        "(executes code embedded in the file)")
+
+
+def refuse_two_sources(args) -> None:
+    """``--weights`` and ``--from-reference-checkpoint`` both name the
+    starting weights: refused rather than one silently taking precedence."""
+    if args.weights and args.from_reference_checkpoint:
+        raise SystemExit("--weights and --from-reference-checkpoint both name the starting "
+                         "weights; pass one of them")
+
+
+def import_reference(args, model, cfg) -> None:
+    """``--from-reference-checkpoint``: the file into ``model``, with the
+    JAX CLIs' line."""
+    leftover = load_reference_checkpoint(args.from_reference_checkpoint, model, cfg,
+                                         trust_pickle=args.trust_checkpoint)
+    print(f"imported reference checkpoint {args.from_reference_checkpoint} "
+          f"({len(leftover)} reference-only keys skipped)")
 
 
 def place_on_mesh(state, mesh, cfg) -> None:
@@ -155,6 +189,7 @@ def main(argv=None) -> dict:
     "train_examples" an epoch}; in eval mode {"start_epoch", "val_stats",
     "scores"}."""
     args = parse_args(argv)
+    refuse_two_sources(args)
     owns_group = not dist.is_initialized()
     distributed = maybe_initialize_distributed(args.device)
     dev = resolve_device(args.device)
@@ -214,6 +249,8 @@ def main(argv=None) -> dict:
                                                               seed=cfg.seed)
     if args.weights:
         load_flax_params(model, load_npz(args.weights))
+    elif args.from_reference_checkpoint:
+        import_reference(args, model, cfg)
     replicate_params(model, mesh)
     print(f"params: {sum(p.numel() for p in model.parameters()) / 1e6:.2f} M")
     state = create_train_state(cfg, model, steps_per_epoch=max(len(train_loader), 1))

@@ -16,10 +16,15 @@ Counterpart of the JAX repository's ``serve.py``:
   row (throughput, latency percentiles, the server's counters):
 
     python -m multimodal_feature_learning_tpu_torch.serve [--synthetic] \\
-        [--weights snapshot.npz | --resume checkpoint] [--continuous --chunk 4] \\
+        [--weights snapshot.npz | --resume checkpoint | --from-reference-checkpoint ref.pth \\
+        [--trust-checkpoint]] [--continuous --chunk 4] \\
         [--rps 100] [--n-requests 256] [--batch-size 16] [--max-wait-ms 10] \\
         [--max-queue 0] [--faster-eval] [--device cuda|cpu] \\
         [--config-overrides a.b=value ...]
+
+The weights: ``--resume``, else ``--from-reference-checkpoint`` (a reference
+SAGA-DVC ``.pth``, ``utils/ref_bridge.py``), as in JAX, else ``--weights``;
+``--weights`` beside ``--from-reference-checkpoint`` is refused.
 
 A failed dispatch fails the futures of that batch, and the worker goes on.
 """
@@ -406,8 +411,11 @@ class ContinuousDVCServer(DVCServer):
 
 
 def parse_args(argv=None):
+    from .main import add_reference_flags
+
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--resume", default=None, help="a checkpoint of the port's training CLI")
+    add_reference_flags(p)
     p.add_argument("--weights", default=None,
                    help="flat flax snapshot (.npz) to load strictly")
     p.add_argument("--synthetic", action="store_true",
@@ -439,11 +447,12 @@ def main(argv=None) -> dict:
     from .data.anet import build_dataset
     from .device import resolve_device
     from .engine.state import load_model_weights
-    from .main import make_synthetic_world
+    from .main import import_reference, make_synthetic_world, refuse_two_sources
     from .models.dvc import build_model
     from .utils.weights import load_flax_params, load_npz
 
     args = parse_args(argv)
+    refuse_two_sources(args)
     if args.continuous and args.faster_eval:
         raise SystemExit("--faster-eval is a fill-all-slots batch-eval semantic; it has no "
                          "meaning under --continuous")
@@ -460,6 +469,8 @@ def main(argv=None) -> dict:
                         device=dev, seed=cfg.seed)
     if args.resume:
         load_model_weights(args.resume, model)
+    elif args.from_reference_checkpoint:
+        import_reference(args, model, cfg)
     elif args.weights:
         load_flax_params(model, load_npz(args.weights))
 

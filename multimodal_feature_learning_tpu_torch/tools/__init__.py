@@ -13,4 +13,6 @@
   plain-op decode's, with trained weights;
 - ``load_test_serve``: the serving CLI, static and continuous, over offered
   rates and chunk sizes (its ``run()`` returns a row a point).
+- ``export_to_reference``: a checkpoint of the training CLI as a
+  reference SAGA-DVC ``.pth`` (its ``main()`` returns what it wrote).
 """

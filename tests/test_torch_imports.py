@@ -37,6 +37,8 @@ def test_the_scan_covers_the_port():
     assert "multimodal_feature_learning_tpu_torch/main.py" in rel
     assert "multimodal_feature_learning_tpu_torch/tools/load_test_serve.py" in rel
     assert "multimodal_feature_learning_tpu_torch/models/dvc.py" in rel
+    assert "multimodal_feature_learning_tpu_torch/utils/ref_bridge.py" in rel
+    assert "multimodal_feature_learning_tpu_torch/tools/export_to_reference.py" in rel
     assert "chip_smoke.py" in rel
 
 
