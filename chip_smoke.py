@@ -289,7 +289,24 @@ Phases, each printing one line with its wall seconds:
    fused decode (grid "video"): the served weights bit for bit conv_e79's,
    K1 12 times a forward, the fused kernel once per decode step; main.main
    from the file, one epoch of one step of 16 and its eval batch: finite
-   losses, K1 / K2 / K6 24 / 12 / 2. Each CLI call's seconds and launches.
+   losses, K1 / K2 / K6 24 / 12 / 2. Each CLI call's seconds and launches;
+48. config_options (after ref_checkpoint): the keys of JAX's configuration
+   that change what runs, the flagship at full width with weights drawn
+   from seed 0, f32, batch 16: (a) dvc.caption.pre_norm (the context mask
+   on, dropout 0.1): 3 train steps (K1 / K2 / K6 12 / 12 / 1 each, every
+   per-layer caption loss), one teacher-forced eval batch (K1 12, K6 1,
+   K3 never, every layer's log-probabilities finite), then the greedy,
+   beam, fused and continuous decodes and both servers each refused with
+   a ValueError naming the option and no kernel launched, then
+   train_check's step and a teacher-forced eval_check of 2 on the card
+   against the CPU; (b) dvc.caption.return_intermediate=False: the same
+   (no per-layer caption loss, a stack of one layer), without the
+   refusals; (c) each msda_backend name ("", gather, matmul, matmul_acc,
+   pallas): one serving forward of 16 (K1 12), answers bit for bit the
+   default's, and an unknown name refused at build; (d) main.main over
+   the evaluation world's first 16 train videos, 2 epochs with
+   rss_restart_gb below this process's resident memory and wandb.on:
+   exit status 75 after epoch 0's checkpoint, K1 / K2 / K6 12 / 12 / 1.
 
 Then one JSON line of kernel measurements (K1-K6) and, as the last line, a JSON
 object naming the device. Any failure exits non-zero without that line, as
@@ -2214,7 +2231,7 @@ def dropout_off(model):
 
 
 def eval_check(cfg, flat, vocab_size, batch=None, partings: bool = False,
-               embedding_matrix=None):
+               embedding_matrix=None, val_mode: str = "one_by_one"):
     """Phase 15: one batch of 2 with dropout off, from conv_e79, through
     forward_eval on the card and on the port's CPU path: matched indices
     (final and auxiliary) equal; the teacher-forced log-probabilities of
@@ -2228,7 +2245,10 @@ def eval_check(cfg, flat, vocab_size, batch=None, partings: bool = False,
     largest logits lie within twice the largest gap between the two
     devices' logits there (``device_partings``); and the backbones' features
     (``backbone_fns``) agree within 1e-4 of their largest. ``embedding_matrix``
-    as ``build_family``'s."""
+    as ``build_family``'s. ``val_mode`` "teacher_forcing" (a pre-norm caption
+    decoder has no other) takes the argmax captions of the teacher-forced
+    pass in place of the greedy decode's, held the same way, and runs no
+    beam search."""
     import dataclasses
 
     import torch
@@ -2237,6 +2257,7 @@ def eval_check(cfg, flat, vocab_size, batch=None, partings: bool = False,
     from multimodal_feature_learning_tpu_torch.engine.train import batch_to_device
     from multimodal_feature_learning_tpu_torch.models.criterion import build_criterion
 
+    decoding = val_mode != "teacher_forcing"
     cfg = without_dropout(cfg)
     if batch is None:
         batch = next(synthetic_batches(cfg, 2, vocab_size, seed=0))
@@ -2246,7 +2267,7 @@ def eval_check(cfg, flat, vocab_size, batch=None, partings: bool = False,
         criterion, weight_dict = build_criterion(cfg, model.pad_idx)
         tb = batch_to_device(batch, device)
         with recording_decode_logits(model) as step_logits[device]:
-            out, caps, idx, idx_aux, mask = model.forward_eval(tb, "one_by_one")
+            out, caps, idx, idx_aux, mask = model.forward_eval(tb, val_mode)
         if partings:
             with torch.no_grad():
                 features[device] = {k: fn().cpu() for k, fn in backbone_fns(model, tb).items()}
@@ -2254,7 +2275,7 @@ def eval_check(cfg, flat, vocab_size, batch=None, partings: bool = False,
         losses["loss"] = sum(losses[k] * weight_dict[k] for k in losses if k in weight_dict)
         logp = torch.stack([a["pred_captions"] for a in out["aux_outputs_caption"]]
                            + [out["pred_captions"]])
-        beam = model.forward_eval(tb, "beam", beam_size=4)[1]
+        beam = model.forward_eval(tb, "beam", beam_size=4)[1] if decoding else caps
         res[device] = {"idx": idx.cpu(), "idx_aux": idx_aux.cpu(), "logp": logp.cpu(),
                        "caps": caps.cpu(), "beam": beam.cpu(),
                        "losses": {k: float(v) for k, v in losses.items()}}
@@ -2274,7 +2295,7 @@ def eval_check(cfg, flat, vocab_size, batch=None, partings: bool = False,
         raise AssertionError(f"eval: card and CPU losses disagree: loss rel {rel['loss']}, "
                              f"terms {bad}")
     rows = {}
-    for key in ("caps", "beam"):
+    for key in ("caps", "beam") if decoding else ("caps",):
         same = int((g[key] == c[key]).all(dim=1).sum())
         if same < 0.9 * g[key].shape[0]:
             raise AssertionError(f"eval: {same}/{g[key].shape[0]} {key} rows equal on the "
@@ -2301,7 +2322,8 @@ def eval_check(cfg, flat, vocab_size, batch=None, partings: bool = False,
             "loss_rel": rel["loss"], "terms": len(cm) - 1,
             "worst_term": max((k for k in cm if k != "loss"), key=lambda k: rel[k]),
             "worst_term_rel": max(rel[k] for k in cm if k != "loss"),
-            "one_by_one_rows_equal": rows["caps"], "beam_rows_equal": rows["beam"],
+            "val_mode": val_mode, f"{val_mode}_rows_equal": rows["caps"],
+            **({"beam_rows_equal": rows["beam"]} if decoding else {}),
             "rows": int(g["caps"].shape[0])}
 
 
@@ -4943,6 +4965,261 @@ def observability(cfg, flat, vocab_size) -> dict:
             "grad_flow_files": sorted(f for f in os.listdir(log_dir) if f.startswith("grad"))}
 
 
+# ---------------------------------------------------------------------------
+# config_options: the caption decoder's options and the other keys of JAX's
+# configuration that change what runs
+# ---------------------------------------------------------------------------
+
+OPTION_STEPS = 3  # train steps of each caption option, batch BATCH
+OPTION_CLI_DIR = os.path.join(ROOT, "build", "config_options_cli")
+
+
+def option_config(**caption):
+    """The flagship's configuration (the defaults: context mask on, dropout
+    0.1) with the caption decoder's ``caption`` options set."""
+    from multimodal_feature_learning_tpu_torch.config import load_config
+
+    cfg = load_config()
+    for name, value in caption.items():
+        setattr(cfg.dvc.caption, name, value)
+    return cfg
+
+
+def zero_launches() -> dict:
+    counters = kernel_counters()
+    for k in counters.values():
+        k.launches = 0
+    return counters
+
+
+def option_run(cfg, vocab_size: int, refusals: bool = False) -> dict:
+    """The full-width model of ``cfg``, weights drawn from seed 0, on the
+    card: OPTION_STEPS train steps of BATCH synthetic videos (K1 and K2
+    msda_per_forward(cfg) times a step, K6 once, finite losses; the loss
+    terms named), then one teacher-forced evaluation batch of BATCH (K1
+    msda_per_forward(cfg) times, K6 once, the fused decode never, finite
+    log-probabilities of every layer the stack holds), then train_check's
+    step and eval_check in "teacher_forcing" mode on the card against the
+    CPU. With ``refusals`` (a pre-norm model), the greedy, beam, fused and
+    continuous decodes and both servers must each raise ValueError naming
+    dvc.caption.pre_norm with no kernel launched."""
+    import torch
+
+    from multimodal_feature_learning_tpu_torch.data.anet import synthetic_batches
+    from multimodal_feature_learning_tpu_torch.engine.state import create_train_state
+    from multimodal_feature_learning_tpu_torch.engine.train import (
+        batch_to_device, make_train_step)
+    from multimodal_feature_learning_tpu_torch.models.criterion import build_criterion
+    from multimodal_feature_learning_tpu_torch.serve import ContinuousDVCServer, DVCServer
+    from multimodal_feature_learning_tpu_torch.utils.weights import export_flax_params
+
+    t0 = time.perf_counter()
+    model = build_family(cfg, vocab_size, "cuda")
+    flat = export_flax_params(model)
+    criterion, weight_dict = build_criterion(cfg, model.pad_idx)
+    state = create_train_state(cfg, model, steps_per_epoch=1000)
+    step = make_train_step(criterion, weight_dict, seed=cfg.seed)
+    per_forward = msda_per_forward(cfg)
+    batches = list(synthetic_batches(cfg, BATCH, vocab_size, seed=0,
+                                     num_batches=OPTION_STEPS + 1))
+    steps = []
+    for i, batch in enumerate(batches[:OPTION_STEPS]):
+        counters = zero_launches()
+        metrics = {k: float(v) for k, v in step(state, batch_to_device(batch, "cuda")).items()
+                   if k != "lr"}
+        launched = {k: c.launches for k, c in counters.items()}
+        if (launched["msda_fwd"], launched["msda_bwd"], launched["hungarian"]) != (
+                per_forward, per_forward, 1) or not all(map(math.isfinite, metrics.values())):
+            raise AssertionError(f"step {i}: launches {launched} (K1 and K2 {per_forward}, K6 "
+                                 f"one), metrics {metrics}")
+        steps.append({"loss": metrics["loss"], "grad_norm": metrics["grad_norm"],
+                      "launches": launched})
+    terms = sorted(k for k in metrics if k.startswith("loss_caption"))
+    depth = cfg.dvc.caption.depth
+    want = ["loss_caption"] + ([f"loss_caption_{i}" for i in range(depth - 1)]
+                               if cfg.dvc.caption.return_intermediate else [])
+    if terms != sorted(want):
+        raise AssertionError(f"caption loss terms {terms}, expected {sorted(want)}")
+    train_s = time.perf_counter() - t0
+
+    model.eval()
+    tb = batch_to_device(batches[-1], "cuda")
+    counters = zero_launches()
+    with torch.no_grad():
+        out, caps, _, _, _ = model.forward_eval(tb, "teacher_forcing")
+    torch.cuda.synchronize()
+    eval_launches = {k: c.launches for k, c in counters.items()}
+    stack = [a["pred_captions"] for a in out["aux_outputs_caption"]] + [out["pred_captions"]]
+    layers = depth if cfg.dvc.caption.return_intermediate else 1
+    if (eval_launches["msda_fwd"] != per_forward or eval_launches["hungarian"] != 1
+            or eval_launches["fused_decode_video"] + eval_launches["fused_decode_batch"]
+            or len(stack) != layers or not all(bool(torch.isfinite(x).all()) for x in stack)):
+        raise AssertionError(f"teacher-forced eval: launches {eval_launches}, {len(stack)} "
+                             f"caption layers (expected {layers})")
+
+    refused = {}
+    if refusals:
+        serve_args = (tb["video_tensor"], tb["video_mask"], tb["durations"])
+
+        def fused_forward_serve():
+            model.decode_impl = "fused"
+            try:
+                model.forward_serve(*serve_args)
+            finally:
+                model.decode_impl = "xla"
+
+        paths = {"greedy": lambda: model.forward_serve(*serve_args),
+                 "one_by_one": lambda: model.forward_eval(tb, "one_by_one"),
+                 "beam": lambda: model.forward_eval(tb, "beam", beam_size=4),
+                 "fused": fused_forward_serve,
+                 "continuous": lambda: model.forward_serve_prefill(*serve_args),
+                 "dvc_server": lambda: DVCServer(model, batch_size=BATCH),
+                 "continuous_server": lambda: ContinuousDVCServer(model, batch_size=BATCH)}
+        counters = zero_launches()
+        for path, call in paths.items():
+            try:
+                call()
+            except ValueError as e:
+                if "dvc.caption.pre_norm" not in str(e):
+                    raise
+                refused[path] = str(e)[:60]
+            else:
+                raise AssertionError(f"the {path} decode ran a pre-norm caption decoder")
+        torch.cuda.synchronize()
+        launched = {k: c.launches for k, c in counters.items()}
+        if any(launched.values()):
+            raise AssertionError(f"a refused decode launched kernels: {launched}")
+        refused = {"paths": sorted(refused), "launches": launched}
+    del model, state
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    checked = {"train": train_check(cfg, flat, vocab_size),
+               "eval": eval_check(cfg, flat, vocab_size, val_mode="teacher_forcing")}
+    return {"batch": BATCH, "steps": steps, "caption_loss_terms": terms,
+            "train_s": train_s, "eval_launches": eval_launches, "eval_caption_layers": len(stack),
+            "eval_captions_shape": list(caps.shape), "refused": refused,
+            "check_s": time.perf_counter() - t1, "check": checked}
+
+
+def msda_backends_run(vocab_size: int) -> dict:
+    """Each of JAX's msda_backend names on the flagship at full width (seed 0
+    weights, the same for every name): one serving forward of BATCH
+    synthetic videos with the plain-op decode, K1 msda_per_forward times,
+    the answers bit for bit those of the default name ""; an unknown name
+    raises ValueError at build."""
+    import torch
+
+    from multimodal_feature_learning_tpu_torch.data.anet import synthetic_batches
+    from multimodal_feature_learning_tpu_torch.engine.train import batch_to_device
+    from multimodal_feature_learning_tpu_torch.ops.msda import MSDA_BACKENDS
+
+    cfg = option_config()
+    batch = batch_to_device(next(synthetic_batches(cfg, BATCH, vocab_size, seed=0)), "cuda")
+    runs, first = {}, None
+    for name in MSDA_BACKENDS:
+        cfg.msda_backend = name
+        model = build_family(cfg, vocab_size, "cuda")
+        counters = zero_launches()
+        t0 = time.perf_counter()
+        served = model.forward_serve(batch["video_tensor"], batch["video_mask"],
+                                     batch["durations"])
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        launched = counters["msda_fwd"].launches
+        if launched != msda_per_forward(cfg):
+            raise AssertionError(f"msda_backend={name!r}: K1 launched {launched} times")
+        first = first or served
+        same = all(torch.equal(served[k], first[k]) for k in first)
+        if not same:
+            raise AssertionError(f"msda_backend={name!r} serves other answers than ''")
+        runs[name or "''"] = {"k1_launches": launched, "ms": ms, "equal_to_default": same}
+        del model
+    cfg.msda_backend = "triton"
+    try:
+        build_family(cfg, vocab_size, "cuda")
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("an unknown msda_backend was accepted")
+    torch.cuda.empty_cache()
+    return {"names": runs, "unknown_refused": refused}
+
+
+def rss_restart_cli(world: dict) -> dict:
+    """The training CLI (main.main) over the evaluation world's first BATCH
+    train videos (one step an epoch), weights from seed 0, --epochs 2 with
+    rss_restart_gb set below this process's resident memory and wandb.on:
+    it must save epoch 0's checkpoint, log epoch 0 alone and exit with
+    status 75, with K1 / K2 / K6 12 / 12 / 1 (one step, no evaluation). Below
+    1.5 GB resident, the process first holds written host memory up to it
+    (``ballast_gb``), so that a whole-GB limit of at least 1 lies below."""
+    import shutil
+
+    from multimodal_feature_learning_tpu_torch import main as train_main
+
+    if os.path.isdir(OPTION_CLI_DIR):
+        shutil.rmtree(OPTION_CLI_DIR)
+    import numpy as np
+
+    # rss_restart_gb is a whole number of GB, at least 1 to be on: below
+    # 1.5 GB resident, this process first holds enough written host memory
+    # to lie above that
+    ballast_gb = max(0.0, 1.5 - train_main.host_rss_gb())
+    ballast = np.ones(int(ballast_gb * 1e9) // 8) if ballast_gb else None
+    rss = train_main.host_rss_gb()
+    limit = max(1, int(rss) - 1)
+    if not rss > limit:
+        raise AssertionError(f"resident memory {rss} GB is not above rss_restart_gb={limit}")
+    overrides = [*[f"{k}={v}" for k, v in world.items()],
+                 f"dataset.activity_net.train_subset={BATCH}", "eval_rate=10",
+                 "checkpoint_rate=10", "print_freq=0", f"rss_restart_gb={limit}",
+                 "wandb.on=true"]
+    counters = zero_launches()
+    t0 = time.perf_counter()
+    try:
+        train_main.main(["--epochs", "2", "--device", "cuda", "--batch-size", str(BATCH),
+                         "--output-dir", OPTION_CLI_DIR, "--config-overrides", *overrides])
+    except SystemExit as e:
+        code = e.code
+    else:
+        raise AssertionError("the training CLI finished its epochs under rss_restart_gb")
+    seconds = time.perf_counter() - t0
+    del ballast
+    launched = {k: c.launches for k, c in counters.items()}
+    with open(os.path.join(OPTION_CLI_DIR, "train_log.txt")) as f:
+        epochs = [json.loads(line)["epoch"] for line in f]
+    ckpt = os.path.join(OPTION_CLI_DIR, "checkpoint")
+    if code != train_main.RSS_RESTART_STATUS or not os.path.exists(ckpt) or epochs != [0]:
+        raise AssertionError(f"rss_restart_gb: exit code {code}, checkpoint "
+                             f"{os.path.exists(ckpt)}, epochs logged {epochs}")
+    per_forward = msda_per_forward(option_config())
+    if (launched["msda_fwd"], launched["msda_bwd"], launched["hungarian"]) != (
+            per_forward, per_forward, 1):
+        raise AssertionError(f"rss_restart_gb CLI launches {launched}")
+    return {"rss_gb": rss, "ballast_gb": ballast_gb, "rss_restart_gb": limit, "exit_code": code,
+            "checkpoint": os.path.relpath(ckpt, ROOT), "epochs_logged": epochs,
+            "launches": launched, "seconds": seconds}
+
+
+def config_options(world: dict, vocab_size: int) -> dict:
+    """Phase config_options: (a) dvc.caption.pre_norm and (b)
+    dvc.caption.return_intermediate=False at full width (option_run), (c)
+    every msda_backend name (msda_backends_run), (d) rss_restart_gb and
+    wandb.on through the training CLI (rss_restart_cli); each part's
+    seconds and launches."""
+    out = {}
+    for name, caption, refusals in (("pre_norm", {"pre_norm": True}, True),
+                                    ("last_layer", {"return_intermediate": False}, False)):
+        t0 = time.perf_counter()
+        out[name] = option_run(option_config(**caption), vocab_size, refusals)
+        out[name]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["msda_backend"] = msda_backends_run(vocab_size)
+    out["msda_backend"]["seconds"] = time.perf_counter() - t0
+    out["cli"] = rss_restart_cli(world)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5179,6 +5456,10 @@ def main() -> int:
     log("ref_checkpoint", time.monotonic() - t, **referenced)
 
     t = time.monotonic()
+    optioned = config_options(world, vocab_size)
+    log("config_options", time.monotonic() - t, **optioned)
+
+    t = time.monotonic()
     checked = train_check(cfg, flat, vocab_size)
     log("train_check", time.monotonic() - t, **checked)
 
@@ -5296,6 +5577,20 @@ def main() -> int:
         """The launches of kernel ``name`` in each CLI call of ref_checkpoint."""
         return {call: n[name] for call, n in referenced["launches"].items()}
 
+    def option_launches(name):
+        """The launches of kernel ``name`` in each part of config_options."""
+        parts = {}
+        for opt in ("pre_norm", "last_layer"):
+            run = optioned[opt]
+            parts[f"{opt}_train"] = sum(s["launches"][name] for s in run["steps"])
+            parts[f"{opt}_eval"] = run["eval_launches"][name]
+        parts["pre_norm_refused_decodes"] = optioned["pre_norm"]["refused"]["launches"][name]
+        if name == "msda_fwd":
+            parts["msda_backend_serve"] = {n: r["k1_launches"] for n, r in
+                                           optioned["msda_backend"]["names"].items()}
+        parts["rss_restart_cli"] = optioned["cli"]["launches"][name]
+        return parts
+
     def family_launches(name):
         """The launches of kernel ``name`` in each phase of the dense, the
         multimodal, the raw multimodal and the regular families, and in the
@@ -5359,6 +5654,7 @@ def main() -> int:
                                      "inference_resume":
                                          trained_cli["inference_launches"][name]},
                                  "ref_checkpoint": ref_launches(name),
+                                 "config_options": option_launches(name),
                                  "eval": sum(a["launches"][name]
                                              for a in evaluated["arms"].values()),
                                  "eval_loop": {arm: a["launches"][name]
@@ -5412,7 +5708,8 @@ def main() -> int:
                                for dt, r in long_served.items()},
                 "serve_narrow": {arm: a["launches"][name]
                                  for arm, a in narrow_served["arms"].items()},
-                "ref_checkpoint": ref_launches(name)},
+                "ref_checkpoint": ref_launches(name),
+                "config_options": option_launches(name)},
             "max_abs_err": max(line["max_abs_err"] for line in f32_lines),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
@@ -5461,6 +5758,7 @@ def main() -> int:
                               trained_cli["steps_per_dispatch_4"]["launches"]["hungarian"],
                           "inference_resume": trained_cli["inference_launches"]["hungarian"]},
             "ref_checkpoint": ref_launches("hungarian"),
+            "config_options": option_launches("hungarian"),
             "eval": sum(a["launches"]["hungarian"] for a in evaluated["arms"].values()),
             "eval_loop": {arm: a["launches"]["hungarian"] for arm, a in looped["arms"].items()},
             "eval_bf16": sum(a["launches"]["hungarian"] for a in evaluated16["arms"].values()),

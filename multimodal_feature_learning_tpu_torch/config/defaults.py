@@ -1,10 +1,13 @@
-"""Configuration of the port: the fields the serving, training and evaluation
-paths read.
+"""Configuration of the port: every key of the JAX package's configuration
+tree.
 
 Counterpart of ``multimodal_feature_learning_tpu/config/defaults.py``, as
 plain dataclasses. Attribute paths match the JAX config (``cfg.dvc.detr.rho``,
-``cfg.dataset.activity_net.video_rescale_len``) and the defaults are its
-defaults, so one set of overrides describes the same model on both sides.
+``cfg.dataset.activity_net.video_rescale_len``), the defaults and their types
+are its defaults, so one set of overrides describes the same model on both
+sides. Keys that JAX stores but no code of it reads (or that only its
+reference-checkpoint importer reads) are kept, marked inert, so that a JAX
+command line takes the same overrides here.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ class DetrConfig:
     transformer_ff_dim: int = 2048
     video_rescale_len: int = 300
     transformer_dropout_prob: float = 0.1
+    return_intermediate: bool = True  # inert, as in JAX: every decoder layer is stacked
     rho: float = 0.5
     use_enc_aux_loss: bool = True
 
@@ -42,6 +46,16 @@ class CaptionConfig:
     bridge_dropout: float = 0.1  # the multimodal caption layers' concat bridge
     mlp_dropout_1: float = 0.1
     mlp_dropout_2: float = 0.1
+    # pre-norm caption layers (LayerNorm ahead of each residual branch) in the
+    # unimodal and the regular families; teacher-forced passes only (training,
+    # val_mode "teacher_forcing"): every KV-cached decode refuses it, as JAX's
+    # plain decode does. The multimodal families ignore it, as JAX's do.
+    pre_norm: bool = False
+    # inert, as in JAX: read only by the reference-checkpoint importer
+    emb_weights_req_grad: bool = True
+    # False: the caption stack holds the last layer alone, so training has no
+    # per-layer caption losses (loss_caption_{i})
+    return_intermediate: bool = True
     # GloVe word embeddings (models/load_weights.py): the vectors' width, the
     # GloVe text file ("" or a missing file: a plain embedding), and the
     # pickle cache of the vocabulary's matrix
@@ -52,16 +66,23 @@ class CaptionConfig:
 
 @dataclass
 class MatcherConfig:
+    cost_class: float = 1.0  # inert, as in JAX: read only by the reference importer
     cost_segment: float = 5.0
     cost_giou: float = 2.0
+    cost_alpha: float = 0.25  # inert, as cost_class
+    cost_gamma: float = 2.0   # inert, as cost_class
 
 
 @dataclass
 class DecoderConfig:
     """The regular family's query decoder (``models/regular_dvc.py``): its
-    depth, the one field of JAX's ``dvc.decoder`` that JAX reads (its width
-    and heads are d_model's and dvc.detr.num_heads)."""
+    depth is the one field of JAX's ``dvc.decoder`` that JAX reads (its width
+    and heads are d_model's and dvc.detr.num_heads); the others are inert."""
+    d_model: int = 512
     depth: int = 6
+    num_heads: int = 8
+    mlp_ratio: int = 4
+    qkv_bias: bool = True
 
 
 @dataclass
@@ -98,6 +119,7 @@ class DVCConfig:
     d_model: int = 512
     num_queries: int = 20
     num_classes: int = 200  # the dense family's class head: num_classes + 1 logits
+    threshold: float = 0.5  # inert, as in JAX: read only by the reference importer
     max_eseq_length: int = 10
     aux_loss: bool = True
     lloss_gau_mask: int = 1
@@ -118,6 +140,7 @@ class DVCConfig:
     context_loss_coef: float = 3.0
     mask_prediction_coef: float = 2.0
     corr_coef: float = 2.0
+    eos_coef: float = 0.1  # inert, as in JAX: its criterion stores it and never reads it
     # derived from the flags by recompute_losses, as the JAX config does
     losses: list = field(default_factory=lambda: [
         "labels", "segments", "captions", "contexts", "mask_prediction"])
@@ -169,6 +192,7 @@ class DatasetConfig:
 class EvalConfig:
     tious: list = field(default_factory=lambda: [0.3, 0.5, 0.7, 0.9])
     max_proposals_per_video: int = 100
+    distances: list = field(default_factory=list)  # inert, as in JAX
     verbose: bool = False
     val_mode: str = "one_by_one"  # one_by_one | teacher_forcing | beam | serve
     # semantic, not a speed-up: the raw argmax fills every caption slot, so
@@ -191,9 +215,19 @@ class MeshConfig:
 
 
 @dataclass
+class WandbConfig:
+    """Run metadata. The card's machine has no ``wandb`` and the port never
+    imports it: with ``on`` the training CLI says so and goes on, as JAX's
+    does where ``wandb`` is not installed."""
+    on: bool = False
+    project: str = "mfl-tpu"
+
+
+@dataclass
 class Config:
     seed: int = 0
     batch_size: int = 16
+    num_workers: int = 1  # inert, as in JAX: the loaders prefetch on one thread
     print_freq: int = 10
     output_dir: str = "output"
     submission_dir: str = "output/submission"
@@ -204,6 +238,7 @@ class Config:
     clip_max_norm: float = 0.1
     checkpoint_rate: int = 10  # keep checkpoint{epoch:04d} every N epochs (0: never)
     eval_rate: int = 10        # evaluate every N epochs (0: the last epoch only)
+    model_mode: str = "training"  # inert, as in JAX: training | validation | testing
     epochs: int = 200
     start_epoch: int = 0
     resume: str = ""           # a checkpoint to resume from, at its epoch + 1
@@ -224,14 +259,24 @@ class Config:
     # dtype of the features on their way to the card: "bfloat16" halves the
     # bytes, and they are upcast to f32 there
     transfer_dtype: str = "float32"
+    # JAX's choice of how to compute MSDA ("" = its platform default,
+    # "gather", "matmul", "matmul_acc", "pallas"); every name computes the
+    # same function, and here each runs the same kernels (ops/msda.py);
+    # another name raises
+    msda_backend: str = ""
     # K optimizer steps per dispatch of the training loop
     # (engine/train.py::make_train_multistep), the batches of a dispatch
     # sent in one transfer; 1 runs single steps
     steps_per_dispatch: int = 1
+    # > 0: the training CLI exits with status 75 at an epoch boundary, after
+    # the checkpoint, once the process's resident memory exceeds this many GB
+    # (JAX's opt-in guard against a host leak; relaunch with --resume)
+    rss_restart_gb: int = 0
     dvc: DVCConfig = field(default_factory=DVCConfig)
     dataset: DatasetConfig = field(default_factory=DatasetConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
     mesh: MeshConfig = field(default_factory=MeshConfig)
+    wandb: WandbConfig = field(default_factory=WandbConfig)
 
 
 DECODE_CHOICES = {
@@ -262,8 +307,15 @@ def recompute_losses(cfg: Config) -> None:
     cfg.dvc.losses = losses
 
 
-def load_config() -> Config:
-    return Config()
+def load_config(mode: str = "train") -> Config:
+    """The default configuration; any ``mode`` but "train" gives JAX's
+    ``load_config_test``: ``model_mode`` "validation" and
+    ``dataset.activity_net.for_testing`` on."""
+    cfg = Config()
+    if mode != "train":
+        cfg.model_mode = "validation"
+        cfg.dataset.activity_net.for_testing = True
+    return cfg
 
 
 def apply_overrides(cfg: Config, overrides) -> Config:

@@ -25,7 +25,12 @@ the rolling ``<output_dir>/checkpoint``, keeps ``checkpoint{epoch:04d}`` on
 ``checkpoint_rate`` or ``lr_drop`` epochs, evaluates and scores on
 ``eval_rate`` epochs and the last, and appends JSON lines to
 ``train_log.txt`` (``train_*``, ``val_*``, ``score_*``, ``epoch``) and, on
-eval epochs, ``val_log.txt``. ``--mode eval`` evaluates once and returns.
+eval epochs, ``val_log.txt``. With ``rss_restart_gb`` > 0 the run exits
+with status 75 at the end of an epoch, after its checkpoint, once the
+process's resident memory exceeds that many GB (any rank's, under a group):
+relaunch with ``--resume`` to go on. ``wandb.on`` prints that wandb is not
+installed and goes on (the port never imports it). ``--mode eval``
+evaluates once and returns.
 ``--synthetic`` first writes a small synthetic world under
 ``./synthetic_anet`` and reads it.
 
@@ -48,6 +53,7 @@ import functools
 import json
 import os
 import random
+import sys
 import time
 from typing import Optional
 
@@ -177,6 +183,38 @@ def place_on_mesh(state, mesh, cfg) -> None:
         state.model.shard_tokens_axis(mesh, MODEL)
 
 
+RSS_RESTART_STATUS = 75  # EX_TEMPFAIL: not a finished run ("Training done", 0)
+
+
+def host_rss_gb() -> float:
+    """The process's resident memory in GB (``VmRSS`` of /proc/self/status,
+    as JAX's ``main.py`` reads it), 0.0 where that cannot be read."""
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS"):
+                    return int(line.split()[1]) / 1e6
+    except OSError:
+        pass
+    return 0.0
+
+
+def rss_over_limit(limit_gb: int) -> float:
+    """The resident GB of this process that exceeds ``limit_gb`` (the
+    largest of the group's ranks under a process group, so that every rank
+    stops together), or 0.0 when none does or ``limit_gb`` is 0."""
+    if not limit_gb:
+        return 0.0
+    rss = host_rss_gb()
+    if dist.is_initialized():
+        box = torch.tensor([rss], dtype=torch.float64)
+        if dist.get_backend() == "nccl":
+            box = box.cuda()
+        dist.all_reduce(box, op=dist.ReduceOp.MAX)
+        rss = float(box.item())
+    return rss if rss > limit_gb else 0.0
+
+
 def _append_json(path: str, record: dict) -> None:
     with open(path, "a") as f:
         f.write(json.dumps(record) + "\n")
@@ -281,6 +319,8 @@ def main(argv=None) -> dict:
     if cfg.steps_per_dispatch > 1:
         multi_step = make_train_multistep(criterion, weight_dict, seed=cfg.seed, mesh=mesh)
     transfer_dtype = TRANSFER_DTYPES[cfg.transfer_dtype]
+    if cfg.wandb.on and is_main_process():
+        print("wandb requested but not installed; continuing without it")
     run = {"start_epoch": start_epoch, "epochs": [], "train_seconds": [],
            "checkpoint_seconds": [], "eval_seconds": [], "train_examples": len(train_ds)}
     print("Start training")
@@ -323,6 +363,14 @@ def main(argv=None) -> dict:
             if len(val_items) > 1:
                 _append_json(os.path.join(cfg.output_dir, "val_log.txt"), val_items)
         run["epochs"].append(log_stats)
+        rss = rss_over_limit(cfg.rss_restart_gb)
+        if rss:
+            if is_main_process():
+                print(f"host RSS {rss:.1f} GB > rss_restart_gb={cfg.rss_restart_gb}; exiting "
+                      f"at epoch {epoch} for clean resume (checkpoint saved)", flush=True)
+            if owns_group and distributed:
+                dist.destroy_process_group()
+            sys.exit(RSS_RESTART_STATUS)
     print(f"Training done in {time.time() - t_start:.1f}s")
     if owns_group and distributed:
         dist.destroy_process_group()

@@ -4,7 +4,10 @@ per-video cursors for the continuous server) and the beam search of
 evaluation; counterpart of the JAX ``models/caption_decoder.py``. The greedy
 decode runs as plain ops, one ``decode_pair`` per token (``decode_impl``
 "xla"), or through the fused decode step, one kernel launch per token
-(``decode_impl`` "fused", ``ops/fused_decode.py``)."""
+(``decode_impl`` "fused", ``ops/fused_decode.py``). Every decode is
+post-norm only: with ``pre_norm`` each raises before it launches anything
+(JAX's plain decode asserts the same; its fused decode has no such check
+and would run a pre-norm model with post-norm math)."""
 
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ from torch import nn
 from ..config import check_decode_options
 from ..ops import fused_decode as fd
 from .embeddings import VocabularyEmbedder, caption_positional_encoding
-from .layers import Dropout, Linear, UnimodalCaptionDecoderLayer
+from .layers import Dropout, Linear, UnimodalCaptionDecoderLayer, refuse_pre_norm
 
 
 def make_causal_mask(seq_len: int, device=None) -> torch.Tensor:
@@ -27,10 +30,13 @@ class UnimodalCaptionDecoder(nn.Module):
                  num_heads: int = 8, mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  positional_embedding_dropout: float = 0.0, attention_dropout: float = 0.0,
                  projection_dropout: float = 0.0, mlp_dropout_1: float = 0.0,
-                 mlp_dropout_2: float = 0.0, embedding_matrix=None):
+                 mlp_dropout_2: float = 0.0, embedding_matrix=None, pre_norm: bool = False,
+                 return_intermediate: bool = True):
         super().__init__()
         self.depth = depth
         self.num_heads = num_heads
+        self.pre_norm = pre_norm
+        self.return_intermediate = return_intermediate
         self.target_embedding = VocabularyEmbedder(vocab_size, d_model, embedding_matrix)
         self.register_buffer("pos_table", caption_positional_encoding(d_model),
                              persistent=False)
@@ -38,7 +44,7 @@ class UnimodalCaptionDecoder(nn.Module):
         self.decoder = nn.ModuleList(
             UnimodalCaptionDecoderLayer(d_model, num_heads, mlp_ratio, qkv_bias,
                                         attention_dropout, projection_dropout,
-                                        mlp_dropout_1, mlp_dropout_2)
+                                        mlp_dropout_1, mlp_dropout_2, pre_norm)
             for _ in range(depth))
         self.head = Linear(d_model, vocab_size)
 
@@ -46,7 +52,8 @@ class UnimodalCaptionDecoder(nn.Module):
                 memory_padding_mask=None, groups: int = 1, zeroed_mask=None,
                 log_probs: bool = False):
         """Teacher-forced pass: tgt (N, Tc) token ids, memory (B, S, D) with
-        groups = N // B -> the (depth, N, Tc, V) stack of every layer: raw
+        groups = N // B -> the (depth, N, Tc, V) stack of every layer (of the
+        last one alone, (1, N, Tc, V), without ``return_intermediate``): raw
         logits (training: the criterion folds the log-softmax into its
         loss), or with ``log_probs`` f32 log-probabilities (evaluation), as
         the JAX ``__call__`` returns them unless ``return_logits``."""
@@ -59,8 +66,9 @@ class UnimodalCaptionDecoder(nn.Module):
         for layer in self.decoder:
             x = layer(x, memory, tgt_mask, tgt_padding_mask, memory_padding_mask,
                       groups=groups, zeroed_mask=zeroed_mask)
-            intermediate.append(x)
-        logits = self.head(torch.stack(intermediate))
+            if self.return_intermediate:
+                intermediate.append(x)
+        logits = self.head(torch.stack(intermediate) if self.return_intermediate else x[None])
         return torch.log_softmax(logits.float(), dim=-1) if log_probs else logits
 
     def embed_at(self, tokens: torch.Tensor, pos) -> torch.Tensor:
@@ -121,8 +129,10 @@ def greedy_decode(
     is the dtype the memory K/V are kept in; the self-attention caches take
     the memory's dtype.
 
-    Returns (N, seq_len + 1) int64 token ids including <bos>.
+    Returns (N, seq_len + 1) int64 token ids including <bos>. A pre-norm
+    ``module`` raises ``ValueError``.
     """
+    refuse_pre_norm(module)
     check_decode_options(decode_impl=decode_impl, decode_kv=kv_mode,
                          decode_fused_grid=fused_grid)
     N = memory.shape[0] * groups
@@ -206,7 +216,9 @@ def greedy_decode_chunk(
     do not move. Plain ops only.
 
     ``captions``, ``done``, ``t_vid`` and the caches are updated in place
-    and returned: (captions, done, t_vid, k_caches, v_caches)."""
+    and returned: (captions, done, t_vid, k_caches, v_caches). A pre-norm
+    ``module`` raises ``ValueError``."""
+    refuse_pre_norm(module)
     B = t_vid.shape[0]
     N = captions.shape[0]
     rows = torch.arange(N, device=captions.device)
@@ -240,7 +252,9 @@ def beam_search_decode(
     """Batched beam search with per-layer KV caches, plain ops; the JAX
     ``beam_search_decode``, with the rules of ``beam_loop``. The K beams of
     row n are rows n*K + k, so grouped memory stays per video with group
-    size groups*K and ungrouped memory is repeated K times."""
+    size groups*K and ungrouped memory is repeated K times. A pre-norm
+    ``module`` raises ``ValueError``."""
+    refuse_pre_norm(module)
     N = memory.shape[0] * groups
     K = beam_size
     mem_mask = memory_padding_mask.repeat_interleave(K, dim=0)  # (N*K, S)
@@ -330,7 +344,9 @@ def _fused_step_fn(module, memory, memory_padding_mask, seq_len, groups, zeroed_
     of (prev_tokens, t) that commits ``prev_tokens`` at t-1 and returns the
     f32 logits at t. Embeddings and the vocabulary head stay plain ops, as in JAX; the
     layers run in one ``fused_decode_step``, in the memory's dtype; the
-    head's logits are f32."""
+    head's logits are f32. A pre-norm ``module`` raises ``ValueError``
+    before the kernel is reached (JAX's fused decode has no such check)."""
+    refuse_pre_norm(module)
     B, S, D = memory.shape
     G = groups
     Sp = fd.padded_len(S)

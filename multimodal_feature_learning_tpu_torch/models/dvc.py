@@ -34,6 +34,7 @@ from torch import nn
 from ..config import check_decode_options
 from ..device import resolve_device, set_f32_numerics
 from ..ops.hungarian import batched_hungarian_torch
+from ..ops.msda import check_msda_backend
 from ..ops.segment_ops import denormalize_segments, inverse_sigmoid
 from ..parallel.mesh import axis_group, mark_model_partial
 from ..utils.precision import cast_floating, params_in, resolve_dtype
@@ -42,7 +43,7 @@ from .caption_decoder import (
     UnimodalCaptionDecoder, beam_search_decode, greedy_decode, greedy_decode_chunk,
     make_causal_mask,
 )
-from .layers import FFN, ContextMaskModel, Linear
+from .layers import FFN, ContextMaskModel, Linear, refuse_pre_norm
 from .matcher import match_cost
 from .transformer import SparseDeformableTransformer, predict_event_num
 
@@ -286,12 +287,14 @@ class UnimodalDVC(nn.Module):
             use_enc_aux_loss=det.use_enc_aux_loss and dvc.use_sparse_detr,
             max_eseq_length=dvc.max_eseq_length,
             with_class_head=bool(dvc.use_deformable_detr), num_classes=dvc.num_classes)
+        check_msda_backend(cfg.msda_backend)  # every name runs K1 / K2 (ops/msda.py)
         cap = dvc.caption
         self.caption = UnimodalCaptionDecoder(
             vocab_size, cap.d_model, cap.depth, cap.num_heads,
             float(cap.mlp_ratio), cap.qkv_bias, cap.positional_embedding_dropout,
             cap.attention_dropout, cap.projection_dropout, cap.mlp_dropout_1,
-            cap.mlp_dropout_2, embedding_matrix)
+            cap.mlp_dropout_2, embedding_matrix, pre_norm=cap.pre_norm,
+            return_intermediate=cap.return_intermediate)
         if self.use_differentiable_mask:
             self.context_mask = ContextMaskModel(dvc.d_model + 2, self.num_tokens)
 
@@ -399,8 +402,11 @@ class UnimodalDVC(nn.Module):
         ``pred_captions`` (f32 log-probs, N, Lc-1, V) and, with the
         auxiliary loss, ``aux_outputs`` and ``aux_outputs_caption``; "serve"
         matches the final decoder layer only and runs no teacher-forced
-        pass."""
+        pass. A pre-norm caption decoder takes "teacher_forcing" only: the
+        other modes raise ``ValueError`` before anything runs."""
         check_decode_options(val_mode=val_mode)
+        if val_mode != "teacher_forcing":
+            refuse_pre_norm(self.caption)
         serving = val_mode == "serve"
         out, indices, indices_aux = self._propose_and_match(batch, with_aux=not serving)
         memory, crop_mask, caption_pad_mask, pred_memory_mask = \
@@ -483,7 +489,9 @@ class UnimodalDVC(nn.Module):
         (B, G, 2) seconds, captions (B, G, Lc+1) token ids including <bos>,
         k (B,) predicted event counts, scores (B, G), valid (B, G). The decode
         runs as ``decode_impl``, ``decode_kv`` and ``decode_fused_grid`` of
-        the config say (attributes of the model, which a caller may change)."""
+        the config say (attributes of the model, which a caller may change).
+        A pre-norm caption decoder raises ``ValueError`` before anything runs."""
+        refuse_pre_norm(self.caption)
         prep = self._serve_prepare(video_tensor, video_mask, durations, rank)
         captions = greedy_decode(
             self.caption, prep["memory"], prep["caption_pad_mask"],
@@ -513,7 +521,9 @@ class UnimodalDVC(nn.Module):
         <bos>. Returns (ctx, state): ctx holds mem_kv, caption_pad_mask,
         zeroed, segments, k, scores and valid; state holds captions
         (N, Lc), done (N,), t (B,) and the zeroed k/v caches
-        (depth, N, Lc, D), which ``forward_serve_decode_chunk`` advances."""
+        (depth, N, Lc, D), which ``forward_serve_decode_chunk`` advances. A
+        pre-norm caption decoder raises ``ValueError`` before anything runs."""
+        refuse_pre_norm(self.caption)
         prep = self._serve_prepare(video_tensor, video_mask, durations, rank)
         memory = prep["memory"]
         B, N = durations.shape[0], durations.shape[0] * self.max_gt

@@ -293,14 +293,32 @@ class MaskPredictor(nn.Module):
         return self.dense_out(z)[..., 0]
 
 
+PRE_NORM_DECODE = (
+    "the caption decoder's KV-cached decode (greedy, beam, fused and the continuous "
+    "server's) is post-norm only, as the JAX package's is; dvc.caption.pre_norm=True "
+    "trains and evaluates teacher-forced (eval.val_mode=teacher_forcing)")
+
+
+def refuse_pre_norm(module) -> None:
+    """Raise ``ValueError`` when ``module`` (a caption layer or decoder) is
+    pre-norm: the incremental decode has post-norm math only (JAX asserts
+    ``not self.pre_norm`` there)."""
+    if getattr(module, "pre_norm", False):
+        raise ValueError(PRE_NORM_DECODE)
+
+
 class UnimodalCaptionDecoderLayer(nn.Module):
-    """Post-norm caption decoder block: self-attention, cross-attention, MLP."""
+    """Caption decoder block: self-attention, cross-attention, MLP, each a
+    residual branch. Post-norm (each LayerNorm after its residual sum) or,
+    with ``pre_norm``, pre-norm (each LayerNorm on its branch's input), with
+    the same parameters."""
 
     def __init__(self, d_model: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, attention_dropout: float = 0.0,
                  projection_dropout: float = 0.0, mlp_dropout_1: float = 0.0,
-                 mlp_dropout_2: float = 0.0):
+                 mlp_dropout_2: float = 0.0, pre_norm: bool = False):
         super().__init__()
+        self.pre_norm = pre_norm
         self.self_attention = CrossAttention(d_model, num_heads, qkv_bias, attention_dropout)
         self.cross_attention = CrossAttention(d_model, num_heads, qkv_bias, attention_dropout)
         self.layer_norm_1 = nn.LayerNorm(d_model, eps=1e-6)
@@ -321,14 +339,24 @@ class UnimodalCaptionDecoderLayer(nn.Module):
         groups: int = 1,
         zeroed_mask=None,
     ) -> torch.Tensor:
-        """Teacher-forced pass of the post-norm block over a whole caption."""
-        sa = self.self_attention(target, target, target,
-                                 key_padding_mask=tgt_padding_mask, attn_mask=tgt_mask)
-        x = self.layer_norm_1(target + self.drop_1(sa))
-        ca = self.cross_attention.attend(
-            self.cross_attention.project_q(x), *self.project_memory_kv(memory),
-            key_padding_mask=memory_padding_mask, groups=groups, zeroed_mask=zeroed_mask)
-        x = self.layer_norm_2(x + self.drop_2(ca))
+        """Teacher-forced pass of the block over a whole caption."""
+
+        def sa(x):
+            return self.drop_1(self.self_attention(x, x, x, key_padding_mask=tgt_padding_mask,
+                                                   attn_mask=tgt_mask))
+
+        def ca(x):
+            return self.drop_2(self.cross_attention.attend(
+                self.cross_attention.project_q(x), *self.project_memory_kv(memory),
+                key_padding_mask=memory_padding_mask, groups=groups, zeroed_mask=zeroed_mask))
+
+        x = target
+        if self.pre_norm:
+            x = x + sa(self.layer_norm_1(x))
+            x = x + ca(self.layer_norm_2(x))
+            return x + self.mlp(self.layer_norm_3(x))
+        x = self.layer_norm_1(x + sa(x))
+        x = self.layer_norm_2(x + ca(x))
         return self.layer_norm_3(x + self.mlp(x))
 
     def project_memory_kv(self, memory):
@@ -353,7 +381,9 @@ class UnimodalCaptionDecoderLayer(nn.Module):
         include itself; row 1 attends the same prefix. ``step`` and
         ``valid_len`` are ints (the whole batch in step) or (N,) tensors (a
         position per row: the continuous server's slots). The caches are
-        written in place (the JAX version returns updated copies)."""
+        written in place (the JAX version returns updated copies). Post-norm
+        only: a pre-norm layer raises ``ValueError``."""
+        refuse_pre_norm(self)
         N = x.shape[0]
         Tc = k_cache.shape[1]
         kx, vx = self.self_attention.project_kv(x[:, :1], x[:, :1])

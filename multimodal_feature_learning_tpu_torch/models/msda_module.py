@@ -1,7 +1,11 @@
 """MSDeformAttn: projections and sampling locations around the MSDA core;
 counterpart of the JAX ``models/msda_module.py``. The core runs through
 ``ops.msda.ms_deform_attn``: the CUDA kernel on the GPU, the plain core on
-the CPU."""
+the CPU. JAX's module takes a ``backend`` (the config's ``msda_backend``:
+"", "gather", "matmul", "matmul_acc", "pallas") that picks how JAX computes
+the same function; the port runs this one path under every name, and the
+models check the name when they are built
+(``ops.msda.check_msda_backend``; JAX raises at the first call)."""
 
 from __future__ import annotations
 

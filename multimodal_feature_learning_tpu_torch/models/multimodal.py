@@ -33,6 +33,7 @@ from torch import nn
 
 from ..config import check_decode_options
 from ..device import resolve_device, set_f32_numerics
+from ..ops.msda import check_msda_backend
 from ..ops.segment_ops import denormalize_segments, inverse_sigmoid
 from ..data.video_transforms import normalize
 from .backbones import AudioSpectrogramTransformer, BiModalEncoder, VideoVisionTransformer
@@ -349,9 +350,11 @@ class MultimodalCaptionDecoder(nn.Module):
                  num_heads: int = 8, mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  positional_embedding_dropout: float = 0.0, attention_dropout: float = 0.0,
                  projection_dropout: float = 0.0, bridge_dropout: float = 0.0,
-                 mlp_dropout_1: float = 0.0, mlp_dropout_2: float = 0.0, embedding_matrix=None):
+                 mlp_dropout_1: float = 0.0, mlp_dropout_2: float = 0.0, embedding_matrix=None,
+                 return_intermediate: bool = True):
         super().__init__()
         self.depth = depth
+        self.return_intermediate = return_intermediate
         self.target_embedding = VocabularyEmbedder(vocab_size, d_model, embedding_matrix)
         self.register_buffer("pos_table", caption_positional_encoding(d_model),
                              persistent=False)
@@ -367,7 +370,8 @@ class MultimodalCaptionDecoder(nn.Module):
                 video_memory_padding_mask=None, audio_memory_padding_mask=None,
                 log_probs: bool = False):
         """Teacher-forced pass: tgt (N, Tc) -> the (depth, N, Tc, V) stack of
-        raw logits, or with ``log_probs`` f32 log-probabilities."""
+        raw logits (of the last layer alone, (1, N, Tc, V), without
+        ``return_intermediate``), or with ``log_probs`` f32 log-probabilities."""
         x = self.pos_dropout(self.target_embedding(tgt) + self.pos_table[:, :tgt.shape[1]])
         if tgt_mask is not None and tgt_mask.dim() == 2:
             tgt_mask = tgt_mask[None, None]
@@ -375,8 +379,9 @@ class MultimodalCaptionDecoder(nn.Module):
         for layer in self.decoder:
             x = layer(x, video_memory, audio_memory, tgt_mask, tgt_padding_mask,
                       video_memory_padding_mask, audio_memory_padding_mask)
-            intermediate.append(x)
-        logits = self.head(torch.stack(intermediate))
+            if self.return_intermediate:
+                intermediate.append(x)
+        logits = self.head(torch.stack(intermediate) if self.return_intermediate else x[None])
         return torch.log_softmax(logits.float(), dim=-1) if log_probs else logits
 
     def embed_at(self, tokens: torch.Tensor, pos: int) -> torch.Tensor:
@@ -481,12 +486,15 @@ class MultimodalDVC(nn.Module):
             enc_n_points=det.enc_n_points, dec_n_points=det.dec_n_points,
             rho=det.rho if dvc.use_sparse_detr else 0.0,
             max_eseq_length=dvc.max_eseq_length)
+        check_msda_backend(cfg.msda_backend)  # every name runs K1 / K2 (ops/msda.py)
         cap = dvc.caption
+        # JAX's multimodal caption layers have no pre-norm form: cap.pre_norm
+        # is ignored here, as it is there
         self.caption = MultimodalCaptionDecoder(
             vocab_size, cap.d_model, cap.depth, cap.num_heads, float(cap.mlp_ratio),
             cap.qkv_bias, cap.positional_embedding_dropout, cap.attention_dropout,
             cap.projection_dropout, cap.bridge_dropout, cap.mlp_dropout_1, cap.mlp_dropout_2,
-            embedding_matrix)
+            embedding_matrix, return_intermediate=cap.return_intermediate)
         if self.use_differentiable_mask:
             shapes = (det.video_rescale_len, anet.audio_rescale_len)
             n_video, n_audio = (sum(pyramid_shapes(t, det.num_feature_levels)) for t in shapes)

@@ -26,7 +26,7 @@ from .backbones import VideoVisionTransformer
 from .caption_decoder import (UnimodalCaptionDecoder, beam_search_decode, greedy_decode,
                               make_causal_mask)
 from .dvc import crop_segments, match_layers
-from .layers import FFN, MLP, ContextMaskModel, CrossAttention, Dropout, Linear
+from .layers import FFN, MLP, ContextMaskModel, CrossAttention, Dropout, Linear, refuse_pre_norm
 from .transformer import predict_event_num
 
 
@@ -131,7 +131,9 @@ class RegularDVC(nn.Module):
         # no dropout in the caption decoder: JAX's RegularDVC passes none
         self.caption = UnimodalCaptionDecoder(vocab_size, cap.d_model, cap.depth,
                                               cap.num_heads, float(cap.mlp_ratio), cap.qkv_bias,
-                                              embedding_matrix=embedding_matrix)
+                                              embedding_matrix=embedding_matrix,
+                                              pre_norm=cap.pre_norm,
+                                              return_intermediate=cap.return_intermediate)
         if self.use_differentiable_mask:
             self.context_mask = ContextMaskModel(dvc.d_model + 2, anet.video_rescale_len)
 
@@ -192,8 +194,12 @@ class RegularDVC(nn.Module):
         "beam" the beam search (``beam_size``, 4 when 0), "teacher_forcing"
         the argmax of the last layer's teacher-forced log-probabilities,
         which are ``pred_captions`` in every mode. There is no "serve"
-        mode. Returns (out, captions, indices, indices_aux, crop mask)."""
+        mode. Returns (out, captions, indices, indices_aux, crop mask). A
+        pre-norm caption decoder takes "teacher_forcing" only: the other
+        modes raise ``ValueError`` before anything runs."""
         check_decode_options(val_mode=val_mode)
+        if val_mode != "teacher_forcing":
+            refuse_pre_norm(self.caption)
         if val_mode == "serve":
             raise ValueError("the regular family has no 'serve' val_mode; use one_by_one, "
                              "teacher_forcing or beam")

@@ -8,6 +8,13 @@ on the CPU goes to the plain core and its plain backward
 hand-written kernels ``csrc/msda_fwd.cu`` (K1) and ``csrc/msda_bwd.cu`` (K2)
 or raises. There is no fallback from a kernel to the plain version.
 
+JAX picks how its model computes MSDA with ``msda_backend`` ("" for its
+platform's default, "gather", "matmul", "matmul_acc" or "pallas"); every
+name computes the same function. The port takes the same names
+(``check_msda_backend``, at model build) and runs every one of them here:
+K1 (and K2 in the backward) on the card, the plain core on the CPU. No
+name picks another path. Another name raises JAX's ``ValueError``.
+
 Each wrapper launches its kernel with a plan (``msda_fwd_plan``,
 ``msda_bwd_plan``) computed here from the shapes alone, so that the CPU
 tests pin every rule: which schedule, how many rows and queries a block,
@@ -42,6 +49,16 @@ BWD_BLOCKS_PER_SM = 2      # K2 cuts levels into row ranges until the grid has t
 # a K2 block's shared memory is kept to what lets two blocks share an SM;
 # it bounds the queries a round (their g rows and taps)
 BWD_SMEM_TARGET = SMEM_PER_SM // 2 - 1024
+# the names of JAX's msda_backend ("" = its platform's default)
+MSDA_BACKENDS = ("", "gather", "matmul", "matmul_acc", "pallas")
+
+
+def check_msda_backend(name: str) -> None:
+    """Raise the ``ValueError`` of JAX's ``ms_deform_attn_core`` (at its
+    first call there) unless ``name`` is one of JAX's ``msda_backend``
+    names."""
+    if name not in MSDA_BACKENDS:
+        raise ValueError(f"unknown backend {name!r}")
 
 
 def _round16(n: int) -> int:

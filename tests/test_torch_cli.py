@@ -457,3 +457,45 @@ def test_refusals(world, monkeypatch):
     for entry in (port_main.main, serve.main):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             entry(["--epochs", "1"] if entry is port_main.main else [])
+
+
+def test_rss_restart_exits_75_after_the_checkpoint_as_jax(world, tmp_path, monkeypatch, capsys):
+    """``rss_restart_gb`` below the process's resident memory (the reading
+    replaced by 1000 GB on both sides): the training CLI saves epoch 0's
+    checkpoint, logs the epoch and exits with status 75 before epoch 1, as
+    JAX's root ``main.py`` does (run in-process on one CPU device, its
+    synthetic world); ``wandb.on`` prints JAX's line where wandb is not
+    installed and goes on."""
+    import main as jax_main
+
+    monkeypatch.setattr(port_main, "host_rss_gb", lambda: 1000.0)
+    out = tmp_path / "port"
+    with pytest.raises(SystemExit) as exited:
+        port_main.main(["--device", "cpu", "--epochs", "2", "--batch-size", str(BATCH),
+                        "--output-dir", str(out),
+                        *overrides(world, "rss_restart_gb=1", "wandb.on=true")])
+    assert exited.value.code == port_main.RSS_RESTART_STATUS == 75
+    printed = capsys.readouterr().out
+    assert "wandb requested but not installed; continuing without it" in printed
+    assert ("host RSS 1000.0 GB > rss_restart_gb=1; exiting at epoch 0 for clean resume "
+            "(checkpoint saved)") in printed
+    assert (out / "checkpoint").exists()
+    assert [r["epoch"] for r in read_log(out / "train_log.txt")] == [0]
+
+    monkeypatch.setattr(jax_main, "_host_rss_gb", lambda: 1000.0)
+    monkeypatch.chdir(tmp_path)
+    jax_out = tmp_path / "jax"
+    monkeypatch.setattr("sys.argv", [
+        "main.py", "--synthetic", "--epochs", "2", "--batch-size", str(BATCH),
+        "--output-dir", str(jax_out), "--config-overrides", *DIMS, *SUBSETS,
+        "mesh.num_data=1", "print_freq=100", "rss_restart_gb=1"])
+    cache_dir = jax.config.jax_compilation_cache_dir
+    try:
+        with pytest.raises(SystemExit) as exited:
+            jax_main.main()
+    finally:  # the JAX CLI points the process at its own compile cache
+        jax.config.update("jax_compilation_cache_dir", cache_dir)
+    assert exited.value.code == 75
+    assert "exiting at epoch 0 for clean resume (checkpoint saved)" in capsys.readouterr().out
+    assert (jax_out / "checkpoint").exists()
+    assert [r["epoch"] for r in read_log(jax_out / "train_log.txt")] == [0]

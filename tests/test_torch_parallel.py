@@ -456,6 +456,13 @@ def test_gathered_submission_equals_one_process(runs):
             assert abs(got["stats"][k] - v) <= 1e-5 * abs(v) + 1e-6, k
 
 
+def test_rss_restart_stops_every_rank_together(runs):
+    """``main.rss_over_limit`` over the two-rank group: the largest rank's
+    reading decides on every rank (rank 1 alone reads 5 GB against a limit
+    of 1), nothing under a limit of 8, and a limit of 0 is off."""
+    assert [p["rss_over_limit"] for p in runs["dp2"]] == [(5.0, 0.0, 0.0)] * 2
+
+
 class TinyDataset:
     """``n`` one-event videos of 3 frames; with ``long_first`` video 0 (the
     sample a short rank's dummy row is collated from) has 6."""

@@ -205,6 +205,14 @@ def run_dp2(workdir, cfgs, weights, batches, mesh):
     stats, submission, scores = evaluate(eval_step, loader, vocab, wcfg, device="cpu",
                                          mesh=mesh)
     res["eval"] = {"stats": stats, "submission": submission, "batches": len(loader)}
+
+    # the training CLI's rss_restart_gb over the group: rank 1 alone over the
+    # limit of 1 GB (its reading replaced), so both ranks must see its 5 GB
+    from multimodal_feature_learning_tpu_torch import main as train_main
+
+    train_main.host_rss_gb = lambda: 5.0 if rank == 1 else 0.5
+    res["rss_over_limit"] = (train_main.rss_over_limit(1), train_main.rss_over_limit(8),
+                             train_main.rss_over_limit(0))
     return res
 
 
