@@ -18,6 +18,14 @@ mask's rows), the gradients are summed over the data axis before the clip,
 so every rank takes the global step, and the loss terms a rank returns are
 its rows' shares, summed over the ranks by ``reduce_metrics`` (once a
 dispatch, in ``train_one_epoch``'s fetch).
+
+With ``utils.observability.SPANS`` recording, a step is a ``train.step``
+span around ``train.forward`` (with the model's ``train.match``),
+``train.criterion``, ``train.backward`` and ``train.optimizer``; a K-step
+dispatch a ``train.dispatch`` around its steps; and the epoch loop records
+``train.data`` (the wait for the next batch), ``train.to_device`` and
+``train.fetch`` (the lagged read of a dispatch's metrics, the loop's one
+host sync).
 """
 
 from __future__ import annotations
@@ -33,7 +41,7 @@ import torch
 from ..models.layers import dropout_generator
 from ..parallel.mesh import all_reduce_sum, data_parallel, sync_grads
 from ..parallel.tp import sharded_sq_norm, tp_shard_info
-from ..utils.observability import flax_path
+from ..utils.observability import SPANS, flax_path
 from ..utils.weights import flax_key
 from .logging import MetricLogger, SmoothedValue
 from .state import TrainState
@@ -69,9 +77,11 @@ def batch_to_device(batch: Dict, device, transfer_dtype=None) -> Dict[str, torch
 
 def forward_loss(model, criterion, weight_dict: Dict[str, float], batch):
     """forward_train -> criterion -> (weighted total, loss terms)."""
-    out, indices, indices_aux, memory_mask = model.forward_train(batch)
-    losses = criterion(out, batch, indices, indices_aux, memory_mask)
-    total = sum(losses[k] * weight_dict[k] for k in losses if k in weight_dict)
+    with SPANS.span("train.forward"):
+        out, indices, indices_aux, memory_mask = model.forward_train(batch)
+    with SPANS.span("train.criterion"):
+        losses = criterion(out, batch, indices, indices_aux, memory_mask)
+        total = sum(losses[k] * weight_dict[k] for k in losses if k in weight_dict)
     return total, losses
 
 
@@ -109,6 +119,10 @@ def make_train_step(criterion, weight_dict: Dict[str, float], seed: int = 0, mes
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    leaf_norms: bool = False):
+        with SPANS.span("train.step"):
+            return step(state, batch, leaf_norms)
+
+    def step(state, batch, leaf_norms):
         model = state.model
         dev = next(model.parameters()).device
         if dev not in generators:
@@ -118,13 +132,15 @@ def make_train_step(criterion, weight_dict: Dict[str, float], seed: int = 0, mes
         state.optimizer.zero_grad()
         with dropout_generator(gen), data_parallel(mesh):
             total, losses = forward_loss(model, criterion, weight_dict, batch)
-        total.backward()
-        sync_grads(model.parameters(), mesh)
+        with SPANS.span("train.backward"):
+            total.backward()
+            sync_grads(model.parameters(), mesh)
         if leaf_norms:
             norms = {flax_key(n, p.dim()):
                      _leaf_norm(p) if p.grad is not None else torch.zeros((), device=dev)
                      for n, p in model.named_parameters()}
-        grad_norm, lr = state.optimizer.step(state.step)
+        with SPANS.span("train.optimizer"):
+            grad_norm, lr = state.optimizer.step(state.step)
         state.step += 1
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics.update(loss=total.detach(), grad_norm=grad_norm, lr=lr)
@@ -154,8 +170,9 @@ def make_train_multistep(criterion, weight_dict: Dict[str, float], seed: int = 0
     def multi_step(state: TrainState, stacked_batch: Dict[str, torch.Tensor],
                    leaf_norms: bool = False):
         K = len(next(iter(stacked_batch.values())))
-        steps = [train_step(state, {k: v[i] for k, v in stacked_batch.items()},
-                            leaf_norms=leaf_norms and i == K - 1) for i in range(K)]
+        with SPANS.span("train.dispatch"):
+            steps = [train_step(state, {k: v[i] for k, v in stacked_batch.items()},
+                                leaf_norms=leaf_norms and i == K - 1) for i in range(K)]
         norms = steps[-1].pop("grad_leaf_norms", None)
         metrics = {k: torch.stack([m[k] for m in steps]) for k in steps[0] if k != "lr"}
         metrics["lr"] = [m["lr"] for m in steps]
@@ -196,6 +213,17 @@ def dump_grad_flow(grad_flow_dir: str, norms: Dict[str, torch.Tensor], epoch: in
     with open(path, "w") as f:
         json.dump(stats, f)
     return path
+
+
+def _waited(batches: Iterable[Dict]):
+    """``batches``, each wait for the next one a ``train.data`` span."""
+    it = iter(batches)
+    while True:
+        with SPANS.span("train.data"):
+            batch = next(it, None)
+        if batch is None:
+            return
+        yield batch
 
 
 def _is_aux(key: str) -> bool:
@@ -241,7 +269,12 @@ def train_one_epoch(train_step, state: TrainState, batches: Iterable[Dict], epoc
     def consume(metrics, first_step: int, first_global: int):
         """The host side of one dispatch: its metrics (0-dim, or (K,) from
         a multi-step dispatch) fetched in one transfer, then per step in
-        order the grad-flow dump, the NaN guard and the logs."""
+        order the grad-flow dump, the NaN guard and the logs: a
+        ``train.fetch`` span."""
+        with SPANS.span("train.fetch"):
+            fetch(metrics, first_step, first_global)
+
+    def fetch(metrics, first_step: int, first_global: int):
         norms = metrics.pop("grad_leaf_norms", None)
         metrics = reduce_metrics(metrics, mesh)
         lrs = metrics.pop("lr")
@@ -277,18 +310,22 @@ def train_one_epoch(train_step, state: TrainState, batches: Iterable[Dict], epoc
 
     def single(batch):
         dump = bool(grad_flow_dir) and step_in_epoch % grad_flow_freq == 0
-        dispatched(train_step(state, batch_to_device(batch, dev, transfer_dtype),
-                              leaf_norms=dump), 1)
+        with SPANS.span("train.to_device"):
+            batch = batch_to_device(batch, dev, transfer_dtype)
+        dispatched(train_step(state, batch, leaf_norms=dump), 1)
 
     use_chunks = chunk_k > 1 and multi_step is not None
-    for batch in metric_logger.log_every(batches, print_freq, f"Epoch: [{epoch}]"):
+    total = len(batches) if hasattr(batches, "__len__") else None
+    for batch in metric_logger.log_every(_waited(batches), print_freq, f"Epoch: [{epoch}]",
+                                         total):
         if not use_chunks:
             single(batch)
             continue
         chunk.append(batch)
         if len(chunk) < chunk_k:
             continue
-        stacked = batch_to_device(stack_batches(chunk), dev, transfer_dtype)
+        with SPANS.span("train.to_device"):
+            stacked = batch_to_device(stack_batches(chunk), dev, transfer_dtype)
         chunk = []
         dump = bool(grad_flow_dir) and (step_in_epoch + chunk_k - 1) // grad_flow_freq \
             > (step_in_epoch - 1) // grad_flow_freq

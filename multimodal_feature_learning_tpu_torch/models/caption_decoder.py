@@ -16,6 +16,7 @@ from torch import nn
 
 from ..config import check_decode_options
 from ..ops import fused_decode as fd
+from ..utils.observability import SPANS
 from .embeddings import VocabularyEmbedder, caption_positional_encoding
 from .layers import Dropout, Linear, UnimodalCaptionDecoderLayer, refuse_pre_norm
 
@@ -166,24 +167,28 @@ def greedy_loop(step_logits, N: int, seq_len: int, bos_idx: int, eos_idx: int, p
     (one host sync a step), and a trailing <pad> (or <eos> if none was
     emitted) is appended; with ``faster_eval`` every slot takes the raw
     argmax and an <eos> column is appended. Returns (N, seq_len + 1) int64
-    token ids including <bos>."""
-    captions = torch.full((N, seq_len), pad_idx, dtype=torch.long, device=device)
-    captions[:, 0] = bos_idx
-    done = torch.zeros((N,), dtype=torch.bool, device=device)
-    for t in range(1, seq_len):
-        if not faster_eval and bool(done.all()):
-            break
-        tok = step_logits(captions[:, t - 1], t).argmax(dim=-1)
-        if not faster_eval:
-            tok = torch.where(done, pad_idx, tok)
-        captions[:, t] = tok
-        done |= tok == eos_idx
+    token ids including <bos>. The loop is a ``model.decode`` span, each
+    step in it a ``model.decode_step`` (``utils.observability.SPANS``); the
+    host sync that ends the loop sits between the steps."""
+    with SPANS.span("model.decode"):
+        captions = torch.full((N, seq_len), pad_idx, dtype=torch.long, device=device)
+        captions[:, 0] = bos_idx
+        done = torch.zeros((N,), dtype=torch.bool, device=device)
+        for t in range(1, seq_len):
+            if not faster_eval and bool(done.all()):
+                break
+            with SPANS.span("model.decode_step"):
+                tok = step_logits(captions[:, t - 1], t).argmax(dim=-1)
+                if not faster_eval:
+                    tok = torch.where(done, pad_idx, tok)
+                captions[:, t] = tok
+                done |= tok == eos_idx
 
-    if faster_eval:
-        last = torch.full((N,), eos_idx, dtype=torch.long, device=device)
-    else:
-        last = torch.where((captions == eos_idx).any(dim=1), pad_idx, eos_idx).long()
-    return torch.cat([captions, last[:, None]], dim=1)
+        if faster_eval:
+            last = torch.full((N,), eos_idx, dtype=torch.long, device=device)
+        else:
+            last = torch.where((captions == eos_idx).any(dim=1), pad_idx, eos_idx).long()
+        return torch.cat([captions, last[:, None]], dim=1)
 
 
 def greedy_decode_chunk(

@@ -37,6 +37,7 @@ from ..ops.hungarian import batched_hungarian_torch
 from ..ops.msda import check_msda_backend
 from ..ops.segment_ops import denormalize_segments, inverse_sigmoid
 from ..parallel.mesh import axis_group, mark_model_partial
+from ..utils.observability import SPANS
 from ..utils.precision import cast_floating, params_in, resolve_dtype
 from .base_encoder import BaseEncoder, pyramid_shapes
 from .caption_decoder import (
@@ -124,16 +125,18 @@ def match_layers(model, seg_all, batch, with_aux: bool):
     layers' problems in one solve on the model's device (K6 on the card,
     no host synchronisation; ``model`` gives num_queries, max_gt and the
     cost weights). seg_all (layers, B, Q, 2) -> (indices (B, G),
-    indices_aux (layers-1, B, G) or None)."""
-    seg_all = seg_all.detach()
-    n_layers = seg_all.shape[0] if with_aux else 1
-    gt, gt_mask = batch["gt_segments"], batch["gt_mask"]
-    flat = seg_all[-n_layers:].roll(1, dims=0)  # final layer first, then aux
-    cost = match_cost(flat.reshape(-1, model.num_queries, 2), gt.float().repeat(n_layers, 1, 1),
-                      model.cost_segment, model.cost_giou)
-    idx = batched_hungarian_torch(cost, gt_mask.bool().repeat(n_layers, 1))
-    idx = idx.reshape(n_layers, -1, model.max_gt)
-    return idx[0], (idx[1:] if with_aux else None)
+    indices_aux (layers-1, B, G) or None). A ``train.match`` span
+    (``utils.observability.SPANS``), in evaluation too."""
+    with SPANS.span("train.match"):
+        seg_all = seg_all.detach()
+        n_layers = seg_all.shape[0] if with_aux else 1
+        gt, gt_mask = batch["gt_segments"], batch["gt_mask"]
+        flat = seg_all[-n_layers:].roll(1, dims=0)  # final layer first, then aux
+        cost = match_cost(flat.reshape(-1, model.num_queries, 2),
+                          gt.float().repeat(n_layers, 1, 1), model.cost_segment, model.cost_giou)
+        idx = batched_hungarian_torch(cost, gt_mask.bool().repeat(n_layers, 1))
+        idx = idx.reshape(n_layers, -1, model.max_gt)
+        return idx[0], (idx[1:] if with_aux else None)
 
 
 def in_compute_dtype(method):
@@ -490,9 +493,12 @@ class UnimodalDVC(nn.Module):
         k (B,) predicted event counts, scores (B, G), valid (B, G). The decode
         runs as ``decode_impl``, ``decode_kv`` and ``decode_fused_grid`` of
         the config say (attributes of the model, which a caller may change).
-        A pre-norm caption decoder raises ``ValueError`` before anything runs."""
+        A pre-norm caption decoder raises ``ValueError`` before anything runs.
+        The proposal half is a ``model.propose`` span, the decode
+        ``greedy_loop``'s (``utils.observability.SPANS``)."""
         refuse_pre_norm(self.caption)
-        prep = self._serve_prepare(video_tensor, video_mask, durations, rank)
+        with SPANS.span("model.propose"):
+            prep = self._serve_prepare(video_tensor, video_mask, durations, rank)
         captions = greedy_decode(
             self.caption, prep["memory"], prep["caption_pad_mask"],
             self.seq_len, self.bos_idx, self.eos_idx, self.pad_idx,

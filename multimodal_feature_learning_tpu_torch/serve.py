@@ -32,6 +32,7 @@ A failed dispatch fails the futures of that batch, and the worker goes on.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import queue
 import sys
@@ -47,6 +48,7 @@ from .data.anet import nearest_resize
 from .data.vocab import Vocab
 from .device import to_host
 from .engine.train import TRANSFER_DTYPES
+from .utils.observability import SPANS
 from .utils.postprocess import captions_to_string
 
 class DVCServer:
@@ -61,7 +63,16 @@ class DVCServer:
     ``max_queue`` > 0 a submit that finds that many requests waiting is shed:
     it raises RuntimeError and counts in ``stats["shed"]``.
     ``transfer_dtype`` "bfloat16" sends the features to the card in bf16,
-    where they are upcast to f32."""
+    where they are upcast to f32.
+
+    With ``utils.observability.SPANS`` recording, each request's wait from
+    ``submit`` to its dispatch is a ``serve.queued`` span (ident: the
+    request's and the dispatch's numbers), and the worker records
+    ``serve.collect`` (blocked on the queue, then the fill wait),
+    ``serve.assemble``, ``serve.dispatch`` (ident: its number) around
+    ``serve.to_device``, the model's spans and ``serve.to_host``, and
+    ``serve.answer`` (the events and ``set_result``, with the done-callbacks
+    it runs)."""
 
     def __init__(self, model, vocab: Optional[Vocab] = None, batch_size: int = 16,
                  max_wait_ms: float = 10.0, faster_eval: bool = False,
@@ -89,6 +100,8 @@ class DVCServer:
         self.rescale_len = model.video_rescale_len
         self.feature_dim = model.proposal.base_encoder.input_proj[0].in_channels
         self.stats = {"dispatches": 0, "filled": 0, "step_s": 0.0, "errors": 0, "shed": 0}
+        self._request_ids = itertools.count()
+        self._dispatch_ids = itertools.count()
         self._q: "queue.Queue" = queue.Queue(maxsize=max_queue)
         self._closed = False
         # guards _closed and the enqueue, so no submit lands after the
@@ -111,11 +124,13 @@ class DVCServer:
         if not np.isfinite(duration) or duration <= 0:
             raise ValueError(f"duration must be a positive number of seconds; got {duration}")
         fut: Future = Future()
+        # (request number, submit time) for the request's serve.queued span
+        queued = (next(self._request_ids), SPANS.clock()) if SPANS.on else None
         with self._close_lock:
             if self._closed:
                 raise RuntimeError("server closed")
             try:
-                self._q.put_nowait((feats, float(duration), fut))
+                self._q.put_nowait((feats, float(duration), fut, queued))
             except queue.Full:
                 self.stats["shed"] += 1
                 raise RuntimeError(
@@ -162,12 +177,14 @@ class DVCServer:
     def _step(self, video: np.ndarray, durations: np.ndarray):
         B, T = video.shape[:2]
         dev = self.device
-        out = self.model.forward_serve(
-            self._to_device(video),
-            torch.zeros((B, T), dtype=torch.bool, device=dev),  # all tokens valid
-            torch.from_numpy(durations).to(dev), faster_eval=self.faster_eval, rank=self.rank)
+        with SPANS.span("serve.to_device"):
+            inputs = (self._to_device(video),
+                      torch.zeros((B, T), dtype=torch.bool, device=dev),  # all tokens valid
+                      torch.from_numpy(durations).to(dev))
+        out = self.model.forward_serve(*inputs, faster_eval=self.faster_eval, rank=self.rank)
         keys = ("segments", "captions", "k", "scores")
-        return dict(zip(keys, to_host(*(out[k] for k in keys))))
+        with SPANS.span("serve.to_host"):
+            return dict(zip(keys, to_host(*(out[k] for k in keys))))
 
     def _assemble(self, items, slots):
         """The batch's features and durations, with each item's ingest in
@@ -177,7 +194,7 @@ class DVCServer:
         video = np.zeros((B, T, D), np.float32)
         durations = np.ones((B,), np.float32)
         filled = []
-        for (feats, dur, fut), slot in zip(items, slots):
+        for (feats, dur, fut, _), slot in zip(items, slots):
             try:
                 video[slot] = self._ingest(feats)
             except Exception as e:  # noqa: BLE001 - handed to the waiting caller
@@ -194,26 +211,35 @@ class DVCServer:
         return [{"segment": (float(segments[i, j, 0]), float(segments[i, j, 1])),
                  "caption": captions[j], "score": float(scores[i, j])} for j in range(k)]
 
+    def _collect(self):
+        """Block for a request, then take more until the batch is full or
+        ``max_wait_s`` has passed. Returns (batch, closing): ``closing`` once
+        the shutdown sentinel is taken, with the batch taken before it."""
+        item = self._q.get()
+        if item is None:
+            return [], True
+        batch = [item]
+        deadline = time.monotonic() + self.max_wait_s
+        while len(batch) < self.batch_size:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                break
+            try:
+                nxt = self._q.get(timeout=remaining)
+            except queue.Empty:
+                break
+            if nxt is None:
+                return batch, True
+            batch.append(nxt)
+        return batch, False
+
     def _serve_loop(self):
-        while True:
-            item = self._q.get()
-            if item is None:
-                return
-            batch = [item]
-            deadline = time.monotonic() + self.max_wait_s
-            while len(batch) < self.batch_size:
-                remaining = deadline - time.monotonic()
-                if remaining <= 0:
-                    break
-                try:
-                    nxt = self._q.get(timeout=remaining)
-                except queue.Empty:
-                    break
-                if nxt is None:
-                    self._dispatch_safe(batch)
-                    return
-                batch.append(nxt)
-            self._dispatch_safe(batch)
+        closing = False
+        while not closing:
+            with SPANS.span("serve.collect"):
+                batch, closing = self._collect()
+            if batch:
+                self._dispatch_safe(batch)
 
     def _dispatch_safe(self, batch):
         """A failed dispatch fails that batch's futures instead of killing the
@@ -222,21 +248,29 @@ class DVCServer:
             self._dispatch(batch)
         except Exception as e:  # noqa: BLE001 - handed to the waiting callers
             self.stats["errors"] += 1
-            for _, _, fut in batch:
+            for _, _, fut, _ in batch:
                 if not fut.done():
                     fut.set_exception(e)
 
     def _dispatch(self, batch):
-        video, durations, filled = self._assemble(batch, range(len(batch)))
-        t0 = time.monotonic()
-        host = self._step(video, durations)
+        with SPANS.span("serve.assemble"):
+            video, durations, filled = self._assemble(batch, range(len(batch)))
+        d = next(self._dispatch_ids)
+        with SPANS.span("serve.dispatch", d) as span:
+            if span is not None:
+                for *_, queued in batch:
+                    if queued is not None:
+                        SPANS.add("serve.queued", queued[1], span.start, (queued[0], d))
+            t0 = time.monotonic()
+            host = self._step(video, durations)
         self.stats["dispatches"] += 1
         self.stats["filled"] += len(batch)
         self.stats["step_s"] += time.monotonic() - t0
-        for i in filled:
-            k = int(host["k"][i])
-            batch[i][2].set_result(self._events(i, k, host["captions"][i], host["segments"],
-                                                host["scores"]))
+        with SPANS.span("serve.answer"):
+            for i in filled:
+                k = int(host["k"][i])
+                batch[i][2].set_result(self._events(i, k, host["captions"][i],
+                                                    host["segments"], host["scores"]))
 
 
 class ContinuousDVCServer(DVCServer):
@@ -355,11 +389,11 @@ class ContinuousDVCServer(DVCServer):
                 self._ctx, self._state, ctx, state, self._on_device(replace), self.G)
         except Exception as e:  # noqa: BLE001 - the pool is untouched: fail this wave only
             self.stats["errors"] += 1
-            for (_, _, fut), slot in zip(items, free):
+            for (_, _, fut, _), slot in zip(items, free):
                 if slot in filled:
                     fut.set_exception(e)
         else:
-            for (_, _, fut), slot in zip(items, free):
+            for (_, _, fut, _), slot in zip(items, free):
                 if slot in filled:
                     self._slots[slot] = fut
                     self._active[slot] = True

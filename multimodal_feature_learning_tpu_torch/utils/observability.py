@@ -1,5 +1,6 @@
 """Observability: gradient-flow statistics, a timed and traced section,
-device memory; counterpart of the JAX ``utils/observability.py``.
+device memory, and the spans of the port's layers (``SPANS``); counterpart
+of the JAX ``utils/observability.py``, which has no spans.
 
 Gradients are named as the port names its parameters (state_dict names)
 and reported under the flax params paths of the JAX package ("a/b/c"), the
@@ -12,10 +13,12 @@ allocator under JAX's key names.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import os
+import threading
 import time
-from typing import Dict, Mapping, Optional
+from typing import Dict, List, Mapping, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -123,3 +126,127 @@ def device_memory_stats() -> Dict[str, Optional[Dict[str, int]]]:
         out[f"cuda:{i}"] = {key: int(stats.get(name, 0)) for key, name in _MEMORY_KEYS.items()}
         out[f"cuda:{i}"]["bytes_limit"] = int(torch.cuda.mem_get_info(i)[1])
     return out
+
+
+class Span(NamedTuple):
+    """One span of ``SpanRecorder``: ``start_ns`` and ``end_ns`` on
+    ``time.time_ns``'s clock, the clock of torch.profiler's events;
+    ``parent`` the ``sid`` of the span open around it on its thread (None
+    at the top); ``thread`` the ``threading.get_ident`` of the thread that
+    ran it (its pthread id, whose low 32 bits the profiler gives the
+    thread's CUDA calls as their resource id), None for a wait that no
+    thread spends, such as a request's in the queue; ``ident`` the request
+    or dispatch it belongs to, where one applies."""
+    sid: int
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: Optional[int]
+    thread: Optional[int]
+    ident: object
+
+
+class _NoSpan:
+    """The context every span is while the recorder is off."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+NO_SPAN = _NoSpan()
+
+
+class _ThreadSpans(threading.local):
+    """A thread's open spans, innermost last, and its id."""
+
+    def __init__(self):
+        self.stack: List[int] = []
+        self.tid = threading.get_ident()
+
+
+class _OpenSpan:
+    __slots__ = ("rec", "name", "ident", "sid", "parent", "start")
+
+    def __init__(self, rec: "SpanRecorder", name: str, ident):
+        self.rec, self.name, self.ident = rec, name, ident
+
+    def __enter__(self):
+        stack = self.rec._local.stack
+        self.parent = stack[-1] if stack else None
+        self.sid = next(self.rec._ids)
+        stack.append(self.sid)
+        self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.perf_counter_ns()
+        local = self.rec._local
+        local.stack.pop()
+        self.rec._spans.append((self.sid, self.name, self.start, end, self.parent, local.tid,
+                                self.ident))
+        return False
+
+
+class SpanRecorder:
+    """Spans at the port's layer boundaries (the server's queue, batcher and
+    dispatch, the model's proposal and decode, the train step's stages),
+    kept in memory while ``recording``. Off, the default, ``span`` tests one
+    attribute and returns the shared ``NO_SPAN``: no allocation, no clock
+    read. On or off it never synchronises the card and never records a CUDA
+    event: a span measures the host, and holds the card's time only where
+    the port already waits for it (the decode's per-step ``done`` read,
+    ``device.to_host``, the trainer's lagged fetch). Spans are stamped on
+    ``clock`` (``time.perf_counter_ns``) and handed out by ``take`` on
+    ``time.time_ns``'s clock, through the offset between the two that
+    ``recording`` reads once when it turns the recorder on.
+
+    The spans are opened deep inside the model's code, which is handed no
+    recorder, so the process has one: ``SPANS``."""
+
+    clock = staticmethod(time.perf_counter_ns)
+
+    def __init__(self):
+        self.on = False
+        self._offset_ns = 0
+        self._spans: list = []
+        self._ids = itertools.count()
+        self._local = _ThreadSpans()
+
+    def span(self, name: str, ident=None):
+        """A context that records ``name`` over its block (with ``ident``,
+        the request or dispatch it serves) and enters as the open span, its
+        ``start`` on ``clock``; off, ``NO_SPAN``, which enters as None."""
+        if not self.on:
+            return NO_SPAN
+        return _OpenSpan(self, name, ident)
+
+    def add(self, name: str, start_ns: int, end_ns: int, ident=None) -> None:
+        """Record a span that no thread runs, from ``start_ns`` to
+        ``end_ns`` on ``clock``: a request's wait in the queue."""
+        if self.on:
+            self._spans.append((next(self._ids), name, start_ns, end_ns, None, None, ident))
+
+    @contextlib.contextmanager
+    def recording(self):
+        """The recorder on over the block, from no spans."""
+        self._spans = []
+        self._offset_ns = time.time_ns() - time.perf_counter_ns()
+        self.on = True
+        try:
+            yield self
+        finally:
+            self.on = False
+
+    def take(self) -> List[Span]:
+        """The spans recorded so far, each as it closed, and none kept."""
+        spans, self._spans = self._spans, []
+        off = self._offset_ns
+        return [Span(sid, name, start + off, end + off, parent, tid, ident)
+                for sid, name, start, end, parent, tid, ident in spans]
+
+
+SPANS = SpanRecorder()
